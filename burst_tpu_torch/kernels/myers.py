@@ -1,0 +1,140 @@
+"""Phase-A Myers/Hyyro bit-vector scan: plain PyTorch versions.
+
+Counterparts of `burst_tpu.kernels.myers` (`_pos_scan`, `unpack_nibbles`,
+`pack_nibbles_np`), `burst_tpu.kernels.scour_device._build_peq_dev` and
+`burst_tpu.kernels.myers_pallas._words_from_packed`. They define the
+integer semantics the CUDA kernel (`csrc/myers_pairs.cu`, wrapped by
+`myers_cuda`) must reproduce bit for bit, and they are what a wrapper
+runs for a tensor on the CPU.
+
+Peq tables and tile words are stored as int32 tensors holding the u32
+bit patterns (the kernel reads the same bytes as `uint32_t`). PyTorch
+on the CPU has no uint32 `+`, `<`, `~` or shifts, so the scan holds its
+words in int64 masked to 32 bits and takes the add's carry-out as
+`s >> 32`.
+
+Glocal semantics: the query is consumed end to end, the reference start
+and end are free; rows past a query's length are wildcards (they match
+every code, the pad code 0 included).
+"""
+from __future__ import annotations
+
+import torch
+
+WORD = 32
+M32 = 0xFFFFFFFF
+
+
+def words_for(qlen: int) -> int:
+    return max(1, -(-qlen // WORD))
+
+
+def to_i32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensor with the same bits."""
+    return (v - ((v >> 31) & 1) * (1 << 32)).to(torch.int32)
+
+
+def build_peq_dev(qmat: torch.Tensor, lens: torch.Tensor,
+                  smat_dev: torch.Tensor, W: int) -> torch.Tensor:
+    """Peq planes [n, 16, W] (int32 holding u32 bits): bit y of word w
+    set iff query row 32w+y costs 0 against code c; rows >= len are
+    wildcards. qmat [n, >=32W] uint8 codes, lens [n], smat_dev [16, 16]
+    uint8 score table."""
+    n = qmat.shape[0]
+    m_pad = WORD * W
+    q = qmat[:, :m_pad].long()
+    match = smat_dev[q] == 0                              # [n, m_pad, 16]
+    rows = torch.arange(m_pad, device=qmat.device)
+    match = match | (rows[None, :] >= lens.long()[:, None])[:, :, None]
+    bits = torch.ones(WORD, dtype=torch.int64, device=qmat.device) \
+        << torch.arange(WORD, device=qmat.device)
+    v = (match.reshape(n, W, WORD, 16).long()
+         * bits[None, None, :, None]).sum(dim=2)          # [n, W, 16]
+    return to_i32_bits(v).transpose(1, 2).contiguous()
+
+
+def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """[n, Lh] two-codes-per-byte rows -> [n, 2*Lh] codes (low nibble
+    is the even column)."""
+    return torch.stack([packed & 15, packed >> 4], dim=2).reshape(
+        packed.shape[0], -1)
+
+
+def pack_nibbles(mat: torch.Tensor) -> torch.Tensor:
+    """Inverse of unpack_nibbles (odd widths gain a pad column)."""
+    if mat.shape[1] % 2:
+        mat = torch.nn.functional.pad(mat, (0, 1))
+    return mat[:, 0::2] | (mat[:, 1::2] << 4)
+
+
+def words_from_packed(pk: torch.Tensor) -> torch.Tensor:
+    """[B, Lpb] nibble-packed uint8 rows -> [B, ceil(Lpb/4)] int32 words
+    (little-endian bytes: column j sits at word j>>3, bits 4*(j&7))."""
+    pad = (-pk.shape[1]) % 4
+    if pad:
+        pk = torch.nn.functional.pad(pk, (0, pad))
+    g = pk.reshape(pk.shape[0], -1, 4).long()
+    return to_i32_bits(g[:, :, 0] | (g[:, :, 1] << 8)
+                       | (g[:, :, 2] << 16) | (g[:, :, 3] << 24))
+
+
+def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
+              ) -> torch.Tensor:
+    """[3, B] int32 (min ED, first and last 1-based column reaching it)
+    for B gathered pairs: peq [B, 16, W] int32 bits, tiles [B, Lp]."""
+    B, Lp = tiles.shape
+    dev = tiles.device
+    peq64 = peq.long() & M32
+    cols = tiles.long()
+    VP = [torch.full((B,), M32, dtype=torch.int64, device=dev)
+          for _ in range(W)]
+    VN = [torch.zeros(B, dtype=torch.int64, device=dev) for _ in range(W)]
+    score = torch.full((B,), WORD * W, dtype=torch.int64, device=dev)
+    best = score.clone()
+    first = torch.zeros(B, dtype=torch.int64, device=dev)
+    last = torch.zeros(B, dtype=torch.int64, device=dev)
+    for j in range(Lp):
+        eq_b = peq64.gather(
+            1, cols[:, j].view(B, 1, 1).expand(B, 1, W)).squeeze(1)
+        carry = 0
+        ph, mh, xv = [], [], []
+        for w in range(W):
+            eq, vp, vn = eq_b[:, w], VP[w], VN[w]
+            s = (eq & vp) + vp + carry
+            carry = s >> 32
+            xh = ((s & M32) ^ vp) | eq
+            ph.append(vn | (~(xh | vp) & M32))
+            mh.append(vp & xh)
+            xv.append(eq | vn)
+        score = score + (ph[W - 1] >> 31) - (mh[W - 1] >> 31)
+        strict = score < best
+        upd = score <= best
+        best = torch.where(upd, score, best)
+        first = torch.where(strict, j + 1, first)
+        last = torch.where(upd, j + 1, last)
+        pc = mc = 0
+        for w in range(W):
+            phs = ((ph[w] << 1) & M32) | pc
+            mhs = ((mh[w] << 1) & M32) | mc
+            pc = ph[w] >> 31
+            mc = mh[w] >> 31
+            VP[w] = mhs | (~(xv[w] | phs) & M32)
+            VN[w] = phs & xv[w]
+    return torch.stack([best, first, last]).to(torch.int32)
+
+
+def myers_pairs_plain(peq_all: torch.Tensor, tiles_all: torch.Tensor,
+                      pidx: torch.Tensor, tidx: torch.Tensor, W: int
+                      ) -> torch.Tensor:
+    """[3, B] (ed, first, last) over unpacked tiles [NT, Lp]."""
+    return _pos_scan(peq_all[pidx.long()], tiles_all[tidx.long()], W)
+
+
+def myers_pairs_packed_plain(peq_all: torch.Tensor,
+                             tiles_packed: torch.Tensor,
+                             pidx: torch.Tensor, tidx: torch.Tensor,
+                             W: int) -> torch.Tensor:
+    """[3, B] (ed, first, last) over the nibble-packed store [NT, Lpb];
+    scans all 2*Lpb columns."""
+    return _pos_scan(peq_all[pidx.long()],
+                     unpack_nibbles(tiles_packed[tidx.long()]), W)

@@ -1,0 +1,147 @@
+"""Port parity: burst_tpu_torch's plain rescore DP (K3) equals
+burst_tpu's jnp rescore (`make_rescore_gather`'s fn and fn_win) and the
+numpy host twin, bit for bit, windowed and full width. Inputs come from
+numpy seeds; tolerance is exact equality (integer DP)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from burst_tpu.alphabet import score_matrix
+from burst_tpu.kernels import myers as jmyers
+from burst_tpu.kernels.host import rescore_pairs_np
+from burst_tpu.kernels.rescore import make_rescore, make_rescore_gather
+from burst_tpu_torch.kernels import rescore as prescore
+from burst_tpu_torch.kernels import rescore_cuda
+
+
+def _case(seed, W=4, NT=12, lb=128, P=48, qlen_lo=80):
+    """Reads cut from the tiles with up to 3 substitutions or indels,
+    a few unrelated ones; tiles padded like the engine's buckets
+    (lb + 32W rounded up to 64)."""
+    rng = np.random.default_rng(seed)
+    smat = score_matrix()
+    lp = -(-(lb + 32 * W) // 64) * 64
+    tiles = np.zeros((NT, lp), np.uint8)
+    ulen = rng.integers(lb - 40, lb + 1, NT)
+    for t in range(NT):
+        tiles[t, :ulen[t]] = rng.integers(1, 5, ulen[t])
+    qs = np.zeros((P, 32 * W), np.uint8)
+    qlens = rng.integers(qlen_lo, min(32 * W, lb - 40) + 1, P)
+    tidx = rng.integers(0, NT, P).astype(np.int32)
+    for i in range(P):
+        src = tiles[tidx[i]]
+        st = int(rng.integers(0, ulen[tidx[i]] - qlens[i] + 1))
+        q = src[st:st + qlens[i]].copy()
+        if i % 7 == 3:
+            q = rng.integers(1, 5, qlens[i]).astype(np.uint8)
+        for _ in range(int(rng.integers(0, 4))):
+            p = int(rng.integers(0, len(q)))
+            op = int(rng.integers(0, 3))
+            if op == 0:
+                q[p] = rng.integers(1, 5)
+            elif op == 1 and len(q) > qlen_lo:
+                q = np.delete(q, p)
+            else:
+                q = np.insert(q, p, rng.integers(1, 5))[:32 * W]
+        qlens[i] = len(q)
+        qs[i, :len(q)] = q
+    peq = jmyers.build_peq(qs, qlens.astype(np.int64), W, smat)
+    pidx = np.arange(P, dtype=np.int32)
+    max_ed = rng.integers(2, 6, P).astype(np.int64)
+    return smat, peq, tiles, pidx, tidx, qlens.astype(np.int64), max_ed
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _host_ok(out, max_ed):
+    """Pairs inside the budget, where the host twin's unbounded
+    look-back is contractually identical."""
+    return out[0] <= max_ed
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_full_width_matches_jax(seed):
+    smat, peq, tiles, pidx, tidx, qlens, max_ed = _case(seed)
+    W = 4
+    fn, _ = make_rescore_gather(smat)
+    rows = prescore.rows_for(qlens, W)
+    lv = prescore.levels_for(max_ed)
+    ref = np.asarray(fn(jnp.asarray(peq), jnp.asarray(tiles),
+                        jnp.asarray(pidx), jnp.asarray(tidx),
+                        jnp.asarray(qlens.astype(np.int32)),
+                        jnp.asarray(max_ed.astype(np.int32)), W, lv, rows))
+    got = rescore_cuda.rescore_pairs_gather(
+        _t(peq.view(np.int32)), _t(tiles), pidx, tidx, qlens, max_ed, W)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    host = rescore_pairs_np(peq, tiles, pidx, tidx, qlens, max_ed, W,
+                            rows)
+    ok = _host_ok(ref, max_ed)
+    assert ok.sum() > len(ok) // 2
+    np.testing.assert_array_equal(got.numpy()[:, ok], host[:, ok])
+    assert rescore_cuda.rescore.launches == 0
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_windowed_matches_jax(seed):
+    """The engine's window: x0 = first - 32W - bound - 1, Lw a multiple
+    of 128 covering rows + bound + 2."""
+    smat, peq, tiles, pidx, tidx, qlens, max_ed = _case(seed, lb=384)
+    W = 4
+    rng = np.random.default_rng(seed)
+    x0 = rng.integers(0, tiles.shape[1] - 100, len(pidx)).astype(np.int64)
+    rows = prescore.rows_for(qlens, W)
+    Lw = -(-(rows + int(max_ed.max()) + 2) // 128) * 128
+    _, fn_win = make_rescore_gather(smat)
+    ref = np.asarray(fn_win(
+        jnp.asarray(peq), jnp.asarray(tiles), jnp.asarray(pidx),
+        jnp.asarray(tidx), jnp.asarray(qlens.astype(np.int32)),
+        jnp.asarray(max_ed.astype(np.int32)),
+        jnp.asarray(x0.astype(np.int32)), W, Lw,
+        prescore.levels_for(max_ed), rows))
+    got = rescore_cuda.rescore_pairs_gather(
+        _t(peq.view(np.int32)), _t(tiles), pidx, tidx, qlens, max_ed, W,
+        x0=x0, Lw=Lw)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    host = rescore_pairs_np(peq, tiles, pidx, tidx, qlens, max_ed, W,
+                            rows, x0, Lw)
+    ok = _host_ok(ref, max_ed)
+    np.testing.assert_array_equal(got.numpy()[:, ok], host[:, ok])
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+def test_levels_match_jax_core(levels):
+    """Explicit look-back depths on one padded block: the kernel's
+    contract (tiles of exactly L1-1 columns) through jnp's core."""
+    smat, peq, tiles, pidx, tidx, qlens, max_ed = _case(10 + levels,
+                                                        W=2, lb=128,
+                                                        qlen_lo=40)
+    W = 2
+    L1 = prescore.l1_for(tiles.shape[1])
+    tl = np.zeros((len(pidx), L1 - 1), np.uint8)
+    tl[:, :tiles.shape[1]] = tiles[tidx]
+    rows = prescore.rows_for(qlens, W)
+    core = make_rescore(smat)
+    ref = np.stack([np.asarray(o) for o in core(
+        jnp.asarray(peq[pidx]), jnp.asarray(qlens.astype(np.int32)),
+        jnp.asarray(tl), jnp.asarray(max_ed.astype(np.int32)), W,
+        levels, rows)])
+    qmeta = np.stack([qlens, max_ed], axis=1).astype(np.int32)
+    got = rescore_cuda.rescore(
+        _t(peq[pidx].reshape(len(pidx), 16 * W).view(np.int32)), _t(tl),
+        _t(qmeta), W, levels, rows, L1)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_wrapper_rejects_bad_shapes():
+    z = torch.zeros
+    with pytest.raises(ValueError):
+        rescore_cuda.rescore(z((4, 64), dtype=torch.int32),
+                             z((4, 100), dtype=torch.uint8),
+                             z((4, 2), dtype=torch.int32), 4, 2, 8, 128)
+    with pytest.raises(NotImplementedError):
+        rescore_cuda.rescore(z((4, 64), dtype=torch.int32),
+                             z((4, 2047), dtype=torch.uint8),
+                             z((4, 2), dtype=torch.int32), 4, 2, 8, 2048)
