@@ -14,8 +14,12 @@
 // neighbouring column's value from the step before -- so a pair costs
 // rows * (2 + 2*levels) block-wide barriers over a few hundred bytes of
 // shared memory, with almost no device-memory traffic (a pair reads
-// L1-1 tile bytes and 64W bytes of Peq once). Barrier latency and
-// shared-memory round trips bound it, not bandwidth or ALU throughput.
+// L1-1 tile bytes and 64W bytes of Peq once). Of the card's two limits
+// the integer ALU is the nearer one (about 23 int32 instructions per
+// cell and 6 per doubling in the machine code; the bytes are a hundredth
+// of that time), but the kernel does not reach it: barrier latency and
+// shared-memory round trips hold it to about six tenths of the ALU's
+// rate (`chip_smoke.py` prints both times).
 //
 // Design: one CTA per pair, one thread per DP column (L1 = 128 or 640
 // on the main path, at most 1024). The row state (score, gap_q,

@@ -1,8 +1,9 @@
 """Blocked-on-device time accounting.
 
-Every device result of the aligner reaches the host through `fetch`,
-placed directly after its dispatch chain, so the time spent inside it
-is the host's wait for the device. `track()` sums that wait and, on a
+Every device result of the aligner reaches the host through `fetch`
+(placed directly after its dispatch chain) or through a `Fetch`
+handle's `wait()`, so the time spent inside them is the host's wait for
+the device. `track()` sums that wait and, on a
 CUDA device, also the device-side span of the tracked scope between two
 CUDA events.
 
@@ -53,6 +54,39 @@ def fetch(tree):
         _acc["s"] += time.perf_counter() - t0
         _acc["n"] += 1
     return out
+
+
+class Fetch:
+    """A device-to-host copy in flight: the constructor enqueues the
+    copies of a list of tensors behind the work already dispatched and
+    returns at once; `wait()` blocks until they have landed and returns
+    the numpy arrays. Work dispatched after the constructor is not waited
+    for, so the device can run the next group while the host consumes
+    this one. The copies land in pinned host memory."""
+
+    def __init__(self, tensors):
+        self._host = []
+        self._event = None
+        for t in tensors:
+            if t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            else:
+                self._host.append(t)
+        if any(t.is_cuda for t in tensors):
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def wait(self):
+        t0 = time.perf_counter()
+        if self._event is not None:
+            self._event.synchronize()
+        out = [h.numpy() for h in self._host]
+        if _acc is not None:
+            _acc["s"] += time.perf_counter() - t0
+            _acc["n"] += 1
+        return out
 
 
 @contextlib.contextmanager

@@ -1,34 +1,40 @@
-"""Alignment engine, main-path slice: fused device scour + phase-A pair
-scan, winner selection, phase-B rescore -> result pods.
+"""Alignment engine: phase-A scan, winner selection, phase-B rescore ->
+result pods.
 
-Counterpart of the parts of `burst_tpu.engine` that BEST mode with an
-accelerator runs at QBUNCH=1 (`accel_scan_fused` and what it reaches).
-Host-side numpy logic is carried over unchanged so that the pods, and
-so the b6 bytes, are identical; device work is PyTorch ops plus the
-hand-written kernels K1 (fused scour), K2 (side pairs) and K3
-(rescore). There is no fallback that hides the device: a step that the
-slice does not cover raises NotImplementedError naming the ROADMAP item
-that will bring it.
+Counterpart of the parts of `burst_tpu.engine` that two paths run: the
+direct path (no accelerator; `iter_ed_blocks`, `compute_ed_matrix`,
+`compute_ed_select`: every query against every unit through the dense
+cross kernel K4) and BEST mode with an accelerator at QBUNCH=1
+(`accel_scan_fused` and what it reaches: K1 in the fused scour, K2 for
+the side pairs, K4 for full-scan rows). Both end in `rescore_winners`
+(K3). Host-side numpy logic is carried over unchanged so that the pods,
+and so the b6 bytes, are identical; device work is PyTorch ops plus the
+hand-written kernels. There is no fallback that hides the device: a
+step that the port does not cover raises NotImplementedError naming the
+ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
+import collections
+import copy
 import dataclasses
 
 import numpy as np
 import torch
 
-from burst_tpu.process import QueryData, RefData
-
 from . import devtime
+from .accel import query_words
 from .kernels import scour_device
-from .kernels.myers import build_peq_dev
-from .kernels.myers_cuda import myers_pairs
+from .kernels.myers import build_peq_dev, words_for
+from .kernels.myers_cuda import MAX_W, myers_cross, myers_pairs
 from .kernels.rescore import rescore_finalize_host
 from .kernels.rescore_cuda import rescore_pairs_gather
+from .native import pad_rows_native, scour_native
+from .process import QueryData, RefData
 
 VECSZ = 16      # the reference's clump width; defines pod ordering only
 QCHUNK = 2048   # canonical query-block height
-MAX_W = 8       # Myers words per query the pair kernel takes
+TCHUNK = 512    # canonical tile-block width
 
 
 @dataclasses.dataclass
@@ -50,22 +56,27 @@ class Visits:
     """CSR candidate clump visit lists per unibin (burst.c:4077-4136):
     flat[offs[j]:offs[j+1]] is unibin j's ordered visit list
     (pigeonhole-filtered candidates by hit count desc, first touch asc,
-    then the BadList); pass_keys are the sorted j*tot_units+unit keys
-    passing the per-unit prefilter."""
+    then the BadList); unibins with full[j] set have empty segments and
+    are covered by the full scan; pass_keys are the sorted
+    j*tot_units+unit keys passing the per-unit prefilter."""
     flat: np.ndarray
     offs: np.ndarray
+    full: np.ndarray
     pass_keys: np.ndarray
 
 
 @dataclasses.dataclass
 class SparseED:
     """Phase-A results over candidate pairs: unibin pj, unit pp, min ED
-    pe (<= 255) and the first/last best columns (padded coordinates).
-    `pending` holds deferred (part, [3, B] result) chunks until
-    materialize() fetches them in one go."""
+    pe (<= 255) and the first/last best columns (padded coordinates),
+    plus the dense [len(full_rows), tot_units] uint8 block `ed_full` of
+    the full-scan unibins `full_rows`. `pending` holds deferred (part,
+    [3, B] result) chunks until materialize() fetches them in one go."""
     pj: np.ndarray
     pp: np.ndarray
     pe: np.ndarray | None
+    full_rows: np.ndarray
+    ed_full: np.ndarray
     pending: list | None = None
     plast: np.ndarray | None = None
     pfirst: np.ndarray | None = None
@@ -86,7 +97,7 @@ class SparseED:
 
     def lookup_cols(self, juni, refpos, tot_units: int):
         """(first, last) best columns per (unibin, unit) winner; -1 if
-        unknown."""
+        unknown (full-scan rows have no per-pair column record)."""
         first = np.full(len(juni), -1, dtype=np.int64)
         last = np.full(len(juni), -1, dtype=np.int64)
         if self.plast is None or not len(self.pj):
@@ -104,6 +115,27 @@ class SparseED:
 
 
 # ------------------------------------------------------------ host shapes
+
+def _bucket_queries(qd: QueryData):
+    """Group unibin rows by Myers word count W."""
+    buckets: dict[int, list[int]] = {}
+    for j, s in enumerate(qd.seqs):
+        buckets.setdefault(words_for(len(s)), []).append(j)
+    return buckets
+
+
+def _bucket_units(rd: RefData):
+    """Group sorted unit positions by padded tile length.
+
+    A host-range .edx shard (db/edx.read_edx clump_range) sets
+    rd.unit_range; units outside it are non-local -- another host owns
+    and scans them -- and are skipped here."""
+    ur = getattr(rd, "unit_range", None)
+    lo, hi = (0, rd.tot_units) if ur is None else ur
+    pos = np.arange(lo, min(hi, rd.tot_units), dtype=np.int64)
+    lbs = _unit_lb(rd)[pos]
+    return {int(lb): pos[lbs == lb] for lb in np.unique(lbs)}
+
 
 def _pow2_ceil(n: int) -> int:
     p = 1
@@ -142,8 +174,7 @@ def _unit_lb(rd: RefData, granularity: int = 64):
 
 def _fill_rows(mat: np.ndarray, rd: RefData, positions: np.ndarray):
     """Copy units (sorted positions) into the zero-padded row matrix
-    through the shared native memcpy, in chunks."""
-    from burst_tpu.native import pad_rows_native
+    through the native memcpy, in chunks."""
     seqs, ix = rd.seqs, rd.ix_srt
     step = 1 << 20
     for c0 in range(0, len(positions), step):
@@ -154,7 +185,7 @@ def _fill_rows(mat: np.ndarray, rd: RefData, positions: np.ndarray):
         np.cumsum(lens, out=offs[1:])
         cat = np.concatenate(chunk) if chunk else np.zeros(0, np.uint8)
         if not pad_rows_native(cat, offs, mat[c0:c0 + len(chunk)]):
-            raise RuntimeError("burst_tpu native host library unavailable")
+            raise RuntimeError("native host library unavailable")
 
 
 def _tile_matrix(rd: RefData, lb: int, pad: int):
@@ -280,17 +311,197 @@ def _pairs_min_ed(qd: QueryData, db, pj: np.ndarray, pp: np.ndarray):
     return pending
 
 
-def select_pods(qd: QueryData, ed: SparseED):
-    """BEST tie selection: per base query, the pairs at its minimum ED
-    within budget; returns winner (juni, refpos, ed)."""
-    ed.materialize()
+def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
+    """Stream the direct path's phase A through K4: yields (rows, poss,
+    block_u8) host tiles of the [numUnibins, tot_units] min-ED matrix
+    (clipped to 255) without ever assembling it, in the reference's
+    order: W, then unit length bucket, then query block, then tile block
+    of the canonical QCHUNK x TCHUNK shape.
+
+    The Peq planes and the bucket tiles are resident on the device and
+    sliced, not uploaded per block; each block is clipped and narrowed
+    to uint8 on the device before its copy. Blocks travel in groups of
+    `max_pending`, and the next group is dispatched before the previous
+    one is waited for, so the device scans while the host consumes."""
+    if getattr(qd, "xalpha", False):
+        raise NotImplementedError("xalpha queries (ROADMAP M7)")
+    rd = db.rd
+    qbuckets = _bucket_queries(qd)
+    ubuckets = _bucket_units(rd)
+    pending: list = []
+    groups: collections.deque = collections.deque()
+
+    def _flush():
+        groups.append(([m for m, _ in pending],
+                       devtime.Fetch([b for _, b in pending])))
+        pending.clear()
+
+    def _drain():
+        metas, handle = groups.popleft()
+        for (rws, pss), block in zip(metas, handle.wait()):
+            yield rws, pss, block
+
+    for W, rows in sorted(qbuckets.items()):
+        rows_a = np.array(rows, dtype=np.int64)
+        # the bucket's rows in ascending order are Peq rows 0..len-1
+        _, peq_dev = _peq_device(qd, W, db)
+        for lb, poss in sorted(ubuckets.items()):
+            pos2row, tiles_dev = db.bucket_tiles(lb, 32)
+            r0 = int(pos2row[poss[0]])      # the bucket's local run
+            qchunk = min(QCHUNK, _pow2_ceil(len(rows_a)))
+            tchunk = min(TCHUNK, _pow2_ceil(len(poss)))
+            for q0 in range(0, len(rows_a), qchunk):
+                pq = peq_dev[q0:min(q0 + qchunk, len(rows_a))]
+                for t0 in range(0, len(poss), tchunk):
+                    nt = min(tchunk, len(poss) - t0)
+                    tb = tiles_dev[r0 + t0:r0 + t0 + nt]
+                    block = myers_cross(pq, tb, W).clamp_(max=255).to(
+                        torch.uint8)
+                    pending.append(((rows_a[q0:q0 + qchunk],
+                                     poss[t0:t0 + nt]), block))
+                    if len(pending) >= max_pending:
+                        _flush()
+                        if len(groups) > 1:
+                            yield from _drain()
+    if pending:
+        _flush()
+    while groups:
+        yield from _drain()
+
+
+def compute_ed_matrix(qd: QueryData, db) -> np.ndarray:
+    """Phase A: dense [numUnibins, tot_units] uint8 min-ED matrix
+    (clipped 255). Used by ANY mode and for the accelerated path's few
+    full-scan rows; the other direct modes stream through
+    compute_ed_select instead."""
+    ed = np.full((len(qd.seqs), db.rd.tot_units), 255, dtype=np.uint8)
+    for rws, pss, block in iter_ed_blocks(qd, db):
+        ed[np.ix_(rws, pss)] = block
+    return ed
+
+
+def compute_ed_select(qd: QueryData, db, mode: str,
+                      compact_at: int = 1 << 22):
+    """Streamed phase A + winner selection: equal to select_pods(qd, rd,
+    compute_ed_matrix(qd, db), mode) with host memory O(numUniq +
+    winners + block) instead of the dense matrix (burst.c:4318-4521's
+    running-budget sweep as a running minimum over streamed blocks).
+
+    Returns (juni, refpos, eds) in the row-major order the dense nonzero
+    scan produces."""
+    nu = qd.num_uniq
     budgets = qd.ed
-    pj, pp, pe = ed.pj, ed.pp, ed.pe.astype(np.int64)
-    six = qd.six[pj]
-    best = np.full(qd.num_uniq, 255, dtype=np.int64)
-    np.minimum.at(best, six, pe)
-    keep = (pe == best[six]) & (pe <= budgets[six])
-    return pj[keep], pp[keep], pe[keep]
+    budj = budgets[qd.six]                       # per unibin row
+    cj: list[np.ndarray] = []
+    cp: list[np.ndarray] = []
+    ce: list[np.ndarray] = []
+    n_cand = 0
+
+    def _sorted():
+        jj = np.concatenate(cj) if cj else np.zeros(0, np.int64)
+        pp = np.concatenate(cp) if cp else np.zeros(0, np.int64)
+        ee = np.concatenate(ce) if ce else np.zeros(0, np.int64)
+        return jj, pp, ee
+
+    if mode == "FORAGE":
+        for rws, pss, block in iter_ed_blocks(qd, db):
+            r, c = np.nonzero(block <= budj[rws][:, None])
+            cj.append(rws[r])
+            cp.append(pss[c])
+            ce.append(block[r, c].astype(np.int64))
+        jj, pp, ee = _sorted()
+        srt = np.lexsort((pp, jj))
+        return jj[srt], pp[srt], ee[srt]
+
+    # tie modes: running per-unique minimum (strand-folded via six)
+    best = np.full(nu, 255, dtype=np.int64)
+
+    def _compact():
+        nonlocal n_cand
+        kept_j, kept_p, kept_e = [], [], []
+        for j, p, e in zip(cj, cp, ce):
+            k = e == best[qd.six[j]]
+            kept_j.append(j[k])
+            kept_p.append(p[k])
+            kept_e.append(e[k])
+        cj[:], cp[:], ce[:] = kept_j, kept_p, kept_e
+        n_cand = sum(len(j) for j in cj)
+
+    for rws, pss, block in iter_ed_blocks(qd, db):
+        sixb = qd.six[rws]
+        # keep entries at or under the running min BEFORE this block
+        # tightens it: new-min entries survive, stale ones compact away
+        cap = np.minimum(budj[rws], best[sixb])
+        r, c = np.nonzero(block <= cap[:, None])
+        if len(r):
+            cj.append(rws[r])
+            cp.append(pss[c])
+            ce.append(block[r, c].astype(np.int64))
+            n_cand += len(r)
+        np.minimum.at(best, sixb, block.min(axis=1).astype(np.int64))
+        if n_cand > compact_at:
+            _compact()
+    _compact()
+    valid = best <= budgets
+    jj, pp, ee = _sorted()
+    k = valid[qd.six[jj]]
+    jj, pp, ee = jj[k], pp[k], ee[k]
+    srt = np.lexsort((pp, jj))
+    return jj[srt], pp[srt], ee[srt]
+
+
+def select_pods(qd: QueryData, rd: RefData, ed, mode: str):
+    """Apply budgets and tie selection; return winner (juni, refpos, ed).
+
+    `ed` is either the dense [numUnibins, tot_units] matrix or a
+    SparseED from the accel path (selection then runs on the sparse pair
+    arrays and the dense block of its full-scan rows)."""
+    nu = qd.num_uniq
+    budgets = qd.ed  # [numUniq]
+    if isinstance(ed, SparseED):
+        ed.materialize()
+        pj, pp, pe = ed.pj, ed.pp, ed.pe.astype(np.int64)
+        six = qd.six[pj]
+        frows = np.asarray(ed.full_rows, dtype=np.int64)
+        sub = ed.ed_full
+        if mode == "FORAGE":
+            keep = pe <= budgets[six]
+            out = [(pj[keep], pp[keep], pe[keep])]
+            if frows.size:
+                mask = sub <= budgets[qd.six[frows]][:, None]
+                r, c = np.nonzero(mask)
+                out.append((frows[r], c.astype(np.int64),
+                            sub[r, c].astype(np.int64)))
+        else:
+            best = np.full(nu, 255, dtype=np.int64)
+            np.minimum.at(best, six, pe)
+            if frows.size:
+                np.minimum.at(best, qd.six[frows],
+                              sub.min(axis=1).astype(np.int64))
+            keep = (pe == best[six]) & (pe <= budgets[six])
+            out = [(pj[keep], pp[keep], pe[keep])]
+            if frows.size:
+                fsix = qd.six[frows]
+                mask = (sub == best[fsix][:, None]) & \
+                    (best[fsix] <= budgets[fsix])[:, None]
+                r, c = np.nonzero(mask)
+                out.append((frows[r], c.astype(np.int64),
+                            sub[r, c].astype(np.int64)))
+        return (np.concatenate([o[0] for o in out]),
+                np.concatenate([o[1] for o in out]),
+                np.concatenate([o[2] for o in out]))
+    budj = budgets[qd.six]                   # [nj]
+    if mode == "FORAGE":
+        maskj = ed <= budj[:, None]
+    else:
+        # fold strands: per-base-query minimum over its unibin rows
+        best = np.full(nu, 255, dtype=np.int64)
+        np.minimum.at(best, qd.six, ed.min(axis=1).astype(np.int64))
+        valid = best <= budgets
+        maskj = (ed == best[qd.six][:, None]) & valid[qd.six][:, None]
+    jj, pp = np.nonzero(maskj)
+    eds = ed[jj, pp].astype(np.int64)
+    return jj.astype(np.int64), pp.astype(np.int64), eds
 
 
 # ------------------------------------------------------------- phase B
@@ -301,17 +512,24 @@ def rescore_pad(lb: int, W: int) -> int:
     return -(-(lb + 32 * W) // 64) * 64 - lb
 
 
-def rescore_winners(qd: QueryData, db, juni, refpos, eds,
-                    pod_order: np.ndarray, win_cols) -> Pods:
+def rescore_winners(qd: QueryData, db, juni, refpos, eds, mode: str,
+                    pod_order: np.ndarray | None = None,
+                    last0: np.ndarray | None = None,
+                    win_cols=None) -> Pods:
     """Phase B through K3: exact (ed, gap_q, gap_r, final_pos, identity)
-    for the winner pairs, in `pod_order`.
+    for the winner pairs, then the reference's pod ordering (or
+    `pod_order`, the accel path's visit-rank ordering).
 
-    Zero-ED winners with a known last-best column skip the DP (no gaps,
-    identity 1.0, final_pos = that column minus the wildcard pad shift).
-    Pairs whose tie span (`win_cols`: first/last best columns from phase
-    A) fits a narrow window run the DP on a [Lw-1]-column slice starting
-    at x0 instead of the whole tile -- exact, since every min-ED last-row
-    column and every min-cost path reaching one lies inside it."""
+    `last0` (from SparseED.lookup_cols): zero-ED winners with a known
+    last-best column skip the DP (no gaps, identity 1.0, final_pos = that
+    column minus the wildcard pad shift).
+
+    `win_cols` (from SparseED.lookup_cols): per-pair (first, last) best
+    columns from phase A. Pairs whose tie span fits a narrow window run
+    the DP on a [Lw-1]-column slice starting at x0 instead of the whole
+    tile -- exact, since every min-ED last-row column and every min-cost
+    path reaching one lies inside it. Without them (the direct path)
+    every pair runs at full width."""
     rd = db.rd
     n = len(juni)
     gap_q = np.zeros(n, np.int64)
@@ -319,7 +537,12 @@ def rescore_winners(qd: QueryData, db, juni, refpos, eds,
     fpos = np.zeros(n, np.int64)
     score = np.zeros(n, np.float32)
     out_ed = np.array(eds, dtype=np.int64)
-    bound = out_ed               # tie mode: rescore bound is the pair's ED
+    # rescore bound: the pair's own ED (tie modes) or the query budget
+    # (FORAGE/ANY explore all valid refs: burst.c:4437 'min = Emac')
+    if mode in ("FORAGE", "ANY"):
+        bound = qd.ed[qd.six[juni]].astype(np.int64)
+    else:
+        bound = out_ed
 
     pending = []
     order = np.arange(n)
@@ -327,16 +550,19 @@ def rescore_winners(qd: QueryData, db, juni, refpos, eds,
     qws = qw_all[juni] if n else np.zeros(0, np.int64)
     lbs = _unit_lb(rd)[refpos] if n else np.zeros(0, np.int64)
     todo = np.ones(n, dtype=bool)
-    first_m = np.asarray(win_cols[0], dtype=np.int64)
-    last_m = np.asarray(win_cols[1], dtype=np.int64)
-    if n:
-        skip = (out_ed == 0) & (last_m > 0)
+    if last0 is None and win_cols is not None:
+        last0 = win_cols[1]
+    if last0 is not None and n:
+        last0 = np.asarray(last0, dtype=np.int64)
+        skip = (out_ed == 0) & (last0 > 0)
         score[skip] = np.float32(1.0)
-        fpos[skip] = last_m[skip] - (qws[skip] * 32 - qlens_all[juni[skip]])
+        fpos[skip] = last0[skip] - (qws[skip] * 32 - qlens_all[juni[skip]])
         todo &= ~skip
     x0_all = np.full(n, -1, dtype=np.int64)
     span_all = np.zeros(n, dtype=np.int64)
-    if n:
+    if win_cols is not None and n:
+        first_m = np.asarray(win_cols[0], dtype=np.int64)
+        last_m = np.asarray(win_cols[1], dtype=np.int64)
         known = (first_m > 0) & (last_m > 0)
         # x0 = real_first - qlen - bound - 1 in 0-based tile coords; the
         # (rows - qlen) pad shift cancels out of the margin
@@ -402,10 +628,22 @@ def rescore_winners(qd: QueryData, db, juni, refpos, eds,
             score[part] = sc[:m]
             out_ed[part] = e[:m]
 
-    srt = pod_order
+    # Reference pod ordering: single-thread full-path insertion order is
+    # (clump asc, query-row asc, lane asc) head-inserted, i.e. iteration
+    # order (clump desc, query-row desc, lane desc) (burst.c:4343-4477).
+    if pod_order is not None:
+        srt = pod_order
+    else:
+        srt = np.lexsort((-(refpos % VECSZ), -juni, -(refpos // VECSZ)))
     return Pods(six=qd.six[juni][srt], juni=juni[srt], refpos=refpos[srt],
                 ed=out_ed[srt], rc=qd.rc[juni][srt], gap_q=gap_q[srt],
                 gap_r=gap_r[srt], final_pos=fpos[srt], score=score[srt])
+
+
+def align(qd: QueryData, db, mode: str) -> Pods:
+    """The direct path: streamed phase A + selection, then phase B."""
+    juni, refpos, eds = compute_ed_select(qd, db, mode)
+    return rescore_winners(qd, db, juni, refpos, eds, mode)
 
 
 # ------------------------------------------------------------ accel path
@@ -434,13 +672,13 @@ def _assemble_visits(qd, res, b1: int, bad_arr) -> Visits:
         dstb = (offs[:b1, None] + mcnt[:, None] +
                 np.arange(nb)[None, :]).ravel()
         out[dstb] = np.tile(bad_arr, b1)
-    return Visits(flat=out, offs=offs, pass_keys=ukeys)
+    full = np.zeros(n, dtype=bool)
+    full[b1:] = True
+    return Visits(flat=out, offs=offs, full=full, pass_keys=ukeys)
 
 
 def _ambig_word_lists(qd, b0: int, k: int, z: int):
     """Ambiguous unibins' expanded unique words + multiplicities."""
-    from burst_tpu.accel import query_words
-
     aq_off = np.zeros(b0 + 1, np.int64)
     aqw_parts, aqm_parts = [], []
     for j in range(b0):
@@ -470,8 +708,6 @@ def _scour_device_rows(qd, db, b0, b1, k, mm_bunch, mm_inner, qmat,
     Rows over the slot budget E (`ov`) are re-scoured exactly on the
     host by the native scour and spliced back -- part of the algorithm,
     not a fallback: the device slot matrix is fixed-width."""
-    from burst_tpu.native import scour_native
-
     acc = db.acc
     tot_units = db.rd.tot_units
     nc = b1 - b0
@@ -545,19 +781,16 @@ def _scour_device_rows(qd, db, b0, b1, k, mm_bunch, mm_inner, qmat,
 def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
     """Fused accelerator scan (QBUNCH=1): device scour + K1 over the
     clear rows in one dispatch chain; ambiguous rows, BadList units and
-    rows the device overflowed go through K2. Returns (visits, sed,
-    stats) with stats counting the overflowed rows and the pairs of each
-    branch."""
+    rows the device overflowed go through K2; full-scan rows (reads the
+    accelerator cannot index) against every unit through K4. Returns
+    (visits, sed, stats) with stats counting the overflowed rows, the
+    full-scan rows and the pairs of each branch."""
     rd, acc = db.rd, db.acc
     if getattr(qd, "xalpha", False):
         raise NotImplementedError("xalpha queries (ROADMAP M7)")
     k = acc.k
     n = len(qd.seqs)
     b0, b1 = int(qbins[0]), int(qbins[1])
-    if b1 < n:
-        raise NotImplementedError(
-            f"{n - b1} full-scan rows (super-ambiguous or ineligible "
-            "reads) need the dense cross kernel (ROADMAP K4)")
     qmat, qlens_all, qw_all = _query_matrix(qd)
     if b1 <= b0 or not bool((qlens_all[b0:b1] >= k).any()):
         raise NotImplementedError(
@@ -566,7 +799,8 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
     W = int(qw_all[:b1].max())
     if W > MAX_W:
         raise NotImplementedError(
-            f"W={W}: reads over {32 * MAX_W} bp exceed the pair kernel")
+            f"W={W}: reads over {32 * MAX_W} bp exceed the pair kernel "
+            "(ROADMAP, limits)")
     tot_units = rd.tot_units
     n_clumps = tot_units // VECSZ + (1 if tot_units % VECSZ else 0)
     bad_arr = np.asarray(acc.bad, dtype=np.int64)
@@ -615,10 +849,31 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
         # device pairs enter as an already fetched chunk
         pending.append((np.arange(nh, nh + len(pinfo["uj"])),
                         pinfo["packed"]))
-    sed = SparseED(pj=pj, pp=pp, pe=None, pending=pending)
+    full_rows = np.nonzero(vis.full)[0]
+    if len(full_rows):
+        ed_full = compute_ed_matrix(_subset_qd(qd, full_rows), db)
+    else:
+        ed_full = np.zeros((0, tot_units), dtype=np.uint8)
+    sed = SparseED(pj=pj, pp=pp, pe=None, full_rows=full_rows,
+                   ed_full=ed_full, pending=pending)
     stats = {"ov_rows": len(pinfo["ov_rows"]), "side_pairs": nh,
-             "dev_pairs": len(pinfo["uj"])}
+             "dev_pairs": len(pinfo["uj"]), "full_rows": len(full_rows)}
     return vis, sed, stats
+
+
+def _subset_qd(qd: QueryData, rows: np.ndarray) -> QueryData:
+    """The batch restricted to unibin `rows`. The row-indexed caches
+    refer to the parent's numbering, so the query matrix is sliced and
+    the Peq cache dropped (it rebuilds on demand)."""
+    sub = copy.copy(qd)
+    sub.seqs = [qd.seqs[j] for j in rows]
+    sub.six = qd.six[rows]
+    sub.rc = qd.rc[rows]
+    cached = sub.__dict__.pop("_qmat", None)
+    sub.__dict__.pop("_peq_torch", None)
+    if cached is not None:
+        sub._qmat = tuple(c[rows] for c in cached)
+    return sub
 
 
 def accel_pod_order(qd: QueryData, rd: RefData, visits: Visits, juni,
@@ -638,9 +893,21 @@ def accel_pod_order(qd: QueryData, rd: RefData, visits: Visits, juni,
     vkey_s, vrank_s = vkey[so], vrank[so]
     clump = refpos // VECSZ
     rank = np.empty(n, dtype=np.int64)
-    if n:
-        rank[:] = vrank_s[np.searchsorted(vkey_s, juni * n_clumps + clump)]
+    pod_full = visits.full[juni]
+    rank[pod_full] = -1 - clump[pod_full]  # full-path: clump desc == rank asc
+    acc_ix = np.nonzero(~pod_full)[0]
+    if acc_ix.size:
+        key = juni[acc_ix] * n_clumps + clump[acc_ix]
+        rank[acc_ix] = vrank_s[np.searchsorted(vkey_s, key)]
     lane = refpos % VECSZ
     is_rc = qd.rc[juni].astype(np.int64)
-    return np.lexsort((-lane, -rank, is_rc, qd.six[juni]))
-
+    # full-path pods (rank < 0) keep full-path ordering among themselves;
+    # they belong to bad-bin queries, disjoint from accel queries
+    full_mask = rank < 0
+    keys_full = np.lexsort((-lane[full_mask], -juni[full_mask],
+                            rank[full_mask]))
+    keys_acc = np.lexsort((-lane[~full_mask], -rank[~full_mask],
+                           is_rc[~full_mask], qd.six[juni[~full_mask]]))
+    idx_full = np.nonzero(full_mask)[0][keys_full]
+    idx_acc = np.nonzero(~full_mask)[0][keys_acc]
+    return np.concatenate([idx_acc, idx_full])

@@ -1,10 +1,11 @@
 """Phase-A Myers/Hyyro bit-vector scan: plain PyTorch versions.
 
-Counterparts of `burst_tpu.kernels.myers` (`_pos_scan`, `unpack_nibbles`,
-`pack_nibbles_np`), `burst_tpu.kernels.scour_device._build_peq_dev` and
+Counterparts of `burst_tpu.kernels.myers` (`_pos_scan`, `myers_min_ed_cross`,
+`unpack_nibbles`, `pack_nibbles_np`), `burst_tpu.kernels.scour_device._build_peq_dev` and
 `burst_tpu.kernels.myers_pallas._words_from_packed`. They define the
-integer semantics the CUDA kernel (`csrc/myers_pairs.cu`, wrapped by
-`myers_cuda`) must reproduce bit for bit, and they are what a wrapper
+integer semantics the CUDA kernels (`csrc/myers_pairs.cu` and
+`csrc/myers_cross.cu`, wrapped by `myers_cuda`) must reproduce bit for
+bit, and they are what a wrapper
 runs for a tensor on the CPU.
 
 Peq tables and tile words are stored as int32 tensors holding the u32
@@ -35,12 +36,19 @@ def to_i32_bits(v: torch.Tensor) -> torch.Tensor:
 
 
 def build_peq_dev(qmat: torch.Tensor, lens: torch.Tensor,
-                  smat_dev: torch.Tensor, W: int) -> torch.Tensor:
+                  smat_dev: torch.Tensor, W: int,
+                  chunk: int = 8192) -> torch.Tensor:
     """Peq planes [n, 16, W] (int32 holding u32 bits): bit y of word w
     set iff query row 32w+y costs 0 against code c; rows >= len are
     wildcards. qmat [n, >=32W] uint8 codes, lens [n], smat_dev [16, 16]
-    uint8 score table."""
+    uint8 score table. Built `chunk` rows at a time: the int64
+    [rows, 32W, 16] temporaries take 4096 W bytes per row twice over,
+    which at 65,536 rows and W=4 is 2 GiB when built in one piece."""
     n = qmat.shape[0]
+    if n > chunk:
+        return torch.cat([
+            build_peq_dev(qmat[i:i + chunk], lens[i:i + chunk], smat_dev,
+                          W, chunk) for i in range(0, n, chunk)])
     m_pad = WORD * W
     q = qmat[:, :m_pad].long()
     match = smat_dev[q] == 0                              # [n, m_pad, 16]
@@ -78,6 +86,31 @@ def words_from_packed(pk: torch.Tensor) -> torch.Tensor:
                        | (g[:, :, 2] << 16) | (g[:, :, 3] << 24))
 
 
+def _col_step(eq, VP, VN, W: int):
+    """One Myers column: eq, VP, VN are lists of W int64 tensors (u32
+    values) of one shape; VP/VN are updated in place. Returns the
+    column's score change (+1, 0 or -1)."""
+    carry = 0
+    ph, mh, xv = [], [], []
+    for w in range(W):
+        vp, vn = VP[w], VN[w]
+        s = (eq[w] & vp) + vp + carry
+        carry = s >> 32
+        xh = ((s & M32) ^ vp) | eq[w]
+        ph.append(vn | (~(xh | vp) & M32))
+        mh.append(vp & xh)
+        xv.append(eq[w] | vn)
+    pc = mc = 0
+    for w in range(W):
+        phs = ((ph[w] << 1) & M32) | pc
+        mhs = ((mh[w] << 1) & M32) | mc
+        pc = ph[w] >> 31
+        mc = mh[w] >> 31
+        VP[w] = mhs | (~(xv[w] | phs) & M32)
+        VN[w] = phs & xv[w]
+    return (ph[W - 1] >> 31) - (mh[W - 1] >> 31)
+
+
 def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
               ) -> torch.Tensor:
     """[3, B] int32 (min ED, first and last 1-based column reaching it)
@@ -96,31 +129,39 @@ def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
     for j in range(Lp):
         eq_b = peq64.gather(
             1, cols[:, j].view(B, 1, 1).expand(B, 1, W)).squeeze(1)
-        carry = 0
-        ph, mh, xv = [], [], []
-        for w in range(W):
-            eq, vp, vn = eq_b[:, w], VP[w], VN[w]
-            s = (eq & vp) + vp + carry
-            carry = s >> 32
-            xh = ((s & M32) ^ vp) | eq
-            ph.append(vn | (~(xh | vp) & M32))
-            mh.append(vp & xh)
-            xv.append(eq | vn)
-        score = score + (ph[W - 1] >> 31) - (mh[W - 1] >> 31)
+        score = score + _col_step([eq_b[:, w] for w in range(W)], VP, VN,
+                                  W)
         strict = score < best
         upd = score <= best
         best = torch.where(upd, score, best)
         first = torch.where(strict, j + 1, first)
         last = torch.where(upd, j + 1, last)
-        pc = mc = 0
-        for w in range(W):
-            phs = ((ph[w] << 1) & M32) | pc
-            mhs = ((mh[w] << 1) & M32) | mc
-            pc = ph[w] >> 31
-            mc = mh[w] >> 31
-            VP[w] = mhs | (~(xv[w] | phs) & M32)
-            VN[w] = phs & xv[w]
     return torch.stack([best, first, last]).to(torch.int32)
+
+
+def myers_cross_plain(peq: torch.Tensor, tiles: torch.Tensor, W: int
+                      ) -> torch.Tensor:
+    """[Q, T] int32 minimum glocal edit distance of every query against
+    every tile, over all Lp columns (trailing pad columns included):
+    peq [Q, 16, W] int32 bits, tiles [T, Lp] uint8 codes. Counterpart of
+    `burst_tpu.kernels.myers.myers_min_ed_cross`."""
+    Q = peq.shape[0]
+    T, Lp = tiles.shape
+    dev = tiles.device
+    peq64 = peq.long() & M32
+    cols = tiles.long()
+    VP = [torch.full((Q, T), M32, dtype=torch.int64, device=dev)
+          for _ in range(W)]
+    VN = [torch.zeros((Q, T), dtype=torch.int64, device=dev)
+          for _ in range(W)]
+    score = torch.full((Q, T), WORD * W, dtype=torch.int64, device=dev)
+    best = score.clone()
+    for j in range(Lp):
+        eq = peq64[:, cols[:, j], :]                      # [Q, T, W]
+        score = score + _col_step([eq[:, :, w] for w in range(W)], VP,
+                                  VN, W)
+        best = torch.minimum(best, score)
+    return best.to(torch.int32)
 
 
 def myers_pairs_plain(peq_all: torch.Tensor, tiles_all: torch.Tensor,

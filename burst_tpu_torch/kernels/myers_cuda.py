@@ -1,5 +1,6 @@
-"""Wrappers of the Myers pair kernel (`csrc/myers_pairs.cu`): K1 over
-the nibble-packed tile store, K2 over unpacked tiles.
+"""Wrappers of the Myers kernels: the pair kernel
+(`csrc/myers_pairs.cu`; K1 over the nibble-packed tile store, K2 over
+unpacked tiles) and the dense cross kernel (`csrc/myers_cross.cu`; K4).
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version from `kernels.myers`. Each wrapper
@@ -12,14 +13,17 @@ import ctypes
 import torch
 
 from . import _build
-from .myers import (myers_pairs_packed_plain, myers_pairs_plain,
-                    pack_nibbles)
+from .myers import (myers_cross_plain, myers_pairs_packed_plain,
+                    myers_pairs_plain, pack_nibbles)
 
-MAX_W = 8
+MAX_W = 8           # Myers words per query the pair kernel takes
+MAX_W_CROSS = 16    # ... and the cross kernel
+CROSS_TILES_PER_CTA = 128
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"myers_pairs_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _P]}
+_SIG_CROSS = {"myers_cross_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}
 
 
 def _lib():
@@ -111,3 +115,43 @@ def myers_pairs(peq_all: torch.Tensor, tiles_all: torch.Tensor,
 
 
 myers_pairs.launches = 0
+
+
+def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int
+                ) -> torch.Tensor:
+    """K4: [Q, T] int32 minimum glocal edit distance of every query
+    against every tile over all Lp columns. peq [Q, 16, W] int32 bits,
+    tiles [T, Lp] uint8 (one code per byte, trailing pad columns); any Q,
+    T and Lp."""
+    if tiles.device != peq.device:
+        raise ValueError(f"tiles on {tiles.device}, peq on {peq.device}")
+    if not peq.is_contiguous() or not tiles.is_contiguous():
+        raise ValueError("peq and tiles must be contiguous")
+    if not 1 <= W <= MAX_W_CROSS:
+        raise NotImplementedError(
+            f"W={W}: the cross kernel takes W <= {MAX_W_CROSS} (queries "
+            f"up to {32 * MAX_W_CROSS} bp; longer ones: ROADMAP, limits)")
+    if peq.dtype != torch.int32 or peq.dim() != 3 or \
+            tuple(peq.shape[1:]) != (16, W):
+        raise ValueError(f"peq must be int32 [Q, 16, {W}], got "
+                         f"{peq.dtype} {tuple(peq.shape)}")
+    if tiles.dtype != torch.uint8 or tiles.dim() != 2:
+        raise ValueError("tiles must be a 2-D uint8 tensor")
+    if not peq.is_cuda:
+        return myers_cross_plain(peq, tiles, W)
+    Q, (T, Lp) = peq.shape[0], tiles.shape
+    if T > 65535 * CROSS_TILES_PER_CTA:
+        raise ValueError(f"T={T}: over the launch grid's "
+                         f"{65535 * CROSS_TILES_PER_CTA} tiles per call")
+    out = torch.empty((Q, T), dtype=torch.int32, device=peq.device)
+    if Q == 0 or T == 0:
+        return out
+    err = _build.load("myers_cross", _SIG_CROSS).myers_cross_launch(
+        peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
+        torch.cuda.current_stream(peq.device).cuda_stream)
+    _build.check(err, "myers_cross_launch")
+    myers_cross.launches += 1
+    return out
+
+
+myers_cross.launches = 0

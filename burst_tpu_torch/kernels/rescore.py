@@ -141,7 +141,7 @@ def rescore_plain(peq_flat: torch.Tensor, tiles: torch.Tensor,
 def rescore_finalize_host(ed, gq, gr, fp, qlens: np.ndarray):
     """Float32 identity on fetched arrays, with the reference binary's
     rounding (shared native `score_identity`)."""
-    from burst_tpu.native import score_identity
+    from ..native import score_identity
     score = score_identity(ed.astype(np.float32),
                            (qlens.astype(np.int64) + gq
                             ).astype(np.float32))

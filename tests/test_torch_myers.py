@@ -14,6 +14,10 @@ from burst_tpu.kernels.myers_pallas import _words_from_packed
 from burst_tpu.kernels.scour_device import _build_peq_dev
 from burst_tpu_torch.kernels import myers, myers_cuda
 
+# several test workers share the cores: keep PyTorch from starting a
+# thread per core in each of them
+torch.set_num_threads(2)
+
 
 def _pairs(seed, W, Lp, NQ=24, NT=16, B=40, tail=16):
     """Random queries with wildcard tails (qlen < 32W) and tiles with a
@@ -70,6 +74,16 @@ def test_build_peq_dev_matches(W):
                                         jnp.asarray(qlens),
                                         jnp.asarray(smat), W))
     np.testing.assert_array_equal(got.numpy(), ref_dev.view(np.int32))
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 24])
+def test_build_peq_dev_in_chunks(chunk):
+    """Built a few rows at a time (the last chunk ragged), the planes
+    equal those built in one piece."""
+    qs, qlens, peq, _, _, _ = _pairs(11, 4, 64)
+    got = myers.build_peq_dev(_t(qs), _t(qlens), _t(score_matrix()), 4,
+                              chunk=chunk)
+    np.testing.assert_array_equal(got.numpy(), peq.view(np.int32))
 
 
 @pytest.mark.parametrize("Lpb", [8, 13, 240])

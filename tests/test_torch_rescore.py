@@ -14,6 +14,10 @@ from burst_tpu.kernels.rescore import make_rescore, make_rescore_gather
 from burst_tpu_torch.kernels import rescore as prescore
 from burst_tpu_torch.kernels import rescore_cuda
 
+# several test workers share the cores: keep PyTorch from starting a
+# thread per core in each of them
+torch.set_num_threads(2)
+
 
 def _case(seed, W=4, NT=12, lb=128, P=48, qlen_lo=80):
     """Reads cut from the tiles with up to 3 substitutions or indels,

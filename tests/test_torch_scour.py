@@ -17,6 +17,11 @@ from burst_tpu.process import (bin_queries_for_accel, process_queries,
                                process_references)
 from burst_tpu_torch import engine as pengine
 from burst_tpu_torch.kernels import scour_device as psd
+from burst_tpu_torch.state import from_reference
+
+# several test workers share the cores: keep PyTorch from starting a
+# thread per core in each of them
+torch.set_num_threads(2)
 
 
 def _workload(seed, k, n_refs=30, ref_len=600, n_reads=300):
@@ -66,11 +71,12 @@ def test_scour_align_rows_matches_jax(k, E, monkeypatch):
         rd.tot_units, jnp.asarray(smat), (jtiles, lp), W, E=E)()
 
     cpu = torch.device("cpu")
-    ptiles, plp = pengine._tiles_device_all(rd, cpu)
+    prd, pacc = from_reference(rd, acc)
+    ptiles, plp = pengine._tiles_device_all(prd, cpu)
     assert plp == lp
     np.testing.assert_array_equal(ptiles.numpy(), np.asarray(jtiles))
     got = psd.scour_align_rows(
-        qm, ql, k, mm_m, mm_i, psd.get_tables(acc, cpu), rd.tot_units,
+        qm, ql, k, mm_m, mm_i, psd.get_tables(pacc, cpu), rd.tot_units,
         torch.from_numpy(smat), ptiles, W, E=E)()
     assert set(got) == set(ref)
     for key in ref:
@@ -106,6 +112,7 @@ def test_cap_escalation_sticks(monkeypatch):
     qmat, qlens, qw = jengine._query_matrix(qd)
     z = np.zeros(b1 - b0, np.int64)
     cpu = torch.device("cpu")
+    rd, acc = from_reference(rd, acc)
     tabs = psd.get_tables(acc, cpu)
     ptiles, _ = pengine._tiles_device_all(rd, cpu)
     args = (qmat[b0:b1], qlens[b0:b1], 12, z, z)
