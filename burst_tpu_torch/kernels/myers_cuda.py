@@ -1,6 +1,7 @@
 """Wrappers of the Myers kernels: the pair kernel
 (`csrc/myers_pairs.cu`; K1 over the nibble-packed tile store, K2 over
-unpacked tiles) and the dense cross kernel (`csrc/myers_cross.cu`; K4).
+tiles of one code per byte, one kernel family reading the rows in place)
+and the dense cross kernel (`csrc/myers_cross.cu`; K4).
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version from `kernels.myers`. Each wrapper
@@ -9,25 +10,43 @@ counts its own launches in its `launches` attribute.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .myers import (myers_cross_plain, myers_pairs_packed_plain,
-                    myers_pairs_plain, pack_nibbles)
+                    myers_pairs_plain)
 
-MAX_W = 8           # Myers words per query the pair kernel takes
-MAX_W_CROSS = 16    # ... and the cross kernel
+MAX_W = 16          # Myers words per query the kernels take (512 bp)
 CROSS_TILES_PER_CTA = 128
+PAIR_SMEM_LIMIT = 48 * 1024   # static limit: no opt-in needed below it
+FMT_PACKED, FMT_BYTES = 0, 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"myers_pairs_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _P]}
+_SIG = {"myers_pairs_launch": [_P] * 5 + [_I] * 10 + [_P]}
 _SIG_CROSS = {"myers_cross_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}
 
 
-def _lib():
-    return _build.load("myers_pairs", _SIG)
+def pair_geometry(B: int, W: int, sms: int = 132) -> tuple[int, int, int]:
+    """(blocks, threads per CTA, dynamic shared-memory bytes) of a pair
+    kernel launch over B pairs of W-word queries. One thread owns one
+    pair and stages its Peq table (64 W bytes) in shared memory. Small
+    launches take one warp per CTA so that the pairs spread over every
+    SM; from four CTAs per SM on, CTAs of 64 then 128 threads, as far as
+    their tables stay within the 48 KB of shared memory a kernel may use
+    without opting in."""
+    threads = 32
+    for cand in (128, 64):
+        if cand * 64 * W <= PAIR_SMEM_LIMIT and -(-B // cand) >= 4 * sms:
+            threads = cand
+            break
+    return -(-B // threads), threads, threads * 64 * W
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_inputs(peq_all, tiles, pidx, tidx, W: int):
@@ -41,7 +60,7 @@ def _check_inputs(peq_all, tiles, pidx, tidx, W: int):
     if not 1 <= W <= MAX_W:
         raise NotImplementedError(
             f"W={W}: the pair kernel takes W <= {MAX_W} (queries up to "
-            f"{32 * MAX_W} bp)")
+            f"{32 * MAX_W} bp; longer ones: ROADMAP, limits)")
     if peq_all.dtype != torch.int32 or peq_all.dim() != 3 or \
             tuple(peq_all.shape[1:]) != (16, W):
         raise ValueError(f"peq_all must be int32 [NQ, 16, {W}], got "
@@ -53,20 +72,24 @@ def _check_inputs(peq_all, tiles, pidx, tidx, W: int):
         raise ValueError("pidx/tidx must be int32 vectors of one length")
 
 
-def _launch(peq_all, packed, pidx, tidx, W: int, ncols: int):
-    """[3, B] int32 from the kernel over a packed [NT, Lpb] store."""
-    Lpb = packed.shape[1]
-    if Lpb % 4 or packed.data_ptr() % 4:
-        raise ValueError("packed tile rows must be 4-byte aligned "
-                         f"(Lpb={Lpb})")
+def _launch(peq_all, tiles, pidx, tidx, W: int, fmt: int, ncols: int):
+    """[3, B] int32 from the pair kernel over the first `ncols` columns
+    of the rows of `tiles` (format `fmt`), read in place through tidx:
+    one launch, nothing allocated but the result."""
+    if peq_all.data_ptr() % 16:
+        raise ValueError("peq_all must be 16-byte aligned")
+    if 32 * W + ncols >= 32768:
+        raise ValueError(f"{ncols} tile columns: the kernel's packed "
+                         "position keys hold scores under 32768")
     B = pidx.shape[0]
     out = torch.empty((3, B), dtype=torch.int32, device=pidx.device)
     if B == 0:
         return out
-    err = _lib().myers_pairs_launch(
-        peq_all.data_ptr(), packed.data_ptr(), pidx.data_ptr(),
-        tidx.data_ptr(), out.data_ptr(), B, W, Lpb, ncols,
-        peq_all.shape[0], packed.shape[0],
+    blocks, threads, smem = pair_geometry(B, W, _sm_count(pidx.device))
+    err = _build.load("myers_pairs", _SIG).myers_pairs_launch(
+        peq_all.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
+        tidx.data_ptr(), out.data_ptr(), B, W, fmt, tiles.shape[1], ncols,
+        peq_all.shape[0], tiles.shape[0], blocks, threads, smem,
         torch.cuda.current_stream(pidx.device).cuda_stream)
     _build.check(err, "myers_pairs_launch")
     return out
@@ -83,7 +106,7 @@ def myers_pairs_packed(peq_all: torch.Tensor, tiles_packed: torch.Tensor,
     if not tiles_packed.is_cuda:
         return myers_pairs_packed_plain(peq_all, tiles_packed, pidx,
                                         tidx, W)
-    out = _launch(peq_all, tiles_packed, pidx, tidx, W,
+    out = _launch(peq_all, tiles_packed, pidx, tidx, W, FMT_PACKED,
                   2 * tiles_packed.shape[1])
     myers_pairs_packed.launches += int(pidx.shape[0] > 0)
     return out
@@ -95,21 +118,14 @@ myers_pairs_packed.launches = 0
 def myers_pairs(peq_all: torch.Tensor, tiles_all: torch.Tensor,
                 pidx: torch.Tensor, tidx: torch.Tensor, W: int
                 ) -> torch.Tensor:
-    """K2: [3, B] (ed, first, last) over unpacked tiles [NT, Lp]. The
-    gathered tiles are packed to nibble words in PyTorch, then scanned
-    by the same kernel as K1 over exactly Lp columns."""
+    """K2: [3, B] (ed, first, last) over tiles [NT, Lp] of one code per
+    byte, any Lp and any row alignment: the kernel gathers the rows
+    itself, all Lp columns scanned."""
     _check_inputs(peq_all, tiles_all, pidx, tidx, W)
     if not tiles_all.is_cuda:
         return myers_pairs_plain(peq_all, tiles_all, pidx, tidx, W)
-    Lp = tiles_all.shape[1]
-    tiles = tiles_all[tidx.long()]
-    pad = (-Lp) % 8                     # whole 4-byte words per row
-    if pad:
-        tiles = torch.nn.functional.pad(tiles, (0, pad))
-    packed = pack_nibbles(tiles).contiguous()
-    ident = torch.arange(pidx.shape[0], dtype=torch.int32,
-                         device=pidx.device)
-    out = _launch(peq_all, packed, pidx, ident, W, Lp)
+    out = _launch(peq_all, tiles_all, pidx, tidx, W, FMT_BYTES,
+                  tiles_all.shape[1])
     myers_pairs.launches += int(pidx.shape[0] > 0)
     return out
 
@@ -127,10 +143,10 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int
         raise ValueError(f"tiles on {tiles.device}, peq on {peq.device}")
     if not peq.is_contiguous() or not tiles.is_contiguous():
         raise ValueError("peq and tiles must be contiguous")
-    if not 1 <= W <= MAX_W_CROSS:
+    if not 1 <= W <= MAX_W:
         raise NotImplementedError(
-            f"W={W}: the cross kernel takes W <= {MAX_W_CROSS} (queries "
-            f"up to {32 * MAX_W_CROSS} bp; longer ones: ROADMAP, limits)")
+            f"W={W}: the cross kernel takes W <= {MAX_W} (queries "
+            f"up to {32 * MAX_W} bp; longer ones: ROADMAP, limits)")
     if peq.dtype != torch.int32 or peq.dim() != 3 or \
             tuple(peq.shape[1:]) != (16, W):
         raise ValueError(f"peq must be int32 [Q, 16, {W}], got "

@@ -1,8 +1,12 @@
 """Smoke run of burst_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # needs one card; about 3 min
+    python3 chip_smoke.py                 # needs one card; about 4 min
     python3 chip_smoke.py kernels         # phases 1-2 only (a first check
                                           # of a new kernel; no result line)
+    python3 chip_smoke.py pairs [old.cu]  # the pair kernel alone: build,
+                                          # checks and times of phase 2;
+                                          # with a source of the earlier
+                                          # interface, both timed in turns
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from `burst_tpu_torch/csrc` (one nvcc per
@@ -12,7 +16,13 @@ Phases, each fatal on failure:
   2. hold each kernel (K1, K2, K3, K4) against its plain PyTorch version
      on the card and against the package's native host twin, at the
      shapes its path gives it (exact equality: all integer arithmetic);
-     time both with CUDA events and compute each kernel's bound;
+     time both with CUDA events and compute each kernel's bound. The
+     pair kernel (K1 packed, K2 one code per byte) also at ragged shapes
+     (W = 1, 3, 8, 10, 16; odd Lp; rows and bases at unaligned
+     addresses; repeated tile indices), at B = 2^20 against the host
+     twin, and at the 292 bp amplicon shape (W = 10, Lp = 672); after
+     phase 3 once more at the B its batch launched K1 with, where K2
+     must be one launch that allocates only its result;
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -22,6 +32,9 @@ Phases, each fatal on failure:
      row, K4). 256 families (64 Mbp; the headline has 1024, cut so the
      whole script stays inside its time limit). The first 500 reads' b6 bytes must equal the port's own
      CPU run on the same database;
+     then 400 reads of 150-300 bp, two thirds with an N, on a 5-family
+     database (K1 at W=10, K2 at W=5..10, K3 at 10 words): the card's b6
+     bytes must equal the CPU run;
   4. direct path (no accelerator) at full width: 40 families (10 Mbp,
      about 31,000 units), 20,000 reads, BEST, both strands, every
      (query, unit) pair through K4: one warm batch, one timed, one more
@@ -37,6 +50,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import os
 import re
@@ -57,6 +71,9 @@ THRES = 0.98
 K = 12
 ACCEL_FAMILIES = 256     # the headline workload has 1024 (256 Mbp)
 DIRECT_READS = 20000
+# K1's launch on a warm accelerated batch: the scour hands it its whole
+# compaction buffer, cap_factor 4 x 4096 rows (phase 3 reads the real one)
+PATH_B = 16384
 KERNEL_SOURCES = ("myers_pairs", "rescore", "myers_cross")
 
 # The card's peaks for the bounds. Memory: 3.35 TB/s (H100 SXM data
@@ -66,18 +83,21 @@ KERNEL_SOURCES = ("myers_pairs", "rescore", "myers_cross")
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 67e12 / 4
 # 32-bit integer operations behind the bounds: only instructions that the
-# recurrence needs and that issue on the int32 ALU (not IMAD, which runs
-# on the FMA pipe and serves as a move or address arithmetic here, and not
-# loads, branches or loop control). Counted in the machine code of the
-# cross kernel's inner loop at W=4, which phase 1 recounts in every run
-# (H100, CUDA 12.8: one trip covers 16 (query, column) steps of 4 words in
-# 452 LOP3 + 147 SHF + 96 IADD3, the score update included = 10.86 per
-# word, and 16 LEA + 16 VIMNMX = 2 per step for the score's sign bits and
-# the running minimum). It is the least the compiler has shown this
-# recurrence to need, so it serves every Myers scan (K1, K2, K4).
+# recurrence needs and that run on the int32 ALU (not IMAD, which runs
+# on the FMA pipe and serves as a move, address arithmetic or, as IMAD.X,
+# a carry add here, and not loads, branches or loop control). Counted in
+# the machine code of the Myers kernels' inner loops at W=4, which phase 1
+# recounts in every run; the constants are the least the compiler has
+# shown this recurrence to need, so they serve every Myers scan (K1, K2,
+# K4). H100, CUDA 12.8. Per word: the packed pair kernel's loop covers 8
+# columns of 4 words in 235 LOP3 + 79 SHF + 25 IADD3 = 10.59 (its carry
+# adds mostly leave for the FMA pipe), the cross kernel's 16 (query,
+# column) steps in 452 LOP3 + 147 SHF + 96 IADD3 = 10.86. Per step: the
+# cross kernel's 16 LEA + 16 VIMNMX = 2 for the score's sign bits and the
+# running minimum; the pair kernel's position keys cost it 4.4.
 SCAN_WORD_OPCODES = ("LOP3", "SHF", "IADD3")
 SCAN_STEP_OPCODES = ("LEA", "VIMNMX")
-OPS_WORD, OPS_COL = 10.86, 2
+OPS_WORD, OPS_COL = 10.59, 2
 # Per DP cell of the rescore and per look-back doubling: the same pipe's
 # instructions of the row loop and of the doubling loop in the rescore
 # kernel's machine code (its compares and selects are the tie rule, so
@@ -101,12 +121,16 @@ def fail(msg: str):
 
 def time_ms(fn, reps: int) -> float:
     """Mean CUDA-event milliseconds of `fn` over `reps` runs, after one
-    warmup run."""
+    warmup run. The card first spins for about 2 ms while the host
+    enqueues the runs, so the events bracket device time alone: without
+    that a kernel of a few tens of microseconds is timed at the pace the
+    host launches it (some 15 us per call from Python)."""
     import torch
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)
     e0.record()
     for _ in range(reps):
         fn()
@@ -142,18 +166,19 @@ def scan_ops(pairs: float, cols: float, W: int) -> float:
     return pairs * cols * (OPS_WORD * W + OPS_COL)
 
 
-def phase_build():
+def phase_build(sources=KERNEL_SOURCES):
     from burst_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
-        sos = list(ex.map(_build.build, KERNEL_SOURCES))
-    for name, so in zip(KERNEL_SOURCES, sos):
+    with ThreadPoolExecutor(len(sources)) as ex:
+        sos = list(ex.map(_build.build, sources))
+    for name, so in zip(sources, sos):
         with open(os.path.join(_build.BUILD, f"lib{name}.ptxas.txt")) as f:
             lines = [ln.strip() for ln in f]
         regs, entry = [], ""
         for ln in lines:
             if "Compiling entry function" in ln:
-                # template arguments of the mangled name: W (and NQ)
+                # template arguments of the mangled name: W (and NQ, or
+                # the pair kernel's tile format: 0 packed, 1 bytes)
                 entry = "W=" + "/".join(re.findall(r"Li(\d+)E", ln))
             elif "Used " in ln:
                 regs.append(f"{entry}: " + ln.split("Used ")[1].split(
@@ -195,14 +220,14 @@ def sass_loops(fn_sass: str):
     return out
 
 
-def phase_sass(sos):
+def phase_sass(sos, sources=KERNEL_SOURCES):
     """Recount, in the machine code just built, the integer operations
     that the bounds' constants stand for; fails where a constant is above
     the count (the bound would then ask for more than the kernel does)."""
     from burst_tpu_torch.kernels import _build
     dump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     fns = {}
-    for name, so in zip(KERNEL_SOURCES, sos):
+    for name, so in zip(sources, sos):
         sass = subprocess.run([dump, "-sass", so], capture_output=True,
                               text=True, check=True).stdout
         for fn in re.split(r"\n\s*Function : ", sass)[1:]:
@@ -221,6 +246,21 @@ def phase_sass(sos):
             fail(f"{what}: the bound's constant {const} is above the "
                  f"machine code's {count:.2f}")
 
+    # K1/K2 at W=4: the loop with the most LOP3 is one tile word, 8
+    # columns of the packed format (0) and 4 of the byte format (1). Its
+    # steps also keep the two position keys, which the bound leaves out
+    for fmt, steps in (("0", 8), ("1", 4)):
+        hot = max(fns["myers_pairs", "4/" + fmt], key=lambda l: l[3]["LOP3"])
+        show("myers_pairs", "4/" + fmt, [hot])
+        ops = hot[3]
+        held(f"pair scan (format {fmt}) operations per word", OPS_WORD,
+             sum(ops[k] for k in SCAN_WORD_OPCODES) / (4 * steps))
+        per_step = sum(ops[k] for k in CELL_OPCODES
+                       if k not in SCAN_WORD_OPCODES) / steps
+        held(f"pair scan (format {fmt}) other integer operations per step",
+             OPS_COL, per_step)
+    if "myers_cross" not in sources:
+        return
     # K4 at W=4 (4 queries per thread): the loop with the most LOP3; one
     # VIMNMX per (query, column) step
     hot = max(fns["myers_cross", "4/4"], key=lambda l: l[3]["LOP3"])
@@ -233,7 +273,6 @@ def phase_sass(sos):
          OPS_WORD, sum(ops[k] for k in SCAN_WORD_OPCODES) / (4 * steps))
     held("scan operations per step",
          OPS_COL, sum(ops[k] for k in SCAN_STEP_OPCODES) / steps)
-    show("myers_pairs", "4")
     # K3: the doubling loop is the nested one that holds the barriers, the
     # row loop the one around it; each thread owns one DP column
     show("rescore", "")
@@ -249,25 +288,27 @@ def phase_sass(sos):
          sum(level[0][3][k] for k in CELL_OPCODES) - 1)
 
 
-def _k1k2_inputs(rng, W=4, NQ=4096, NT=16384, Lp=480, B=8192):
-    """Main-path K1/K2 shapes: 100 bp queries (W=4) against tiles of
-    360-422 bp units padded to Lp columns."""
+def _k1k2_inputs(rng, W=4, NQ=4096, NT=16384, Lp=480, B=8192, qlen=100,
+                 ulen=(360, 423), codes=5):
+    """K1/K2 inputs; by default the main path's shapes: 100 bp queries
+    (W=4) against tiles of 360-422 bp units padded to Lp columns."""
     import numpy as np
-    qs = rng.integers(1, 5, size=(NQ, 32 * W)).astype(np.uint8)
-    qlens = np.full(NQ, 100, np.int64)
+    qs = rng.integers(1, codes, size=(NQ, 32 * W)).astype(np.uint8)
+    qlens = np.full(NQ, qlen, np.int64)
     tiles = np.zeros((NT, Lp), np.uint8)
-    ulen = rng.integers(360, 423, NT)
+    ulen = rng.integers(*ulen, NT)
     for t in range(NT):
-        tiles[t, :ulen[t]] = rng.integers(1, 5, ulen[t])
+        tiles[t, :ulen[t]] = rng.integers(1, codes, ulen[t])
     # half the pairs see their query cut from the tile (small EDs)
     pidx = rng.integers(0, NQ, B).astype(np.int32)
     tidx = rng.integers(0, NT, B).astype(np.int32)
     for i in range(0, B, 2):
         t = tidx[i]
-        st = int(rng.integers(0, ulen[t] - 100))
-        q = tiles[t, st:st + 100].copy()
-        q[rng.integers(0, 100, 2)] = rng.integers(1, 5, 2)
-        qs[pidx[i], :100] = q
+        n = min(qlen, int(ulen[t]))
+        st = int(rng.integers(0, max(1, ulen[t] - n)))
+        q = tiles[t, st:st + n].copy()
+        q[rng.integers(0, n, 2)] = rng.integers(1, 5, 2)
+        qs[pidx[i], :n] = q
     return qs, qlens, tiles, pidx, tidx
 
 
@@ -282,66 +323,279 @@ def host_cross(peq_h, tiles_h, W: int):
     return myers_pairs_host(peq_h, tiles_h, pidx, tidx, W)[0].reshape(Q, T)
 
 
-def phase_kernels():
+class _PairCase:
+    """One set of pair-kernel inputs, on the host and on the card: Peq
+    planes, tiles in both formats (each at `offset` bytes past an aligned
+    address), and the pair indices."""
+
+    def __init__(self, rng, smat_d, W=4, offset=0, **kw):
+        import numpy as np
+        import torch
+
+        from burst_tpu_torch.kernels import myers
+        dev = smat_d.device
+        qs, qlens, tiles, self.pidx, self.tidx = _k1k2_inputs(rng, W=W, **kw)
+        self.W = W
+        self.peq = myers.build_peq_dev(torch.from_numpy(qs).to(dev),
+                                       torch.from_numpy(qlens).to(dev),
+                                       smat_d, W)
+        self.peq_h = self.peq.cpu().numpy().view(np.uint32)
+        self.tiles_h = tiles
+        # the packed store scans 2*Lpb columns: one pad column at odd Lp
+        self.tiles_h_even = np.pad(tiles, ((0, 0), (0, tiles.shape[1] % 2)))
+
+        def place(t):
+            flat = torch.empty(t.numel() + offset, dtype=torch.uint8,
+                               device=dev)
+            flat[offset:] = t.reshape(-1)
+            return flat[offset:].view(t.shape)
+        tiles_d = torch.from_numpy(tiles).to(dev)
+        self.tiles_d = place(tiles_d)
+        self.packed_d = place(myers.pack_nibbles(tiles_d).contiguous())
+
+    def shape(self, kern, B):
+        width = f"Lpb={self.packed_d.shape[1]}" if kern == "K1" else \
+            f"Lp={self.tiles_d.shape[1]}"
+        return f"W={self.W} {width} B={B}"
+
+    def fns(self, pidx, tidx):
+        """{K1, K2: (kernel call, plain call, their arguments)} over
+        these pairs."""
+        import torch
+
+        from burst_tpu_torch.kernels import myers, myers_cuda
+        pd = torch.from_numpy(pidx).to(self.peq.device)
+        td = torch.from_numpy(tidx).to(self.peq.device)
+        a1 = (self.peq, self.packed_d, pd, td, self.W)
+        a2 = (self.peq, self.tiles_d, pd, td, self.W)
+        return {"K1": (lambda: myers_cuda.myers_pairs_packed(*a1),
+                       lambda: myers.myers_pairs_packed_plain(*a1), a1),
+                "K2": (lambda: myers_cuda.myers_pairs(*a2),
+                       lambda: myers.myers_pairs_plain(*a2), a2)}
+
+    def bound(self, kern, B):
+        rowbytes = (self.packed_d if kern == "K1" else self.tiles_d).shape[1]
+        ncols = self.tiles_h_even.shape[1] if kern == "K1" else \
+            self.tiles_h.shape[1]
+        return bound(min(B, self.peq.shape[0]) * 64 * self.W
+                     + min(B, self.tiles_h.shape[0]) * rowbytes + 20 * B,
+                     scan_ops(B, ncols, self.W))
+
+
+def hold_pairs(label, case, pidx, tidx, plain=True):
+    """K1 and K2 over these pairs, exact against the native host twin and
+    (unless `plain` is off) the plain version on the card. Returns
+    (host twin's result, fns, {K1, K2: max abs err})."""
+    from burst_tpu_torch.kernels.host import myers_pairs_host
+    fns = case.fns(pidx, tidx)
+    host = myers_pairs_host(case.peq_h, case.tiles_h, pidx, tidx, case.W)
+    host1 = host if case.tiles_h_even.shape == case.tiles_h.shape else \
+        myers_pairs_host(case.peq_h, case.tiles_h_even, pidx, tidx, case.W)
+    errs = {}
+    for kern, ref in (("K1", host1), ("K2", host)):
+        got = fns[kern][0]().cpu().numpy()
+        errs[kern] = exact(f"{kern} {label} vs native host twin", got, ref)
+        if plain:
+            exact(f"{kern} {label} vs plain", got,
+                  fns[kern][1]().cpu().numpy())
+    return host, fns, errs
+
+
+def time_pairs(case, fns, B, reps=20, earlier=None):
+    """Times K1 and K2 beside their bounds, one line each. With the
+    earlier kernel, both in turns: earlier, this, this, earlier."""
+    out = {}
+    for kern in ("K1", "K2"):
+        b = case.bound(kern, B)
+        run = fns[kern][0]
+        if earlier is None or case.W > 8:
+            ms, was = time_ms(run, reps), ""
+        else:
+            old = lambda: earlier[kern](*fns[kern][2])
+            exact(f"{kern} earlier kernel", old().cpu().numpy(),
+                  run().cpu().numpy())
+            t = [time_ms(old, reps), time_ms(run, reps),
+                 time_ms(run, reps), time_ms(old, reps)]
+            ms = (t[1] + t[2]) / 2
+            was = (f"; in turns, earlier kernel {t[0]:.4f} and {t[3]:.4f} "
+                   f"ms, this one {t[1]:.4f} and {t[2]:.4f} ms")
+        log(f"[pairs] {kern} {case.shape(kern, B)}: kernel {ms:.4f} ms, "
+            f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / ms:.0f} % of the bound's rate{was}")
+        out[kern] = dict(ms=ms, **b)
+    return out
+
+
+def pair_recs(case, fns, errs, times, B):
+    """The kernel record's K1 and K2 entries at one shape."""
+    return [dict(
+        name=f"{kern} {fn}", route="cuda",
+        source="burst_tpu_torch/csrc/myers_pairs.cu",
+        replaces=f"burst_tpu/kernels/myers_pallas.py:{line}",
+        max_abs_err=errs[kern], plain_ms=time_ms(fns[kern][1], 1),
+        library_ms=None, counter=kern.lower(),
+        shape=case.shape(kern, B), **times[kern])
+        for kern, fn, line in (("K1", "myers_pairs_packed", 207),
+                               ("K2", "myers_pairs", 221))]
+
+
+def earlier_pair_kernel(src):
+    """{K1, K2: call} over a pair-kernel source of the earlier interface
+    (`myers_pairs_launch` over a packed store with 4-byte rows, W <= 8;
+    K2 gathered, padded and packed by PyTorch before it), for timing an
+    earlier kernel beside the package's in one run."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers
+    so = os.path.join(_build.BUILD, "libmyers_pairs_earlier.so")
+    os.makedirs(_build.BUILD, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.ARCH, "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", so, src],
+                   check=True)
+    fn = ctypes.CDLL(so).myers_pairs_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(peq, packed, pidx, tidx, W, ncols):
+        out = torch.empty((3, len(pidx)), dtype=torch.int32,
+                          device=pidx.device)
+        _build.check(fn(peq.data_ptr(), packed.data_ptr(), pidx.data_ptr(),
+                        tidx.data_ptr(), out.data_ptr(), len(pidx), W,
+                        packed.shape[1], ncols, peq.shape[0],
+                        packed.shape[0],
+                        torch.cuda.current_stream().cuda_stream),
+                     "earlier myers_pairs_launch")
+        return out
+
+    def k1(peq, packed, pidx, tidx, W):
+        return launch(peq, packed, pidx, tidx, W, 2 * packed.shape[1])
+
+    def k2(peq, tiles_all, pidx, tidx, W):
+        Lp = tiles_all.shape[1]
+        tiles = torch.nn.functional.pad(tiles_all[tidx.long()],
+                                        (0, (-Lp) % 8))
+        ident = torch.arange(len(pidx), dtype=torch.int32,
+                             device=pidx.device)
+        return launch(peq, myers.pack_nibbles(tiles).contiguous(), pidx,
+                      ident, W, Lp)
+    return {"K1": k1, "K2": k2}
+
+
+def phase_pairs(earlier=None):
+    """The pair kernel (K1 packed, K2 one code per byte) at the old
+    table's shape, at ragged shapes, at B = 2^20 and at the amplicon
+    shape. Returns (records at W=4 B=8192, that case, its host result)."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.alphabet import score_matrix
+    smat_d = torch.from_numpy(score_matrix()).to("cuda")
+    rng = np.random.default_rng(SEED)
+    # W=4, Lp=480 (Lpb=240), B=8192: the earlier records' row
+    main = _PairCase(rng, smat_d)
+    B = len(main.pidx)
+    host, fns, errs = hold_pairs(f"W=4 B={B}", main, main.pidx, main.tidx)
+    if host[0].min() > 4:
+        fail(f"pairs: no near pair among {B} (min ED {host[0].min()})")
+    recs = pair_recs(main, fns, errs,
+                     time_pairs(main, fns, B, earlier=earlier), B)
+    # ragged: every row of the byte format at an odd address (Lp odd) or
+    # off a 16-byte boundary, packed rows of 174 or 175 bytes, the tensors
+    # themselves `offset` bytes off, B no multiple of a warp, IUPAC codes,
+    # more pairs than tiles (repeats)
+    rng2 = np.random.default_rng(SEED + 2)
+    for W, Lp, offset in ((1, 347, 0), (3, 350, 1), (8, 347, 3),
+                          (10, 350, 0), (16, 347, 1), (4, 347, 2)):
+        c = _PairCase(rng2, smat_d, W=W, offset=offset, NQ=64, NT=301,
+                      Lp=Lp, B=1000 + W, qlen=32 * W - 5,
+                      ulen=(Lp - 120, Lp - 31), codes=16)
+        hold_pairs(f"ragged W={W} Lp={Lp} offset={offset}", c, c.pidx,
+                   c.tidx)
+        log(f"[pairs] ragged W={W} Lp={Lp} Lpb={c.packed_d.shape[1]} "
+            f"B={len(c.pidx)}, tensors {offset} bytes off alignment: K1 "
+            "and K2 exact vs plain and host twin")
+    # B = 2^20 at W=4: against the host twin only (the plain version
+    # takes minutes there)
+    big = 1 << 20
+    sel = rng.integers(0, B, big)
+    _, fns, _ = hold_pairs(f"W=4 B={big}", main, main.pidx[sel],
+                           main.tidx[sel], plain=False)
+    time_pairs(main, fns, big, reps=5, earlier=earlier)
+    # W=10: 292 bp amplicon reads against their 512- and 640-column unit
+    # buckets (1450 bp references sheared at 320; Lp = 640 + 32)
+    amp = _PairCase(rng, smat_d, W=10, NQ=4096, NT=8192, Lp=672, B=PATH_B,
+                    qlen=292, ulen=(552, 641))
+    _, fns, _ = hold_pairs(f"W=10 B={PATH_B}", amp, amp.pidx, amp.tidx)
+    time_pairs(amp, fns, PATH_B)
+    sel = rng.integers(0, PATH_B, 1 << 18)
+    _, fns, _ = hold_pairs(f"W=10 B={1 << 18}", amp, amp.pidx[sel],
+                           amp.tidx[sel], plain=False)
+    time_pairs(amp, fns, 1 << 18, reps=5)
+    # W=16, the widest query (1 KB of Peq per thread in shared memory)
+    wide = _PairCase(rng, smat_d, W=16, NQ=2048, NT=4096, Lp=1056,
+                     B=1 << 16, qlen=500, ulen=(900, 1025))
+    _, fns, _ = hold_pairs(f"W=16 B={1 << 16}", wide, wide.pidx, wide.tidx,
+                           plain=False)
+    time_pairs(wide, fns, 1 << 16, reps=5)
+    return recs, main, host
+
+
+def phase_pairs_path(main, B, earlier=None):
+    """K1 and K2 at W=4 and the B that the accelerated batch launched K1
+    with; K2 there must be one launch that allocates only its result.
+    Returns the kernel record's entries."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 3)
+    sel = rng.integers(0, len(main.pidx), B)
+    _, fns, errs = hold_pairs(f"W=4 B={B}", main, main.pidx[sel],
+                              main.tidx[sel])
+    recs = pair_recs(main, fns, errs,
+                     time_pairs(main, fns, B, earlier=earlier), B)
+    k2 = fns["K2"][0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = k2()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    Lp = main.tiles_d.shape[1]
+    if not out.numel() * 4 <= rise < B * Lp:
+        fail(f"K2 allocated {rise} bytes around one call: its [3, {B}] "
+             f"result is {out.numel() * 4}, a gathered [B, Lp] "
+             f"intermediate would be {B * Lp}")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        k2()
+        torch.cuda.synchronize()
+    seen = [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if sum(n for _, n in seen) > 1:
+        fail(f"K2 is more than one launch on the card: {seen}")
+    log(f"[pairs] K2 W=4 Lp={Lp} B={B}: device memory rose by {rise} bytes "
+        f"around one call (result {out.numel() * 4}; a [B, Lp] "
+        f"intermediate would be {B * Lp}); the profiler saw "
+        f"{seen or 'no device activity'}")
+    return recs
+
+
+def phase_kernels(earlier=None):
     import numpy as np
     import torch
 
     from burst_tpu_torch.alphabet import score_matrix
     from burst_tpu_torch.kernels import myers, myers_cuda, rescore, \
         rescore_cuda
-    from burst_tpu_torch.kernels.host import myers_pairs_host, \
-        rescore_pairs_host
+    from burst_tpu_torch.kernels.host import rescore_pairs_host
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-    smat = score_matrix()
-    smat_d = torch.from_numpy(smat).to(dev)
     W = 4
-    qs, qlens, tiles, pidx, tidx = _k1k2_inputs(rng)
-    peq = myers.build_peq_dev(torch.from_numpy(qs).to(dev),
-                              torch.from_numpy(qlens).to(dev), smat_d, W)
-    peq_h = peq.cpu().numpy().view(np.uint32)
-    tiles_d = torch.from_numpy(tiles).to(dev)
-    packed_d = myers.pack_nibbles(tiles_d).contiguous()
-    pidx_d = torch.from_numpy(pidx).to(dev)
-    tidx_d = torch.from_numpy(tidx).to(dev)
-    host = myers_pairs_host(peq_h, tiles, pidx, tidx, W)
-    B, Lp = len(pidx), tiles.shape[1]
-    recs = []
-
-    # K1: packed store, Lpb = 240, B = 8192
-    k1 = lambda: myers_cuda.myers_pairs_packed(peq, packed_d, pidx_d,
-                                               tidx_d, W)
-    k1p = lambda: myers.myers_pairs_packed_plain(peq, packed_d, pidx_d,
-                                                 tidx_d, W)
-    got = k1().cpu().numpy()
-    err = exact("K1 vs plain", got, k1p().cpu().numpy())
-    exact("K1 vs native host twin", got, host)
-    recs.append(dict(
-        name="K1 myers_pairs_packed", route="cuda",
-        source="burst_tpu_torch/csrc/myers_pairs.cu",
-        replaces="burst_tpu/kernels/myers_pallas.py:207",
-        max_abs_err=err, ms=time_ms(k1, 20), plain_ms=time_ms(k1p, 1),
-        **bound(min(B, len(qs)) * 64 * W + min(B, len(tiles)) * Lp // 2
-                + 20 * B, scan_ops(B, Lp, W)),
-        library_ms=None, counter="k1",
-        shape=f"W={W} Lpb={packed_d.shape[1]} B={B}"))
-
-    # K2: unpacked tiles, Lp = 480, B = 8192
-    k2 = lambda: myers_cuda.myers_pairs(peq, tiles_d, pidx_d, tidx_d, W)
-    k2p = lambda: myers.myers_pairs_plain(peq, tiles_d, pidx_d, tidx_d, W)
-    got = k2().cpu().numpy()
-    err = exact("K2 vs plain", got, k2p().cpu().numpy())
-    exact("K2 vs native host twin", got, host)
-    recs.append(dict(
-        name="K2 myers_pairs", route="cuda",
-        source="burst_tpu_torch/csrc/myers_pairs.cu",
-        replaces="burst_tpu/kernels/myers_pallas.py:221",
-        max_abs_err=err, ms=time_ms(k2, 20), plain_ms=time_ms(k2p, 1),
-        **bound(min(B, len(qs)) * 64 * W + min(B, len(tiles)) * Lp
-                + 20 * B, scan_ops(B, Lp, W)),
-        library_ms=None, counter="k2",
-        shape=f"W={W} Lp={Lp} B={B}"))
+    recs, main, host = phase_pairs(earlier)
+    peq, peq_h, tiles = main.peq, main.peq_h, main.tiles_h
+    pidx, tidx = main.pidx, main.tidx
+    rng = np.random.default_rng(SEED + 4)
+    smat_d = torch.from_numpy(score_matrix()).to(dev)
 
     # K3: the rescore winners of those pairs, budget 2 (98 % of 100 bp);
     # bucket tiles padded by 32W as engine.rescore_winners builds them
@@ -441,7 +695,7 @@ def phase_kernels():
         log(f"[kernels] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}), exact vs plain and host twin")
-    return recs
+    return recs, main
 
 
 def make_workload(n_fam: int, n_reads: int, n_mem: int = 10,
@@ -481,6 +735,29 @@ def _counters():
     from burst_tpu_torch.kernels import myers_cuda, rescore_cuda
     return dict(k1=myers_cuda.myers_pairs_packed, k2=myers_cuda.myers_pairs,
                 k3=rescore_cuda.rescore, k4=myers_cuda.myers_cross)
+
+
+def _record_pair_launches():
+    """Wraps the pair kernel's two call sites on the accelerated path.
+    Returns (the list that fills with (kernel, W, B, row bytes) per call,
+    a function that takes the wraps off again)."""
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.kernels import scour_device
+    seen = []
+    saved = [(scour_device, "myers_pairs_packed", "K1"),
+             (engine, "myers_pairs", "K2")]
+    saved = [(mod, name, kern, getattr(mod, name))
+             for mod, name, kern in saved]
+    for mod, name, kern, fn in saved:
+        def recording(peq, tiles, pidx, tidx, W, fn=fn, kern=kern):
+            seen.append((kern, W, len(pidx), tiles.shape[1]))
+            return fn(peq, tiles, pidx, tidx, W)
+        setattr(mod, name, recording)
+
+    def undo():
+        for mod, name, _, fn in saved:
+            setattr(mod, name, fn)
+    return seen, undo
 
 
 def _timed_batch(al, qheads, reads, need):
@@ -558,10 +835,23 @@ def phase_accel(launch_log):
     log(f"[accel] warmup {time.perf_counter() - t0:.1f} s (bucket tiles + "
         f"one {len(reads)}-read batch)")
 
-    b6, dt, launches, peak = _timed_batch(al, qheads, reads,
-                                          ("k1", "k2", "k3", "k4"))
+    seen, undo = _record_pair_launches()
+    try:
+        b6, dt, launches, peak = _timed_batch(al, qheads, reads,
+                                              ("k1", "k2", "k3", "k4"))
+    finally:
+        undo()
     rows = b6.count(NL)
     st = al.last_stats
+    shapes = collections.Counter(seen)
+    log("[accel] pair kernel launches (kernel, W, B, row bytes) x count: "
+        + ", ".join(f"{k} x {n}" for k, n in sorted(shapes.items())))
+    k1_slots = sum(B for kern, _, B, _ in seen if kern == "K1")
+    log(f"[accel] K1 scanned {k1_slots} compaction-buffer slots for "
+        f"{st['dev_pairs']} live device pairs "
+        f"({100 * st['dev_pairs'] / max(1, k1_slots):.0f} % live)")
+    launch_log["k1_B"] = collections.Counter(
+        B for kern, _, B, _ in seen if kern == "K1").most_common(1)[0][0]
     log(f"[accel] timed batch: {len(reads)} reads in {dt:.3f} s = "
         f"{len(reads) / dt:.1f} reads/s, {rows} b6 rows")
     log(f"[accel] launches K1={launches['k1']} K2={launches['k2']} "
@@ -809,6 +1099,81 @@ def phase_modes():
             f"{rd.tot_units} units, identical to the CPU path")
 
 
+def phase_long_reads():
+    """Accelerated BEST with 150-300 bp reads (W = 5..10), two thirds of
+    them carrying an N, on a 5-family database: K1 at W=10 over the clear
+    rows, K2 over the ambiguous rows' pairs bucketed by W, K3 at 10 words.
+    The card's b6 bytes must equal the port's CPU run."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.accel import build_accelerator
+    from burst_tpu_torch.process import process_references
+    from burst_tpu_torch.serving import Aligner
+    rng = np.random.default_rng(SEED + 5)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    refs, rheads = [], []
+    for f in range(5):
+        anc = rng.choice(bases, size=6000)
+        for m in range(4):
+            r = anc.copy()
+            pos = rng.integers(0, len(r), 60)
+            r[pos] = bases[rng.integers(0, 4, 60)]
+            refs.append(r)
+            rheads.append(b"f%dm%d" % (f, m))
+    reads, qheads = [], []
+    for i in range(400):
+        src = refs[int(rng.integers(0, len(refs)))]
+        n = int(rng.integers(150, 301))
+        st = int(rng.integers(0, len(src) - n))
+        r = src[st:st + n].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            r[int(rng.integers(0, n))] = bases[int(rng.integers(0, 4))]
+        if i % 3:
+            r[int(rng.integers(0, n))] = ord("N")
+        reads.append(r)
+        qheads.append(b"q%03d" % i)
+    rd = process_references(rheads, [r.copy() for r in refs], max_len_q=300,
+                            thres=THRES, rebase=True, rebase_amt=320,
+                            curate=2)
+    acc = build_accelerator(rd, k=K, z=1)
+    counters = _counters()
+    out = {}
+    for device in ("cuda", "cpu"):
+        al = Aligner(rd, acc, thres=THRES, mode="BEST", do_rc=True,
+                     device=torch.device(device))
+        before = {k: c.launches for k, c in counters.items()}
+        seen, undo = _record_pair_launches()
+        try:
+            out[device] = al.align_batch(qheads, [r.copy() for r in reads])
+        finally:
+            undo()
+        if device == "cuda":
+            idle = [k for k in ("k1", "k2", "k3")
+                    if counters[k].launches == before[k]]
+            if idle:
+                fail(f"long reads: {idle} did not launch on the card")
+            widths = sorted({(kern, W) for kern, W, _, _ in seen})
+    if out["cuda"].count(NL) < len(reads) // 2:
+        fail(f"long reads: only {out['cuda'].count(NL)} rows")
+    _same_bytes("accelerated BEST, 150-300 bp reads", out["cuda"],
+                out["cpu"])
+    log(f"[long] {len(reads)} reads of 150-300 bp on {rd.tot_units} units: "
+        f"{out['cuda'].count(NL)} b6 rows identical to the CPU path; pair "
+        f"kernel launches at (kernel, W): {widths}")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -816,12 +1181,27 @@ def main():
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
+    if sys.argv[1:2] == ["pairs"]:
+        sos = phase_build(("myers_pairs",))
+        earlier = earlier_pair_kernel(sys.argv[2]) if sys.argv[2:] else None
+        _, main_case, _ = phase_pairs(earlier)
+        phase_pairs_path(main_case, PATH_B, earlier)
+        phase_sass(sos, ("myers_pairs",))
+        print(card_line(), flush=True)
+        return
     phase_sass(phase_build())
-    recs = phase_kernels()
+    recs, main_case = phase_kernels()
     if sys.argv[1:] == ["kernels"]:
+        phase_pairs_path(main_case, PATH_B)
         return
     launch_log = {}
     phase_accel(launch_log)
+    # K1 and K2 once more, at the B the batch launched K1 with: these lead
+    # the kernel record, the B = 8192 entries ride along under "also"
+    at_path = phase_pairs_path(main_case, launch_log.pop("k1_B"))
+    del main_case
+    recs = [at_path[0], recs[0], at_path[1], recs[1]] + recs[2:]
+    phase_long_reads()
     phase_direct(launch_log)
     phase_modes()
     # one entry per kernel, at the shape of the path that counts its
@@ -840,13 +1220,7 @@ def main():
             kernels.append(r)
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,10 @@
 """Port parity: burst_tpu_torch's plain Myers pair scan (K1/K2) and its
 helpers equal burst_tpu's jnp scan and the numpy host twin, bit for
 bit. Inputs come from numpy seeds; tolerance is exact equality (all
-integer arithmetic)."""
+integer arithmetic). Also, on the CPU, what of the CUDA pair kernel can
+be held without a card: its fused column step, its walk over a tile row
+(16-byte groups, unaligned rows, packed position keys, checked tail),
+both written out in numpy, and its launch geometry."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,6 +125,284 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         myers_cuda.myers_pairs(peq_t, _t(tiles), _t(pidx.astype(np.int64)),
                                _t(tidx), 2)
-    with pytest.raises(NotImplementedError):
-        myers_cuda.myers_pairs(torch.zeros((1, 16, 9), dtype=torch.int32),
-                               _t(tiles), _t(pidx), _t(tidx), 9)
+    W = myers_cuda.MAX_W + 1
+    assert W == 17
+    for fn in (myers_cuda.myers_pairs, myers_cuda.myers_pairs_packed):
+        with pytest.raises(NotImplementedError, match="W <= 16"):
+            fn(torch.zeros((1, 16, W), dtype=torch.int32), _t(tiles),
+               _t(pidx), _t(tidx), W)
+
+
+def _tie_pairs(seed, W, Lp, NQ=8, NT=8, B=48):
+    """Inputs full of ties: homopolymer tiles, tiles that repeat their
+    query several times, and queries that are homopolymers or periodic,
+    so that many columns reach the minimum (first != last)."""
+    rng = np.random.default_rng(seed)
+    m = 32 * W
+    qlens = rng.integers(max(1, m - 31), m + 1, size=NQ).astype(np.int64)
+    qs = np.zeros((NQ, m), np.uint8)
+    for i in range(NQ):
+        period = (1, 2, 3, 7)[i % 4]
+        qs[i] = np.resize(rng.integers(1, 5, period), m)
+    qs[NQ - 1, rng.integers(0, m, 3)] = 15              # a few N rows
+    tiles = np.zeros((NT, Lp), np.uint8)
+    for t in range(NT):
+        if t % 2:
+            tiles[t] = 1 + t % 4                        # homopolymer
+        else:
+            tiles[t] = np.resize(qs[t % NQ, :qlens[t % NQ]], Lp)
+    peq = jmyers.build_peq(qs, qlens, W, score_matrix())
+    pidx = rng.integers(0, NQ, B).astype(np.int32)
+    tidx = rng.integers(0, NT, B).astype(np.int32)      # with repeats
+    return peq, tiles, pidx, tidx
+
+
+@pytest.mark.parametrize("W,Lp", [(10, 350), (16, 530)])
+def test_pairs_plain_matches_jax_wide_and_tied(W, Lp):
+    """W = 10 (292 bp amplicon reads) and 16, on inputs full of ties."""
+    peq, tiles, pidx, tidx = _tie_pairs(W, W, Lp)
+    ref = np.asarray(jmyers.myers_min_ed_gather_pos(
+        jnp.asarray(peq), jnp.asarray(tiles), jnp.asarray(pidx),
+        jnp.asarray(tidx), W))
+    assert (ref[1] != ref[2]).sum() > len(pidx) // 2     # ties are there
+    peq_t = _t(peq.view(np.int32))
+    got = myers_cuda.myers_pairs(peq_t, _t(tiles), _t(pidx), _t(tidx), W)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        myers_pairs_np(peq, tiles, pidx, tidx, W), ref)
+    packed = jmyers.pack_nibbles_np(tiles)
+    refp = np.asarray(jmyers.myers_min_ed_gather_pos_packed(
+        jnp.asarray(peq), jnp.asarray(packed), jnp.asarray(pidx),
+        jnp.asarray(tidx), W))
+    gotp = myers_cuda.myers_pairs_packed(peq_t, _t(packed), _t(pidx),
+                                         _t(tidx), W)
+    np.testing.assert_array_equal(gotp.numpy(), refp)
+    np.testing.assert_array_equal(gotp.numpy(), ref)     # Lp is even
+
+
+def test_pairs_packed_pallas_interpret_tied(monkeypatch):
+    """The interpret-mode Pallas K1 entry on inputs full of ties."""
+    from burst_tpu.kernels import myers_pallas
+    monkeypatch.setenv("BURST_TPU_PALLAS_INTERPRET", "1")
+    peq, tiles, pidx, tidx = _tie_pairs(21, 1, 64, NQ=16, NT=16, B=1024)
+    packed = jmyers.pack_nibbles_np(tiles)
+    ref = np.asarray(myers_pallas.myers_pairs_pallas_packed(
+        jnp.asarray(peq), jnp.asarray(packed), jnp.asarray(pidx),
+        jnp.asarray(tidx), 1))
+    assert (ref[1] != ref[2]).sum() > 256
+    got = myers_cuda.myers_pairs_packed(_t(peq.view(np.int32)),
+                                        _t(packed), _t(pidx), _t(tidx), 1)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+# ---- the CUDA pair kernel's arithmetic, written out in numpy
+
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _funnel_l1(lo, hi):
+    """__funnelshift_l(lo, hi, 1): (hi << 1) | (lo >> 31)."""
+    return ((hi << np.uint64(1)) & M32) | (lo >> np.uint64(31))
+
+
+def _fused_column_np(eq, VP, VN):
+    """The kernel's column step: one pass over the words, the sum's
+    carry-out taken from a 64-bit sum, the shifted Ph/Mh taking their
+    carry-in through a funnel shift, VP/VN ([n, W] uint64 holding u32)
+    updated in place. Returns the score change."""
+    W = VP.shape[1]
+    carry = np.zeros(len(VP), np.uint64)
+    ph_prev = np.zeros(len(VP), np.uint64)
+    mh_prev = np.zeros(len(VP), np.uint64)
+    for w in range(W):
+        e, vp, vn = eq[:, w], VP[:, w].copy(), VN[:, w].copy()
+        s = (e & vp) + vp + carry
+        carry = s >> np.uint64(32)
+        xh = ((s & M32) ^ vp) | e
+        ph = vn | (~(xh | vp) & M32)
+        mh = vp & xh
+        xv = e | vn
+        phs = _funnel_l1(ph_prev, ph)
+        mhs = _funnel_l1(mh_prev, mh)
+        ph_prev, mh_prev = ph, mh
+        VP[:, w] = mhs | (~(xv | phs) & M32)
+        VN[:, w] = phs & xv
+    return (ph >> np.uint64(31)).astype(np.int64) - \
+        (mh >> np.uint64(31)).astype(np.int64)
+
+
+@pytest.mark.parametrize("W", range(1, 17))
+def test_fused_column_equals_two_pass(W):
+    """Random VP/VN/Eq states and the cases whose carry runs through
+    every word (Eq and VP all ones, with and without one low bit), over
+    a few chained columns."""
+    rng = np.random.default_rng(900 + W)
+    n = 256
+    VP = rng.integers(0, 1 << 32, (n, W), dtype=np.uint64)
+    VN = rng.integers(0, 1 << 32, (n, W), dtype=np.uint64) & ~VP & M32
+    VP[:8], VN[:8] = M32, 0
+    VP[8:16, 1:], VN[8:16] = M32, 0
+    for step in range(4):
+        eq = rng.integers(0, 1 << 32, (n, W), dtype=np.uint64)
+        eq[:4] = M32
+        eq[4:8] = 1
+        eq[8:12] = M32
+        tVP = [torch.from_numpy(VP[:, w].astype(np.int64)) for w in range(W)]
+        tVN = [torch.from_numpy(VN[:, w].astype(np.int64)) for w in range(W)]
+        teq = [torch.from_numpy(eq[:, w].astype(np.int64)) for w in range(W)]
+        ref = myers._col_step(teq, tVP, tVN, W)
+        got = _fused_column_np(eq, VP, VN)
+        np.testing.assert_array_equal(got, ref.numpy())
+        np.testing.assert_array_equal(
+            VP.astype(np.int64), torch.stack(tVP, 1).numpy())
+        np.testing.assert_array_equal(
+            VN.astype(np.int64), torch.stack(tVN, 1).numpy())
+
+
+def _pair_kernel_np(peq, mem, base, NT, rowbytes, ncols, pidx, tidx, W,
+                    fmt):
+    """The pair kernel's walk for every pair at once: `mem` is a byte
+    buffer, the tile tensor its bytes [base, base + NT*rowbytes). Rows
+    are read as 16-byte groups, one group ahead; a buffer that is not
+    16-byte aligned goes through aligned 4-byte words and a funnel
+    shift, with bytes outside the tensor never read. Eq words are
+    fetched two columns ahead. Whole tile words run with packed position
+    keys merged once per word, the columns of a last partial word in the
+    checked loop."""
+    C, BITS = (8, 4) if fmt == myers_cuda.FMT_PACKED else (4, 8)
+    B = len(pidx)
+    lo, hi = base, base + NT * rowbytes
+    aligned = rowbytes % 16 == 0 and base % 16 == 0
+    rows = base + tidx.astype(np.int64) * rowbytes
+    touched = np.zeros(len(mem), bool)
+
+    def byte(addr):
+        ok = (addr >= lo) & (addr < hi)
+        touched[addr[ok]] = True
+        return np.where(ok, mem[np.clip(addr, 0, len(mem) - 1)], 0
+                        ).astype(np.uint64)
+
+    def word_at(addr):               # 4 bytes, little endian
+        return sum(byte(addr + b) << np.uint64(8 * b) for b in range(4))
+
+    nfull, rem = divmod(ncols, C)
+    ngroups = (nfull + (rem != 0) + 3) >> 2
+
+    def load_group(g):
+        if g >= ngroups:
+            return [np.zeros(B, np.uint64)] * 4
+        if aligned:
+            return [word_at(rows + 16 * g + 4 * i) for i in range(4)]
+        mis = rows & 3
+        a = rows - mis + 16 * g
+        w = [word_at(a + 4 * i) for i in range(5)]
+        sh = (8 * mis).astype(np.uint64)
+        return [((w[i] | (w[i + 1] << np.uint64(32))) >> sh) & M32
+                for i in range(4)]
+
+    peq64 = peq.astype(np.uint64)[pidx]                    # [B, 16, W]
+    take = lambda code: peq64[np.arange(B), code.astype(np.int64)]
+    VP = np.full((B, W), M32, np.uint64)
+    VN = np.zeros((B, W), np.uint64)
+    score = np.full(B, 32 * W, np.int64)
+    best, first, last = score.copy(), np.zeros(B, np.int64), \
+        np.zeros(B, np.int64)
+    BIG = np.int64(2**31 - 1)
+
+    def merge(k1, k2, jb):
+        nonlocal best, first, last
+        wb = k1 >> 16
+        first = np.where(wb < best, jb + 1 + (k1 & 0xFFFF), first)
+        last = np.where(wb <= best, jb + C - (k2 & 0xFFFF), last)
+        best = np.minimum(best, wb)
+
+    q, n1 = load_group(0), load_group(1)
+    word = q[0]
+    # eq, e1: the Eq words of the column at hand and of the next one; the
+    # column after that is fetched while the one at hand computes
+    eq = take(word & np.uint64(15))
+    e1 = take((word >> np.uint64(BITS)) & np.uint64(15))
+    for wi in range(nfull):
+        if wi & 3 == 3:
+            q, n1 = n1, load_group((wi >> 2) + 2)
+        else:
+            q = q[1:] + [q[3]]
+        nxt = q[0]
+        k1, k2 = np.full(B, BIG), np.full(B, BIG)
+        for sub in range(C):
+            src = word if sub + 2 < C else nxt
+            e2 = take((src >> np.uint64(BITS * ((sub + 2) % C)))
+                      & np.uint64(15))
+            score = score + _fused_column_np(eq, VP, VN)
+            k1 = np.minimum(k1, score * 65536 + sub)
+            k2 = np.minimum(k2, score * 65536 + (C - 1 - sub))
+            eq, e1 = e1, e2
+        merge(k1, k2, wi * C)
+        word = nxt
+    if rem:
+        k1, k2 = np.full(B, BIG), np.full(B, BIG)
+        word = word >> np.uint64(BITS)
+        for sub in range(rem):
+            word = word >> np.uint64(BITS)
+            e2 = take(word & np.uint64(15))
+            score = score + _fused_column_np(eq, VP, VN)
+            k1 = np.minimum(k1, score * 65536 + sub)
+            k2 = np.minimum(k2, score * 65536 + (C - 1 - sub))
+            eq, e1 = e1, e2
+        merge(k1, k2, nfull * C)
+    assert not touched[:lo].any() and not touched[hi:].any()
+    return np.stack([best, first, last]).astype(np.int32)
+
+
+@pytest.mark.parametrize("W,Lp,base", [
+    (1, 33, 0), (3, 101, 16), (4, 96, 32), (4, 100, 3), (8, 80, 16),
+    (10, 347, 5), (16, 77, 2), (2, 7, 1), (5, 16, 16)])
+def test_pair_kernel_walk_matches_plain(W, Lp, base):
+    """The kernel's walk in numpy equals the plain versions, in both tile
+    formats, at ragged widths, with rows at unaligned addresses, repeated
+    tile indices, and the last row ending with the buffer."""
+    if W * Lp > 1000:
+        peq, tiles, pidx, tidx = _tie_pairs(W + Lp, W, Lp, B=24)
+    else:
+        _, _, peq, tiles, pidx, tidx = _pairs(300 + W, W, Lp)
+    tidx[:2] = len(tiles) - 1, 0
+    peq_t = _t(peq.view(np.int32))
+    for fmt, store in ((myers_cuda.FMT_BYTES, tiles),
+                       (myers_cuda.FMT_PACKED,
+                        jmyers.pack_nibbles_np(tiles))):
+        NT, rowbytes = store.shape
+        mem = np.full(base + store.size, 0xEE, np.uint8)
+        mem[base:] = store.ravel()
+        if fmt == myers_cuda.FMT_BYTES:
+            ref = myers.myers_pairs_plain(peq_t, _t(store), _t(pidx),
+                                          _t(tidx), W)
+            ncols = rowbytes
+        else:
+            ref = myers.myers_pairs_packed_plain(peq_t, _t(store), _t(pidx),
+                                                 _t(tidx), W)
+            ncols = 2 * rowbytes
+        got = _pair_kernel_np(peq, mem, base, NT, rowbytes, ncols, pidx,
+                              tidx, W, fmt)
+        np.testing.assert_array_equal(got, ref.numpy())
+
+
+def test_pair_geometry_covers_every_launch():
+    """For every W and B from 1 to 2^22: the grid covers B, threads are
+    whole warps, shared memory holds every thread's Peq table and stays
+    within what a block can be given; small launches spread over the SMs
+    and large ones take larger CTAs."""
+    Bs = sorted({b for k in range(23) for b in
+                 (2**k - 1, 2**k, 2**k + 1, 3 * 2**k // 2)
+                 if 1 <= b <= 2**22} | set(range(1, 700)))
+    for W in range(1, 17):
+        for B in Bs:
+            blocks, threads, smem = myers_cuda.pair_geometry(B, W)
+            assert blocks * threads >= B > (blocks - 1) * threads
+            assert threads % 32 == 0 and 32 <= threads <= 1024
+            assert smem == threads * 64 * W
+            assert smem <= myers_cuda.PAIR_SMEM_LIMIT <= 232448
+            assert blocks < 2**31
+    assert myers_cuda.pair_geometry(8192, 4) == (256, 32, 8192)
+    assert myers_cuda.pair_geometry(16384, 4) == (512, 32, 8192)
+    assert myers_cuda.pair_geometry(2**20, 4) == (8192, 128, 32768)
+    assert myers_cuda.pair_geometry(2**20, 16) == (32768, 32, 32768)

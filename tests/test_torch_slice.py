@@ -80,6 +80,66 @@ def test_slice_b6_matches_jax(bench_db, E, monkeypatch):
     assert rescore_cuda.rescore.launches == 0
 
 
+def test_slice_long_reads_with_n_matches_jax(monkeypatch):
+    """150-300 bp reads (W = 5..10), most of them carrying an N: the
+    clear rows go through K1 at W = 10 and the ambiguous rows' side
+    pairs through `_pairs_min_ed` and K2, bucketed by W; same b6 bytes
+    as burst_tpu."""
+    from burst_tpu.kernels import scour_device as jsd
+    from burst_tpu.serving import Aligner as JAligner
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.serving import Aligner
+    from burst_tpu_torch.state import from_reference
+
+    rng = np.random.default_rng(292)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fams = [rng.choice(bases, size=1500) for _ in range(3)]
+    refs, rheads = [], []
+    for f, anc in enumerate(fams):
+        for m in range(3):
+            r = anc.copy()
+            pos = rng.integers(0, len(r), 15)
+            r[pos] = bases[rng.integers(0, 4, 15)]
+            refs.append(r)
+            rheads.append(b"f%dm%d" % (f, m))
+    reads, qheads = [], []
+    for i in range(90):
+        src = refs[int(rng.integers(0, len(refs)))]
+        n = int(rng.integers(150, 301))
+        st = int(rng.integers(0, len(src) - n))
+        r = src[st:st + n].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            r[int(rng.integers(0, n))] = bases[int(rng.integers(0, 4))]
+        if i % 3:
+            r[int(rng.integers(0, n))] = ord("N")
+        reads.append(r)
+        qheads.append(b"q%03d" % i)
+    rd = process_references(rheads, [r.copy() for r in refs],
+                            max_len_q=300, thres=0.98, rebase=True,
+                            rebase_amt=320, curate=2)
+    acc = build_accelerator(rd, k=12, z=1)
+    monkeypatch.setenv("BURST_TPU_SCOUR_E", "3072")
+    monkeypatch.setenv("BURST_TPU_DEV_SCOUR", "1")
+    monkeypatch.setenv("BURST_TPU_SCOUR_CHUNK", "1024")
+    monkeypatch.setattr(jsd, "CHUNK_ROWS", 1024)
+    ref = JAligner(rd, acc, thres=0.98, mode="BEST", do_rc=True
+                   ).align_batch(qheads, [r.copy() for r in reads])
+    side_w = set()
+    pairs_min_ed = engine._pairs_min_ed
+
+    def seen(qd, db, pj, pp):
+        side_w.update(engine._query_matrix(qd)[2][pj].tolist())
+        return pairs_min_ed(qd, db, pj, pp)
+    monkeypatch.setattr(engine, "_pairs_min_ed", seen)
+    al = Aligner(*from_reference(rd, acc), thres=0.98, mode="BEST",
+                 do_rc=True, device="cpu")
+    got = al.align_batch(qheads, [r.copy() for r in reads])
+    assert ref.count(b"\n") > 60
+    assert got == ref
+    assert al.last_stats["side_pairs"] > 0 and al.last_stats["dev_pairs"] > 0
+    assert min(side_w) >= 5 and max(side_w) == 10 and len(side_w) >= 4
+
+
 def test_align_stream_matches_batches(bench_db):
     """Pipelined streaming yields the same bytes as batch calls, in
     order."""
@@ -120,6 +180,14 @@ def test_outside_slice_raises(bench_db):
     # a batch of nothing but such rows still needs the two-step path
     with pytest.raises(NotImplementedError, match="M7"):
         al.align_batch([b"s"], batch[:1])
+    # reads of 257-512 bp (W = 9..16) are inside the pair kernel's range
+    # now; longer ones still raise, on either path
+    rng = np.random.default_rng(5)
+    for acc in (None, pacc):
+        al = Aligner(prd, acc, thres=0.98, mode="BEST", device="cpu")
+        al.align_batch([b"u"], [rng.choice(bases, size=300)])
+        with pytest.raises(NotImplementedError, match="W=17"):
+            al.align_batch([b"v"], [rng.choice(bases, size=520)])
 
 
 def test_import_without_jax():
