@@ -1,17 +1,20 @@
 """Alignment engine: phase-A scan, winner selection, phase-B rescore ->
 result pods.
 
-Counterpart of the parts of `burst_tpu.engine` that two paths run: the
+Counterpart of the parts of `burst_tpu.engine` that three paths run: the
 direct path (no accelerator; `iter_ed_blocks`, `compute_ed_matrix`,
 `compute_ed_select`: every query against every unit through the dense
-cross kernel K4) and BEST mode with an accelerator at QBUNCH=1
+cross kernel K4), BEST mode with an accelerator at QBUNCH=1
 (`accel_scan_fused` and what it reaches: K1 in the fused scour, K2 for
-the side pairs, K4 for full-scan rows). Both end in `rescore_winners`
-(K3). Host-side numpy logic is carried over unchanged so that the pods,
-and so the b6 bytes, are identical; device work is PyTorch ops plus the
-hand-written kernels. There is no fallback that hides the device: a
-step that the port does not cover raises NotImplementedError naming the
-ROADMAP item that will bring it.
+the side pairs, K4 for full-scan rows), and the two-step accelerated
+path of the other modes (`accel_candidates`: the device scour at any
+QBUNCH into candidate visit lists; `compute_ed_matrix_accel`: their
+expanded pairs through K2, full-scan rows through K4). All end in
+`rescore_winners` (K3). Host-side numpy logic is carried over unchanged
+so that the pods, and so the b6 bytes, are identical; device work is
+PyTorch ops plus the hand-written kernels. There is no fallback that
+hides the device: a step that the port does not cover raises
+NotImplementedError naming the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from .kernels.myers import build_peq_dev, words_for
 from .kernels.myers_cuda import MAX_W, myers_cross, myers_pairs
 from .kernels.rescore import rescore_finalize_host
 from .kernels.rescore_cuda import rescore_pairs_gather
-from .native import pad_rows_native, scour_native
+from .native import expand_pairs_native, pad_rows_native, scour_native
 from .process import QueryData, RefData
 
 VECSZ = 16      # the reference's clump width; defines pod ordering only
@@ -57,12 +60,26 @@ class Visits:
     flat[offs[j]:offs[j+1]] is unibin j's ordered visit list
     (pigeonhole-filtered candidates by hit count desc, first touch asc,
     then the BadList); unibins with full[j] set have empty segments and
-    are covered by the full scan; pass_keys are the sorted
-    j*tot_units+unit keys passing the per-unit prefilter."""
+    are covered by the full scan."""
     flat: np.ndarray
     offs: np.ndarray
     full: np.ndarray
-    pass_keys: np.ndarray
+    # sound per-unit prefilter (accel.build_unit_index): pairs of
+    # `filtered` unibins are evaluated only if their key is in
+    # `pass_keys` or the unit belongs to a BadList clump
+    pass_keys: np.ndarray | None = None   # sorted j*tot_units+unit
+    filtered: np.ndarray | None = None    # [n] bool
+    bad_clump: np.ndarray | None = None   # [n_clumps] bool
+    # bunch-level candidate lists (before the member filter), for ANY's
+    # inline-order report: bunch g's list is bflat[boffs[g]:boffs[g+1]]
+    # followed by the BadList
+    bflat: np.ndarray | None = None
+    boffs: np.ndarray | None = None
+    qbunch: int = 1
+    bad_list: np.ndarray | None = None
+    # rows the device scour handed to the exact host re-scour for
+    # overflowing their slot budget: {"bunch_ov_rows", "member_ov_rows"}
+    stats: dict | None = None
 
 
 @dataclasses.dataclass
@@ -112,6 +129,10 @@ class SparseED:
         last[hit] = self.plast[so][loc[hit]]
         first[hit] = self.pfirst[so][loc[hit]]
         return first, last
+
+    def lookup_last(self, juni, refpos, tot_units: int):
+        """Last best column per (unibin, unit) winner; -1 if unknown."""
+        return self.lookup_cols(juni, refpos, tot_units)[1]
 
 
 # ------------------------------------------------------------ host shapes
@@ -279,10 +300,21 @@ def _inject_device_peq(qd, b0: int, b1: int, W: int, db, fetch):
 
 # ------------------------------------------------------------- phase A
 
+PAIR_CHUNK = 1 << 20    # pairs per K2 launch, at most
+
+
 def _pairs_min_ed(qd: QueryData, db, pj: np.ndarray, pp: np.ndarray):
-    """Side-branch pairs (ambiguous rows, BadList units, host re-scoured
-    rows) through K2, bucketed by (W, unit length bucket); returns the
-    deferred [(part, [3, B] device result)] chunks."""
+    """Pairs through K2, bucketed by (W, unit length bucket): the
+    two-step path's expanded candidates, and the fused path's side branch
+    (ambiguous rows, BadList units, host re-scoured rows). Returns the
+    deferred [(part, [3, B] device result)] chunks.
+
+    A bucket goes in launches of up to PAIR_CHUNK pairs (padded to a
+    power of two under it): the kernel runs one thread per pair, so a
+    launch under some 10^5 pairs leaves most of the card's warp
+    schedulers idle, and 2^20 pairs bound the [3, B] result and the two
+    index uploads at 20 MB a launch. Pairs are independent and land by
+    `part`, so the chunking is no part of the result."""
     n = len(pj)
     rd = db.rd
     _, _, qw_all = _query_matrix(qd)
@@ -297,9 +329,9 @@ def _pairs_min_ed(qd: QueryData, db, pj: np.ndarray, pp: np.ndarray):
             row2local, peq_dev = _peq_device(qd, int(W), db)
             trows = pos2row[pp[sel]]
             prows = row2local[pj[sel]]
-            pchunk = min(QCHUNK * 4, _pow2_ceil(len(sel)))
-            for s0 in range(0, len(sel), pchunk):
-                part = sel[s0:s0 + pchunk]
+            for s0 in range(0, len(sel), PAIR_CHUNK):
+                part = sel[s0:s0 + PAIR_CHUNK]
+                pchunk = _pow2_ceil(len(part))
                 pidx = np.zeros(pchunk, np.int32)
                 tidx = np.zeros(pchunk, np.int32)
                 pidx[: len(part)] = prows[s0:s0 + pchunk]
@@ -324,7 +356,7 @@ def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
     `max_pending`, and the next group is dispatched before the previous
     one is waited for, so the device scans while the host consumes."""
     if getattr(qd, "xalpha", False):
-        raise NotImplementedError("xalpha queries (ROADMAP M7)")
+        raise NotImplementedError("xalpha queries (ROADMAP M11)")
     rd = db.rd
     qbuckets = _bucket_queries(qd)
     ubuckets = _bucket_units(rd)
@@ -648,11 +680,157 @@ def align(qd: QueryData, db, mode: str) -> Pods:
 
 # ------------------------------------------------------------ accel path
 
-def _assemble_visits(qd, res, b1: int, bad_arr) -> Visits:
-    """Visits CSR from a scour result tuple."""
+def default_qbunch(n: int, threads: int) -> int:
+    """QBUNCH = newUniqQ/(threads*128), clamped to [1, 16]
+    (burst.c:4019-4021)."""
+    qbunch = n // (max(1, threads) * 128)
+    return max(1, min(16, qbunch))
+
+
+def bunch_thresholds(qd: QueryData, b1: int, k: int, qbunch: int):
+    """Pigeonhole thresholds per unibin/bunch (burst.c:4091-4095,
+    4163-4168): returns (mm_bunch, mm_inner, n_bunches)."""
+    lns = qd.lens[qd.six[:b1]].astype(np.int64)
+    errs = qd.ed[qd.six[:b1]].astype(np.int64)
+    kload = errs * k + k
+    mm_member = np.where(kload < lns, lns - kload, 0)
+    mm_inner = np.where(kload < lns, lns - kload, 1)
+    n_bunches = (b1 + qbunch - 1) // qbunch
+    mm_bunch = np.full(n_bunches, 1 << 60, dtype=np.int64)
+    if b1:
+        np.minimum.at(mm_bunch, np.arange(b1) // qbunch, mm_member)
+    return mm_bunch, mm_inner, n_bunches
+
+
+def _clear_row_words(qd: QueryData, r0: int, r1: int, k: int,
+                     qidx_parts: list, word_parts: list) -> None:
+    """Rolling k-mer words of the clear (pure-ACGT) unibin rows
+    [r0, r1), appended as (row-index, word) column pairs."""
+    if r1 <= r0:
+        return
+    qmat, qlens_all, _ = _query_matrix(qd)
+    clear = np.arange(r0, r1)
+    lens_c = qlens_all[clear]
+    pw = (4 ** np.arange(k - 1, -1, -1, dtype=np.int64))
+    for ln in np.unique(lens_c):
+        rows = clear[lens_c == ln]
+        if ln < k:
+            continue
+        sub = qmat[rows, :ln].astype(np.int64) - 1
+        nwin = ln - k + 1
+        words = np.zeros((len(rows), nwin), dtype=np.int64)
+        for t in range(k):                       # k passes, no 3-D temp
+            words += sub[:, t: t + nwin] * pw[t]
+        qidx_parts.append(np.repeat(rows, nwin))
+        word_parts.append(words.ravel())
+
+
+def _bunch_words_padded(qd: QueryData, r0: int, b1: int, qbunch: int,
+                        k: int):
+    """Per-bunch deduped word lists with MAX-multiplicity weights for
+    the fully-clear bunches covering rows [r0, b1) (the reference's
+    shared bunch scour, burst.c:4096-4119), packed left into
+    (wmat [nB, T] int32, wgt [nB, T] int32, nwords [nB]) -- or None
+    when no row yields a word."""
+    qp, wp = [], []
+    _clear_row_words(qd, r0, b1, k, qp, wp)
+    if not qp:
+        return None
+    qidx = np.concatenate(qp)
+    words = np.concatenate(wp)
+    span = np.int64(1) << np.int64(2 * k)
+    ukey, mult = np.unique(qidx * span + words, return_counts=True)
+    ub = (ukey // span - r0) // qbunch
+    uw = ukey % span
+    bkey = ub * span + uw
+    bso = np.argsort(bkey, kind="stable")
+    bks = bkey[bso]
+    bhead = np.empty(len(bks), dtype=bool)
+    bhead[0] = True
+    np.not_equal(bks[1:], bks[:-1], out=bhead[1:])
+    bgid = np.cumsum(bhead) - 1
+    bmax = np.zeros(int(bgid[-1]) + 1, dtype=np.int64)
+    np.maximum.at(bmax, bgid, mult[bso])
+    gw = (bks[bhead] % span).astype(np.int64)
+    gb = (bks[bhead] // span).astype(np.int64)
+    nB = -(-(b1 - r0) // qbunch)
+    nwords = np.bincount(gb, minlength=nB).astype(np.int32)
+    T = int(nwords.max())
+    wmat = np.zeros((nB, T), dtype=np.int32)
+    wgt = np.ones((nB, T), dtype=np.int32)
+    col = np.arange(len(gw)) - np.repeat(
+        np.concatenate(([0], np.cumsum(nwords)))[:-1].astype(np.int64),
+        nwords)
+    wmat[gb, col] = gw.astype(np.int32)
+    wgt[gb, col] = np.minimum(bmax, 0x7FFFFFFF).astype(np.int32)
+    return wmat, wgt, nwords
+
+
+def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
+                     do_heur: bool = False, threads: int = 1,
+                     qbunch: int | None = None,
+                     skip_ambig: bool = False) -> Visits:
+    """Per-unibin candidate visit lists, from the device scour.
+
+    The reference scans QBUNCH unibins per task (burst.c:4018-4021,
+    QBUNCH = newUniqQ/(threads*128) clamped to [1,16]): the bunch
+    shares one scour -- per word the count contribution is the MAX
+    multiplicity across the bunch (postScour's run logic,
+    burst.c:3258-3284) -- one candidate list filtered by the bunch's
+    minimum threshold, and one visit order. The per-member threshold
+    only skips evaluations (burst.c:4163-4168). Thread count changes
+    QBUNCH and therefore row order; -t 1 is the canonical comparison.
+    """
+    if do_heur:
+        raise NotImplementedError(
+            "the heuristic cut (-hr) disables the unit index and with it "
+            "the device scour (ROADMAP M11)")
+    if getattr(qd, "xalpha", False):
+        raise NotImplementedError("xalpha queries (ROADMAP M11)")
+    rd, acc = db.rd, db.acc
+    k = acc.k
+    n = len(qd.seqs)
+    n_clumps = rd.tot_units // VECSZ + (1 if rd.tot_units % VECSZ else 0)
+    bad_arr = np.asarray(acc.bad, dtype=np.int64)
+    b0, b1 = int(qbins[0]), int(qbins[1])
+    full = np.ones(n, dtype=bool)
+    full[:b1] = False
+    if skip_ambig:
+        # -sa at align time: BadList second pass and the full-scan
+        # rows are both skipped; bad-bin unibins drop silently
+        # (burst.c:4047, 4322)
+        bad_arr = bad_arr[:0]
+        full[:] = False
+    if qbunch is None:
+        qbunch = default_qbunch(n, threads)
+    mm_bunch, mm_inner, _ = bunch_thresholds(qd, b1, k, qbunch)
+    qmat, qlens_all, _ = _query_matrix(qd)
+    aq_off, aqw, aqm = _ambig_word_lists(qd, b0, k, acc.z)
+    if not len(aqw) and not (b1 > b0 and
+                             bool((qlens_all[b0:b1] >= k).any())):
+        # no row has a word: every list is the BadList alone
+        nb = len(bad_arr)
+        offs = np.zeros(n + 1, dtype=np.int64)
+        offs[1: b1 + 1] = np.arange(1, b1 + 1) * nb
+        offs[b1 + 1:] = b1 * nb
+        return Visits(flat=np.tile(bad_arr, b1), offs=offs, full=full)
+    scour = _scour_device_rows if qbunch == 1 else _scour_device_bunches
+    res, info = scour(qd, db, b0, b1, qbunch, k, mm_bunch, mm_inner, qmat,
+                      qlens_all, aq_off, aqw, aqm, n_clumps)
+    vis = _assemble_visits(qd, res, b0, b1, qbunch, bad_arr, full,
+                           n_clumps)
+    vis.stats = {key: info.get(key, 0)
+                 for key in ("bunch_ov_rows", "member_ov_rows")}
+    return vis
+
+
+def _assemble_visits(qd, res, b0: int, b1: int, qbunch: int, bad_arr,
+                     full, n_clumps: int) -> Visits:
+    """Visits CSR from a scour result tuple (bflat, bhits, bcnt, mflat,
+    mcnt, ukeys), shared by the two-step and the fused path."""
     n = len(qd.seqs)
     nb = len(bad_arr)
-    mflat, mcnt, ukeys = res
+    kc, _, bcnt, mflat, mcnt, ukeys = res
 
     offs = np.zeros(n + 1, dtype=np.int64)
     offs[1: b1 + 1] = np.cumsum(mcnt + nb)
@@ -662,7 +840,8 @@ def _assemble_visits(qd, res, b1: int, bad_arr) -> Visits:
     if nm != int(mcnt.sum()):
         raise RuntimeError(
             f"scour result inconsistent: len(mflat)={nm} != "
-            f"sum(mcnt)={int(mcnt.sum())}")
+            f"sum(mcnt)={int(mcnt.sum())} -- concurrent scour calls "
+            "sharing one result buffer?")
     if nm:
         csum = np.concatenate(([0], np.cumsum(mcnt)[:-1]))
         dst = np.repeat(offs[:b1], mcnt) + \
@@ -672,9 +851,16 @@ def _assemble_visits(qd, res, b1: int, bad_arr) -> Visits:
         dstb = (offs[:b1, None] + mcnt[:, None] +
                 np.arange(nb)[None, :]).ravel()
         out[dstb] = np.tile(bad_arr, b1)
-    full = np.zeros(n, dtype=bool)
-    full[b1:] = True
-    return Visits(flat=out, offs=offs, full=full, pass_keys=ukeys)
+    n_bunches = (b1 + qbunch - 1) // qbunch
+    boffs = np.zeros(n_bunches + 1, dtype=np.int64)
+    boffs[1:] = np.cumsum(bcnt)
+    filtered = np.zeros(n, dtype=bool)
+    filtered[b0:b1] = True
+    bad_clump = np.zeros(n_clumps, dtype=bool)
+    bad_clump[bad_arr] = True
+    return Visits(flat=out, offs=offs, full=full, pass_keys=ukeys,
+                  filtered=filtered, bad_clump=bad_clump, bflat=kc,
+                  boffs=boffs, qbunch=qbunch, bad_list=bad_arr)
 
 
 def _ambig_word_lists(qd, b0: int, k: int, z: int):
@@ -697,35 +883,57 @@ def _ambig_word_lists(qd, b0: int, k: int, z: int):
     return aq_off, aqw, aqm
 
 
-def _scour_device_rows(qd, db, b0, b1, k, mm_bunch, mm_inner, qmat,
-                       qlens_all, aq_off, aqw, aqm, n_clumps, W):
-    """Clear rows [b0, b1) through the fused device scour + K1, merged
-    with a host scour of the ambiguous rows [0, b0). Returns the member
-    candidates (mflat, per-row counts mcnt, passing unit keys ukeys) in
-    the native scour's order, and the device-aligned pairs of the clear
-    rows.
+def _native_scour(*args, **kw):
+    """scour_native, which the path cannot do without."""
+    res = scour_native(*args, **kw)
+    if res is None:
+        raise RuntimeError("native host library unavailable")
+    return res
+
+
+def _scour_device_rows(qd, db, b0, b1, qbunch, k, mm_bunch, mm_inner,
+                       qmat, qlens_all, aq_off, aqw, aqm, n_clumps,
+                       fused_W: int | None = None):
+    """Clear rows [b0, b1) through the device scour at QBUNCH=1, merged
+    with a host scour of the ambiguous rows [0, b0). Returns the native
+    scour's (bflat, bhits, bcnt, mflat, mcnt, ukeys) tuple -- the bunch
+    candidates with their hit counts, the member candidates and the
+    passing unit keys, in the native walk's order -- and an info dict
+    with the overflowed rows (`ov_rows`, global, and their count
+    `member_ov_rows`). With `fused_W` the
+    scour runs fused with K1 at that word count, and info also carries
+    the clear rows' device-aligned pairs.
 
     Rows over the slot budget E (`ov`) are re-scoured exactly on the
     host by the native scour and spliced back -- part of the algorithm,
     not a fallback: the device slot matrix is fixed-width."""
+    if qbunch != 1:
+        raise ValueError("one row per query is the QBUNCH=1 scour")
     acc = db.acc
     tot_units = db.rd.tot_units
-    nc = b1 - b0
+    z = np.zeros(0, np.int64)
+    nc = max(0, b1 - b0)
     lens_c = qlens_all[b0:b1]
     mm_m = mm_bunch[b0:b1]             # qbunch == 1: bunch == member
     mm_i = mm_inner[b0:b1]
-    fetch = scour_device.scour_align_rows(
-        qmat[b0:b1], lens_c, k, mm_m, mm_i, db.tabs, tot_units,
-        db.smat_dev, db.tiles_packed, W)
-    _inject_device_peq(qd, b0, b1, W, db, fetch)
+    fetch = None
+    if nc and fused_W is not None:
+        fetch = scour_device.scour_align_rows(
+            qmat[b0:b1], lens_c, k, mm_m, mm_i, db.tabs, tot_units,
+            db.smat_dev, db.tiles_packed, fused_W)
+        _inject_device_peq(qd, b0, b1, fused_W, db, fetch)
+    elif nc:
+        fetch = scour_device.scour_rows(
+            qmat[b0:b1], lens_c, k, mm_m, mm_i, db.tabs, tot_units)
     # ambiguous rows on the host while the device runs
-    z = np.zeros(0, np.int64)
     amb = (z, z, z, z, z, z)
     if b0 > 0:
-        amb = scour_native(qmat, qlens_all, b0, b0, 1, k, aq_off, aqw,
-                           aqm, acc.csr, n_clumps, mm_bunch[:b0],
-                           mm_inner[:b0], u_csr=acc.u_csr,
-                           tot_units=tot_units, vecsz=VECSZ)
+        amb = _native_scour(qmat, qlens_all, b0, b0, 1, k, aq_off, aqw,
+                            aqm, acc.csr, n_clumps, mm_bunch[:b0],
+                            mm_inner[:b0], u_csr=acc.u_csr,
+                            tot_units=tot_units, vecsz=VECSZ)
+    if fetch is None:
+        return amb, {}
     dev = fetch()
     ov = dev["ov"]
     lj = dev["cj"]                     # local (0-based) clear row
@@ -736,7 +944,7 @@ def _scour_device_rows(qd, db, b0, b1, k, mm_bunch, mm_inner, qmat,
         rows = np.nonzero(ov)[0]
         sub = np.ascontiguousarray(qmat[b0 + rows])
         zb = np.zeros(1, np.int64)
-        sbf, sbh, sbc, smf, smc, suk = scour_native(
+        sbf, sbh, sbc, _, _, suk = _native_scour(
             sub, lens_c[rows], 0, len(rows), 1, k,
             np.zeros(len(rows) + 1, np.int64), zb, zb, acc.csr, n_clumps,
             mm_m[rows], mm_i[rows], u_csr=acc.u_csr, tot_units=tot_units,
@@ -759,6 +967,7 @@ def _scour_device_rows(qd, db, b0, b1, k, mm_bunch, mm_inner, qmat,
     # asc -- the native walk's insertion order
     srt = np.lexsort((lcl, cminw, -chits, lj))
     lj, lcl, chits = lj[srt], lcl[srt], chits[srt]
+    bcnt_c = np.bincount(lj, minlength=nc).astype(np.int64)
     mkeep = chits > mm_i[lj]
     mcnt_c = np.bincount(lj[mkeep], minlength=nc).astype(np.int64)
     ukeys_c = dev["ukeys"] + np.int64(b0) * tot_units
@@ -766,16 +975,139 @@ def _scour_device_rows(qd, db, b0, b1, k, mm_bunch, mm_inner, qmat,
         keepu = ~ov[dev["ukeys"] // tot_units]
         ukeys_c = np.sort(np.concatenate(
             [ukeys_c[keepu], suk_g + np.int64(b0) * tot_units]))
-    _, _, _, amf, amc, auk = amb
-    res = (np.concatenate([amf, lcl[mkeep]]), np.concatenate([amc, mcnt_c]),
+    abf, abh, abc, amf, amc, auk = amb
+    res = (np.concatenate([abf, lcl]), np.concatenate([abh, chits]),
+           np.concatenate([abc, bcnt_c]),
+           np.concatenate([amf, lcl[mkeep]]), np.concatenate([amc, mcnt_c]),
            np.concatenate([auk, ukeys_c]))
-    pairinfo = {
-        "uj": dev["uj"] + b0,          # global unibin rows
-        "uu": dev["uu"],
-        "packed": np.stack([dev["ped"], dev["pfirst"], dev["plast"]]),
-        "ov_rows": np.nonzero(ov)[0] + b0,
-    }
-    return res, pairinfo
+    info = {"ov_rows": np.nonzero(ov)[0] + b0,
+            "member_ov_rows": int(ov.sum())}
+    if fused_W is not None:
+        info.update(
+            uj=dev["uj"] + b0,         # global unibin rows
+            uu=dev["uu"],
+            packed=np.stack([dev["ped"], dev["pfirst"], dev["plast"]]))
+    return res, info
+
+
+def _scour_device_bunches(qd, db, b0, b1, qbunch, k, mm_bunch, mm_inner,
+                          qmat, qlens_all, aq_off, aqw, aqm, n_clumps):
+    """QBUNCH>1 device scour: two overlapped dispatches reproduce the
+    native bunch walk bit for bit (burst.c:4018-4136 at the reference's
+    default QBUNCH up to 16).
+
+    Dispatch A (scour_bunch_rows): one row per fully-clear bunch,
+    deduped words weighted by MAX member multiplicity -> the bunch
+    candidate clump lists. Dispatch B (scour_rows with the clump
+    filter saturated): one row per member -> the exact per-member
+    passing unit keys. Bunches containing ambiguous rows (the sorted
+    prefix [0, ceil(b0/qbunch)*qbunch)) run on the host C++ scour
+    while both device dispatches are in flight. Overflowing bunch rows
+    re-scour on the host candidates-only; overflowing member rows
+    re-run the host unit prefilter; both splice exactly. Returns the
+    native scour's result tuple and the counts of both kinds of
+    overflowed rows."""
+    acc = db.acc
+    tot_units = db.rd.tot_units
+    g0 = -(-b0 // qbunch)              # first fully-clear bunch
+    r0 = min(g0 * qbunch, b1)
+    z = np.zeros(0, np.int64)
+    zb = np.zeros(1, np.int64)
+    bwp = _bunch_words_padded(qd, r0, b1, qbunch, k)
+    fetch_b = fetch_m = None
+    if bwp is not None:
+        wmat, wgt, nwords = bwp
+        nB = wmat.shape[0]
+        nm = b1 - r0
+        fetch_b = scour_device.scour_bunch_rows(
+            wmat, wgt, nwords, mm_bunch[g0:],
+            np.full(nB, 1 << 60, np.int64),       # no unit winners
+            db.tabs, tot_units)
+        fetch_m = scour_device.scour_rows(
+            qmat[r0:b1], qlens_all[r0:b1], k,
+            np.full(nm, 1 << 60, np.int64),       # no clump winners
+            mm_inner[r0:b1], db.tabs, tot_units)
+    # ambiguous rows + the straddling bunch on the host meanwhile; with
+    # no word in the clear bunches, they too (empty lists)
+    pre = (z, z, z, z, z, z)
+    h1 = r0 if bwp is not None else b1
+    if h1 > 0:
+        pre = _native_scour(qmat, qlens_all, b0, h1, qbunch, k, aq_off,
+                            aqw, aqm, acc.csr, n_clumps,
+                            mm_bunch[: -(-h1 // qbunch)], mm_inner[:h1],
+                            u_csr=acc.u_csr, tot_units=tot_units,
+                            vecsz=VECSZ)
+    if bwp is None:
+        return pre, {}
+    dev_b = fetch_b()
+    dev_m = fetch_m()
+    abf, abh, abc, amf, amc, auk = pre
+
+    # bunch candidates: splice host re-scours of overflowed bunches
+    gj, gcl = dev_b["cj"], dev_b["ccl"]
+    ghits, gminw = dev_b["chits"], dev_b["cminw"]
+    ovb = dev_b["ov"]
+    if ovb.any():
+        keep = ~ovb[gj]
+        aj, acl, ah, amw = [gj[keep]], [gcl[keep]], [ghits[keep]], \
+            [gminw[keep]]
+        for bg in np.nonzero(ovb)[0]:
+            j_lo = r0 + int(bg) * qbunch
+            j_hi = min(b1, j_lo + qbunch)
+            sbf, sbh = _native_scour(
+                np.ascontiguousarray(qmat[j_lo:j_hi]),
+                qlens_all[j_lo:j_hi], 0, j_hi - j_lo, qbunch, k,
+                np.zeros(j_hi - j_lo + 1, np.int64), zb, zb, acc.csr,
+                n_clumps, mm_bunch[g0 + bg: g0 + bg + 1],
+                mm_inner[j_lo:j_hi])[:2]
+            aj.append(np.full(len(sbf), bg, np.int64))
+            acl.append(sbf)
+            ah.append(sbh)
+            # native rank encoded below the device minw range keeps
+            # the (hits desc, touch asc) order through the lexsort
+            amw.append(-(1 << 40) + np.arange(len(sbf), dtype=np.int64))
+        gj, gcl = np.concatenate(aj), np.concatenate(acl)
+        ghits, gminw = np.concatenate(ah), np.concatenate(amw)
+    srt = np.lexsort((gcl, gminw, -ghits, gj))
+    gj, gcl, ghits = gj[srt], gcl[srt], ghits[srt]
+    bcnt_dev = np.bincount(gj, minlength=nB).astype(np.int64)
+
+    # member expansion with the per-member inner skip (burst.c:4163-68)
+    bstart = np.concatenate(([0], np.cumsum(bcnt_dev)))
+    members = np.arange(r0, b1, dtype=np.int64)
+    mb = (members - r0) // qbunch
+    reps = bcnt_dev[mb]
+    mrep = np.repeat(members, reps)
+    total_e = int(reps.sum())
+    csr0 = np.concatenate(([0], np.cumsum(reps)))[:-1]
+    src = (np.arange(total_e, dtype=np.int64) - np.repeat(csr0, reps)
+           + np.repeat(bstart[mb], reps))
+    okm = ghits[src] > mm_inner[mrep]
+    mflat_dev = gcl[src][okm]
+    mcnt_dev = np.bincount(mrep[okm] - r0, minlength=nm).astype(np.int64)
+
+    # member-exact unit keys; overflowed member rows re-run on host
+    ovm = dev_m["ov"]
+    uk = dev_m["ukeys"]
+    if ovm.any():
+        extra = [uk[~ovm[uk // tot_units]]]
+        for lr in np.nonzero(ovm)[0]:
+            j = r0 + int(lr)
+            suk = _native_scour(
+                np.ascontiguousarray(qmat[j: j + 1]), qlens_all[j: j + 1],
+                0, 1, 1, k, np.zeros(2, np.int64), zb, zb, acc.csr,
+                n_clumps, np.full(1, 1 << 60, np.int64),
+                mm_inner[j: j + 1], u_csr=acc.u_csr, tot_units=tot_units,
+                vecsz=VECSZ)[5]
+            extra.append(np.int64(lr) * tot_units + suk)
+        uk = np.sort(np.concatenate(extra))
+    res = (np.concatenate([abf, gcl]), np.concatenate([abh, ghits]),
+           np.concatenate([abc, bcnt_dev]),
+           np.concatenate([amf, mflat_dev]),
+           np.concatenate([amc, mcnt_dev]),
+           np.concatenate([auk, uk + np.int64(r0) * tot_units]))
+    return res, {"bunch_ov_rows": int(ovb.sum()),
+                 "member_ov_rows": int(ovm.sum())}
 
 
 def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
@@ -784,18 +1116,18 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
     rows the device overflowed go through K2; full-scan rows (reads the
     accelerator cannot index) against every unit through K4. Returns
     (visits, sed, stats) with stats counting the overflowed rows, the
-    full-scan rows and the pairs of each branch."""
+    full-scan rows and the pairs of each branch -- or None for a batch
+    without a clear row of length >= k, which has nothing to fuse: as in
+    burst_tpu, the caller sends it down the two-step path at QBUNCH=1."""
     rd, acc = db.rd, db.acc
     if getattr(qd, "xalpha", False):
-        raise NotImplementedError("xalpha queries (ROADMAP M7)")
+        raise NotImplementedError("xalpha queries (ROADMAP M11)")
     k = acc.k
     n = len(qd.seqs)
     b0, b1 = int(qbins[0]), int(qbins[1])
     qmat, qlens_all, qw_all = _query_matrix(qd)
     if b1 <= b0 or not bool((qlens_all[b0:b1] >= k).any()):
-        raise NotImplementedError(
-            "a batch without clear rows of length >= k needs the "
-            "two-step accelerated path (ROADMAP M7)")
+        return None
     W = int(qw_all[:b1].max())
     if W > MAX_W:
         raise NotImplementedError(
@@ -811,9 +1143,11 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
     mm_inner = np.where(kload < lns, lns - kload, 1)
     aq_off, aqw, aqm = _ambig_word_lists(qd, b0, k, acc.z)
     res, pinfo = _scour_device_rows(
-        qd, db, b0, b1, k, mm_bunch, mm_inner, qmat, qlens_all, aq_off,
-        aqw, aqm, n_clumps, W)
-    vis = _assemble_visits(qd, res, b1, bad_arr)
+        qd, db, b0, b1, 1, k, mm_bunch, mm_inner, qmat, qlens_all, aq_off,
+        aqw, aqm, n_clumps, fused_W=W)
+    full = np.ones(n, dtype=bool)
+    full[:b1] = False
+    vis = _assemble_visits(qd, res, b0, b1, 1, bad_arr, full, n_clumps)
 
     # side pairs: ambiguous rows (every lane of their visit lists),
     # BadList units for clear rows, and pass-units of overflowed rows
@@ -849,16 +1183,61 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
         # device pairs enter as an already fetched chunk
         pending.append((np.arange(nh, nh + len(pinfo["uj"])),
                         pinfo["packed"]))
-    full_rows = np.nonzero(vis.full)[0]
-    if len(full_rows):
-        ed_full = compute_ed_matrix(_subset_qd(qd, full_rows), db)
-    else:
-        ed_full = np.zeros((0, tot_units), dtype=np.uint8)
+    full_rows, ed_full = _full_scan_rows(qd, db, vis)
     sed = SparseED(pj=pj, pp=pp, pe=None, full_rows=full_rows,
                    ed_full=ed_full, pending=pending)
     stats = {"ov_rows": len(pinfo["ov_rows"]), "side_pairs": nh,
              "dev_pairs": len(pinfo["uj"]), "full_rows": len(full_rows)}
     return vis, sed, stats
+
+
+def _full_scan_rows(qd: QueryData, db, visits: Visits):
+    """(rows, [len(rows), tot_units] uint8 min-ED block) of the unibins
+    the accelerator cannot index, every unit scanned through K4."""
+    full_rows = np.nonzero(visits.full)[0]
+    if len(full_rows):
+        return full_rows, compute_ed_matrix(_subset_qd(qd, full_rows), db)
+    return full_rows, np.zeros((0, db.rd.tot_units), dtype=np.uint8)
+
+
+def compute_ed_matrix_accel(qd: QueryData, db, visits: Visits) -> SparseED:
+    """Phase A of the two-step path over candidate pairs only (sparse,
+    through K2), and the full scan for the rows the accelerator cannot
+    index (K4). The pair chunks are only dispatched: materialize() (or
+    select_pods, which calls it) fetches them, so the caller's host work
+    overlaps the device scan."""
+    full_rows, ed_full = _full_scan_rows(qd, db, visits)
+    pj, pp = expand_visit_pairs(qd, db.rd, visits)
+    if not len(pj):
+        return SparseED(pj=pj, pp=pp, pe=np.zeros(0, dtype=np.int64),
+                        full_rows=full_rows, ed_full=ed_full)
+    return SparseED(pj=pj, pp=pp, pe=None, full_rows=full_rows,
+                    ed_full=ed_full,
+                    pending=_pairs_min_ed(qd, db, pj, pp))
+
+
+def expand_visit_pairs(qd: QueryData, rd: RefData, visits: Visits):
+    """Expand visit clump lists into (unibin, unit) pair arrays, with
+    the sound lane-level pruning applied (see Visits.pass_keys)."""
+    pruned = visits.pass_keys is not None
+    got = expand_pairs_native(
+        visits.offs, visits.flat, len(qd.seqs), rd.tot_units, VECSZ,
+        visits.filtered if pruned else None,
+        visits.bad_clump if pruned else None, visits.pass_keys)
+    if got is None:
+        raise RuntimeError("native host library unavailable")
+    return got
+
+
+def densify(sed: SparseED, nj: int, tot_units: int) -> np.ndarray:
+    """Dense [nj, tot_units] matrix from SparseED (unevaluated = 255)."""
+    sed.materialize()
+    ed = np.full((nj, tot_units), 255, dtype=np.uint8)
+    if len(sed.full_rows):
+        ed[sed.full_rows] = sed.ed_full
+    if len(sed.pj):
+        ed[sed.pj, sed.pp] = sed.pe.astype(np.uint8)
+    return ed
 
 
 def _subset_qd(qd: QueryData, rows: np.ndarray) -> QueryData:

@@ -713,13 +713,97 @@ def _lca(taxa: list[bytes], taxacut: int):
 
 def report_any_accel(sed, visits, qd: QueryData, db, writer: B6Writer,
                      qbunch: int = 1, rescore_fn=None):
-    """ANY mode on the accel path (inline printing in visit order,
-    burst.c:4239-4275). It reads the two-step path's bunch-level visit
-    lists (`accel_candidates`, `compute_ed_matrix_accel`), which this
-    package does not have yet."""
-    raise NotImplementedError(
-        "ANY with an accelerator needs the two-step accelerated path "
-        "(ROADMAP M7)")
+    """ANY mode on the accel path: hits print inline during the scan
+    (burst.c:4239-4275) -- per bunch, clumps in visit order, queries in
+    bunch order; the printed lane is the first attaining the clump min.
+    Full-scan unibins print afterwards in full-path order.
+    `rescore_fn` overrides engine.rescore_winners (a multi-host run
+    injects a shard-owner-stitched collective variant)."""
+    rd = db.rd
+    sed.materialize()
+    budgets = qd.ed[qd.six].astype(np.int64)
+    b1 = int(np.searchsorted(visits.full, True))
+    if visits.bflat is not None:
+        qbunch = visits.qbunch
+    n_b = (b1 + qbunch - 1) // qbunch
+    n_clumps = rd.tot_units // VECSZ + (1 if rd.tot_units % VECSZ else 0)
+
+    # (bunch, clump) -> visit-order position, fully vectorized.
+    # The scan event for query j is (bunch, pos of its first qualifying
+    # clump in the bunch's visit list, j): outer loop bunches, middle
+    # loop clumps, inner loop bunch members (burst.c:4137-4277).
+    if visits.bflat is not None:
+        bl = visits.bad_list if visits.bad_list is not None \
+            else np.zeros(0, np.int64)
+        cnt = (visits.boffs[1: n_b + 1]
+               - visits.boffs[:n_b]).astype(np.int64)
+        g1 = np.repeat(np.arange(n_b, dtype=np.int64), cnt)
+        c1 = visits.bflat[: int(visits.boffs[n_b])].astype(np.int64)
+        p1 = np.arange(len(c1), dtype=np.int64) \
+            - np.repeat(visits.boffs[:n_b].astype(np.int64), cnt)
+        g2 = np.repeat(np.arange(n_b, dtype=np.int64), len(bl))
+        c2 = np.tile(np.asarray(bl, dtype=np.int64), n_b)
+        p2 = np.repeat(cnt, len(bl)) \
+            + np.tile(np.arange(len(bl), dtype=np.int64), n_b)
+        G = np.concatenate([g1, g2])
+        C = np.concatenate([c1, c2])
+        P = np.concatenate([p1, p2])
+    else:
+        # legacy layout: bunch g scans the visit list of its first row
+        z = np.arange(n_b, dtype=np.int64) * qbunch
+        act = ~visits.full[z]
+        cnt = (visits.offs[z + 1] - visits.offs[z]).astype(np.int64) * act
+        G = np.repeat(np.arange(n_b, dtype=np.int64), cnt)
+        starts = visits.offs[z].astype(np.int64)
+        P = np.arange(int(cnt.sum()), dtype=np.int64) \
+            - np.repeat(np.concatenate(([0], np.cumsum(cnt)))[:-1], cnt)
+        C = visits.flat[np.repeat(starts, cnt) + P].astype(np.int64)
+    # min position per (bunch, clump) key (a BadList clump may repeat)
+    vkey = G * n_clumps + C
+    vso = np.lexsort((P, vkey))
+    vkey_s, vpos_s = vkey[vso], P[vso]
+    vhead = np.ones(len(vkey_s), dtype=bool)
+    np.not_equal(vkey_s[1:], vkey_s[:-1], out=vhead[1:])
+    vkey_u, vpos_u = vkey_s[vhead], vpos_s[vhead]
+
+    # qualifying pairs of scanned rows -> their clump's visit position
+    sel = (sed.pj < b1) & (sed.pe <= budgets[sed.pj])
+    pj, pp, pe = sed.pj[sel], sed.pp[sel], sed.pe[sel]
+    want = (pj // qbunch) * n_clumps + pp // VECSZ
+    loc = np.searchsorted(vkey_u, want)
+    np.minimum(loc, max(len(vkey_u) - 1, 0), out=loc)
+    inlist = (vkey_u[loc] == want) if len(vkey_u) \
+        else np.zeros(len(want), dtype=bool)
+    pj, pp, pe = pj[inlist], pp[inlist], pe[inlist]
+    pos = vpos_u[loc[inlist]]
+    # per row: first qualifying clump in visit order, lane ascending
+    # within the clump (burst.c:4224: the first lane at ED <= budget)
+    rord = np.lexsort((pp, pos, pj))
+    rhead = np.ones(len(rord), dtype=bool)
+    np.not_equal(pj[rord][1:], pj[rord][:-1], out=rhead[1:])
+    jw = pj[rord][rhead]
+    ppw = pp[rord][rhead]
+    pew = pe[rord][rhead]
+    posw = pos[rord][rhead]
+    # dedupe-twin suppression: the budget is spent per BASE query, so
+    # among a query's unibins the earliest scan event wins
+    eord = np.lexsort((jw, posw, jw // qbunch))
+    sixw = qd.six[jw[eord]]
+    _, first_ix = np.unique(sixw, return_index=True)
+    keep = eord[np.sort(first_ix)]
+    hits = [(int(j), int(p), int(e))
+            for j, p, e in zip(jw[keep], ppw[keep], pew[keep])]
+    _emit_any(hits, qd, db, writer, rescore_fn)
+    # full-scan unibins: classic full-path order
+    if len(sed.full_rows):
+        mask = sed.ed_full <= budgets[sed.full_rows][:, None]
+        has = mask.any(axis=1)
+        first = np.argmax(mask, axis=1)
+        full_hits = [(int(j), int(p), int(sed.ed_full[ji, p]))
+                     for ji, (j, p) in enumerate(zip(sed.full_rows, first))
+                     if has[ji]]
+        full_hits.sort(key=lambda h: (h[1] // VECSZ, h[0], h[1] % VECSZ))
+        _emit_any(full_hits, qd, db, writer, rescore_fn)
 
 
 def _emit_any(hits, qd: QueryData, db, writer: B6Writer, rescore_fn=None):

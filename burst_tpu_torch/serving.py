@@ -8,9 +8,9 @@ batches repeatedly.
 
     al = Aligner.from_fasta("refs.fa", shear=320, mode="CAPITALIST")
 
-Counterpart of `burst_tpu.serving.Aligner` for the paths this package
-ports (the direct path in all five modes; BEST with an accelerator);
-its output is byte-identical to burst_tpu's for the same inputs.
+Counterpart of `burst_tpu.serving.Aligner`: all five reporting modes,
+with an accelerator or without; its output is byte-identical to
+burst_tpu's for the same inputs.
 """
 from __future__ import annotations
 
@@ -33,12 +33,18 @@ class Aligner:
     runs the hand-written kernels; the CPU runs their plain versions).
 
     Without an accelerator (`acc=None`) every query is scanned against
-    every unit (the direct path), in any of the five reporting modes;
-    with one, BEST mode runs the fused accelerated path. `last_stats`
-    holds the last accelerated batch's branch counts: rows re-scoured on
-    the host for overflowing the slot budget (`ov_rows`), full-scan rows
-    (`full_rows`), and the pairs scanned on the fused device path and on
-    the side branch."""
+    every unit (the direct path). With one, BEST mode runs the fused
+    accelerated path at QBUNCH=1 (its report does not depend on the pod
+    order), and every other mode -- and a BEST batch without a clear
+    read of length >= k -- the two-step path: the device scour at the
+    reference's batch-derived bunch width, then the candidate pairs
+    through the pair kernel. `last_stats` holds the last accelerated
+    batch's branch counts. Fused: rows re-scoured on the host for
+    overflowing the slot budget (`ov_rows`), full-scan rows
+    (`full_rows`), and the pairs scanned on the fused device path
+    (`dev_pairs`) and on the side branch (`side_pairs`). Two-step:
+    `qbunch`, the overflowed bunch and member rows re-scoured on the
+    host (`bunch_ov_rows`, `member_ov_rows`), `pairs` and `full_rows`."""
 
     def __init__(self, rd: RefData, acc=None, thres: float = 0.97,
                  mode: str = "BEST", do_rc: bool = False,
@@ -48,11 +54,6 @@ class Aligner:
                  device: torch.device | str = "cuda"):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode}")
-        if acc is not None and mode != "BEST":
-            raise NotImplementedError(
-                f"mode {mode} with an accelerator: ALLPATHS, FORAGE, "
-                "CAPITALIST and ANY need the two-step accelerated path "
-                "(ROADMAP M7); without an accelerator all five modes run")
         self.rd = rd
         self.acc = acc
         self.thres = thres
@@ -106,6 +107,7 @@ class Aligner:
         seqs = [rng.choice(bases, size=read_len) for _ in range(n)]
         heads = [f"w{i}".encode() for i in range(n)]
         self.align_batch(heads, seqs)
+
     def align_stream(self, batches, depth: int = 2):
         """Align an iterable of (headers, seqs) batches, yielding each
         batch's blast6 bytes in order, with up to `depth` batches in
@@ -132,19 +134,38 @@ class Aligner:
         mode = self.mode
         buf = io.StringIO()
         writer = modes.B6Writer(buf)
-        pod_order = win_cols = None
+        visits = ed = None
         if self.acc is not None:
             qbins = bin_queries_for_accel(qd, self.acc.k, self.z)
-            visits, ed, self.last_stats = engine.accel_scan_fused(
-                qd, self.db, qbins)
+            # BEST's reporter does not depend on the pod order, so the
+            # QBUNCH=1 fused scan is byte-safe there; the other modes
+            # keep the reference's batch-derived bunch width
+            fused = engine.accel_scan_fused(qd, self.db, qbins) \
+                if mode == "BEST" else None
+            if fused is not None:
+                visits, ed, self.last_stats = fused
+            else:
+                visits = engine.accel_candidates(
+                    qd, self.db, qbins,
+                    qbunch=1 if mode == "BEST" else None)
+                ed = engine.compute_ed_matrix_accel(qd, self.db, visits)
+                self.last_stats = dict(
+                    visits.stats or {}, qbunch=visits.qbunch,
+                    pairs=len(ed.pj), full_rows=len(ed.full_rows))
+        elif mode == "ANY":
+            ed = engine.compute_ed_matrix(qd, self.db)
+        if mode == "ANY":
+            if isinstance(ed, engine.SparseED):
+                modes.report_any_accel(ed, visits, qd, self.db, writer)
+            else:
+                modes.report_any(ed, qd, self.db, writer)
+            return buf.getvalue().encode("latin-1")
+        pod_order = win_cols = None
+        if visits is not None:
             juni, refpos, eds = engine.select_pods(qd, self.rd, ed, mode)
             pod_order = engine.accel_pod_order(qd, self.rd, visits, juni,
                                                refpos)
             win_cols = ed.lookup_cols(juni, refpos, self.rd.tot_units)
-        elif mode == "ANY":
-            ed = engine.compute_ed_matrix(qd, self.db)
-            modes.report_any(ed, qd, self.db, writer)
-            return buf.getvalue().encode("latin-1")
         else:
             # direct path: streamed selection, no dense matrix
             juni, refpos, eds = engine.compute_ed_select(qd, self.db, mode)

@@ -80,8 +80,9 @@ def load_db(rd, acc, smat: np.ndarray, device) -> DeviceDB:
         if acc.u_csr is None or not _unit_ids_clump_grouped(acc.u_csr,
                                                             engine.VECSZ):
             raise NotImplementedError(
-                "accelerators without clump-grouped unit postings need "
-                "the two-step accelerated path (ROADMAP M7)")
+                "accelerators without clump-grouped unit postings have no "
+                "device scour; the host scour pass that serves them comes "
+                "with ROADMAP M12")
         lbmax = int(lbs.max()) if rd.tot_units else 64
         engine._check_budget(
             engine._pow2_ceil(max(1, rd.tot_units))

@@ -1,8 +1,11 @@
 """Smoke run of burst_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # needs one card; about 4 min
+    python3 chip_smoke.py                 # needs one card; about 10 min
     python3 chip_smoke.py kernels         # phases 1-2 only (a first check
                                           # of a new kernel; no result line)
+    python3 chip_smoke.py twostep         # build, then phase 6 alone and
+                                          # one more batch under the
+                                          # profiler (no result line)
     python3 chip_smoke.py pairs [old.cu]  # the pair kernel alone: build,
                                           # checks and times of phase 2;
                                           # with a source of the earlier
@@ -22,7 +25,10 @@ Phases, each fatal on failure:
      addresses; repeated tile indices), at B = 2^20 against the host
      twin, and at the 292 bp amplicon shape (W = 10, Lp = 672); after
      phase 3 once more at the B its batch launched K1 with, where K2
-     must be one launch that allocates only its result;
+     must be one launch that allocates only its result. K3 at the
+     headline's W = 4 (L1 = 128 windowed, 640 full width) and at the
+     amplicon's W = 10 with 296 DP rows (L1 = 384 windowed, 1024 full
+     width, the kernel's widest);
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -40,8 +46,27 @@ Phases, each fatal on failure:
      (query, unit) pair through K4: one warm batch, one timed, one more
      with its stages timed apart; K4's output for 8 sampled blocks must
      equal the host twin's;
-  5. the five reporting modes on a 2-family database with 64 reads: the
-     card's b6 bytes must equal the port's CPU run, mode by mode.
+  5. the five reporting modes on a 2-family database: without an
+     accelerator 64 reads; with one, ALLPATHS, FORAGE, CAPITALIST and ANY
+     on 320 reads (some with an N, some under k; the two-step path at the
+     batch's default QBUNCH of 5), and one BEST batch made only of N
+     reads (no clear row: two-step at QBUNCH=1). The card's b6 bytes
+     must equal the port's CPU run, mode by mode;
+  6. two-step accelerated path at full width: the amplicon workload (a
+     97 %-clustered 16S-style database, families of 80 members x 1,450
+     bp at 1.5 % from their ancestor; 20,000 reads of 292 bp with 0-5
+     substitutions, -i 0.97, both strands, k=12 accelerator, CAPITALIST
+     with an LCA taxonomy, shear 320), every 199th read with an N, every
+     997th 11 bp long (full-scan rows, K4): one warm batch, one timed,
+     one more with its stages timed apart. Every (kernel, shape) that
+     batch launched (K2 at its 2^19-2^20 pairs, K3 windowed and at full
+     width, K4's full-scan blocks) is then run again on the first such
+     call's own tensors and must equal its plain version on the card (the
+     plain pair scan in slices of 2^16 pairs). Then 512 reads of it: the
+     card's b6 bytes must equal the port's CPU run (default QBUNCH 8).
+
+No scour knob is set: the slot budgets of every accelerated batch are
+the ones the package derives from the database's posting depth.
 
 Prints the kernel record as one JSON line, then the card's name and
 power limit (nvidia-smi), then `{"ok": true, "device": {...}}` last.
@@ -59,10 +84,6 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-# family postings run ~10 deep and background 12-mers ~15 deep at this
-# scale; the default 256-slot scour budget would overflow every row
-os.environ.setdefault("BURST_TPU_SCOUR_E", "3072")
-
 SEED = 20261016
 NL = b"\n"
 E2E_CHECK_READS = 500
@@ -75,6 +96,12 @@ DIRECT_READS = 20000
 # compaction buffer, cap_factor 4 x 4096 rows (phase 3 reads the real one)
 PATH_B = 16384
 KERNEL_SOURCES = ("myers_pairs", "rescore", "myers_cross")
+# The amplicon workload (phase 6). Its source runs 1,200 families (139
+# Mbp); fewer only where the script's time limit forces it.
+AMPLICON_FAMILIES = 1200
+AMPLICON_MEMBERS, AMPLICON_LEN, AMPLICON_READ_LEN = 80, 1450, 292
+AMPLICON_THRES = 0.97
+AMPLICON_CHECK_READS = 512
 
 # The card's peaks for the bounds. Memory: 3.35 TB/s (H100 SXM data
 # sheet). 32-bit integer ALU: the SM issues 64 int32 lane-operations per
@@ -485,7 +512,8 @@ def earlier_pair_kernel(src):
 def phase_pairs(earlier=None):
     """The pair kernel (K1 packed, K2 one code per byte) at the old
     table's shape, at ragged shapes, at B = 2^20 and at the amplicon
-    shape. Returns (records at W=4 B=8192, that case, its host result)."""
+    shape. Returns (records at W=4 B=8192, that case, its host result,
+    the amplicon case, its host result)."""
     import numpy as np
     import torch
 
@@ -526,7 +554,8 @@ def phase_pairs(earlier=None):
     # buckets (1450 bp references sheared at 320; Lp = 640 + 32)
     amp = _PairCase(rng, smat_d, W=10, NQ=4096, NT=8192, Lp=672, B=PATH_B,
                     qlen=292, ulen=(552, 641))
-    _, fns, _ = hold_pairs(f"W=10 B={PATH_B}", amp, amp.pidx, amp.tidx)
+    amp_host, fns, _ = hold_pairs(f"W=10 B={PATH_B}", amp, amp.pidx,
+                                  amp.tidx)
     time_pairs(amp, fns, PATH_B)
     sel = rng.integers(0, PATH_B, 1 << 18)
     _, fns, _ = hold_pairs(f"W=10 B={1 << 18}", amp, amp.pidx[sel],
@@ -538,7 +567,7 @@ def phase_pairs(earlier=None):
     _, fns, _ = hold_pairs(f"W=16 B={1 << 16}", wide, wide.pidx, wide.tidx,
                            plain=False)
     time_pairs(wide, fns, 1 << 16, reps=5)
-    return recs, main, host
+    return recs, main, host, amp, amp_host
 
 
 def phase_pairs_path(main, B, earlier=None):
@@ -580,76 +609,161 @@ def phase_pairs_path(main, B, earlier=None):
     return recs
 
 
+def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
+                      Lw=None):
+    """One K3 call as engine.rescore_winners makes it (Peq planes `peq`
+    and bucket tiles `bt_d` on the card, host index, length, budget and
+    window vectors): the gathered launch, exact against the kernel on the
+    same block gathered here and against the plain version on the card.
+    Returns (result on the host, the kernel record's entry)."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.kernels import rescore, rescore_cuda
+    dev, N = peq.device, len(rp)
+    rows, lv = rescore.rows_for(rq, W), rescore.levels_for(red)
+    L1 = rescore.l1_for(bt_d.shape[1] if Lw is None else Lw - 1)
+    run = lambda: rescore_cuda.rescore_pairs_gather(
+        peq, bt_d, rp, rt, rq, red, W, x0=x0, Lw=Lw)
+    to_dev = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+    peq_f = peq[to_dev(rp)].reshape(N, 16 * W).contiguous()
+    tl = bt_d[to_dev(rt)]
+    if x0 is not None:
+        tl = rescore.window_tiles(tl, to_dev(x0), L1)
+    else:
+        tl = torch.nn.functional.pad(tl, (0, L1 - 1 - tl.shape[1]))
+    tl = tl.contiguous()
+    qmeta = torch.from_numpy(np.stack([rq, red], 1).astype(np.int32)).to(dev)
+    kern = lambda: rescore_cuda.rescore(peq_f, tl, qmeta, W, lv, rows, L1)
+    plain = lambda: rescore.rescore_plain(peq_f, tl, qmeta, W, lv, rows, L1)
+    got = run().cpu().numpy()
+    exact(f"K3 {label} gather vs block", kern().cpu().numpy(), got)
+    err = exact(f"K3 {label} vs plain", got, plain().cpu().numpy())
+    return got, dict(
+        name=f"K3 rescore ({label})", route="cuda",
+        source="burst_tpu_torch/csrc/rescore.cu",
+        replaces="burst_tpu/kernels/rescore_pallas.py:155",
+        max_abs_err=err, ms=time_ms(kern, 20), plain_ms=time_ms(plain, 1),
+        **bound(N * (64 * W + L1 - 1 + 8 + 16),
+                N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
+        library_ms=None, counter="k3",
+        shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N}")
+
+
+def hold_rescore(recs, case, host, qlen, budget, lt, N):
+    """K3 on the winners among `case`'s pairs (every other one is a near
+    pair), under the budget `budget`, against bucket tiles of `lt` columns
+    (the unit bucket plus the rescore's pad, as engine.rescore_winners
+    builds them): windowed and at full width, exact against the plain
+    version on the card and the native host twin. Appends the kernel
+    record's entries."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.kernels import rescore
+    from burst_tpu_torch.kernels.host import rescore_pairs_host
+    W = case.W
+    bt = np.zeros((case.tiles_h.shape[0], lt), np.uint8)
+    bt[:, :case.tiles_h.shape[1]] = case.tiles_h
+    # the last near pairs made: fewest of their queries were cut anew
+    # for a later pair
+    sel = np.arange(len(case.pidx) - 2 * N, len(case.pidx), 2)
+    rp, rt = case.pidx[sel], case.tidx[sel]
+    rq = np.full(N, qlen, np.int64)
+    red = np.full(N, budget, np.int64)
+    first = host[1][sel].astype(np.int64)
+    x0 = np.maximum(first - 32 * W - red - 1, 0)
+    rows = rescore.rows_for(rq, W)
+    Lw = -(-(rows + budget + 2) // 128) * 128
+    bt_d = torch.from_numpy(bt).to(case.peq.device)
+    for label, kw in (("windowed", dict(x0=x0, Lw=Lw)), ("full width", {})):
+        got, rec = hold_rescore_call(f"W={W} {label}", case.peq, bt_d, rp,
+                                     rt, rq, red, W, **kw)
+        href = rescore_pairs_host(case.peq_h, bt, rp, rt, rq, red, W, rows,
+                                  kw.get("x0"), kw.get("Lw"))
+        inb = got[0] <= red
+        if inb.sum() < N // 4:
+            fail(f"K3 W={W} {label}: only {int(inb.sum())} in-budget pairs")
+        exact(f"K3 W={W} {label} vs native host twin", got[:, inb],
+              href[:, inb])
+        rec["name"] = f"K3 rescore ({label})"
+        recs.append(rec)
+
+
+def hold_cross_call(label, peq, tiles, W):
+    """One K4 call on the card, exact against the plain version there.
+    Returns (result on the host, the kernel record's entry)."""
+    from burst_tpu_torch.kernels import myers, myers_cuda
+    (Q, (T, Lp)) = peq.shape[0], tiles.shape
+    k4 = lambda: myers_cuda.myers_cross(peq, tiles, W)
+    k4p = lambda: myers.myers_cross_plain(peq, tiles, W)
+    got = k4().cpu().numpy()
+    err = exact(f"K4 {label} vs plain", got, k4p().cpu().numpy())
+    return got, dict(
+        name=f"K4 myers_cross ({label})", route="cuda",
+        source="burst_tpu_torch/csrc/myers_cross.cu",
+        replaces="burst_tpu/kernels/myers_pallas.py:98",
+        max_abs_err=err, ms=time_ms(k4, 20), plain_ms=time_ms(k4p, 1),
+        **bound(Q * 64 * W + T * Lp + 4 * Q * T, scan_ops(Q * T, Lp, W)),
+        library_ms=None, counter="k4", shape=f"W={W} Q={Q} T={T} Lp={Lp}")
+
+
+PLAIN_SLICE = 1 << 16   # pairs per call of the plain pair scan
+
+
+def hold_pairs_call(label, peq, tiles, pidx, tidx, W):
+    """One K2 call on the card (all tensors there), exact against the
+    plain version over the same pairs. The plain version runs them in
+    slices of PLAIN_SLICE (it gathers a [B, Lp] int64 block per call);
+    its time is that of all slices. Returns (result on the host, the
+    kernel record's entry)."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers, myers_cuda
+    B, Lp = len(pidx), tiles.shape[1]
+    kern = lambda: myers_cuda.myers_pairs(peq, tiles, pidx, tidx, W)
+    plain = lambda: torch.cat([
+        myers.myers_pairs_plain(peq, tiles, pidx[s:s + PLAIN_SLICE],
+                                tidx[s:s + PLAIN_SLICE], W)
+        for s in range(0, B, PLAIN_SLICE)], dim=1)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = plain()
+    e1.record()
+    e1.synchronize()
+    got = kern().cpu().numpy()
+    err = exact(f"K2 {label} vs plain", got, ref.cpu().numpy())
+    nbytes = (len(torch.unique(pidx)) * 64 * W
+              + len(torch.unique(tidx)) * Lp + 20 * B)
+    return got, dict(
+        name=f"K2 myers_pairs ({label})", route="cuda",
+        source="burst_tpu_torch/csrc/myers_pairs.cu",
+        replaces="burst_tpu/kernels/myers_pallas.py:221",
+        max_abs_err=err, ms=time_ms(kern, 5), plain_ms=e0.elapsed_time(e1),
+        **bound(nbytes, scan_ops(B, Lp, W)), library_ms=None, counter="k2",
+        shape=f"W={W} Lp={Lp} B={B}")
+
+
 def phase_kernels(earlier=None):
     import numpy as np
     import torch
 
     from burst_tpu_torch.alphabet import score_matrix
-    from burst_tpu_torch.kernels import myers, myers_cuda, rescore, \
-        rescore_cuda
-    from burst_tpu_torch.kernels.host import rescore_pairs_host
+    from burst_tpu_torch.kernels import myers
 
     dev = torch.device("cuda")
-    W = 4
-    recs, main, host = phase_pairs(earlier)
-    peq, peq_h, tiles = main.peq, main.peq_h, main.tiles_h
-    pidx, tidx = main.pidx, main.tidx
+    recs, main, host, amp, amp_host = phase_pairs(earlier)
     rng = np.random.default_rng(SEED + 4)
     smat_d = torch.from_numpy(score_matrix()).to(dev)
 
-    # K3: the rescore winners of those pairs, budget 2 (98 % of 100 bp);
-    # bucket tiles padded by 32W as engine.rescore_winners builds them
-    N = 4096
-    bt = np.zeros((tiles.shape[0], 512), np.uint8)
-    bt[:, :tiles.shape[1]] = tiles
-    sel = np.arange(0, 2 * N, 2)
-    rp, rt = pidx[sel], tidx[sel]
-    rq = np.full(N, 100, np.int64)
-    red = np.full(N, 2, np.int64)
-    first = host[1][sel].astype(np.int64)
-    x0 = np.maximum(first - 32 * W - red - 1, 0)
-    rows = rescore.rows_for(rq, W)
-    Lw = -(-(rows + 2 + 2) // 128) * 128
-    bt_d = torch.from_numpy(bt).to(dev)
-    for label, kw, L1 in (("windowed", dict(x0=x0, Lw=Lw), Lw),
-                          ("full width", {}, rescore.l1_for(512))):
-        run = lambda: rescore_cuda.rescore_pairs_gather(
-            peq, bt_d, rp, rt, rq, red, W, **kw)
-        # the plain version on the card, same gathered block
-        lv = rescore.levels_for(red)
-        peq_f = peq[torch.from_numpy(rp).long().to(dev)].reshape(N, 16 * W)
-        tl = bt_d[torch.from_numpy(rt).long().to(dev)]
-        if "x0" in kw:
-            tl = rescore.window_tiles(tl, torch.from_numpy(x0).to(dev), L1)
-        else:
-            tl = torch.nn.functional.pad(tl, (0, L1 - 1 - tl.shape[1]))
-        tl = tl.contiguous()
-        qmeta = torch.from_numpy(np.stack([rq, red], 1).astype(np.int32)
-                                 ).to(dev)
-        kern = lambda: rescore_cuda.rescore(peq_f, tl, qmeta, W, lv, rows,
-                                            L1)
-        plain = lambda: rescore.rescore_plain(peq_f, tl, qmeta, W, lv,
-                                              rows, L1)
-        got = run().cpu().numpy()
-        exact(f"K3 {label} gather vs block", kern().cpu().numpy(), got)
-        err = exact(f"K3 {label} vs plain", got, plain().cpu().numpy())
-        href = rescore_pairs_host(peq_h, bt, rp, rt, rq, red, W, rows,
-                                  kw.get("x0"), kw.get("Lw"))
-        inb = got[0] <= red
-        if inb.sum() < N // 4:
-            fail(f"K3 {label}: only {int(inb.sum())} in-budget pairs")
-        exact(f"K3 {label} vs native host twin", got[:, inb],
-              href[:, inb])
-        recs.append(dict(
-            name=f"K3 rescore ({label})", route="cuda",
-            source="burst_tpu_torch/csrc/rescore.cu",
-            replaces="burst_tpu/kernels/rescore_pallas.py:155",
-            max_abs_err=err, ms=time_ms(kern, 20),
-            plain_ms=time_ms(plain, 1),
-            **bound(N * (64 * W + L1 - 1 + 8 + 16),
-                    N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
-            library_ms=None, counter="k3",
-            shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N}"))
+    # K3: the rescore winners of the W=4 pairs, budget 2 (98 % of 100 bp),
+    # against 448-column bucket tiles padded to 512; and those of the 292
+    # bp amplicon pairs, budget 9 (97 %), against the 640-column bucket
+    # padded by rescore_pad(640, 10) = 320: 296 DP rows, a 384-column
+    # window and the kernel's widest full width, L1 = 1024
+    hold_rescore(recs, main, host, 100, 2, 512, 4096)
+    hold_rescore(recs, amp, amp_host, AMPLICON_READ_LEN, 9, 960, 2048)
 
     # K4: the direct path's block (every query of a 2048-row block against
     # 512 tiles of the 448-bp bucket), and one ragged shape at the 292 bp
@@ -674,23 +788,12 @@ def phase_kernels(earlier=None):
                                    torch.from_numpy(ql4).to(dev), smat_d,
                                    W4)
         t4_d = torch.from_numpy(t4).to(dev)
-        k4 = lambda: myers_cuda.myers_cross(peq4, t4_d, W4)
-        k4p = lambda: myers.myers_cross_plain(peq4, t4_d, W4)
-        got = k4().cpu().numpy()
-        err = exact(f"K4 {label} vs plain", got, k4p().cpu().numpy())
+        got, rec = hold_cross_call(label, peq4, t4_d, W4)
         exact(f"K4 {label} vs native host twin", got,
               host_cross(peq4.cpu().numpy().view(np.uint32), t4, W4))
         if got.min() > 4:
             fail(f"K4 {label}: no near pair in the block (min {got.min()})")
-        recs.append(dict(
-            name=f"K4 myers_cross ({label})", route="cuda",
-            source="burst_tpu_torch/csrc/myers_cross.cu",
-            replaces="burst_tpu/kernels/myers_pallas.py:98",
-            max_abs_err=err, ms=time_ms(k4, 20), plain_ms=time_ms(k4p, 1),
-            **bound(Q * 64 * W4 + T * Lp4 + 4 * Q * T,
-                    scan_ops(Q * T, Lp4, W4)),
-            library_ms=None, counter="k4",
-            shape=f"W={W4} Q={Q} T={T} Lp={Lp4}"))
+        recs.append(rec)
     for r in recs:
         log(f"[kernels] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
@@ -760,6 +863,64 @@ def _record_pair_launches():
     return seen, undo
 
 
+def _capture_kernel_calls():
+    """Wraps the engine's call sites of K2, K3 (through its gather) and
+    K4. Returns (calls, undo): calls[kernel] maps every launch shape to
+    [count, the first such call's arguments], so that each shape a batch
+    launched can be run again on the batch's own tensors."""
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.kernels import rescore
+    calls = {"K2": {}, "K3": {}, "K4": {}}
+
+    def k2_shape(peq, tiles, pidx, tidx, W):
+        return W, len(pidx), tiles.shape[1]
+
+    def k3_shape(peq, tiles, pidx, tidx, qlens, max_ed, W, x0=None,
+                 Lw=None):
+        return (W, rescore.rows_for(qlens, W), rescore.levels_for(max_ed),
+                rescore.l1_for(tiles.shape[1] if Lw is None else Lw - 1),
+                len(pidx), "windowed" if x0 is not None else "full width")
+
+    def k4_shape(peq, tiles, W):
+        return W, peq.shape[0], tiles.shape[0], tiles.shape[1]
+
+    saved = []
+    for kern, name, shape_of in (("K2", "myers_pairs", k2_shape),
+                                 ("K3", "rescore_pairs_gather", k3_shape),
+                                 ("K4", "myers_cross", k4_shape)):
+        fn = getattr(engine, name)
+        saved.append((name, fn))
+
+        def capturing(*a, fn=fn, seen=calls[kern], shape_of=shape_of, **kw):
+            seen.setdefault(shape_of(*a, **kw), [0, (a, kw)])[0] += 1
+            return fn(*a, **kw)
+        setattr(engine, name, capturing)
+
+    def undo():
+        for name, fn in saved:
+            setattr(engine, name, fn)
+    return calls, undo
+
+
+def hold_captured(path: str, calls):
+    """Every (kernel, shape) that a batch launched, run again on the
+    first such call's own arguments and held against the plain version on
+    the card. Returns [(kernel, record entry)] with the shape's launch
+    count in the batch."""
+    out = []
+    for kern, hold in (("K2", hold_pairs_call), ("K3", hold_rescore_call),
+                       ("K4", hold_cross_call)):
+        for shape, (count, (a, kw)) in sorted(calls[kern].items()):
+            _, rec = hold(f"{path} {shape}", *a, **kw)
+            rec["launches"] = count
+            log(f"[{path}] {kern} {rec['shape']} x {count}: the batch's own "
+                f"call exact vs plain; kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.5f} ms "
+                f"({rec['bound_by']})")
+            out.append((kern, rec))
+    return out
+
+
 def _timed_batch(al, qheads, reads, need):
     """One timed batch with every launch count set to 0 just before and
     read just after; fails if a kernel in `need` never launched."""
@@ -778,6 +939,20 @@ def _timed_batch(al, qheads, reads, need):
         if launches[k] <= 0:
             fail(f"kernel {k} never launched on this path: {launches}")
     return b6, dt, launches, torch.cuda.max_memory_allocated()
+
+
+def scour_budgets(tabs, nwords: int) -> str:
+    """The device scour's slot budgets for rows of `nwords` words: the
+    script sets no knob, so they follow the database's posting depth
+    unless the caller's environment overrides them."""
+    from burst_tpu_torch.kernels import scour_device
+    E = scour_device.slot_budget(tabs, nwords)
+    knobs = {k: v for k, v in os.environ.items()
+             if k.startswith("BURST_TPU_SCOUR_")}
+    return (f"scour budgets (knobs in the environment: {knobs or 'none'}): "
+            f"a word posts {tabs.depth:.1f} "
+            f"units, a row of {nwords} words gets {E} slots, a chunk "
+            f"{scour_device.chunk_rows(E)} rows")
 
 
 def _same_bytes(what: str, gpu: bytes, cpu: bytes):
@@ -817,15 +992,15 @@ def phase_accel(launch_log):
     log(f"[accel] workload + host DB build {time.perf_counter() - t0:.1f} "
         f"s: {n_fam} families (the headline has 1024), {len(refs)} refs x "
         f"{len(refs[0])} bp, {rd.tot_units} units, {len(acc.csr.ids)} "
-        f"accelerator postings, {len(reads)} reads, "
-        f"BURST_TPU_SCOUR_E={os.environ['BURST_TPU_SCOUR_E']}")
+        f"accelerator postings, {len(reads)} reads")
     t0 = time.perf_counter()
     al = Aligner(rd, acc, thres=THRES, mode="BEST", do_rc=True,
                  device=torch.device("cuda"))
     torch.cuda.synchronize()
     log(f"[accel] device DB load {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-        f"{len(acc.u_csr.ids)} unit postings)")
+        f"{len(acc.u_csr.ids)} unit postings); "
+        + scour_budgets(al.db.tabs, READ_LEN - K + 1))
     # warmup: the rescore's bucket tiles, then the workload itself once
     # (first-batch costs such as the sticky winner-buffer growth)
     t0 = time.perf_counter()
@@ -881,30 +1056,41 @@ def phase_accel(launch_log):
 
 
 class _Stages:
-    """Wraps the direct path's stages for one batch: host seconds per
-    stage, and CUDA-event milliseconds of every K4 launch."""
+    """Wraps a path's stages for one batch: host seconds per stage, and
+    CUDA-event milliseconds of kernel launches."""
 
     def __init__(self):
         self.host = {}
-        self.events = []
+        self.dev = collections.defaultdict(list)
 
-    def wrap(self, mod, name, key=None):
+    def wrap(self, mod, name, key=None, sync=False):
+        """Host seconds of every call of mod.name under `key`. With
+        `sync` the device is drained before the clock starts and before
+        it stops, so the stage owns the device work it dispatched (and
+        no longer overlaps the stages after it)."""
+        import torch
         fn = getattr(mod, name)
         key = key or name
 
         def timed(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                return fn(*a, **kw)
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
             finally:
                 self.host[key] = self.host.get(key, 0.0) + \
                     time.perf_counter() - t0
         setattr(mod, name, timed)
         return fn
 
-    def wrap_k4(self, engine):
+    def wrap_events(self, mod, name, key):
+        """CUDA events around every call of mod.name, under `key`."""
         import torch
-        fn = engine.myers_cross
+        fn = getattr(mod, name)
 
         def timed(*a, **kw):
             e0 = torch.cuda.Event(enable_timing=True)
@@ -912,10 +1098,15 @@ class _Stages:
             e0.record()
             out = fn(*a, **kw)
             e1.record()
-            self.events.append((e0, e1))
+            self.dev[key].append((e0, e1))
             return out
-        engine.myers_cross = timed
+        setattr(mod, name, timed)
         return fn
+
+    def dev_seconds(self, key):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.dev[key]) / 1e3
 
     def wrap_peq(self, engine):
         """Peak device memory inside the Peq build, apart from the rest
@@ -935,11 +1126,6 @@ class _Stages:
             return out
         engine.build_peq_dev = measured
         return fn
-
-    def k4_seconds(self):
-        import torch
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
 
 def phase_direct(launch_log):
@@ -990,7 +1176,8 @@ def phase_direct(launch_log):
              st.wrap(engine, "compute_ed_select")),
             (engine, "rescore_winners", st.wrap(engine, "rescore_winners")),
             (modes, "report_best", st.wrap(modes, "report_best")),
-            (engine, "myers_cross", st.wrap_k4(engine)),
+            (engine, "myers_cross",
+             st.wrap_events(engine, "myers_cross", "k4")),
             (engine, "build_peq_dev", st.wrap_peq(engine))]
     try:
         torch.cuda.synchronize()
@@ -999,7 +1186,7 @@ def phase_direct(launch_log):
             again = al.align_batch(qheads, reads)
         torch.cuda.synchronize()
         dt2 = time.perf_counter() - t0
-        k4_s = st.k4_seconds()
+        k4_s = st.dev_seconds("k4")
         scan_peak = torch.cuda.max_memory_allocated()
     finally:
         for mod, name, fn in undo:
@@ -1010,7 +1197,7 @@ def phase_direct(launch_log):
     log(f"[direct] staged batch {dt2:.3f} s: process_queries "
         f"{h['process_queries']:.3f} s; phase A + selection "
         f"{h['compute_ed_select']:.3f} s (K4 on the device {k4_s:.3f} s in "
-        f"{len(st.events)} launches, host blocked on the device "
+        f"{len(st.dev['k4'])} launches, host blocked on the device "
         f"{acc['s']:.3f} s in {acc['n']} waits, the rest host selection "
         f"and dispatch); rescore_winners {h['rescore_winners']:.3f} s; "
         f"report_best {h['report_best']:.3f} s")
@@ -1019,7 +1206,7 @@ def phase_direct(launch_log):
         f"{scan_peak / 2**30:.3f} GiB after it (Peq planes, blocks in "
         f"flight, rescore)")
     cols = float(np.mean(engine._unit_lb(rd))) + 32
-    b = bound(pairs * 4 + len(st.events) * (2048 * 256 + 512 * cols),
+    b = bound(pairs * 4 + len(st.dev['k4']) * (2048 * 256 + 512 * cols),
               scan_ops(pairs, cols, 4))
     log(f"[direct] K4 over the batch: {k4_s * 1e3:.1f} ms on the device "
         f"against a bound of {b['bound_ms']:.1f} ms ({b['bound_by']}: "
@@ -1097,6 +1284,322 @@ def phase_modes():
         _same_bytes(f"direct {mode}", out["cuda"], out["cpu"])
         log(f"[modes] {mode}: {out['cuda'].count(NL)} b6 rows on "
             f"{rd.tot_units} units, identical to the CPU path")
+
+
+def phase_modes_accel():
+    """ALLPATHS, FORAGE, CAPITALIST and ANY with an accelerator (the
+    two-step path) on the 2-family database: 320 reads, every 29th with
+    an N, every 41st 9 bp long; then one BEST batch made only of N reads
+    (no clear row). The card's b6 bytes must equal the port's CPU run."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.io.taxonomy import Taxonomy
+    from burst_tpu_torch.serving import Aligner
+
+    rheads, _, qheads, reads, rd, acc = _build_db(2, 320, True)
+    rng = np.random.default_rng(SEED + 6)
+    for i in range(0, len(reads), 29):
+        reads[i][int(rng.integers(0, len(reads[i])))] = ord("N")
+    for i in range(3, len(reads), 41):
+        reads[i] = reads[i][:9].copy()
+    only_n = [r.copy() for r in reads[:48] if len(r) > 9]
+    for r in only_n:
+        r[int(rng.integers(0, len(r)))] = ord("N")
+    tax = Taxonomy([(h, b"k__K;p__P%d;c__C%d;o__O%d" % (
+        int(h[1:6]), int(h[7:9]) % 2, int(h[7:9]))) for h in rheads])
+    counters = _counters()
+    cases = [(m, qheads, reads) for m in ("ALLPATHS", "FORAGE",
+                                          "CAPITALIST", "ANY")]
+    cases.append(("BEST", qheads[:len(only_n)], only_n))
+    for mode, heads, batch in cases:
+        out, stats = {}, {}
+        for device in ("cuda", "cpu"):
+            al = Aligner(rd, acc, thres=THRES, mode=mode, do_rc=True,
+                         taxonomy=tax, device=torch.device(device))
+            before = {k: c.launches for k, c in counters.items()}
+            out[device] = al.align_batch(heads, [r.copy() for r in batch])
+            stats[device] = al.last_stats
+            if device == "cuda":
+                idle = [k for k in ("k2", "k3")
+                        if counters[k].launches == before[k]]
+                if idle or (stats[device]["full_rows"] and
+                            counters["k4"].launches == before["k4"]):
+                    fail(f"accelerated {mode}: {idle or 'k4'} did not "
+                         "launch on the card")
+        if stats["cuda"] != stats["cpu"] or "qbunch" not in stats["cuda"]:
+            fail(f"accelerated {mode}: not the two-step path, or its "
+                 f"branch counts differ: {stats}")
+        if out["cuda"].count(NL) < len(batch) // 2:
+            fail(f"accelerated {mode}: only {out['cuda'].count(NL)} rows")
+        _same_bytes(f"accelerated {mode}", out["cuda"], out["cpu"])
+        log(f"[modes] {mode} with an accelerator, {len(batch)} reads"
+            f"{' (every one with an N)' if batch is only_n else ''}: "
+            f"{out['cuda'].count(NL)} b6 rows identical to the CPU path; "
+            f"two-step {stats['cuda']}")
+
+
+def make_amplicon_workload(n_fam: int, n_reads: int):
+    """The amplicon workload generator: a 97 %-clustered 16S-style
+    database (`n_fam` families of 80 members, one random 1,450 bp
+    ancestor each, 1.5 % of the positions redrawn per member: about 3 %
+    between members), a 7-level taxonomy over it, and `n_reads` reads of
+    292 bp cut from random members with 0-5 substitutions."""
+    import numpy as np
+    rng = np.random.default_rng(20260821)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    refs, rheads, tax = [], [], []
+    n_mut = int(0.015 * AMPLICON_LEN)
+    for fi in range(n_fam):
+        anc = rng.choice(bases, size=AMPLICON_LEN)
+        for m in range(AMPLICON_MEMBERS):
+            r = anc.copy()
+            pos = rng.integers(0, AMPLICON_LEN, n_mut)
+            r[pos] = bases[rng.integers(0, 4, n_mut)]
+            refs.append(r)
+            rheads.append(f"a{fi:05d}m{m:03d}".encode())
+            tax.append(
+                f"k__Bacteria;p__P{fi % 40};c__C{fi % 160};"
+                f"o__O{fi % 400};f__F{fi % 800};g__G{fi};"
+                f"s__S{fi}_{m}".encode())
+    reads, qheads = [], []
+    n_refs = len(refs)
+    for i in range(n_reads):
+        s = refs[int(rng.integers(0, n_refs))]
+        st = int(rng.integers(0, len(s) - AMPLICON_READ_LEN))
+        r = s[st:st + AMPLICON_READ_LEN].copy()
+        for _ in range(int(rng.integers(0, 6))):
+            p = int(rng.integers(0, AMPLICON_READ_LEN))
+            r[p] = bases[int(rng.integers(0, 4))]
+        reads.append(r)
+        qheads.append(f"aq{i:06d}".encode())
+    return rheads, refs, tax, qheads, reads
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key cut to the kernel's own name: no return type, no
+    namespaces, template or call arguments."""
+    name = key.replace("(anonymous namespace)::", "")
+    name = re.sub(r"[<(].*", "", name).strip()
+    return name.removeprefix("void ").split("::")[-1]
+
+
+def _profiled_batch(al, qheads, reads):
+    """One batch under torch.profiler (device activity only): seconds of
+    the batch, seconds the device was busy, and its time by kernel."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        al.align_batch(qheads, reads)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    ev = [(e.key, e.count, e.device_time_total / 1e6)
+          for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, _, t in ev)
+    if busy <= 0:
+        fail("the profiler saw no device time in the two-step batch")
+    top = sorted(ev, key=lambda e: -e[2])[:10]
+    log(f"[twostep] profiled batch {dt:.3f} s: device busy {busy:.3f} s "
+        f"({100 * busy / dt:.1f} %, idle {100 - 100 * busy / dt:.1f} %) in "
+        f"{sum(n for _, n, _ in ev)} launches; by kernel: "
+        + "; ".join(f"{_kernel_name(k)} x {n} = {t:.3f} s"
+                    for k, n, t in top))
+
+
+def phase_twostep(launch_log, profile=False):
+    """Phase 6: the amplicon workload through the two-step accelerated
+    path (CAPITALIST with an LCA taxonomy) on the card; then every
+    (kernel, shape) the batch launched, held against its plain version on
+    the batch's own tensors. With `profile`, one more batch under
+    torch.profiler: the device's busy share and its time by kernel."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch import devtime, engine, modes, serving
+    from burst_tpu_torch.accel import build_accelerator
+    from burst_tpu_torch.io.taxonomy import Taxonomy
+    from burst_tpu_torch.kernels import scour_device
+    from burst_tpu_torch.process import process_references
+    from burst_tpu_torch.serving import Aligner
+
+    t0 = time.perf_counter()
+    n_fam = AMPLICON_FAMILIES
+    rheads, refs, tax, qheads, reads = make_amplicon_workload(n_fam, 20000)
+    rng = np.random.default_rng(SEED + 7)
+    for i in range(0, len(reads), 199):
+        reads[i][int(rng.integers(0, len(reads[i])))] = ord("N")
+    for i in range(5, len(reads), 997):   # under k: full-scan rows (K4)
+        reads[i] = reads[i][:11].copy()
+    rd = process_references(rheads, [r.copy() for r in refs],
+                            max_len_q=AMPLICON_READ_LEN,
+                            thres=AMPLICON_THRES, rebase=True,
+                            rebase_amt=320, curate=2)
+    acc = build_accelerator(rd, k=K, z=1)
+    tmap = Taxonomy(list(zip(rheads, tax)))
+    lbs, nlb = np.unique(engine._unit_lb(rd), return_counts=True)
+    log(f"[twostep] workload + host DB build {time.perf_counter() - t0:.1f} "
+        f"s: {n_fam} families (the source has 1200) x {AMPLICON_MEMBERS} x "
+        f"{AMPLICON_LEN} bp = {len(refs) * AMPLICON_LEN / 1e6:.1f} Mbp, "
+        f"{len(refs)} references, {rd.tot_units} units in length buckets "
+        f"{dict(zip(lbs.tolist(), nlb.tolist()))}, {len(acc.csr.ids)} "
+        f"accelerator postings, {len(reads)} reads of "
+        f"{AMPLICON_READ_LEN} bp")
+    kw = dict(thres=AMPLICON_THRES, mode="CAPITALIST", do_rc=True,
+              taxonomy=tmap)
+    t0 = time.perf_counter()
+    al = Aligner(rd, acc, device=torch.device("cuda"), **kw)
+    torch.cuda.synchronize()
+    log(f"[twostep] device DB load {time.perf_counter() - t0:.1f} s "
+        f"({len(acc.u_csr.ids)} unit postings); "
+        + scour_budgets(al.db.tabs, AMPLICON_READ_LEN - K + 1))
+    W = -(-AMPLICON_READ_LEN // 32)
+    log(f"[twostep] pair kernel position keys: 32W + tile columns = "
+        f"{32 * W} + {int(lbs.max()) + 32} = {32 * W + int(lbs.max()) + 32}"
+        ", under the kernel's 32,768")
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    al.align_batch(qheads, reads)
+    torch.cuda.synchronize()
+    log(f"[twostep] warm batch {time.perf_counter() - t0:.1f} s (rescore "
+        f"tiles, winner buffers grown to {al.db.tabs.cap_factor} entries a "
+        f"query row, {al.db.tabs.cap_factor_bunch} a bunch row)")
+
+    seen, undo = _record_pair_launches()
+    try:
+        b6, dt, launches, peak = _timed_batch(al, qheads, reads,
+                                              ("k2", "k3", "k4"))
+    finally:
+        undo()
+    rows = b6.count(NL)
+    st = al.last_stats
+    shapes = collections.Counter(seen)
+    log("[twostep] pair kernel launches (kernel, W, B, row bytes) x count: "
+        + ", ".join(f"{k} x {n}" for k, n in sorted(shapes.items())))
+    log(f"[twostep] timed batch: {len(reads)} reads in {dt:.3f} s = "
+        f"{len(reads) / dt:.1f} reads/s, {rows} b6 rows")
+    log(f"[twostep] launches K1={launches['k1']} K2={launches['k2']} "
+        f"K3={launches['k3']} K4={launches['k4']}; QBUNCH={st['qbunch']}; "
+        f"bunch rows re-scoured on host={st['bunch_ov_rows']}, member "
+        f"rows={st['member_ov_rows']}; candidate pairs={st['pairs']}; "
+        f"full-scan rows={st['full_rows']}; device memory allocated: "
+        f"{resident / 2**30:.3f} GiB resident before the first batch, "
+        f"peak {peak / 2**30:.3f} GiB in the batch")
+    if rows < len(reads) // 2:
+        fail(f"only {rows} b6 rows for {len(reads)} reads")
+    if st["qbunch"] != 16 or st["full_rows"] <= 0 or launches["k1"]:
+        fail(f"not the two-step path at QBUNCH 16 with full-scan rows: "
+             f"{st}, {launches}")
+    launch_log["twostep"] = launches
+
+    # the same batch once more with its stages timed apart: the device
+    # is drained around every stage, so each owns the device work it
+    # dispatched (the two dispatches and the host scour then run one
+    # after another, not together as in the timed batch). Under the
+    # stages' wraps the kernels' call sites keep the arguments of the
+    # first launch at every shape.
+    calls, uncapture = _capture_kernel_calls()
+    bunch_words = []
+    scour_a = scour_device.scour_bunch_rows
+
+    def scour_a_noting(wmat, *a, **kw):
+        bunch_words.append(wmat.shape[1])
+        return scour_a(wmat, *a, **kw)
+    scour_device.scour_bunch_rows = scour_a_noting
+    stg = _Stages()
+    plain = [(serving, "process_queries"), (engine, "_ambig_word_lists"),
+             (engine, "_bunch_words_padded"), (engine, "_native_scour"),
+             (engine, "_assemble_visits"), (engine, "expand_visit_pairs"),
+             (engine, "accel_pod_order"), (modes, "report_capitalist")]
+    synced = [(scour_device, "scour_bunch_rows"),
+              (scour_device, "scour_rows"), (engine, "_full_scan_rows"),
+              (engine, "_pairs_min_ed"), (engine, "select_pods"),
+              (engine, "rescore_winners")]
+    undo = [(m, n, stg.wrap(m, n)) for m, n in plain] + \
+        [(m, n, stg.wrap(m, n, sync=True)) for m, n in synced] + \
+        [(engine, "myers_pairs", stg.wrap_events(engine, "myers_pairs",
+                                                 "k2")),
+         (engine, "rescore_pairs_gather",
+          stg.wrap_events(engine, "rescore_pairs_gather", "k3"))]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with devtime.track() as acct:
+            again = al.align_batch(qheads, reads)
+        torch.cuda.synchronize()
+        dt2 = time.perf_counter() - t0
+        k2_s, k3_s = stg.dev_seconds("k2"), stg.dev_seconds("k3")
+    finally:
+        for mod, name, fn in undo:
+            setattr(mod, name, fn)
+        scour_device.scour_bunch_rows = scour_a
+        uncapture()
+    if again != b6:
+        fail("two-step path: two batches of the same reads differ")
+    counts = {k.lower(): sum(n for n, _ in v.values())
+              for k, v in calls.items()}
+    k2_shapes = collections.Counter(
+        {(W_, B, Lp): n for (W_, B, Lp), (n, _) in calls["K2"].items()})
+    if any(counts[k] != launches[k] for k in counts) or k2_shapes != \
+            collections.Counter((W_, B, Lp) for _, W_, B, Lp in seen):
+        fail(f"the staged batch launched {counts}, K2 at {k2_shapes}; the "
+             f"timed batch {launches}, K2 at {shapes}")
+    EB = scour_device.bunch_slot_budget(al.db.tabs, max(bunch_words))
+    log(f"[twostep] bunch rows: word lists of up to {max(bunch_words)} words "
+        f"get {EB} slots, a chunk "
+        f"{scour_device.bunch_chunk_rows(EB)} rows")
+    h = stg.host
+    log(f"[twostep] staged batch {dt2:.3f} s: process_queries "
+        f"{h['process_queries']:.3f} s; ambiguous word lists "
+        f"{h['_ambig_word_lists']:.3f} s; bunch word lists "
+        f"{h['_bunch_words_padded']:.3f} s; scour A (bunch rows, dispatch "
+        f"to drained device) {h['scour_bunch_rows']:.3f} s; scour B (member "
+        f"rows) {h['scour_rows']:.3f} s; host scour (ambiguous prefix and "
+        f"overflowed rows) {h.get('_native_scour', 0.0):.3f} s; assemble "
+        f"visits {h['_assemble_visits']:.3f} s; full-scan rows (K4) "
+        f"{h['_full_scan_rows']:.3f} s; expand pairs "
+        f"{h['expand_visit_pairs']:.3f} s; K2 dispatch with its uploads "
+        f"{h['_pairs_min_ed']:.3f} s (the kernel {k2_s:.3f} s in "
+        f"{len(stg.dev['k2'])} launches); select (with the result fetch) "
+        f"{h['select_pods']:.3f} s; pod order {h['accel_pod_order']:.3f} s; "
+        f"rescore_winners {h['rescore_winners']:.3f} s (gather + K3 on the "
+        f"device {k3_s:.3f} s in {len(stg.dev['k3'])} launches); "
+        f"report_capitalist {h['report_capitalist']:.3f} s; host blocked "
+        f"in fetches {acct['s']:.3f} s in {acct['n']}")
+    # K2 over the batch against its bound, from the launches' own shapes
+    ops = sum(scan_ops(B, rowb, W_) for kern, W_, B, rowb in seen
+              if kern == "K2")
+    b = bound(sum(20 * B for kern, _, B, _ in seen if kern == "K2"), ops)
+    log(f"[twostep] K2 over the batch: {k2_s * 1e3:.1f} ms on the device "
+        f"against a bound of {b['bound_ms']:.1f} ms ({b['bound_by']}: "
+        f"{ops:.3e} int32 operations), "
+        f"{100 * b['bound_ms'] / (k2_s * 1e3):.0f} % of the bound's rate")
+
+    launch_log["twostep_held"] = hold_captured("twostep", calls)
+    del calls
+    if profile:
+        _profiled_batch(al, qheads, reads)
+
+    # 512 reads on the same database: the card against the port's CPU run
+    n = AMPLICON_CHECK_READS
+    gpu = al.align_batch(qheads[:n], reads[:n])
+    gst = al.last_stats
+    t0 = time.perf_counter()
+    cal = Aligner(rd, acc, device=torch.device("cpu"), **kw)
+    cpu = cal.align_batch(qheads[:n], reads[:n])
+    log(f"[twostep] CPU reference on {n} reads: "
+        f"{time.perf_counter() - t0:.1f} s, {cpu.count(NL)} rows, "
+        f"{cal.last_stats}")
+    if gst != cal.last_stats or gst["qbunch"] != 8:
+        fail(f"two-step check batch: card {gst} against CPU "
+             f"{cal.last_stats}; QBUNCH 8 expected")
+    _same_bytes("two-step CAPITALIST", gpu, cpu)
+    log(f"[twostep] first {n} reads (QBUNCH {gst['qbunch']}): b6 bytes "
+        "identical to the CPU path")
+    del al
+    torch.cuda.empty_cache()
 
 
 def phase_long_reads():
@@ -1184,9 +1687,14 @@ def main():
     if sys.argv[1:2] == ["pairs"]:
         sos = phase_build(("myers_pairs",))
         earlier = earlier_pair_kernel(sys.argv[2]) if sys.argv[2:] else None
-        _, main_case, _ = phase_pairs(earlier)
+        _, main_case, _, _, _ = phase_pairs(earlier)
         phase_pairs_path(main_case, PATH_B, earlier)
         phase_sass(sos, ("myers_pairs",))
+        print(card_line(), flush=True)
+        return
+    if sys.argv[1:] == ["twostep"]:
+        phase_build()
+        phase_twostep({}, profile=True)
         print(card_line(), flush=True)
         return
     phase_sass(phase_build())
@@ -1204,20 +1712,28 @@ def main():
     phase_long_reads()
     phase_direct(launch_log)
     phase_modes()
+    phase_modes_accel()
+    phase_twostep(launch_log)
+    held = launch_log.pop("twostep_held")
     # one entry per kernel, at the shape of the path that counts its
     # launches (K1-K3: the accelerated batch; K4: the direct batch); a
-    # kernel's second shape rides along under "also"
+    # kernel's other shapes ride along under "also"
     kernels = []
     for r in recs:
         c = r.pop("counter")
         r["launches"] = launch_log["direct" if c == "k4" else "accel"][c]
         r["launches_by_path"] = {p: n[c] for p, n in launch_log.items()}
         if kernels and kernels[-1]["name"][:2] == r["name"][:2]:
-            kernels[-1]["also"] = {k: r[k] for k in (
+            kernels[-1].setdefault("also", []).append({k: r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")}
+                "max_abs_err")})
         else:
             kernels.append(r)
+    # the two-step batch's own launches, each shape held on its tensors
+    for kern, rec in held:
+        next(r for r in kernels if r["name"][:2] == kern).setdefault(
+            "also", []).append({k: rec[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "max_abs_err", "launches")})
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -157,19 +157,17 @@ def test_align_stream_matches_batches(bench_db):
 
 def test_outside_slice_raises(bench_db):
     """What the port does not cover yet raises NotImplementedError
-    naming its ROADMAP item; what it now covers no longer does."""
-    from burst_tpu_torch import modes
-    from burst_tpu_torch.serving import Aligner
+    naming its ROADMAP item; what it now covers no longer does (every
+    mode with an accelerator, and a batch without a clear row, are held
+    to burst_tpu's bytes in test_torch_twostep.py)."""
+    from burst_tpu_torch.serving import MODES, Aligner
     from burst_tpu_torch.state import from_reference
 
     prd, pacc = from_reference(*bench_db[:2])
-    for mode in ("ALLPATHS", "FORAGE", "CAPITALIST", "ANY"):
-        with pytest.raises(NotImplementedError, match="M7"):
-            Aligner(prd, pacc, mode=mode, device="cpu")
+    for mode in MODES:
+        assert Aligner(prd, pacc, mode=mode, device="cpu").mode == mode
     with pytest.raises(ValueError, match="unknown mode"):
         Aligner(prd, None, mode="WORST", device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        modes.report_any_accel(None, None, None, None, None)
     # no accelerator, and a read under k (a full-scan row), now align
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     batch = [np.tile(bases, 2), bench_db[3][1].copy()]
@@ -177,9 +175,12 @@ def test_outside_slice_raises(bench_db):
         al = Aligner(prd, acc, thres=0.98, mode="BEST", device="cpu")
         al.align_batch([b"s", b"t"], [r.copy() for r in batch])
     assert al.last_stats["full_rows"] == 1
-    # a batch of nothing but such rows still needs the two-step path
-    with pytest.raises(NotImplementedError, match="M7"):
-        al.align_batch([b"s"], batch[:1])
+    # a batch of nothing but such rows takes the two-step path: one
+    # full-scan row, the direct path's bytes
+    direct = Aligner(prd, None, thres=0.98, mode="BEST", device="cpu")
+    assert al.align_batch([b"s"], batch[:1]) == \
+        direct.align_batch([b"s"], batch[:1]) != b""
+    assert al.last_stats == dict(qbunch=1, pairs=0, full_rows=1)
     # reads of 257-512 bp (W = 9..16) are inside the pair kernel's range
     # now; longer ones still raise, on either path
     rng = np.random.default_rng(5)
@@ -230,6 +231,14 @@ def test_import_without_jax():
         direct = Aligner(rd, None, thres=0.98, do_rc=True, device="cpu"
                          ).align_batch(heads, reads)
         assert direct.count(b"\\n") == 40, direct
+        from burst_tpu_torch.io.taxonomy import Taxonomy
+        tax = Taxonomy([(b"r%d" % i, b"k__K;p__P%d" % (i % 2))
+                        for i in range(8)])
+        cap = Aligner(rd, acc, thres=0.98, mode="CAPITALIST", do_rc=True,
+                      taxonomy=tax, device="cpu")
+        out = cap.align_batch(heads, reads)
+        assert out.count(b"\\n") == 40 and b"k__K;p__P1" in out, out
+        assert cap.last_stats["pairs"] > 0, cap.last_stats
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "burst_tpu")]
         assert not loaded, loaded
