@@ -1,64 +1,237 @@
 // Phase-A dense cross scan: the [Q, T] minimum glocal edit distance of
 // every query against every tile (Myers/Hyyro bit-vector recurrence over
-// all Lp tile columns, no positions), as int32.
+// all Lp tile columns, no positions), as int32 or as uint8 clipped at 255.
 //
 // Replaces the Pallas cross kernel of burst_tpu/kernels/myers_pallas.py
 // (`myers_cross_pallas`, `_make_cross_kernel`, `_myers_col`; K4).
 // Semantics are those of burst_tpu_torch/kernels/myers.py::
-// myers_cross_plain, bit for bit.
+// myers_cross_plain, bit for bit (the uint8 result is min(ed, 255) of the
+// int32 one).
 //
 // What bounds it on an H100: integer-ALU issue. A pair costs Lp columns
 // of about 11 32-bit integer instructions per Myers word plus two for
 // the score's sign bits and the running minimum (`chip_smoke.py` counts
 // them in the SASS, `cuobjdump -sass`), a serial chain within one pair.
-// The bytes are nothing beside that: a [2048, 512] block reads 512 KiB
-// of Peq and 240 KiB of tiles once and writes 4 MiB, for about 2.3e10
-// integer operations. The kernel runs at about nine tenths of that rate.
+// The bytes are a few hundredths of that: a launch reads Peq and its
+// tiles once and writes one byte a pair. At the paths' shapes that rate
+// is what binds, once a launch is large enough: the direct path's blocks
+// (2,048 rows x about 7,700 tiles at W = 4) and the accelerated paths'
+// full-scan rows (a few dozen short queries at W = 1 against a whole unit
+// bucket of 10^5 tiles and more) are each 10^4 CTAs or more, several per
+// SM at once, and the kernel runs at nine tenths of the int32 rate
+// there. A launch cut to 512 tiles, as the TPU's fixed blocks had it,
+// gives 42 such rows 44 CTAs on 132 SMs: one warp a scheduler at most,
+// each tile chunk's load exposed, a tenth of the rate. Where a launch is
+// that small whatever its cut (Q x T of some 10^4 pairs), a lone warp's
+// in-order issue bounds it; the NQ chains a thread carries are all the
+// instruction-level parallelism it has.
 //
-// Design. One thread owns one tile and carries NQ queries at once (4 at
-// W <= 4, 2 at W <= 8, else 1): each tile code is read and decoded once
-// for NQ pairs, and the NQ independent carry chains give the scheduler
-// instruction-level parallelism that a single chain lacks. VP/VN of all
-// NQ x W words stay in registers (W and NQ are template parameters, the
-// word loop is unrolled and the two passes of the recurrence are fused
-// into one, the shifted Ph/Mh taking their carry-in through a funnel
-// shift). The CTA's NQ Peq tables are staged once in shared memory and
-// indexed by the code -- the TPU kernel's 16-way select tree existed
-// only because the TPU has no lane gather; lanes with equal codes read
-// one address (a broadcast) and the four base codes fall into distinct
-// banks at W = 4. The CTA's 128 tiles come in through shared memory in
-// chunks of 32 columns: each lane reads one aligned 4-byte word, eight
-// neighbouring lanes one 32-byte sector of a row of the row-major
-// [T, Lp] store (a thread reading column j of its own tile straight from
-// global memory would stride by Lp bytes), and the chunk is laid out
-// [word][thread] so the compute loop's reads are conflict free. Any Q, T
-// and Lp: edges are bounds-checked here, there is no padding contract.
+// Design.
+//  * One thread owns one tile and carries NQ queries at once (4 at
+//    W <= 4, else 2; `kernels/myers_cuda.py::cross_geometry` gives the
+//    same NQ, the launcher refuses any other): each tile code is read and
+//    decoded once for NQ pairs, and the NQ independent carry chains give
+//    the scheduler instruction-level parallelism that one chain lacks;
+//    they alternate word by word in program order.
+//    VP/VN of all NQ x W words stay in registers (W and NQ are template
+//    parameters, the word loop is unrolled, the two passes of the
+//    recurrence are fused into one, the shifted Ph/Mh take their carry-in
+//    through a funnel shift): 64 registers at W = 16, NQ = 2.
+//  * Grid: tile groups on grid.x (up to 2^31 - 1 CTAs), query groups on
+//    grid.y. The caller (`engine.cross_blocks`) sizes a launch to whole
+//    unit buckets under a byte cap, so that it fills the card whatever Q
+//    is: tens of thousands of tiles where Q is a few dozen rows.
+//  * The CTA's NQ Peq tables are staged once in shared memory and indexed
+//    by the code -- the TPU kernel's 16-way select tree existed only
+//    because the TPU has no lane gather; lanes with equal codes read one
+//    address (a broadcast).
+//  * Tiles come in through a two-stage ring in shared memory, 32 columns
+//    a stage: each lane reads aligned 4-byte words, eight neighbouring
+//    lanes one 32-byte sector of a row of the row-major [T, Lp] store (a
+//    thread reading column j of its own tile from global memory would
+//    stride by Lp bytes), laid out [word][thread] so the scan's reads are
+//    conflict free. Chunk c+1 is copied by cp.async (rows past T and
+//    words past Lp zero-filled) while chunk c is scanned; one barrier a
+//    chunk. Rows that are not 4-byte aligned (Lp % 4 != 0, or an
+//    unaligned base) load chunk c+1 into registers byte by byte before
+//    the scan of chunk c and assemble and store it after: the same
+//    overlap, one barrier. Whole chunks scan unchecked, only a last
+//    partial one is checked column by column.
+//  * Epilogue: the result type is a template argument. int32 is the TPU
+//    kernel's function; uint8 clipped at 255 is what the port's callers
+//    keep, one byte a pair written by the kernel itself.
+// Any Q, T and Lp: edges are bounds-checked here, there is no padding
+// contract.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;    // tiles per CTA, one per thread
-constexpr int kChunkWords = 8;   // 32 tile columns per shared-memory chunk
+constexpr int kMaxThreads = 128;  // tiles per CTA at most, one per thread
+constexpr int kChunkWords = 8;    // 4-byte tile words per row and stage
+constexpr int kChunkCols = 4 * kChunkWords;
 
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src,
+                                          int nbytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(nbytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Word k of row `row` of the chunk at column c0 for every (k, row) this
+// thread stages: idx = p * nthr + tid, row = idx / 8, k = idx % 8.
+struct ChunkMap {
+  const uint8_t* tiles;
+  int T, Lp, t0, tid, nthr;
+  __device__ __forceinline__ int row(int p) const {
+    return (p * nthr + tid) / kChunkWords;
+  }
+  __device__ __forceinline__ int word(int p) const {
+    return (p * nthr + tid) % kChunkWords;
+  }
+};
+
+// Chunk c0 into `stage` by cp.async; rows and base 4-byte aligned, so a
+// word is wholly inside a row or wholly past its end (zero-filled).
+__device__ __forceinline__ void stage_async(uint32_t (*stage)[kMaxThreads],
+                                            const ChunkMap& m, int c0) {
+#pragma unroll
+  for (int p = 0; p < kChunkWords; ++p) {
+    const int r = m.row(p), k = m.word(p);
+    const int col = c0 + 4 * k;
+    const bool in = m.t0 + r < m.T && col < m.Lp;
+    const uint8_t* src =
+        in ? m.tiles + (size_t)(m.t0 + r) * m.Lp + col : m.tiles;
+    cp_async4(&stage[k][r], src, in ? 4 : 0);
+  }
+}
+
+// Chunk c0 into registers byte by byte (rows of any alignment), bytes
+// past the row or past T as zero. The bytes stay apart until
+// `store_words`, after the scan: nothing waits on these loads before it.
+__device__ __forceinline__ void load_bytes(uint32_t (&pre)[kChunkWords][4],
+                                           const ChunkMap& m, int c0) {
+#pragma unroll
+  for (int p = 0; p < kChunkWords; ++p) {
+    const int r = m.row(p), col = c0 + 4 * m.word(p);
+    const uint8_t* src = m.tiles + (size_t)(m.t0 + r) * m.Lp + col;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      pre[p][b] = m.t0 + r < m.T && col + b < m.Lp ? __ldg(src + b) : 0u;
+  }
+}
+
+__device__ __forceinline__ void store_words(
+    uint32_t (*stage)[kMaxThreads], const ChunkMap& m,
+    const uint32_t (&pre)[kChunkWords][4]) {
+#pragma unroll
+  for (int p = 0; p < kChunkWords; ++p)
+    stage[m.word(p)][m.row(p)] = pre[p][0] | (pre[p][1] << 8) |
+                                 (pre[p][2] << 16) | (pre[p][3] << 24);
+}
+
+// One tile column (code) for the thread's NQ queries. The word loop is
+// outside the query loop, so that in program order the NQ chains
+// alternate word by word: an in-order scheduler with one warp finds the
+// next instruction independent of the last (a chain's words wait on the
+// carry from the word below).
 template <int W, int NQ>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void step(uint32_t code,
+                                     const uint32_t* __restrict__ s_peq,
+                                     uint32_t (&VP)[NQ][W],
+                                     uint32_t (&VN)[NQ][W], int (&score)[NQ],
+                                     int (&best)[NQ]) {
+  uint32_t carry[NQ], ph_prev[NQ], mh_prev[NQ], ph[NQ], mh[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) carry[q] = ph_prev[q] = mh_prev[q] = 0u;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const uint32_t eq = s_peq[(q * 16 + code) * W + w];
+      const uint32_t vp = VP[q][w];
+      const uint32_t vn = VN[q][w];
+      const uint64_t s =
+          (uint64_t)(eq & vp) + (uint64_t)vp + (uint64_t)carry[q];
+      carry[q] = (uint32_t)(s >> 32);
+      const uint32_t xh = ((uint32_t)s ^ vp) | eq;
+      ph[q] = vn | ~(xh | vp);
+      mh[q] = vp & xh;
+      const uint32_t xv = eq | vn;
+      // (x << 1) | carry-in from the word below
+      const uint32_t phs = __funnelshift_l(ph_prev[q], ph[q], 1);
+      const uint32_t mhs = __funnelshift_l(mh_prev[q], mh[q], 1);
+      ph_prev[q] = ph[q];
+      mh_prev[q] = mh[q];
+      VP[q][w] = mhs | ~(xv | phs);
+      VN[q][w] = phs & xv;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    score[q] += (int)(ph[q] >> 31) - (int)(mh[q] >> 31);
+    best[q] = min(best[q], score[q]);
+  }
+}
+
+// The thread's tile columns of one staged chunk: all kChunkCols of them
+// (FULL) or the first `ncols`.
+template <int W, int NQ, bool FULL>
+__device__ __forceinline__ void scan_chunk(
+    const uint32_t (*stage)[kMaxThreads], int tid, int ncols,
+    const uint32_t* __restrict__ s_peq, uint32_t (&VP)[NQ][W],
+    uint32_t (&VN)[NQ][W], int (&score)[NQ], int (&best)[NQ]) {
+  const int nwords = FULL ? kChunkWords : (ncols + 3) / 4;
+#pragma unroll 1
+  for (int k = 0; k < nwords; ++k) {
+    const uint32_t word = stage[k][tid];
+#pragma unroll
+    for (int sub = 0; sub < 4; ++sub)
+      if (FULL || 4 * k + sub < ncols)
+        step<W, NQ>((word >> (8 * sub)) & 15u, s_peq, VP, VN, score, best);
+  }
+}
+
+template <int W, int NQ, int U8>
+__global__ void __launch_bounds__(kMaxThreads)
 myers_cross_kernel(const uint32_t* __restrict__ peq,    // [Q,16,W]
                    const uint8_t* __restrict__ tiles,   // [T,Lp]
-                   int32_t* __restrict__ out,           // [Q,T]
+                   void* __restrict__ out,              // [Q,T]
                    int Q, int T, int Lp, int aligned) {
   __shared__ uint32_t s_peq[NQ * 16 * W];
-  __shared__ uint32_t s_tile[kChunkWords][kThreads];
+  __shared__ uint32_t s_tile[2][kChunkWords][kMaxThreads];
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * NQ;
-  const int t0 = blockIdx.y * kThreads;
+  const int nthr = blockDim.x;
+  const int t0 = blockIdx.x * nthr;
+  const int q0 = blockIdx.y * NQ;
   const int t = t0 + tid;
+  const int nchunks = (Lp + kChunkCols - 1) / kChunkCols;
+  const ChunkMap m{tiles, T, Lp, t0, tid, nthr};
 
   // the group's Peq tables; queries past Q read as zeros (never stored)
-  for (int i = tid; i < NQ * 16 * W; i += kThreads) {
+  for (int i = tid; i < NQ * 16 * W; i += nthr) {
     const int q = q0 + i / (16 * W);
-    s_peq[i] = q < Q ? peq[(size_t)q0 * 16 * W + i] : 0u;
+    s_peq[i] = q < Q ? __ldg(peq + (size_t)q0 * 16 * W + i) : 0u;
+  }
+  uint32_t pre[kChunkWords][4];
+  if (nchunks > 0) {
+    if (aligned) {
+      stage_async(s_tile[0], m, 0);
+      cp_async_commit();
+    } else {
+      load_bytes(pre, m, 0);
+      store_words(s_tile[0], m, pre);
+    }
   }
 
   uint32_t VP[NQ][W], VN[NQ][W];
@@ -74,99 +247,94 @@ myers_cross_kernel(const uint32_t* __restrict__ peq,    // [Q,16,W]
     best[q] = 32 * W;
   }
 
-  for (int c0 = 0; c0 < Lp; c0 += 4 * kChunkWords) {
-    __syncthreads();  // the previous chunk is consumed (and s_peq is set)
-#pragma unroll
-    for (int p = 0; p < kChunkWords; ++p) {
-      const int idx = p * kThreads + tid;
-      const int row = idx / kChunkWords;
-      const int k = idx % kChunkWords;
-      const int col = c0 + 4 * k;
-      uint32_t word = 0u;
-      if (t0 + row < T && col < Lp) {
-        const uint8_t* src = tiles + (size_t)(t0 + row) * Lp + col;
-        if (aligned && col + 4 <= Lp) {
-          word = *reinterpret_cast<const uint32_t*>(src);
-        } else {
-          for (int b = 0; b < 4 && col + b < Lp; ++b)
-            word |= (uint32_t)src[b] << (8 * b);
-        }
-      }
-      s_tile[k][row] = word;
-    }
+  for (int c = 0; c < nchunks; ++c) {
+    // chunk c has landed for every thread, chunk c-1 is consumed (and
+    // s_peq is set): the other stage is free for chunk c+1
+    cp_async_wait_all();
     __syncthreads();
-    if (t >= T) continue;  // edge threads only help with the loads
-
-#pragma unroll 1
-    for (int k = 0; k < kChunkWords; ++k) {
-      const uint32_t word = s_tile[k][tid];
-#pragma unroll
-      for (int sub = 0; sub < 4; ++sub) {
-        if (c0 + 4 * k + sub < Lp) {
-          const uint32_t code = (word >> (8 * sub)) & 15u;
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) {
-            const uint32_t* pq = s_peq + (q * 16 + code) * W;
-            uint32_t carry = 0u, ph_prev = 0u, mh_prev = 0u;
-            uint32_t ph = 0u, mh = 0u;
-#pragma unroll
-            for (int w = 0; w < W; ++w) {
-              const uint32_t eq = pq[w];
-              const uint32_t vp = VP[q][w];
-              const uint32_t vn = VN[q][w];
-              const uint64_t s =
-                  (uint64_t)(eq & vp) + (uint64_t)vp + (uint64_t)carry;
-              carry = (uint32_t)(s >> 32);
-              const uint32_t xh = ((uint32_t)s ^ vp) | eq;
-              ph = vn | ~(xh | vp);
-              mh = vp & xh;
-              const uint32_t xv = eq | vn;
-              // (x << 1) | carry-in from the word below
-              const uint32_t phs = __funnelshift_l(ph_prev, ph, 1);
-              const uint32_t mhs = __funnelshift_l(mh_prev, mh, 1);
-              ph_prev = ph;
-              mh_prev = mh;
-              VP[q][w] = mhs | ~(xv | phs);
-              VN[q][w] = phs & xv;
-            }
-            score[q] += (int)(ph >> 31) - (int)(mh >> 31);
-            best[q] = min(best[q], score[q]);
-          }
-        }
+    const int c0 = c * kChunkCols;
+    const bool more = c + 1 < nchunks;
+    if (more) {
+      if (aligned) {
+        stage_async(s_tile[(c + 1) & 1], m, c0 + kChunkCols);
+        cp_async_commit();
+      } else {
+        load_bytes(pre, m, c0 + kChunkCols);
       }
     }
+    if (t < T) {  // edge threads only help with the loads
+      if (c0 + kChunkCols <= Lp)
+        scan_chunk<W, NQ, true>(s_tile[c & 1], tid, kChunkCols, s_peq, VP,
+                                VN, score, best);
+      else
+        scan_chunk<W, NQ, false>(s_tile[c & 1], tid, Lp - c0, s_peq, VP, VN,
+                                 score, best);
+    }
+    if (more && !aligned) store_words(s_tile[(c + 1) & 1], m, pre);
   }
 
   if (t < T) {
 #pragma unroll
-    for (int q = 0; q < NQ; ++q)
-      if (q0 + q < Q) out[(size_t)(q0 + q) * T + t] = best[q];
+    for (int q = 0; q < NQ; ++q) {
+      if (q0 + q < Q) {
+        const size_t i = (size_t)(q0 + q) * T + t;
+        if (U8)
+          static_cast<uint8_t*>(out)[i] = (uint8_t)min(best[q], 255);
+        else
+          static_cast<int32_t*>(out)[i] = best[q];
+      }
+    }
   }
 }
 
-template <int W>
-void launch(const void* peq, const void* tiles, void* out, int Q, int T,
-            int Lp, int aligned, cudaStream_t stream) {
-  constexpr int NQ = W <= 4 ? 4 : (W <= 8 ? 2 : 1);
-  const dim3 grid((Q + NQ - 1) / NQ, (T + kThreads - 1) / kThreads);
-  myers_cross_kernel<W, NQ><<<grid, kThreads, 0, stream>>>(
+template <int W, int NQ>
+int launch(const void* peq, const void* tiles, void* out, int Q, int T,
+           int Lp, int out_u8, int threads, dim3 grid, int aligned,
+           cudaStream_t stream) {
+  auto kern = out_u8 ? &myers_cross_kernel<W, NQ, 1>
+                     : &myers_cross_kernel<W, NQ, 0>;
+  kern<<<grid, threads, 0, stream>>>(
       static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
-      static_cast<int32_t*>(out), Q, T, Lp, aligned);
+      out, Q, T, Lp, aligned);
+  return (int)cudaGetLastError();
+}
+
+// The instances: NQ = 4 at W <= 4, 2 above.
+template <int W>
+int launch_w(const void* peq, const void* tiles, void* out, int Q, int T,
+             int Lp, int NQ, int out_u8, int threads, dim3 grid, int aligned,
+             cudaStream_t s) {
+  constexpr int kNQ = W <= 4 ? 4 : 2;
+  if (NQ != kNQ) return (int)cudaErrorInvalidValue;
+  return launch<W, kNQ>(peq, tiles, out, Q, T, Lp, out_u8, threads, grid,
+                        aligned, s);
 }
 
 }  // namespace
 
-#define CROSS_CASE(w) \
-  case w: launch<w>(peq, tiles, out, Q, T, Lp, aligned, s); break;
+#define CROSS_CASE(w)                                                   \
+  case w:                                                               \
+    return launch_w<w>(peq, tiles, out, Q, T, Lp, NQ, out_u8, threads,  \
+                       grid, aligned, s);
 
+// out: [Q, T] int32 (out_u8 = 0) or uint8 clipped at 255 (out_u8 = 1).
+// The geometry comes from the caller: NQ queries a thread, `threads` tiles
+// a CTA (a multiple of 32, at most 128), grid (gx, gy) covering T and Q.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a W the kernel is not instantiated for).
+// arguments the kernel does not take).
 extern "C" int myers_cross_launch(const void* peq, const void* tiles,
                                   void* out, int Q, int T, int W, int Lp,
-                                  void* stream) {
+                                  int NQ, int threads, int gx, int gy,
+                                  int out_u8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Q <= 0 || T <= 0 || Lp < 0 || threads <= 0 || threads % 32 ||
+      threads > kMaxThreads || NQ <= 0 || gx <= 0 || gy <= 0 ||
+      gy > 65535 || (long long)gx * threads < T ||
+      (long long)gy * NQ < Q || (out_u8 != 0 && out_u8 != 1))
+    return (int)cudaErrorInvalidValue;
   const int aligned =
       (Lp % 4 == 0) && (reinterpret_cast<uintptr_t>(tiles) % 4 == 0);
+  const dim3 grid(gx, gy);
   switch (W) {
     CROSS_CASE(1) CROSS_CASE(2) CROSS_CASE(3) CROSS_CASE(4)
     CROSS_CASE(5) CROSS_CASE(6) CROSS_CASE(7) CROSS_CASE(8)
@@ -174,5 +342,4 @@ extern "C" int myers_cross_launch(const void* peq, const void* tiles,
     CROSS_CASE(13) CROSS_CASE(14) CROSS_CASE(15) CROSS_CASE(16)
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

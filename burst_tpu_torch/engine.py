@@ -29,15 +29,18 @@ from . import devtime
 from .accel import query_words
 from .kernels import scour_device
 from .kernels.myers import build_peq_dev, words_for
-from .kernels.myers_cuda import MAX_W, myers_cross, myers_pairs
+from .kernels.myers_cuda import (MAX_W, cross_geometry, myers_cross,
+                                 myers_pairs, sm_count)
 from .kernels.rescore import rescore_finalize_host
 from .kernels.rescore_cuda import rescore_pairs_gather
 from .native import expand_pairs_native, pad_rows_native, scour_native
 from .process import QueryData, RefData
 
 VECSZ = 16      # the reference's clump width; defines pod ordering only
-QCHUNK = 2048   # canonical query-block height
-TCHUNK = 512    # canonical tile-block width
+QCHUNK = 2048   # query rows of a K4 block at most (and K3's chunk scale)
+CROSS_CTAS_PER_SM = 8           # a K4 launch fills the card from here on
+CROSS_BLOCK_BYTES = 16 << 20    # a K4 block's uint8 bytes at most, device
+CPU_CROSS_BLOCK_BYTES = 1 << 20  # the same on the CPU (the plain version)
 
 
 @dataclasses.dataclass
@@ -343,23 +346,62 @@ def _pairs_min_ed(qd: QueryData, db, pj: np.ndarray, pp: np.ndarray):
     return pending
 
 
+def cross_blocks(nq: int, nt: int, W: int, sms: int, max_bytes: int
+                 ) -> tuple[int, int]:
+    """(query rows, tiles) of each K4 launch over a bucket of nq query
+    rows of W words and nt unit tiles, on a device of `sms` SMs.
+
+    Rows: the bucket's, at most QCHUNK. Tiles: enough to give the card
+    CROSS_CTAS_PER_SM CTAs a SM (K4 runs one CTA per NQ rows x 128
+    tiles), up to the whole bucket: the whole bucket where its uint8
+    block stays within `max_bytes`, else the bucket split evenly, in
+    whole tile groups, into the fewest launches that do. The cap always
+    holds: where even the tiles that fill the card would pass it, the
+    rows give way (at 132 SMs that takes a cap under a megabyte). A
+    launch's width thus follows the card and the query count, not a
+    fixed tile block: a few dozen full-scan rows get a whole bucket of
+    hundreds of thousands of tiles."""
+    rows = max(1, min(nq, QCHUNK))
+    _, threads, (_, groups) = cross_geometry(rows, nt, W)
+    fill = max(1, min(nt, threads * -(-CROSS_CTAS_PER_SM * sms // groups)))
+    rows = max(1, min(rows, max_bytes // fill))
+    per = max(fill, max_bytes // rows // threads * threads)
+    if nt <= per:
+        return rows, max(1, nt)
+    n = -(-nt // per)
+    return rows, threads * -(-nt // (n * threads))
+
+
+def _cross_budget(device: torch.device) -> tuple[int, int]:
+    """(SMs, block byte cap) that `cross_blocks` plans K4 launches with:
+    the card's own, or one SM and a megabyte for the plain version."""
+    if device.type == "cuda":
+        return sm_count(device), CROSS_BLOCK_BYTES
+    return 1, CPU_CROSS_BLOCK_BYTES
+
+
 def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
     """Stream the direct path's phase A through K4: yields (rows, poss,
     block_u8) host tiles of the [numUnibins, tot_units] min-ED matrix
     (clipped to 255) without ever assembling it, in the reference's
-    order: W, then unit length bucket, then query block, then tile block
-    of the canonical QCHUNK x TCHUNK shape.
+    order: W, then unit length bucket, then query block, then tile block,
+    the blocks in the shape `cross_blocks` plans for the device.
 
     The Peq planes and the bucket tiles are resident on the device and
-    sliced, not uploaded per block; each block is clipped and narrowed
-    to uint8 on the device before its copy. Blocks travel in groups of
-    `max_pending`, and the next group is dispatched before the previous
-    one is waited for, so the device scans while the host consumes."""
+    sliced, not uploaded per block; K4 writes each block as uint8 clipped
+    at 255 itself. Blocks travel in groups of up to `max_pending`, or
+    fewer once a group holds the plan's byte cap, and the next group is
+    dispatched before the previous one is waited for, so the device
+    scans while the host consumes. Both consumers are independent of the
+    block shape: `compute_ed_matrix` writes each block into its place,
+    and `compute_ed_select` sorts at the end and only ever drops entries
+    above a running minimum that never rises."""
     if getattr(qd, "xalpha", False):
         raise NotImplementedError("xalpha queries (ROADMAP M11)")
     rd = db.rd
     qbuckets = _bucket_queries(qd)
     ubuckets = _bucket_units(rd)
+    sms, max_bytes = _cross_budget(db.device)
     pending: list = []
     groups: collections.deque = collections.deque()
 
@@ -373,6 +415,7 @@ def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
         for (rws, pss), block in zip(metas, handle.wait()):
             yield rws, pss, block
 
+    nbytes = 0
     for W, rows in sorted(qbuckets.items()):
         rows_a = np.array(rows, dtype=np.int64)
         # the bucket's rows in ascending order are Peq rows 0..len-1
@@ -380,19 +423,20 @@ def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
         for lb, poss in sorted(ubuckets.items()):
             pos2row, tiles_dev = db.bucket_tiles(lb, 32)
             r0 = int(pos2row[poss[0]])      # the bucket's local run
-            qchunk = min(QCHUNK, _pow2_ceil(len(rows_a)))
-            tchunk = min(TCHUNK, _pow2_ceil(len(poss)))
+            qchunk, tchunk = cross_blocks(len(rows_a), len(poss), W, sms,
+                                          max_bytes)
             for q0 in range(0, len(rows_a), qchunk):
                 pq = peq_dev[q0:min(q0 + qchunk, len(rows_a))]
                 for t0 in range(0, len(poss), tchunk):
                     nt = min(tchunk, len(poss) - t0)
                     tb = tiles_dev[r0 + t0:r0 + t0 + nt]
-                    block = myers_cross(pq, tb, W).clamp_(max=255).to(
-                        torch.uint8)
+                    block = myers_cross(pq, tb, W, torch.uint8)
                     pending.append(((rows_a[q0:q0 + qchunk],
                                      poss[t0:t0 + nt]), block))
-                    if len(pending) >= max_pending:
+                    nbytes += block.numel()
+                    if len(pending) >= max_pending or nbytes >= max_bytes:
                         _flush()
+                        nbytes = 0
                         if len(groups) > 1:
                             yield from _drain()
     if pending:

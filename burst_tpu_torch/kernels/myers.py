@@ -139,12 +139,13 @@ def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
     return torch.stack([best, first, last]).to(torch.int32)
 
 
-def myers_cross_plain(peq: torch.Tensor, tiles: torch.Tensor, W: int
-                      ) -> torch.Tensor:
+def myers_cross_plain(peq: torch.Tensor, tiles: torch.Tensor, W: int,
+                      out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """[Q, T] int32 minimum glocal edit distance of every query against
     every tile, over all Lp columns (trailing pad columns included):
     peq [Q, 16, W] int32 bits, tiles [T, Lp] uint8 codes. Counterpart of
-    `burst_tpu.kernels.myers.myers_min_ed_cross`."""
+    `burst_tpu.kernels.myers.myers_min_ed_cross`. With
+    out_dtype=torch.uint8 the result is min(ed, 255), as uint8."""
     Q = peq.shape[0]
     T, Lp = tiles.shape
     dev = tiles.device
@@ -161,6 +162,8 @@ def myers_cross_plain(peq: torch.Tensor, tiles: torch.Tensor, W: int
         score = score + _col_step([eq[:, :, w] for w in range(W)], VP,
                                   VN, W)
         best = torch.minimum(best, score)
+    if out_dtype == torch.uint8:
+        return best.clamp_(max=255).to(torch.uint8)
     return best.to(torch.int32)
 
 

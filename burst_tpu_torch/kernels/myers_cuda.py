@@ -1,7 +1,9 @@
 """Wrappers of the Myers kernels: the pair kernel
 (`csrc/myers_pairs.cu`; K1 over the nibble-packed tile store, K2 over
 tiles of one code per byte, one kernel family reading the rows in place)
-and the dense cross kernel (`csrc/myers_cross.cu`; K4).
+and the dense cross kernel (`csrc/myers_cross.cu`; K4, int32 or uint8
+clipped at 255). The launch geometry of each is pure Python
+(`pair_geometry`, `cross_geometry`), so the CPU tests reach it.
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version from `kernels.myers`. Each wrapper
@@ -19,13 +21,15 @@ from .myers import (myers_cross_plain, myers_pairs_packed_plain,
                     myers_pairs_plain)
 
 MAX_W = 16          # Myers words per query the kernels take (512 bp)
-CROSS_TILES_PER_CTA = 128
+CROSS_TILES_PER_CTA = 128     # K4: tiles per CTA at most, one per thread
+CROSS_MAX_QGROUPS = 65535     # K4: query groups ride on grid.y
 PAIR_SMEM_LIMIT = 48 * 1024   # static limit: no opt-in needed below it
 FMT_PACKED, FMT_BYTES = 0, 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"myers_pairs_launch": [_P] * 5 + [_I] * 10 + [_P]}
-_SIG_CROSS = {"myers_cross_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}
+_SIG_CROSS = {"myers_cross_launch": [_P, _P, _P] + [_I] * 9 + [_P]}
+_CROSS_DTYPES = {torch.int32: 0, torch.uint8: 1}
 
 
 def pair_geometry(B: int, W: int, sms: int = 132) -> tuple[int, int, int]:
@@ -44,9 +48,24 @@ def pair_geometry(B: int, W: int, sms: int = 132) -> tuple[int, int, int]:
     return -(-B // threads), threads, threads * 64 * W
 
 
+def cross_geometry(Q: int, T: int, W: int
+                   ) -> tuple[int, int, tuple[int, int]]:
+    """(NQ, threads per CTA, grid (x, y)) of a K4 launch over Q queries
+    of W words and T tiles: NQ queries a thread, so that a thread always
+    runs at least two independent carry chains (4 at W <= 4, 2 above:
+    VP/VN of NQ x W words in registers); one tile a thread, 128 tiles a
+    CTA (fewer, in whole warps, when T is smaller); tile groups on grid.x
+    and query groups on grid.y."""
+    nq = 4 if W <= 4 else 2
+    threads = min(CROSS_TILES_PER_CTA, max(32, -(-T // 32) * 32))
+    return nq, threads, (-(-T // threads), -(-Q // nq))
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    return torch.cuda.get_device_properties(
+        torch.device(device)).multi_processor_count
 
 
 def _check_inputs(peq_all, tiles, pidx, tidx, W: int):
@@ -85,7 +104,7 @@ def _launch(peq_all, tiles, pidx, tidx, W: int, fmt: int, ncols: int):
     out = torch.empty((3, B), dtype=torch.int32, device=pidx.device)
     if B == 0:
         return out
-    blocks, threads, smem = pair_geometry(B, W, _sm_count(pidx.device))
+    blocks, threads, smem = pair_geometry(B, W, sm_count(pidx.device))
     err = _build.load("myers_pairs", _SIG).myers_pairs_launch(
         peq_all.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
         tidx.data_ptr(), out.data_ptr(), B, W, fmt, tiles.shape[1], ncols,
@@ -133,12 +152,12 @@ def myers_pairs(peq_all: torch.Tensor, tiles_all: torch.Tensor,
 myers_pairs.launches = 0
 
 
-def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int
-                ) -> torch.Tensor:
-    """K4: [Q, T] int32 minimum glocal edit distance of every query
-    against every tile over all Lp columns. peq [Q, 16, W] int32 bits,
-    tiles [T, Lp] uint8 (one code per byte, trailing pad columns); any Q,
-    T and Lp."""
+def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
+                out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """K4: [Q, T] minimum glocal edit distance of every query against
+    every tile over all Lp columns, as int32 or (out_dtype=torch.uint8)
+    clipped at 255. peq [Q, 16, W] int32 bits, tiles [T, Lp] uint8 (one
+    code per byte, trailing pad columns); any Q, T and Lp."""
     if tiles.device != peq.device:
         raise ValueError(f"tiles on {tiles.device}, peq on {peq.device}")
     if not peq.is_contiguous() or not tiles.is_contiguous():
@@ -153,17 +172,22 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int
                          f"{peq.dtype} {tuple(peq.shape)}")
     if tiles.dtype != torch.uint8 or tiles.dim() != 2:
         raise ValueError("tiles must be a 2-D uint8 tensor")
+    if out_dtype not in _CROSS_DTYPES:
+        raise ValueError(f"out_dtype {out_dtype}: the cross kernel writes "
+                         "torch.int32 or torch.uint8")
     if not peq.is_cuda:
-        return myers_cross_plain(peq, tiles, W)
+        return myers_cross_plain(peq, tiles, W, out_dtype)
     Q, (T, Lp) = peq.shape[0], tiles.shape
-    if T > 65535 * CROSS_TILES_PER_CTA:
-        raise ValueError(f"T={T}: over the launch grid's "
-                         f"{65535 * CROSS_TILES_PER_CTA} tiles per call")
-    out = torch.empty((Q, T), dtype=torch.int32, device=peq.device)
+    NQ, threads, (gx, gy) = cross_geometry(Q, T, W)
+    if gy > CROSS_MAX_QGROUPS:
+        raise ValueError(f"Q={Q}: over the launch grid's "
+                         f"{CROSS_MAX_QGROUPS * NQ} queries per call")
+    out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
     if Q == 0 or T == 0:
         return out
     err = _build.load("myers_cross", _SIG_CROSS).myers_cross_launch(
-        peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
+        peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp, NQ,
+        threads, gx, gy, _CROSS_DTYPES[out_dtype],
         torch.cuda.current_stream(peq.device).cuda_stream)
     _build.check(err, "myers_cross_launch")
     myers_cross.launches += 1

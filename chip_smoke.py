@@ -10,6 +10,13 @@
                                           # checks and times of phase 2;
                                           # with a source of the earlier
                                           # interface, both timed in turns
+    python3 chip_smoke.py cross [old.cu]  # the cross kernel (K4) alone:
+                                          # build, checks and times at
+                                          # each path's shape, cp.async
+                                          # against register staging;
+                                          # with an
+                                          # earlier source, both timed in
+                                          # turns at their own blocks
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from `burst_tpu_torch/csrc` (one nvcc per
@@ -28,7 +35,10 @@ Phases, each fatal on failure:
      must be one launch that allocates only its result. K3 at the
      headline's W = 4 (L1 = 128 windowed, 640 full width) and at the
      amplicon's W = 10 with 296 DP rows (L1 = 384 windowed, 1024 full
-     width, the kernel's widest);
+     width, the kernel's widest). K4 in both result types (int32, uint8)
+     at each path's shape (`CROSS_SHAPES`), on the first block that
+     `engine.cross_blocks` plans for this card: the direct block, the
+     two-step and fused full-scan rows, one ragged shape;
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -36,16 +46,20 @@ Phases, each fatal on failure:
      one timed 20,000-read batch; every 37th read carries one N (the
      ambiguous-row branch, K2) and every 997th is 11 bp long (a full-scan
      row, K4). 256 families (64 Mbp; the headline has 1024, cut so the
-     whole script stays inside its time limit). The first 500 reads' b6 bytes must equal the port's own
-     CPU run on the same database;
+     whole script stays inside its time limit). K4's launches and device
+     time over the batch against their summed bound are logged, and each
+     K4 shape the batch launched is held against the plain version on
+     its own tensors. The first 500 reads' b6 bytes must equal the
+     port's own CPU run on the same database;
      then 400 reads of 150-300 bp, two thirds with an N, on a 5-family
      database (K1 at W=10, K2 at W=5..10, K3 at 10 words): the card's b6
      bytes must equal the CPU run;
   4. direct path (no accelerator) at full width: 40 families (10 Mbp,
      about 31,000 units), 20,000 reads, BEST, both strands, every
      (query, unit) pair through K4: one warm batch, one timed, one more
-     with its stages timed apart; K4's output for 8 sampled blocks must
-     equal the host twin's;
+     with its stages timed apart, K4 logged and its shapes held as in
+     phase 3; K4's output for 8 sampled blocks must equal the host
+     twin's;
   5. the five reporting modes on a 2-family database: without an
      accelerator 64 reads; with one, ALLPATHS, FORAGE, CAPITALIST and ANY
      on 320 reads (some with an N, some under k; the two-step path at the
@@ -58,11 +72,12 @@ Phases, each fatal on failure:
      substitutions, -i 0.97, both strands, k=12 accelerator, CAPITALIST
      with an LCA taxonomy, shear 320), every 199th read with an N, every
      997th 11 bp long (full-scan rows, K4): one warm batch, one timed,
-     one more with its stages timed apart. Every (kernel, shape) that
-     batch launched (K2 at its 2^19-2^20 pairs, K3 windowed and at full
+     one more with its stages timed apart. Every (kernel, shape) the
+     timed batch launched (K2 at its 2^19-2^20 pairs, K3 windowed and at full
      width, K4's full-scan blocks) is then run again on the first such
      call's own tensors and must equal its plain version on the card (the
-     plain pair scan in slices of 2^16 pairs). Then 512 reads of it: the
+     plain pair scan in slices of 2^16 pairs); K4 logged as in phase 3.
+     Then 512 reads of it: the
      card's b6 bytes must equal the port's CPU run (default QBUNCH 8).
 
 No scour knob is set: the slot budgets of every accelerated batch are
@@ -276,7 +291,8 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
     # K1/K2 at W=4: the loop with the most LOP3 is one tile word, 8
     # columns of the packed format (0) and 4 of the byte format (1). Its
     # steps also keep the two position keys, which the bound leaves out
-    for fmt, steps in (("0", 8), ("1", 4)):
+    for fmt, steps in (("0", 8), ("1", 4)) if "myers_pairs" in sources \
+            else ():
         hot = max(fns["myers_pairs", "4/" + fmt], key=lambda l: l[3]["LOP3"])
         show("myers_pairs", "4/" + fmt, [hot])
         ops = hot[3]
@@ -286,20 +302,33 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
                        if k not in SCAN_WORD_OPCODES) / steps
         held(f"pair scan (format {fmt}) other integer operations per step",
              OPS_COL, per_step)
-    if "myers_cross" not in sources:
+    if "myers_cross" in sources:
+        # K4 at W=4, 4 queries a thread, both result types (0: int32, 1:
+        # uint8): the scan loop is the one with the most LOP3 among the
+        # loops that step queries (VIMNMX, one per (query, column) step)
+        # and stage no tiles (no global load, copy or barrier): one tile
+        # word, 4 columns
+        for u8 in ("0", "1"):
+            args = "4/4/" + u8
+            scan = [l for l in fns["myers_cross", args] if l[3]["VIMNMX"]
+                    and not any(l[3][k] for k in ("LDG", "LDGSTS", "BAR"))]
+            if not scan:
+                show("myers_cross", args)
+                fail(f"myers_cross <{args}>: no scan loop in the machine "
+                     "code")
+            hot = max(scan, key=lambda l: l[3]["LOP3"])
+            show("myers_cross", args, [hot])
+            ops = hot[3]
+            steps = ops["VIMNMX"]
+            if steps <= 0:
+                fail(f"myers_cross <{args}>: no VIMNMX in the hottest "
+                     f"loop: {ops}")
+            held(f"cross scan <{args}> operations per word", OPS_WORD,
+                 sum(ops[k] for k in SCAN_WORD_OPCODES) / (4 * steps))
+            held(f"cross scan <{args}> operations per step", OPS_COL,
+                 sum(ops[k] for k in SCAN_STEP_OPCODES) / steps)
+    if "rescore" not in sources:
         return
-    # K4 at W=4 (4 queries per thread): the loop with the most LOP3; one
-    # VIMNMX per (query, column) step
-    hot = max(fns["myers_cross", "4/4"], key=lambda l: l[3]["LOP3"])
-    show("myers_cross", "4/4", [hot])
-    ops = hot[3]
-    steps = ops["VIMNMX"]
-    if steps <= 0:
-        fail(f"myers_cross <4/4>: no VIMNMX in the hottest loop: {ops}")
-    held("scan operations per word",
-         OPS_WORD, sum(ops[k] for k in SCAN_WORD_OPCODES) / (4 * steps))
-    held("scan operations per step",
-         OPS_COL, sum(ops[k] for k in SCAN_STEP_OPCODES) / steps)
     # K3: the doubling loop is the nested one that holds the barriers, the
     # row loop the one around it; each thread owns one DP column
     show("rescore", "")
@@ -690,22 +719,48 @@ def hold_rescore(recs, case, host, qlen, budget, lt, N):
         recs.append(rec)
 
 
-def hold_cross_call(label, peq, tiles, W):
-    """One K4 call on the card, exact against the plain version there.
-    Returns (result on the host, the kernel record's entry)."""
+def cross_bound(W: int, Q: int, T: int, Lp: int, out_bytes: int) -> dict:
+    """K4's bound over Q x T pairs: Peq and tiles read once, the result
+    written once, the scan's int32 operations."""
+    return bound(Q * 64 * W + T * Lp + out_bytes * Q * T,
+                 scan_ops(Q * T, Lp, W))
+
+
+def hold_cross_call(label, peq, tiles, W, out_dtype=None, host=None,
+                    reps=20):
+    """One K4 call on the card in `out_dtype` (int32 by default), exact
+    against the plain version there in the same type (timed once, with
+    CUDA events: it takes seconds at the paths' shapes) and, given the
+    native host twin's int32 result `host`, against that (clipped at
+    255 for uint8). Returns (result on the host, the kernel record's
+    entry)."""
+    import numpy as np
+    import torch
+
     from burst_tpu_torch.kernels import myers, myers_cuda
+    dt = out_dtype or torch.int32
     (Q, (T, Lp)) = peq.shape[0], tiles.shape
-    k4 = lambda: myers_cuda.myers_cross(peq, tiles, W)
-    k4p = lambda: myers.myers_cross_plain(peq, tiles, W)
+    k4 = lambda: myers_cuda.myers_cross(peq, tiles, W, dt)
     got = k4().cpu().numpy()
-    err = exact(f"K4 {label} vs plain", got, k4p().cpu().numpy())
+    ty = "uint8" if dt == torch.uint8 else "int32"
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = myers.myers_cross_plain(peq, tiles, W, dt)
+    e1.record()
+    err = exact(f"K4 {label} {ty} vs plain", got, ref.cpu().numpy())
+    del ref
+    if host is not None:
+        exact(f"K4 {label} {ty} vs native host twin", got,
+              np.minimum(host, 255) if dt == torch.uint8 else host)
     return got, dict(
         name=f"K4 myers_cross ({label})", route="cuda",
         source="burst_tpu_torch/csrc/myers_cross.cu",
         replaces="burst_tpu/kernels/myers_pallas.py:98",
-        max_abs_err=err, ms=time_ms(k4, 20), plain_ms=time_ms(k4p, 1),
-        **bound(Q * 64 * W + T * Lp + 4 * Q * T, scan_ops(Q * T, Lp, W)),
-        library_ms=None, counter="k4", shape=f"W={W} Q={Q} T={T} Lp={Lp}")
+        max_abs_err=err, ms=time_ms(k4, reps), plain_ms=e0.elapsed_time(e1),
+        **cross_bound(W, Q, T, Lp, got.itemsize),
+        library_ms=None, counter="k4",
+        shape=f"W={W} Q={Q} T={T} Lp={Lp} {ty}")
 
 
 PLAIN_SLICE = 1 << 16   # pairs per call of the plain pair scan
@@ -746,17 +801,7 @@ def hold_pairs_call(label, peq, tiles, pidx, tidx, W):
 
 
 def phase_kernels(earlier=None):
-    import numpy as np
-    import torch
-
-    from burst_tpu_torch.alphabet import score_matrix
-    from burst_tpu_torch.kernels import myers
-
-    dev = torch.device("cuda")
     recs, main, host, amp, amp_host = phase_pairs(earlier)
-    rng = np.random.default_rng(SEED + 4)
-    smat_d = torch.from_numpy(score_matrix()).to(dev)
-
     # K3: the rescore winners of the W=4 pairs, budget 2 (98 % of 100 bp),
     # against 448-column bucket tiles padded to 512; and those of the 292
     # bp amplicon pairs, budget 9 (97 %), against the 640-column bucket
@@ -765,40 +810,190 @@ def phase_kernels(earlier=None):
     hold_rescore(recs, main, host, 100, 2, 512, 4096)
     hold_rescore(recs, amp, amp_host, AMPLICON_READ_LEN, 9, 960, 2048)
 
-    # K4: the direct path's block (every query of a 2048-row block against
-    # 512 tiles of the 448-bp bucket), and one ragged shape at the 292 bp
-    # amplicon width with IUPAC codes
-    for label, W4, Q, T, Lp4, qlen, codes in (
-            ("direct block", 4, 2048, 512, 480, 100, 5),
-            ("ragged", 10, 77, 301, 347, 292, 16)):
-        qs4 = rng.integers(1, codes, size=(Q, 32 * W4)).astype(np.uint8)
-        ql4 = np.full(Q, qlen, np.int64)
-        t4 = np.zeros((T, Lp4), np.uint8)
-        ul = rng.integers(max(qlen + 8, Lp4 - 120), Lp4 - 31, T)
-        for t in range(T):
-            t4[t, :ul[t]] = rng.integers(1, codes, ul[t])
-        for q in range(0, Q, 2):          # half the queries cut from a tile
-            t = int(rng.integers(0, T))
-            st = int(rng.integers(0, max(1, ul[t] - qlen)))
-            t4[t, st:st + qlen] = rng.integers(1, 5, qlen)  # plain bases
-            cut = t4[t, st:st + qlen].copy()
-            cut[rng.integers(0, len(cut), 2)] = rng.integers(1, 5, 2)
-            qs4[q, :len(cut)] = cut
-        peq4 = myers.build_peq_dev(torch.from_numpy(qs4).to(dev),
-                                   torch.from_numpy(ql4).to(dev), smat_d,
-                                   W4)
-        t4_d = torch.from_numpy(t4).to(dev)
-        got, rec = hold_cross_call(label, peq4, t4_d, W4)
-        exact(f"K4 {label} vs native host twin", got,
-              host_cross(peq4.cpu().numpy().view(np.uint32), t4, W4))
-        if got.min() > 4:
-            fail(f"K4 {label}: no near pair in the block (min {got.min()})")
-        recs.append(rec)
+    recs += phase_cross()[0]
     for r in recs:
         log(f"[kernels] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}), exact vs plain and host twin")
     return recs, main
+
+
+# K4 at each path's shape: (label, W, query rows, units of the bucket,
+# Lp, query length, codes), each path's largest unit bucket. The direct
+# cell's (40 families: 30,546 units of 448 bp and 397 of 384); the
+# two-step cell's full-scan rows (21 reads of 11 bp on both strands)
+# against both its buckets, 287,999 units of 640 bp and 95,977 of 512;
+# the fused cell's (21 reads) against its 195,688 units of 448 bp (256
+# families; 2,529 more of 384); one ragged shape at the 292 bp amplicon
+# width with IUPAC codes, odd Lp and a partial tile group.
+CROSS_SHAPES = (
+    ("direct block", 4, 2048, 30546, 480, 100, 5),
+    ("two-step full-scan rows, Lp 672", 1, 42, 287999, 672, 11, 5),
+    ("two-step full-scan rows, Lp 544", 1, 42, 95977, 544, 11, 5),
+    ("fused full-scan rows", 1, 42, 195688, 480, 11, 5),
+    ("ragged", 10, 77, 301, 347, 292, 16))
+
+
+def _cross_inputs(rng, smat_d, W, Q, T, Lp, qlen, codes):
+    """K4 inputs on the card: Q queries of qlen codes, half of them cut
+    from a tile with two substitutions (near pairs), and T tiles of
+    random length padded with zeros to Lp columns."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.kernels import myers
+    qs = rng.integers(1, codes, size=(Q, 32 * W)).astype(np.uint8)
+    tiles = rng.integers(1, codes, size=(T, Lp)).astype(np.uint8)
+    ul = rng.integers(max(qlen + 8, Lp - 120), Lp - 31, T)
+    tiles[np.arange(Lp)[None, :] >= ul[:, None]] = 0
+    for q in range(0, Q, 2):
+        t = int(rng.integers(0, T))
+        st = int(rng.integers(0, ul[t] - qlen))
+        tiles[t, st:st + qlen] = rng.integers(1, 5, qlen)   # plain bases
+        cut = tiles[t, st:st + qlen].copy()
+        cut[rng.integers(0, qlen, 2)] = rng.integers(1, 5, 2)
+        qs[q, :qlen] = cut
+    dev = smat_d.device
+    peq = myers.build_peq_dev(torch.from_numpy(qs).to(dev),
+                              torch.from_numpy(np.full(Q, qlen)).to(dev),
+                              smat_d, W)
+    return peq, torch.from_numpy(tiles).to(dev)
+
+
+def phase_cross(earlier=None, variants=False):
+    """K4 at each path's shape (CROSS_SHAPES), on the first block of the
+    engine's plan (`engine.cross_blocks` on this card), in both result
+    types, exact against the plain version on the card and the native
+    host twin. With the parent's kernel (`earlier`), both timed in turns
+    over the whole bucket: the parent's at the parent's 2048 x 512
+    blocks with their clip and narrowing to uint8, this one at the plan's
+    blocks. With `variants`, this kernel also with the tiles one byte off
+    alignment (the register staging instead of cp.async). Returns
+    (records, in-turn rows)."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.alphabet import score_matrix
+    from burst_tpu_torch.kernels import myers_cuda
+    smat_d = torch.from_numpy(score_matrix()).to("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    sms = myers_cuda.sm_count("cuda")
+    recs, turns = [], []
+    for label, W, Q, units, Lp, qlen, codes in CROSS_SHAPES:
+        peq, tiles = _cross_inputs(rng, smat_d, W, Q, units, Lp, qlen,
+                                   codes)
+        _, T = engine.cross_blocks(Q, units, W, sms, engine.CROSS_BLOCK_BYTES)
+        tb = tiles[:T]
+        host = host_cross(peq.cpu().numpy().view(np.uint32),
+                          tb.cpu().numpy(), W)
+        if host.min() > 4:
+            fail(f"K4 {label}: no near pair in the block (min {host.min()})")
+        for dt in (torch.uint8, torch.int32):
+            _, rec = hold_cross_call(label, peq, tb, W, dt, host,
+                                     reps=5 if Q * T > 1 << 22 else 20)
+            recs.append(rec)
+        if earlier is not None:
+            turns.append(cross_in_turns(label, peq, tiles, W, earlier, sms))
+        if variants:
+            cross_variants(label, peq, tb, W)
+        del peq, tiles, tb
+    return recs, turns
+
+
+def earlier_cross_kernel(src):
+    """The parent's K4 (`myers_cross_launch(peq, tiles, out, Q, T, W, Lp,
+    stream)`, int32) built from `src`: a call over one block."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build
+    so = os.path.join(_build.BUILD, "libmyers_cross_earlier.so")
+    os.makedirs(_build.BUILD, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.ARCH, "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", so, src],
+                   check=True)
+    fn = ctypes.CDLL(so).myers_cross_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def k4(peq, tiles, W):
+        out = torch.empty((peq.shape[0], tiles.shape[0]), dtype=torch.int32,
+                          device=peq.device)
+        _build.check(fn(peq.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+                        peq.shape[0], tiles.shape[0], W, tiles.shape[1],
+                        torch.cuda.current_stream().cuda_stream),
+                     "earlier myers_cross_launch")
+        return out
+    return k4
+
+
+def cross_in_turns(label, peq, tiles, W, earlier, sms):
+    """The parent's K4 at the parent's blocks (2048 x 512, each clipped
+    and narrowed to uint8 by two more launches, as its caller did) and
+    this one at the plan's blocks, over the same Q x units, timed in
+    turns: parent, this, this, parent. Returns the table's row."""
+    import torch
+
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.kernels import myers_cuda
+    Q, (N, Lp) = peq.shape[0], tiles.shape
+
+    def blocks(qc, tc):
+        return [(q0, t0, peq[q0:q0 + qc], tiles[t0:t0 + tc])
+                for q0 in range(0, Q, qc) for t0 in range(0, N, tc)]
+    old_b = blocks(min(2048, engine._pow2_ceil(Q)),
+                   min(512, engine._pow2_ceil(N)))
+    new_b = blocks(*engine.cross_blocks(Q, N, W, sms,
+                                        engine.CROSS_BLOCK_BYTES))
+    old = lambda: [earlier(pq, tb, W).clamp_(max=255).to(torch.uint8)
+                   for *_, pq, tb in old_b]
+    new = lambda: [myers_cuda.myers_cross(pq, tb, W, torch.uint8)
+                   for *_, pq, tb in new_b]
+
+    def whole(parts, bl):
+        out = torch.empty((Q, N), dtype=torch.uint8, device=peq.device)
+        for (q0, t0, pq, tb), r in zip(bl, parts):
+            out[q0:q0 + pq.shape[0], t0:t0 + tb.shape[0]] = r
+        return out.cpu().numpy()
+    exact(f"K4 {label}: this kernel's blocks vs the parent's",
+          whole(new(), new_b), whole(old(), old_b))
+    reps = 3 if Q * N * Lp > 1 << 32 else 10
+    t = [time_ms(old, reps), time_ms(new, reps), time_ms(new, reps),
+         time_ms(old, reps)]
+    b = cross_bound(W, Q, N, Lp, 1)["bound_ms"]
+    row = dict(shape=f"{label}: W={W} Q={Q} units={N} Lp={Lp}",
+               parent_launches=len(old_b), launches=len(new_b),
+               parent_ms=[t[0], t[3]], ms=[t[1], t[2]], bound_ms=b)
+    log(f"[cross] in turns, {row['shape']}: parent {len(old_b)} launches "
+        f"{t[0]:.4f} / {t[3]:.4f} ms ({100 * b / max(t[0], t[3]):.0f} % "
+        f"of the bound's rate), this {len(new_b)} launches {t[1]:.4f} / "
+        f"{t[2]:.4f} ms ({100 * b / max(t[1], t[2]):.0f} %), bound "
+        f"{b:.4f} ms")
+    return row
+
+
+def cross_variants(label, peq, tb, W):
+    """This kernel on one block with its tiles one byte off alignment
+    (register staging in place of cp.async), timed in turns with the
+    aligned block."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda
+    flat = torch.empty(tb.numel() + 1, dtype=torch.uint8, device=tb.device)
+    flat[1:] = tb.reshape(-1)
+    off = flat[1:].view(tb.shape)
+    Q, (T, Lp) = peq.shape[0], tb.shape
+    b = cross_bound(W, Q, T, Lp, 1)["bound_ms"]
+    chosen = lambda: myers_cuda.myers_cross(peq, tb, W, torch.uint8)
+    variant = lambda: myers_cuda.myers_cross(peq, off, W, torch.uint8)
+    exact(f"K4 {label} with register staging", variant().cpu().numpy(),
+          chosen().cpu().numpy())
+    ms = [time_ms(chosen, 10), time_ms(variant, 10), time_ms(variant, 10),
+          time_ms(chosen, 10)]
+    log(f"[cross] {label} W={W} Q={Q} T={T} Lp={Lp}: cp.async "
+        f"{ms[0]:.4f} / {ms[3]:.4f} ms; tiles 1 byte off (register staging) "
+        f"{ms[1]:.4f} / {ms[2]:.4f} ms (bound {b:.4f} ms)")
 
 
 def make_workload(n_fam: int, n_reads: int, n_mem: int = 10,
@@ -863,14 +1058,17 @@ def _record_pair_launches():
     return seen, undo
 
 
-def _capture_kernel_calls():
-    """Wraps the engine's call sites of K2, K3 (through its gather) and
-    K4. Returns (calls, undo): calls[kernel] maps every launch shape to
-    [count, the first such call's arguments], so that each shape a batch
-    launched can be run again on the batch's own tensors."""
+def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False):
+    """Wraps the engine's call sites of the named kernels (K2, K3 through
+    its gather, K4). Returns (calls, undo): calls[kernel] maps every
+    launch shape to [count, the first such call's arguments, a CUDA event
+    pair around each such call (with `events`; else none)], so that each
+    shape a batch launched can be run again on the batch's own tensors
+    (`hold_captured`) and K4's device time summed (`k4_report`)."""
+    import torch
+
     from burst_tpu_torch import engine
     from burst_tpu_torch.kernels import rescore
-    calls = {"K2": {}, "K3": {}, "K4": {}}
 
     def k2_shape(peq, tiles, pidx, tidx, W):
         return W, len(pidx), tiles.shape[1]
@@ -881,25 +1079,57 @@ def _capture_kernel_calls():
                 rescore.l1_for(tiles.shape[1] if Lw is None else Lw - 1),
                 len(pidx), "windowed" if x0 is not None else "full width")
 
-    def k4_shape(peq, tiles, W):
-        return W, peq.shape[0], tiles.shape[0], tiles.shape[1]
+    def k4_shape(peq, tiles, W, out_dtype=torch.int32):
+        return (W, peq.shape[0], tiles.shape[0], tiles.shape[1],
+                str(out_dtype).removeprefix("torch."))
 
-    saved = []
-    for kern, name, shape_of in (("K2", "myers_pairs", k2_shape),
-                                 ("K3", "rescore_pairs_gather", k3_shape),
-                                 ("K4", "myers_cross", k4_shape)):
+    sites = {"K2": ("myers_pairs", k2_shape),
+             "K3": ("rescore_pairs_gather", k3_shape),
+             "K4": ("myers_cross", k4_shape)}
+    calls, saved = {}, []
+    for kern in kernels:
+        name, shape_of = sites[kern]
         fn = getattr(engine, name)
         saved.append((name, fn))
+        calls[kern] = {}
 
         def capturing(*a, fn=fn, seen=calls[kern], shape_of=shape_of, **kw):
-            seen.setdefault(shape_of(*a, **kw), [0, (a, kw)])[0] += 1
-            return fn(*a, **kw)
+            entry = seen.setdefault(shape_of(*a, **kw), [0, (a, kw), []])
+            entry[0] += 1
+            if not events:
+                return fn(*a, **kw)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            entry[2].append((e0, e1))
+            return out
         setattr(engine, name, capturing)
 
     def undo():
         for name, fn in saved:
             setattr(engine, name, fn)
     return calls, undo
+
+
+def k4_report(path: str, k4) -> dict:
+    """Logs K4's launches over a batch (calls["K4"] of a capture with
+    events), their device time and the sum of their bounds; returns
+    them."""
+    import torch
+    torch.cuda.synchronize()
+    n = sum(count for count, _, _ in k4.values())
+    ms = sum(e0.elapsed_time(e1) for _, _, ev in k4.values()
+             for e0, e1 in ev)
+    b = sum(count * cross_bound(W, Q, T, Lp, 1 if ty == "uint8" else 4)
+            ["bound_ms"] for (W, Q, T, Lp, ty), (count, _, _) in k4.items())
+    log(f"[{path}] K4 over the timed batch: {n} launches ("
+        + ", ".join(f"W={W} Q={Q} T={T} Lp={Lp} {ty} x {count}"
+                    for (W, Q, T, Lp, ty), (count, _, _) in sorted(k4.items()))
+        + f"), {ms:.3f} ms on the device against a summed bound of "
+        f"{b:.3f} ms: {100 * b / max(ms, 1e-9):.0f} % of the bound's rate")
+    return dict(launches=n, ms=ms, bound_ms=b)
 
 
 def hold_captured(path: str, calls):
@@ -910,7 +1140,8 @@ def hold_captured(path: str, calls):
     out = []
     for kern, hold in (("K2", hold_pairs_call), ("K3", hold_rescore_call),
                        ("K4", hold_cross_call)):
-        for shape, (count, (a, kw)) in sorted(calls[kern].items()):
+        for shape, (count, (a, kw), _) in sorted(calls.get(kern,
+                                                         {}).items()):
             _, rec = hold(f"{path} {shape}", *a, **kw)
             rec["launches"] = count
             log(f"[{path}] {kern} {rec['shape']} x {count}: the batch's own "
@@ -1011,11 +1242,13 @@ def phase_accel(launch_log):
         f"one {len(reads)}-read batch)")
 
     seen, undo = _record_pair_launches()
+    calls, uncapture = _capture_kernel_calls(("K4",), events=True)
     try:
         b6, dt, launches, peak = _timed_batch(al, qheads, reads,
                                               ("k1", "k2", "k3", "k4"))
     finally:
         undo()
+        uncapture()
     rows = b6.count(NL)
     st = al.last_stats
     shapes = collections.Counter(seen)
@@ -1039,6 +1272,9 @@ def phase_accel(launch_log):
     if st["full_rows"] <= 0:
         fail("no full-scan row in the accelerated batch")
     launch_log["accel"] = launches
+    launch_log["k4_batches"] = {"accel": k4_report("accel", calls["K4"])}
+    launch_log["held"] = hold_captured("accel", calls)
+    del calls
 
     # the port's CPU path on the same database: identical bytes
     n = E2E_CHECK_READS
@@ -1152,7 +1388,12 @@ def phase_direct(launch_log):
     log(f"[direct] device DB load + warmup (one {len(reads)}-read batch) "
         f"{time.perf_counter() - t0:.1f} s")
     resident = torch.cuda.memory_allocated()
-    b6, dt, launches, peak = _timed_batch(al, qheads, reads, ("k3", "k4"))
+    calls, uncapture = _capture_kernel_calls(("K4",), events=True)
+    try:
+        b6, dt, launches, peak = _timed_batch(al, qheads, reads,
+                                              ("k3", "k4"))
+    finally:
+        uncapture()
     rows = b6.count(NL)
     qd = serving.process_queries(qheads, reads, THRES, True)
     nj = len(qd.seqs)
@@ -1168,6 +1409,13 @@ def phase_direct(launch_log):
     if rows < len(reads) // 2:
         fail(f"only {rows} b6 rows for {len(reads)} reads")
     launch_log["direct"] = launches
+    k4 = k4_report("direct", calls["K4"])
+    if k4["launches"] != launches["k4"]:
+        fail(f"direct path: the engine's call site saw {k4['launches']} "
+             f"K4 launches, the kernel's counter {launches['k4']}")
+    launch_log["k4_batches"]["direct"] = k4
+    launch_log["held"] += hold_captured("direct", calls)
+    del calls
 
     # the same batch once more with its stages timed apart
     st = _Stages()
@@ -1176,9 +1424,9 @@ def phase_direct(launch_log):
              st.wrap(engine, "compute_ed_select")),
             (engine, "rescore_winners", st.wrap(engine, "rescore_winners")),
             (modes, "report_best", st.wrap(modes, "report_best")),
-            (engine, "myers_cross",
-             st.wrap_events(engine, "myers_cross", "k4")),
-            (engine, "build_peq_dev", st.wrap_peq(engine))]
+            (engine, "build_peq_dev", st.wrap_peq(engine)),
+            (engine, "myers_cross", st.wrap_events(engine, "myers_cross",
+                                                   "k4"))]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1186,7 +1434,6 @@ def phase_direct(launch_log):
             again = al.align_batch(qheads, reads)
         torch.cuda.synchronize()
         dt2 = time.perf_counter() - t0
-        k4_s = st.dev_seconds("k4")
         scan_peak = torch.cuda.max_memory_allocated()
     finally:
         for mod, name, fn in undo:
@@ -1194,10 +1441,14 @@ def phase_direct(launch_log):
     if again != b6:
         fail("direct path: two batches of the same reads differ")
     h = st.host
+    if len(st.dev["k4"]) != launches["k4"]:
+        fail(f"direct path: the staged batch launched K4 "
+             f"{len(st.dev['k4'])} times, the timed one {launches['k4']}")
     log(f"[direct] staged batch {dt2:.3f} s: process_queries "
         f"{h['process_queries']:.3f} s; phase A + selection "
-        f"{h['compute_ed_select']:.3f} s (K4 on the device {k4_s:.3f} s in "
-        f"{len(st.dev['k4'])} launches, host blocked on the device "
+        f"{h['compute_ed_select']:.3f} s (K4 on the device "
+        f"{st.dev_seconds('k4'):.3f} s in {len(st.dev['k4'])} launches, "
+        "host blocked on the device "
         f"{acc['s']:.3f} s in {acc['n']} waits, the rest host selection "
         f"and dispatch); rescore_winners {h['rescore_winners']:.3f} s; "
         f"report_best {h['report_best']:.3f} s")
@@ -1205,18 +1456,15 @@ def phase_direct(launch_log):
         f"{st.peq_peak / 2**30:.3f} GiB inside the Peq build, "
         f"{scan_peak / 2**30:.3f} GiB after it (Peq planes, blocks in "
         f"flight, rescore)")
-    cols = float(np.mean(engine._unit_lb(rd))) + 32
-    b = bound(pairs * 4 + len(st.dev['k4']) * (2048 * 256 + 512 * cols),
-              scan_ops(pairs, cols, 4))
-    log(f"[direct] K4 over the batch: {k4_s * 1e3:.1f} ms on the device "
-        f"against a bound of {b['bound_ms']:.1f} ms ({b['bound_by']}: "
-        f"{scan_ops(pairs, cols, 4):.3e} int32 operations at "
-        f"{PEAK_INT32_OPS_S:.3e}/s)")
+    lbs, nlb = np.unique(engine._unit_lb(rd), return_counts=True)
+    log(f"[direct] unit length buckets {dict(zip(lbs.tolist(), nlb.tolist()))}"
+        f"; K4 blocks planned for {myers_cuda.sm_count('cuda')} SMs under "
+        f"{engine.CROSS_BLOCK_BYTES} bytes")
 
-    # 8 sampled blocks of that batch against the native host twin
+    # 8 sampled 2048 x 512 blocks of that batch against the native host
+    # twin, in both result types
     _, peq_dev = engine._peq_device(qd, 4, al.db)
     rng = np.random.default_rng(SEED + 1)
-    lbs = np.unique(engine._unit_lb(rd))
     for i in range(8):
         lb = int(lbs[i % len(lbs)])
         pos2row, tiles_dev = al.db.bucket_tiles(lb, 32)
@@ -1225,12 +1473,15 @@ def phase_direct(launch_log):
         t0_ = int(rng.integers(0, max(1, nt - 512)))
         pq = peq_dev[q0:q0 + 2048]
         tb = tiles_dev[t0_:t0_ + 512]
-        got = myers_cuda.myers_cross(pq, tb, 4).cpu().numpy()
-        exact(f"K4 sampled block {i} (lb {lb}, q0 {q0}, t0 {t0_})", got,
-              host_cross(pq.cpu().numpy().view(np.uint32),
-                         tb.cpu().numpy(), 4))
-    log("[direct] K4 on 8 sampled 2048 x 512 blocks of the batch: equal "
-        "to the native host twin")
+        host = host_cross(pq.cpu().numpy().view(np.uint32),
+                          tb.cpu().numpy(), 4)
+        for dt, ref in ((torch.int32, host),
+                        (torch.uint8, np.minimum(host, 255))):
+            got = myers_cuda.myers_cross(pq, tb, 4, dt).cpu().numpy()
+            exact(f"K4 sampled block {i} {dt} (lb {lb}, q0 {q0}, t0 "
+                  f"{t0_})", got, ref)
+    log("[direct] K4 on 8 sampled 2048 x 512 blocks of the batch, int32 "
+        "and uint8: equal to the native host twin")
     # what the Peq build's row chunks save: the same planes in one piece
     qmat, qlens, _ = engine._query_matrix(qd)
     n = engine._pow2_ceil(nj)
@@ -1467,17 +1718,19 @@ def phase_twostep(launch_log, profile=False):
         f"tiles, winner buffers grown to {al.db.tabs.cap_factor} entries a "
         f"query row, {al.db.tabs.cap_factor_bunch} a bunch row)")
 
-    seen, undo = _record_pair_launches()
+    # the kernels' call sites keep the arguments of the first launch at
+    # every shape, and time every launch with CUDA events
+    calls, uncapture = _capture_kernel_calls(events=True)
     try:
         b6, dt, launches, peak = _timed_batch(al, qheads, reads,
                                               ("k2", "k3", "k4"))
     finally:
-        undo()
+        uncapture()
     rows = b6.count(NL)
     st = al.last_stats
-    shapes = collections.Counter(seen)
     log("[twostep] pair kernel launches (kernel, W, B, row bytes) x count: "
-        + ", ".join(f"{k} x {n}" for k, n in sorted(shapes.items())))
+        + ", ".join(f"('K2', {W_}, {B}, {Lp}) x {n}" for (W_, B, Lp), (n, _, _)
+                    in sorted(calls["K2"].items())))
     log(f"[twostep] timed batch: {len(reads)} reads in {dt:.3f} s = "
         f"{len(reads) / dt:.1f} reads/s, {rows} b6 rows")
     log(f"[twostep] launches K1={launches['k1']} K2={launches['k2']} "
@@ -1493,14 +1746,30 @@ def phase_twostep(launch_log, profile=False):
         fail(f"not the two-step path at QBUNCH 16 with full-scan rows: "
              f"{st}, {launches}")
     launch_log["twostep"] = launches
+    counts = {k.lower(): sum(n for n, _, _ in v.values())
+              for k, v in calls.items()}
+    if any(counts[k] != launches[k] for k in counts):
+        fail(f"the engine's call sites saw {counts}, the kernels' counters "
+             f"{launches}")
+    launch_log["k4_batches"]["twostep"] = k4_report("twostep", calls["K4"])
+    # K2 over the batch against its bound, from the launches' own shapes
+    k2_ms = sum(e0.elapsed_time(e1) for _, _, ev in calls["K2"].values()
+                for e0, e1 in ev)
+    ops = sum(n * scan_ops(B, Lp, W_)
+              for (W_, B, Lp), (n, _, _) in calls["K2"].items())
+    b = bound(sum(n * 20 * B for (_, B, _), (n, _, _) in calls["K2"].items()),
+              ops)
+    log(f"[twostep] K2 over the timed batch: {k2_ms:.1f} ms on the device "
+        f"against a bound of {b['bound_ms']:.1f} ms ({b['bound_by']}: "
+        f"{ops:.3e} int32 operations), "
+        f"{100 * b['bound_ms'] / k2_ms:.0f} % of the bound's rate")
+    launch_log["held"] += hold_captured("twostep", calls)
+    del calls
 
     # the same batch once more with its stages timed apart: the device
     # is drained around every stage, so each owns the device work it
     # dispatched (the two dispatches and the host scour then run one
-    # after another, not together as in the timed batch). Under the
-    # stages' wraps the kernels' call sites keep the arguments of the
-    # first launch at every shape.
-    calls, uncapture = _capture_kernel_calls()
+    # after another, not together as in the timed batch)
     bunch_words = []
     scour_a = scour_device.scour_bunch_rows
 
@@ -1535,17 +1804,11 @@ def phase_twostep(launch_log, profile=False):
         for mod, name, fn in undo:
             setattr(mod, name, fn)
         scour_device.scour_bunch_rows = scour_a
-        uncapture()
     if again != b6:
         fail("two-step path: two batches of the same reads differ")
-    counts = {k.lower(): sum(n for n, _ in v.values())
-              for k, v in calls.items()}
-    k2_shapes = collections.Counter(
-        {(W_, B, Lp): n for (W_, B, Lp), (n, _) in calls["K2"].items()})
-    if any(counts[k] != launches[k] for k in counts) or k2_shapes != \
-            collections.Counter((W_, B, Lp) for _, W_, B, Lp in seen):
-        fail(f"the staged batch launched {counts}, K2 at {k2_shapes}; the "
-             f"timed batch {launches}, K2 at {shapes}")
+    staged = {k: len(stg.dev[k]) for k in ("k2", "k3")}
+    if any(staged[k] != launches[k] for k in staged):
+        fail(f"the staged batch launched {staged}, the timed one {launches}")
     EB = scour_device.bunch_slot_budget(al.db.tabs, max(bunch_words))
     log(f"[twostep] bunch rows: word lists of up to {max(bunch_words)} words "
         f"get {EB} slots, a chunk "
@@ -1568,17 +1831,6 @@ def phase_twostep(launch_log, profile=False):
         f"device {k3_s:.3f} s in {len(stg.dev['k3'])} launches); "
         f"report_capitalist {h['report_capitalist']:.3f} s; host blocked "
         f"in fetches {acct['s']:.3f} s in {acct['n']}")
-    # K2 over the batch against its bound, from the launches' own shapes
-    ops = sum(scan_ops(B, rowb, W_) for kern, W_, B, rowb in seen
-              if kern == "K2")
-    b = bound(sum(20 * B for kern, _, B, _ in seen if kern == "K2"), ops)
-    log(f"[twostep] K2 over the batch: {k2_s * 1e3:.1f} ms on the device "
-        f"against a bound of {b['bound_ms']:.1f} ms ({b['bound_by']}: "
-        f"{ops:.3e} int32 operations), "
-        f"{100 * b['bound_ms'] / (k2_s * 1e3):.0f} % of the bound's rate")
-
-    launch_log["twostep_held"] = hold_captured("twostep", calls)
-    del calls
     if profile:
         _profiled_batch(al, qheads, reads)
 
@@ -1692,9 +1944,23 @@ def main():
         phase_sass(sos, ("myers_pairs",))
         print(card_line(), flush=True)
         return
+    if sys.argv[1:2] == ["cross"]:
+        sos = phase_build(("myers_cross",))
+        phase_sass(sos, ("myers_cross",))
+        earlier = earlier_cross_kernel(sys.argv[2]) if sys.argv[2:] else None
+        recs, turns = phase_cross(earlier, variants=True)
+        for r in recs:
+            log(f"[cross] {r['shape']} ({r['name']}): kernel {r['ms']:.4f} "
+                f"ms, plain {r['plain_ms']:.2f} ms, bound "
+                f"{r['bound_ms']:.5f} ms, {100 * r['bound_ms'] / r['ms']:.0f}"
+                " % of the bound's rate; exact vs plain and host twin")
+        if turns:
+            print(json.dumps({"cross_in_turns": turns}), flush=True)
+        print(card_line(), flush=True)
+        return
     if sys.argv[1:] == ["twostep"]:
         phase_build()
-        phase_twostep({}, profile=True)
+        phase_twostep({"k4_batches": {}, "held": []}, profile=True)
         print(card_line(), flush=True)
         return
     phase_sass(phase_build())
@@ -1714,7 +1980,8 @@ def main():
     phase_modes()
     phase_modes_accel()
     phase_twostep(launch_log)
-    held = launch_log.pop("twostep_held")
+    held = launch_log.pop("held")
+    k4_batches = launch_log.pop("k4_batches")
     # one entry per kernel, at the shape of the path that counts its
     # launches (K1-K3: the accelerated batch; K4: the direct batch); a
     # kernel's other shapes ride along under "also"
@@ -1729,11 +1996,14 @@ def main():
                 "max_abs_err")})
         else:
             kernels.append(r)
-    # the two-step batch's own launches, each shape held on its tensors
+    # K4 over each timed batch: launches, device ms, summed bound
+    next(r for r in kernels if r["name"][:2] == "K4")["batches"] = k4_batches
+    # the batches' own launches, each shape held on its tensors
     for kern, rec in held:
         next(r for r in kernels if r["name"][:2] == kern).setdefault(
-            "also", []).append({k: rec[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "max_abs_err", "launches")})
+            "also", []).append({k: rec[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "launches")})
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

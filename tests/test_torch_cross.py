@@ -2,13 +2,17 @@
 the `myers_cross` wrapper on CPU tensors, equal burst_tpu's jnp
 `myers_min_ed_cross` at W in {1, 4, 10} on ragged Q/T with IUPAC codes
 and trailing pad columns, and the Pallas kernel `myers_cross_pallas` in
-interpret mode at one shape. All integers; tolerance 0."""
+interpret mode at one shape; the uint8 result is that int32 one clipped
+at 255. The launch geometry (`cross_geometry`) and the engine's block
+plan (`cross_blocks`) are pure Python and held here too. All integers;
+tolerance 0."""
 import numpy as np
 import pytest
 import torch
 
 from burst_tpu.alphabet import score_matrix
 from burst_tpu.kernels import myers as jmyers
+from burst_tpu_torch import engine
 from burst_tpu_torch.kernels import myers, myers_cuda
 
 # several test workers share the cores: keep PyTorch from starting a
@@ -89,7 +93,91 @@ def test_cross_rows_match_pair_scan():
     np.testing.assert_array_equal(cross.numpy().ravel(), pairs[0].numpy())
 
 
-@pytest.mark.parametrize("bad", ["W", "dtype", "shape", "contiguity"])
+@pytest.mark.parametrize("W,Q,T,Lp", [(10, 7, 23, 700), (16, 3, 9, 600)])
+def test_cross_uint8_clips_at_255(W, Q, T, Lp):
+    """out_dtype=torch.uint8 is min(ed, 255) of the int32 result, exactly:
+    long queries of code 5 (which matches no tile code) have distances
+    over 255, the others (cut from a tile) small ones."""
+    peq, tiles = _inputs(40 + W, W, Q, T, Lp)
+    qs = np.full((Q, 32 * W), 5, np.uint8)
+    far = jmyers.build_peq(qs, np.full(Q, 32 * W - 3), W, score_matrix())
+    peq[1::2] = far[1::2]
+    ref = np.asarray(jmyers.myers_min_ed_cross(peq, tiles, W))
+    assert ref.max() > 255 and ref.min() <= 3
+    peq_t = torch.from_numpy(peq.view(np.int32))
+    tiles_t = torch.from_numpy(tiles)
+    want = np.minimum(ref, 255).astype(np.uint8)
+    for fn in (myers.myers_cross_plain, myers_cuda.myers_cross):
+        got = fn(peq_t, tiles_t, W, torch.uint8)
+        assert got.dtype == torch.uint8 and tuple(got.shape) == (Q, T)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(fn(peq_t, tiles_t, W).numpy(), ref)
+
+
+@pytest.mark.parametrize("W", range(1, 17))
+def test_cross_geometry(W):
+    """At least two carry chains a thread at every W (NQ 2 above 4
+    words); the grid covers every query and tile; fewer threads only for
+    fewer than 128 tiles, in whole warps."""
+    for Q, T in ((1, 1), (42, 287999), (77, 301), (2048, 7552), (5, 33)):
+        nq, threads, (gx, gy) = myers_cuda.cross_geometry(Q, T, W)
+        assert nq >= 2 and nq == (2 if W > 4 else 4)
+        assert threads % 32 == 0 and 32 <= threads <= 128
+        assert threads == 128 or threads >= T
+        assert gx * threads >= T > (gx - 1) * threads
+        assert gy * nq >= Q > (gy - 1) * nq
+
+
+def _plan_cover(nq, nt, W, sms, cap):
+    """Walk the plan as `iter_ed_blocks` does (query blocks x tile
+    blocks); returns the blocks' (rows, tiles). Every (row, unit) is
+    covered exactly once iff the row ranges and the tile ranges each
+    partition their axis."""
+    rows, tiles = engine.cross_blocks(nq, nt, W, sms, cap)
+    spans = []
+    for n, step in ((nq, rows), (nt, tiles)):
+        ends = [(a, min(a + step, n)) for a in range(0, n, step)]
+        assert ends[0][0] == 0 and ends[-1][1] == n
+        assert all(b == c and a < b for (a, b), (c, _) in
+                   zip(ends, ends[1:] + [(n, n)]))
+        spans.append([b - a for a, b in ends])
+    return [(r, t) for r in spans[0] for t in spans[1]]
+
+
+@pytest.mark.parametrize("sms,cap", [(132, 16 << 20), (132, 2 << 20),
+                                     (1, 1 << 20), (4, 64 << 10)])
+def test_cross_blocks_cover_once_under_cap(sms, cap):
+    for W in (1, 2, 4, 10, 16):
+        for nq, nt in ((42, 287999), (42, 95977), (40000, 30943),
+                       (2049, 511), (3, 5), (1, 1), (77, 301),
+                       (4100, 129), (5000, 100000)):
+            blocks = _plan_cover(nq, nt, W, sms, cap)
+            assert all(r * t <= cap for r, t in blocks)
+            assert all(r <= engine.QCHUNK for r, _ in blocks)
+            # a block is the whole bucket, or near the cap
+            rows, tiles = engine.cross_blocks(nq, nt, W, sms, cap)
+            assert tiles == nt or rows * (tiles + 128) > cap // 2
+
+
+def test_cross_blocks_fill_the_card():
+    """At Q=42, W=1 on 132 SMs a launch has at least 1,056 CTAs where
+    the bucket allows it, and the two-step path's buckets are one launch
+    each under the device cap; the direct path's launches stay under its
+    former 1,220."""
+    sms, cap = 132, engine.CROSS_BLOCK_BYTES
+    for nt in (12288, 95977, 287999, 10 ** 6):
+        rows, tiles = engine.cross_blocks(42, nt, 1, sms, cap)
+        nq, threads, (gx, gy) = myers_cuda.cross_geometry(rows, tiles, 1)
+        assert gx * gy >= engine.CROSS_CTAS_PER_SM * sms
+    assert len(_plan_cover(42, 287999, 1, sms, cap)) == 1
+    assert len(_plan_cover(42, 95977, 1, sms, cap)) == 1
+    assert len(_plan_cover(40000, 30943, 4, sms, cap)) <= 1220 // 10
+    # a bucket smaller than that is one launch over all of it
+    assert engine.cross_blocks(42, 5000, 1, sms, cap) == (42, 5000)
+
+
+@pytest.mark.parametrize("bad", ["W", "dtype", "shape", "contiguity",
+                                 "out_dtype"])
 def test_cross_wrapper_rejects(bad):
     peq = torch.zeros((4, 16, 2), dtype=torch.int32)
     tiles = torch.zeros((5, 40), dtype=torch.uint8)
@@ -103,6 +191,174 @@ def test_cross_wrapper_rejects(bad):
     elif bad == "shape":
         with pytest.raises(ValueError, match="2-D"):
             myers_cuda.myers_cross(peq, tiles[0], 2)
+    elif bad == "out_dtype":
+        for dt in (torch.int64, torch.int16, torch.float32):
+            with pytest.raises(ValueError, match="out_dtype"):
+                myers_cuda.myers_cross(peq, tiles, 2, dt)
     else:
         with pytest.raises(ValueError, match="contiguous"):
             myers_cuda.myers_cross(peq, tiles[:, ::2], 2)
+
+
+# The kernel's own source, compiled for the CPU: CUDA's built-ins that it
+# uses as plain C++, a CTA's threads as std::threads meeting at a
+# std::barrier for __syncthreads, cp.async as an immediate copy (its
+# wait and commit as nothing) and the launch as a loop over the grid.
+# That holds the source's index arithmetic -- staging map, two-stage
+# ring, partial chunks, edge rows and queries, epilogue -- against the
+# plain version without a card; whether the card agrees is the smoke's.
+_EMU_RUNTIME = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(...)
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3 { unsigned x, y, z; };
+extern thread_local uint3 threadIdx, blockIdx;
+extern dim3 blockDim;
+extern std::barrier<>* g_bar;
+typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return 0; }
+template <class T> T __ldg(const T* p) { return *p; }
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
+  return (unsigned)(((((uint64_t)hi << 32) | lo) << (s & 31)) >> 32);
+}
+inline void __syncthreads() { g_bar->arrive_and_wait(); }
+using std::min;
+"""
+
+_EMU_TAIL = r"""
+#include <thread>
+#include <vector>
+thread_local uint3 threadIdx, blockIdx;
+dim3 blockDim;
+std::barrier<>* g_bar;
+namespace {
+template <class K, class... A>
+void run_grid(K kern, dim3 grid, int threads, A... a) {
+  blockDim = dim3(threads);
+  for (unsigned y = 0; y < grid.y; ++y)
+    for (unsigned x = 0; x < grid.x; ++x) {
+      std::barrier<> bar(threads);
+      g_bar = &bar;
+      std::vector<std::thread> th;
+      for (int i = 0; i < threads; ++i)
+        th.emplace_back([=] {
+          threadIdx = {(unsigned)i, 0, 0};
+          blockIdx = {x, y, 0};
+          kern(a...);
+        });
+      for (auto& t : th) t.join();
+    }
+}
+}  // namespace
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated_cross(tmp_path_factory):
+    """`myers_cross_launch` of csrc/myers_cross.cu built for the CPU."""
+    import ctypes
+    import os
+    import subprocess
+
+    from burst_tpu_torch.kernels import _build
+    src = open(os.path.join(_build.CSRC, "myers_cross.cu")).read()
+    src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
+    for fn, body in (
+            ("cp_async4(uint32_t* dst, const void* src,\n"
+             "                                          int nbytes)",
+             "{\n  uint32_t v = 0u;\n  std::memcpy(&v, src, nbytes);\n"
+             "  *dst = v;\n}\n"),
+            ("cp_async_commit()", "{}\n"), ("cp_async_wait_all()", "{}\n")):
+        head = "__device__ __forceinline__ void " + fn + " "
+        assert head in src, fn
+        i = src.index(head) + len(head)
+        src = src[:i] + body + src[src.index("\n}\n", i) + 3:]
+    assert src.count("kern<<<grid, threads, 0, stream>>>(") == 1
+    src = src.replace("kern<<<grid, threads, 0, stream>>>(",
+                      "run_grid(kern, grid, threads, ")
+    src = src.replace("namespace {\n", "namespace {\ntemplate <class K, "
+                      "class... A> void run_grid(K, dim3, int, A...);\n", 1)
+    d = tmp_path_factory.mktemp("emu")
+    (d / "emu.h").write_text(_EMU_RUNTIME)
+    (d / "emu.cpp").write_text(src + _EMU_TAIL)
+    so = d / "libemu.so"
+    res = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-w", "-o",
+         str(so), str(d / "emu.cpp"), "-lpthread"],
+        capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-3000:]
+    fn = ctypes.CDLL(str(so)).myers_cross_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("W,Q,T,Lp,offset,u8", [
+    (1, 13, 300, 70, 0, 0),      # Lp % 4: register staging
+    (2, 16, 140, 100, 0, 1),     # cp.async, partial last chunk
+    (1, 9, 61, 96, 1, 0),        # base off alignment, 64 threads
+    (3, 5, 33, 131, 0, 1),
+    (4, 7, 200, 160, 2, 0),
+    (10, 5, 70, 347, 0, 1),      # two chains at W=10, clipped
+    (16, 3, 40, 544, 0, 0),
+    (1, 3, 10, 0, 0, 1)],        # no column at all
+    ids=["W1-bytes", "W2-async", "W1-off1", "W3", "W4-off2", "W10", "W16",
+         "Lp0"])
+def test_cross_kernel_source_on_cpu(emulated_cross, W, Q, T, Lp, offset,
+                                    u8):
+    peq, tiles = _inputs(600 + W + Lp, W, Q, T, max(Lp, 32 * W + 40))
+    tiles = np.ascontiguousarray(tiles[:, :Lp])
+    if W == 10:
+        peq[1::2] = jmyers.build_peq(np.full((Q, 320), 5, np.uint8),
+                                     np.full(Q, 317), W,
+                                     score_matrix())[1::2]
+    buf = np.zeros(T * Lp + offset + 4, np.uint8)
+    buf[offset:offset + T * Lp] = tiles.ravel()
+    NQ, threads, (gx, gy) = myers_cuda.cross_geometry(Q, T, W)
+    out = np.zeros((Q, T), np.uint8 if u8 else np.int32)
+    peq32 = np.ascontiguousarray(peq.view(np.int32))
+    assert emulated_cross(peq32.ctypes.data, buf.ctypes.data + offset,
+                          out.ctypes.data, Q, T, W, Lp, NQ, threads, gx, gy,
+                          u8, None) == 0
+    ref = myers.myers_cross_plain(torch.from_numpy(peq32),
+                                  torch.from_numpy(tiles), W,
+                                  torch.uint8 if u8 else torch.int32)
+    np.testing.assert_array_equal(out, ref.numpy())
+    if W == 10:
+        assert ref.numpy().max() == 255 and ref.numpy().min() < 20
+
+
+@pytest.mark.parametrize("W,NQ,threads,gx,gy", [
+    (1, 8, 128, 1, 1),      # no instance carries eight queries
+    (2, 2, 128, 1, 2),      # nor two at W <= 4
+    (10, 4, 128, 1, 1),     # nor four above
+    (4, 4, 96 + 16, 2, 1),  # not whole warps
+    (4, 4, 128, 1, 1)],     # the grid misses tiles
+    ids=["nq8", "nq2-W2", "nq4-W10", "threads", "grid"])
+def test_cross_launch_rejects_other_geometry(emulated_cross, W, NQ, threads,
+                                             gx, gy):
+    """The launcher takes only the geometry `cross_geometry` gives: any
+    other NQ, a CTA of part of a warp or a grid that misses tiles is
+    refused before a launch, and nothing is written."""
+    Q, T, Lp = 4, 200, 64
+    peq = np.zeros((Q, 16, W), np.int32)
+    tiles = np.zeros((T, Lp), np.uint8)
+    out = np.full((Q, T), 7, np.int32)
+    assert emulated_cross(peq.ctypes.data, tiles.ctypes.data,
+                          out.ctypes.data, Q, T, W, Lp, NQ, threads, gx, gy,
+                          0, None) == 1
+    assert (out == 7).all()

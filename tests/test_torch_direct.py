@@ -97,6 +97,65 @@ def test_align_pods_match_jax(workload):
 
 
 @pytest.fixture(scope="module")
+def mixed():
+    """Two query buckets -- 90 bp reads (W=3) and two short reads whose 4
+    unibin rows (W=2) are fewer than one K4 query group -- against units
+    in several length buckets, one of them under one tile group (128
+    units); burst_tpu's dense matrix over it."""
+    rng = np.random.default_rng(4242)
+    refs = golden.make_refs(rng, 40, lo=100, hi=700)
+    reads = golden.make_reads(rng, refs, 60, read_len=90, max_err=3,
+                              rc_frac=0.4)
+    reads += [("short0", refs[3][1][20:60]), ("short1", refs[8][1][5:63])]
+    rheads, rseqs = _arrays(refs)
+    qheads, qseqs = _arrays(reads)
+    rd = process_references(rheads, rseqs, max_len_q=90, thres=0.97,
+                            rebase=True, rebase_amt=300, curate=2)
+    qd = process_queries(qheads, qseqs, 0.97, True)
+    ed = jengine.compute_ed_matrix(qd, rd, score_matrix())
+    db = load_db(from_reference(rd)[0], None, score_matrix(), "cpu")
+    return qd, rd, ed, db
+
+
+_PLANS = {
+    # the reference's fixed 2048 x 512 blocks (the port's former plan)
+    "2048x512": lambda nq, nt, W, sms, cap: (
+        min(2048, pengine._pow2_ceil(nq)), min(512, pengine._pow2_ceil(nt))),
+    # blocks of 33 rows x 7 units: ragged in both axes, many compactions
+    "33x7": lambda nq, nt, W, sms, cap: (33, 7),
+}
+
+
+@pytest.mark.parametrize("mode", ["ANY"] + TIE_MODES)
+def test_ed_blocks_any_plan_same_result(mixed, mode, monkeypatch):
+    """compute_ed_matrix (ANY) and compute_ed_select (the other four
+    modes) give identical results under the plan in use, the former
+    2048 x 512 plan and a ragged 33 x 7 one, and equal burst_tpu's."""
+    qd, rd, ed, db = mixed
+    qw = {len(s) for s in qd.seqs}
+    lbs, nlb = np.unique(pengine._unit_lb(rd), return_counts=True)
+    assert len({-(-n // 32) for n in qw}) == 2 and len(lbs) >= 2
+    assert sum(-(-n // 32) == 2 for n in (len(s) for s in qd.seqs)) == 4
+    assert nlb.min() < 128
+    if mode == "ANY":
+        ref = (ed,)
+        run = lambda: (pengine.compute_ed_matrix(qd, db),)
+    else:
+        ref = jengine.select_pods(qd, rd, ed, mode)
+        assert len(ref[0]) > 40
+        run = lambda: pengine.compute_ed_select(qd, db, mode,
+                                                compact_at=64)
+    outs = {"plan": run()}
+    for name, plan in _PLANS.items():
+        monkeypatch.setattr(pengine, "cross_blocks", plan)
+        outs[name] = run()
+    for got in outs.values():
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
 def served():
     """A small database with duplicate and near-duplicate references and
     a taxonomy; reads on both strands, some with an N, some repeated."""
