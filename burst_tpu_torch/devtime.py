@@ -3,21 +3,26 @@
 Every device result of the aligner reaches the host through `fetch`
 (placed directly after its dispatch chain) or through a `Fetch`
 handle's `wait()`, so the time spent inside them is the host's wait for
-the device. `track()` sums that wait and, on a
-CUDA device, also the device-side span of the tracked scope between two
-CUDA events.
+the device. Tiles that stream from host memory reach the device through
+a `StagingRing`, the mirror image of `Fetch`. `track()` sums the waits
+and, on a CUDA device, also the device-side span of the tracked scope
+between two CUDA events.
 
     with devtime.track() as acc:
         aligner.align_batch(...)
-    acc["s"]       # host seconds blocked in fetch
-    acc["n"]       # number of fetches
-    acc["dev_ms"]  # CUDA-event span of the scope (None without CUDA)
+    acc["s"]         # host seconds blocked in fetch
+    acc["n"]         # number of fetches
+    acc["up_s"]      # host seconds blocked in the staging ring
+    acc["up_bytes"]  # bytes the staging ring copied host to device
+    acc["dev_ms"]    # CUDA-event span of the scope (None without CUDA)
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
+import numpy as np
 import torch
 
 _acc = None
@@ -89,12 +94,109 @@ class Fetch:
         return out
 
 
+class StagingRing:
+    """Host-to-device staging ring of two slots of `slot_bytes`: two
+    pinned host buffers and two device buffers, allocated once, and a
+    copy stream. `staged(rows)` copies a host matrix into the next slot
+    and yields its contiguous device view; the kernels that read it are
+    launched inside the `with` block. So slot i+1 uploads on the copy
+    stream while the kernels of slot i run on the compute stream:
+
+      * the compute stream waits for the slot's copy event only;
+      * the copy into device slot b waits for the event recorded after
+        the last launch that read b (at the end of its `with` block);
+      * the host memcpy into pinned slot b waits for b's previous copy
+        to land.
+
+    A lock spans each `with` block, so batches on several threads share
+    the ring safely. On the CPU the ring holds no buffer: `staged`
+    yields the host rows themselves (the same planning, no copy).
+    `timing`, where set to a list, collects per copy the CUDA events
+    (copy start, copy end, compute wait start, compute wait end)."""
+
+    def __init__(self, slot_bytes: int, device):
+        self.slot_bytes = int(slot_bytes)
+        self.device = torch.device(device)
+        self.lock = threading.Lock()
+        self.timing = None
+        self._next = 0
+        if self.device.type == "cuda":
+            self._host = [torch.empty(self.slot_bytes, dtype=torch.uint8,
+                                      pin_memory=True) for _ in range(2)]
+            self._dev = [torch.empty(self.slot_bytes, dtype=torch.uint8,
+                                     device=self.device) for _ in range(2)]
+            self.stream = torch.cuda.Stream(self.device)
+            for buf in self._dev:
+                buf.record_stream(self.stream)
+            self._landed = [None, None]
+            self._freed = [None, None]
+
+    @contextlib.contextmanager
+    def staged(self, rows: np.ndarray, stats: dict | None = None):
+        """Yield a contiguous device tensor holding `rows` (a uint8
+        matrix of at most `slot_bytes`); `stats["h2d_bytes"]` (a batch's
+        `engine._stream_stats`) and track()'s counters add the bytes
+        copied."""
+        n = rows.nbytes
+        if n > self.slot_bytes:
+            raise ValueError(f"{n} bytes over the ring's {self.slot_bytes}"
+                             "-byte slot")
+        rows = np.ascontiguousarray(rows)
+        with self.lock:
+            if self.device.type != "cuda":
+                _count_upload(stats, n, 0.0)
+                yield torch.from_numpy(rows)
+                return
+            b = self._next
+            self._next ^= 1
+            t0 = time.perf_counter()
+            if self._landed[b] is not None:
+                self._landed[b].synchronize()
+            blocked = time.perf_counter() - t0
+            self._host[b].numpy()[:n].reshape(rows.shape)[...] = rows
+            timed = self.timing is not None
+            cur = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.stream):
+                if self._freed[b] is not None:
+                    self.stream.wait_event(self._freed[b])
+                if timed:
+                    c0 = torch.cuda.Event(enable_timing=True)
+                    c0.record(self.stream)
+                self._dev[b][:n].copy_(self._host[b][:n], non_blocking=True)
+                landed = torch.cuda.Event(enable_timing=timed)
+                landed.record(self.stream)
+            self._landed[b] = landed
+            if timed:
+                w0 = torch.cuda.Event(enable_timing=True)
+                w1 = torch.cuda.Event(enable_timing=True)
+                w0.record(cur)
+            cur.wait_event(landed)
+            if timed:
+                w1.record(cur)
+                self.timing.append((c0, landed, w0, w1))
+            _count_upload(stats, n, blocked)
+            try:
+                yield self._dev[b][:n].view(rows.shape)
+            finally:
+                freed = torch.cuda.Event()
+                freed.record(cur)
+                self._freed[b] = freed
+
+
+def _count_upload(stats, n: int, blocked: float):
+    if stats is not None:
+        stats["h2d_bytes"] += n
+    if _acc is not None:
+        _acc["up_s"] += blocked
+        _acc["up_bytes"] += n
+
+
 @contextlib.contextmanager
 def track():
     """Accumulate blocked-on-device seconds for fetches in this scope."""
     global _acc
     prev = _acc
-    _acc = {"s": 0.0, "n": 0, "dev_ms": None}
+    _acc = {"s": 0.0, "n": 0, "up_s": 0.0, "up_bytes": 0, "dev_ms": None}
     cuda = torch.cuda.is_available()
     if cuda:
         ev0 = torch.cuda.Event(enable_timing=True)

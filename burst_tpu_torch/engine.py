@@ -12,9 +12,13 @@ QBUNCH into candidate visit lists; `compute_ed_matrix_accel`: their
 expanded pairs through K2, full-scan rows through K4). All end in
 `rescore_winners` (K3). Host-side numpy logic is carried over unchanged
 so that the pods, and so the b6 bytes, are identical; device work is
-PyTorch ops plus the hand-written kernels. There is no fallback that
-hides the device: a step that the port does not cover raises
-NotImplementedError naming the ROADMAP item that will bring it.
+PyTorch ops plus the hand-written kernels. A database larger than the
+card runs under the residency plan of `state.load_db`: K2, K3 and K4
+read the buckets it streams through the staging ring, and where it holds
+no device tables the batch is scoured on the host (a plan decision, as
+in burst_tpu). There is no fallback that hides the device: a step that
+the port does not cover raises NotImplementedError naming the ROADMAP
+item that will bring it.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from .native import expand_pairs_native, pad_rows_native, scour_native
 from .process import QueryData, RefData
 
 VECSZ = 16      # the reference's clump width; defines pod ordering only
+A_PAD = 32      # pad columns of phase A's bucket tiles (K2 and K4)
 QCHUNK = 2048   # query rows of a K4 block at most (and K3's chunk scale)
 CROSS_CTAS_PER_SM = 8           # a K4 launch fills the card from here on
 CROSS_BLOCK_BYTES = 16 << 20    # a K4 block's uint8 bytes at most, device
@@ -212,11 +217,13 @@ def _fill_rows(mat: np.ndarray, rd: RefData, positions: np.ndarray):
             raise RuntimeError("native host library unavailable")
 
 
-def _tile_matrix(rd: RefData, lb: int, pad: int):
-    """Host [n, lb+pad] padded tile matrix of one length bucket, pow2
-    rows, and its sorted-position -> row map."""
+def _tile_matrix(rd: RefData, lb: int, pad: int, pow2: bool = True):
+    """Host [n, lb+pad] padded tile matrix of one length bucket's n
+    units (rows padded with zeros to a power of two with `pow2`), and
+    its sorted-position -> row map."""
     positions = np.nonzero(_unit_lb(rd) == lb)[0]
-    mat = np.zeros((_pow2_ceil(max(1, len(positions))), lb + pad),
+    n = len(positions)
+    mat = np.zeros((_pow2_ceil(max(1, n)) if pow2 else n, lb + pad),
                    dtype=np.uint8)
     _fill_rows(mat, rd, positions)
     pos2row = np.full(rd.tot_units, -1, dtype=np.int64)
@@ -238,22 +245,13 @@ def _tiles_device_all(rd: RefData, device: torch.device, pad: int = 32):
     return torch.from_numpy(packed).to(device), width
 
 
-def tile_budget_bytes(device: torch.device) -> int | None:
-    """Bytes of resident tiles the device may hold: half the card's
-    memory, the rest left to the scour's working set. None on the CPU
-    (the plain path keeps everything in host memory)."""
-    if device.type != "cuda":
-        return None
-    return torch.cuda.mem_get_info(device)[1] // 2
-
-
-def _check_budget(nbytes: int, device: torch.device, what: str):
-    budget = tile_budget_bytes(device)
-    if budget is not None and nbytes > budget:
-        raise NotImplementedError(
-            f"{what}: {nbytes} bytes over the {budget}-byte resident tile "
-            "budget; databases larger than device memory need slabs "
-            "(ROADMAP M9)")
+def _stream_stats(qd: QueryData) -> dict:
+    """The batch's streaming counts (shared by its row subsets): the
+    streamed buckets (lb, pad), K2 slabs, K4 blocks and K3 winner pieces
+    uploaded, and the bytes copied host to device."""
+    return qd.__dict__.setdefault("_stream", {
+        "streamed": set(), "slabs": 0, "blocks": 0, "pieces": 0,
+        "h2d_bytes": 0})
 
 
 def _peq_device(qd: QueryData, W: int, db):
@@ -308,16 +306,18 @@ PAIR_CHUNK = 1 << 20    # pairs per K2 launch, at most
 
 def _pairs_min_ed(qd: QueryData, db, pj: np.ndarray, pp: np.ndarray):
     """Pairs through K2, bucketed by (W, unit length bucket): the
-    two-step path's expanded candidates, and the fused path's side branch
-    (ambiguous rows, BadList units, host re-scoured rows). Returns the
-    deferred [(part, [3, B] device result)] chunks.
+    two-step path's expanded candidates, the fused path's side branch
+    (ambiguous rows, BadList units, host re-scoured rows) and prepass.
+    Returns the deferred [(part, [3, B] device result)] chunks.
 
     A bucket goes in launches of up to PAIR_CHUNK pairs (padded to a
     power of two under it): the kernel runs one thread per pair, so a
     launch under some 10^5 pairs leaves most of the card's warp
     schedulers idle, and 2^20 pairs bound the [3, B] result and the two
-    index uploads at 20 MB a launch. Pairs are independent and land by
-    `part`, so the chunking is no part of the result."""
+    index uploads at 20 MB a launch. A bucket the residency plan streams
+    goes slab by slab (`_pairs_slabs`). Pairs are independent and land
+    by `part`, so neither the chunking nor the slabs are part of the
+    result."""
     n = len(pj)
     rd = db.rd
     _, _, qw_all = _query_matrix(qd)
@@ -328,22 +328,60 @@ def _pairs_min_ed(qd: QueryData, db, pj: np.ndarray, pp: np.ndarray):
     for W in np.unique(qws):
         for lb in np.unique(lbs[qws == W]):
             sel = order[(qws == W) & (lbs == lb)]
-            pos2row, tiles_dev = db.bucket_tiles(int(lb), 32)
             row2local, peq_dev = _peq_device(qd, int(W), db)
-            trows = pos2row[pp[sel]]
             prows = row2local[pj[sel]]
-            for s0 in range(0, len(sel), PAIR_CHUNK):
-                part = sel[s0:s0 + PAIR_CHUNK]
-                pchunk = _pow2_ceil(len(part))
-                pidx = np.zeros(pchunk, np.int32)
-                tidx = np.zeros(pchunk, np.int32)
-                pidx[: len(part)] = prows[s0:s0 + pchunk]
-                tidx[: len(part)] = trows[s0:s0 + pchunk]
-                pending.append((part, myers_pairs(
-                    peq_dev, tiles_dev,
-                    torch.from_numpy(pidx).to(db.device),
-                    torch.from_numpy(tidx).to(db.device), int(W))))
+            got = db.bucket_tiles(int(lb), A_PAD)
+            if got is None:
+                pending += _pairs_slabs(qd, db, sel, prows, pp[sel],
+                                        int(W), int(lb), peq_dev)
+            else:
+                pos2row, tiles_dev = got
+                pending += _pair_launches(db, peq_dev, tiles_dev, sel,
+                                          prows, pos2row[pp[sel]], int(W))
     return pending
+
+
+def _pair_launches(db, peq_dev, tiles_dev, sel, prows, trows, W: int):
+    """K2 over the pairs `sel` (Peq rows `prows`, tile rows `trows` of
+    `tiles_dev`) in launches of up to PAIR_CHUNK; [(part, result)]."""
+    out = []
+    for s0 in range(0, len(sel), PAIR_CHUNK):
+        part = sel[s0:s0 + PAIR_CHUNK]
+        pchunk = _pow2_ceil(len(part))
+        pidx = np.zeros(pchunk, np.int32)
+        tidx = np.zeros(pchunk, np.int32)
+        pidx[: len(part)] = prows[s0:s0 + pchunk]
+        tidx[: len(part)] = trows[s0:s0 + pchunk]
+        out.append((part, myers_pairs(
+            peq_dev, tiles_dev, torch.from_numpy(pidx).to(db.device),
+            torch.from_numpy(tidx).to(db.device), W)))
+    return out
+
+
+def _pairs_slabs(qd: QueryData, db, sel, prows, units, W: int, lb: int,
+                 peq_dev):
+    """K2 against a bucket the plan streams (the counterpart of
+    burst_tpu's `_pairs_slab_stream`): the pairs sorted by tile row
+    (stable) and grouped by slab of `db.slab_rows` rows; each slab goes
+    through the staging ring, so slab i+1 uploads while K2 scans slab i.
+    Tile indices are local to the slab; results stay deferred."""
+    tmat, pos2row = db.host_tiles(lb, A_PAD)
+    trows = pos2row[units]
+    so = np.argsort(trows, kind="stable")
+    sel, prows, trows = sel[so], prows[so], trows[so]
+    rows = db.slab_rows(lb + A_PAD)
+    sids, starts = np.unique(trows // rows, return_index=True)
+    ends = np.append(starts[1:], len(trows))
+    stats = _stream_stats(qd)
+    stats["streamed"].add((lb, A_PAD))
+    out = []
+    for sid, g0, g1 in zip(sids.tolist(), starts.tolist(), ends.tolist()):
+        lo = sid * rows
+        with db.ring.staged(tmat[lo:lo + rows], stats) as slab:
+            out += _pair_launches(db, peq_dev, slab, sel[g0:g1],
+                                  prows[g0:g1], trows[g0:g1] - lo, W)
+        stats["slabs"] += 1
+    return out
 
 
 def cross_blocks(nq: int, nt: int, W: int, sms: int, max_bytes: int
@@ -387,9 +425,12 @@ def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
     order: W, then unit length bucket, then query block, then tile block,
     the blocks in the shape `cross_blocks` plans for the device.
 
-    The Peq planes and the bucket tiles are resident on the device and
-    sliced, not uploaded per block; K4 writes each block as uint8 clipped
-    at 255 itself. Blocks travel in groups of up to `max_pending`, or
+    The Peq planes and the resident bucket tiles are sliced on the
+    device, not uploaded per block; the tiles of a bucket the residency
+    plan streams go block by block through the staging ring (a block at
+    most one ring slot), uploaded while K4 scans the block before, once
+    per query block. K4 writes each block as uint8 clipped at 255 itself.
+    Blocks travel in groups of up to `max_pending`, or
     fewer once a group holds the plan's byte cap, and the next group is
     dispatched before the previous one is waited for, so the device
     scans while the host consumes. Both consumers are independent of the
@@ -416,21 +457,36 @@ def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
             yield rws, pss, block
 
     nbytes = 0
+    stats = _stream_stats(qd)
     for W, rows in sorted(qbuckets.items()):
         rows_a = np.array(rows, dtype=np.int64)
         # the bucket's rows in ascending order are Peq rows 0..len-1
         _, peq_dev = _peq_device(qd, W, db)
         for lb, poss in sorted(ubuckets.items()):
-            pos2row, tiles_dev = db.bucket_tiles(lb, 32)
+            got = db.bucket_tiles(lb, A_PAD)
+            if got is None:
+                host_mat, pos2row = db.host_tiles(lb, A_PAD)
+                stats["streamed"].add((lb, A_PAD))
+            else:
+                pos2row, tiles_dev = got
             r0 = int(pos2row[poss[0]])      # the bucket's local run
             qchunk, tchunk = cross_blocks(len(rows_a), len(poss), W, sms,
                                           max_bytes)
+            if got is None:
+                tchunk = min(tchunk, db.slab_rows(lb + A_PAD))
             for q0 in range(0, len(rows_a), qchunk):
                 pq = peq_dev[q0:min(q0 + qchunk, len(rows_a))]
                 for t0 in range(0, len(poss), tchunk):
                     nt = min(tchunk, len(poss) - t0)
-                    tb = tiles_dev[r0 + t0:r0 + t0 + nt]
-                    block = myers_cross(pq, tb, W, torch.uint8)
+                    if got is None:
+                        with db.ring.staged(host_mat[r0 + t0:r0 + t0 + nt],
+                                            stats) as tb:
+                            block = myers_cross(pq, tb, W, torch.uint8)
+                        stats["blocks"] += 1
+                    else:
+                        block = myers_cross(
+                            pq, tiles_dev[r0 + t0:r0 + t0 + nt], W,
+                            torch.uint8)
                     pending.append(((rows_a[q0:q0 + qchunk],
                                      poss[t0:t0 + nt]), block))
                     nbytes += block.numel()
@@ -673,7 +729,7 @@ def rescore_winners(qd: QueryData, db, juni, refpos, eds, mode: str,
             grp = todo & (qws == W) & (lbs == lb)
             m_pad = int(W) * 32
             lp = int(lb) + rescore_pad(int(lb), int(W))
-            pos2row, tiles_dev = db.bucket_tiles(int(lb), lp - int(lb))
+            got = db.bucket_tiles(int(lb), lp - int(lb))
             row2local, peq_dev = _peq_device(qd, int(W), db)
             # windowed subset: tie span + scan rows + budget must fit Lw
             qmax = int(qlens_all[juni[grp]].max())
@@ -685,13 +741,38 @@ def rescore_winners(qd: QueryData, db, juni, refpos, eds, mode: str,
                 (span_all <= Lw - 1 - rows_g - bound - 1)
             if Lw >= L1_full:
                 fits &= False
-            for sub, windowed in ((fits, True), (grp & ~fits, False)):
-                sel = order[sub]
-                if not len(sel):
-                    continue
-                _dispatch(sel, W, peq_dev, tiles_dev,
-                          row2local[juni[sel]], pos2row[refpos[sel]],
-                          x0_all[sel] if windowed else None, Lw)
+            if got is not None:
+                pos2row, tiles_dev = got
+                for sub, windowed in ((fits, True), (grp & ~fits, False)):
+                    sel = order[sub]
+                    if len(sel):
+                        _dispatch(sel, W, peq_dev, tiles_dev,
+                                  row2local[juni[sel]],
+                                  pos2row[refpos[sel]],
+                                  x0_all[sel] if windowed else None, Lw)
+                continue
+            # winner tiles (burst_tpu's `_winner_tiles_device`): the
+            # group's units only, in pieces of one ring slot (ANY's
+            # winners can be a whole bucket)
+            stats = _stream_stats(qd)
+            stats["streamed"].add((int(lb), lp - int(lb)))
+            uniq = np.unique(refpos[grp])
+            step = db.slab_rows(lp)
+            for c0 in range(0, len(uniq), step):
+                piece = uniq[c0:c0 + step]
+                mat = np.zeros((len(piece), lp), dtype=np.uint8)
+                _fill_rows(mat, rd, piece)
+                inp = grp & (refpos >= piece[0]) & (refpos <= piece[-1])
+                with db.ring.staged(mat, stats) as tiles_dev:
+                    for sub, windowed in ((fits & inp, True),
+                                          (inp & ~fits, False)):
+                        sel = order[sub]
+                        if len(sel):
+                            _dispatch(sel, W, peq_dev, tiles_dev,
+                                      row2local[juni[sel]],
+                                      np.searchsorted(piece, refpos[sel]),
+                                      x0_all[sel] if windowed else None, Lw)
+                stats["pieces"] += 1
     if pending:
         host = devtime.fetch([dev for _, _, dev, _ in pending])
         for (part, qlens, _, xc), h in zip(pending, host):
@@ -858,9 +939,21 @@ def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
         offs[1: b1 + 1] = np.arange(1, b1 + 1) * nb
         offs[b1 + 1:] = b1 * nb
         return Visits(flat=np.tile(bad_arr, b1), offs=offs, full=full)
-    scour = _scour_device_rows if qbunch == 1 else _scour_device_bunches
-    res, info = scour(qd, db, b0, b1, qbunch, k, mm_bunch, mm_inner, qmat,
-                      qlens_all, aq_off, aqw, aqm, n_clumps)
+    if db.tabs is None:
+        # the residency plan holds no device tables: the whole batch
+        # through the native scour, as burst_tpu's
+        # `_accel_candidates_native` does for tables it has no device
+        # form of
+        res = _native_scour(qmat, qlens_all, b0, b1, qbunch, k, aq_off,
+                            aqw, aqm, acc.csr, n_clumps, mm_bunch,
+                            mm_inner, u_csr=acc.u_csr,
+                            tot_units=rd.tot_units, vecsz=VECSZ)
+        info = {}
+    else:
+        scour = _scour_device_rows if qbunch == 1 else \
+            _scour_device_bunches
+        res, info = scour(qd, db, b0, b1, qbunch, k, mm_bunch, mm_inner,
+                          qmat, qlens_all, aq_off, aqw, aqm, n_clumps)
     vis = _assemble_visits(qd, res, b0, b1, qbunch, bad_arr, full,
                            n_clumps)
     vis.stats = {key: info.get(key, 0)
@@ -1161,11 +1254,15 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
     accelerator cannot index) against every unit through K4. Returns
     (visits, sed, stats) with stats counting the overflowed rows, the
     full-scan rows and the pairs of each branch -- or None for a batch
-    without a clear row of length >= k, which has nothing to fuse: as in
-    burst_tpu, the caller sends it down the two-step path at QBUNCH=1."""
+    without a clear row of length >= k, which has nothing to fuse, and
+    where the residency plan holds no packed store or no device tables:
+    as in burst_tpu, the caller sends the batch down the two-step path
+    at QBUNCH=1."""
     rd, acc = db.rd, db.acc
     if getattr(qd, "xalpha", False):
         raise NotImplementedError("xalpha queries (ROADMAP M11)")
+    if db.tiles_packed is None or db.tabs is None:
+        return None
     k = acc.k
     n = len(qd.seqs)
     b0, b1 = int(qbins[0]), int(qbins[1])
@@ -1288,6 +1385,7 @@ def _subset_qd(qd: QueryData, rows: np.ndarray) -> QueryData:
     """The batch restricted to unibin `rows`. The row-indexed caches
     refer to the parent's numbering, so the query matrix is sliced and
     the Peq cache dropped (it rebuilds on demand)."""
+    _stream_stats(qd)                   # shared with the subset
     sub = copy.copy(qd)
     sub.seqs = [qd.seqs[j] for j in rows]
     sub.six = qd.six[rows]

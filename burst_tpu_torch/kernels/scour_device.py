@@ -158,13 +158,27 @@ class ScourTables:
         return torch.where(self.nzw[locc] == w, locc + 1, 0)
 
 
+def has_device_form(acc) -> bool:
+    """Whether the accelerator's unit postings have device tables: k <=
+    15, a unit index, and ids that int32 holds (under 2^31 postings).
+    The residency plan sends the others to the native host scour."""
+    return acc.k <= 15 and acc.u_csr is not None and \
+        len(acc.u_csr.ids) < 2**31
+
+
+def table_bytes(u_csr, k: int) -> int:
+    """Device bytes of the ScourTables of `u_csr`."""
+    n_nz = len(u_csr.nzw)
+    rank = 4 << (2 * k) if k <= 13 else 8 * n_nz
+    return rank + 16 * (n_nz + 1) + 4 * len(u_csr.ids)
+
+
 def get_tables(acc, device: torch.device) -> ScourTables:
-    """Device tables for an accelerator with its unit index built."""
-    if acc.k > 15 or acc.u_csr is None:
-        raise NotImplementedError(
-            f"device scour needs k <= 15 and a unit index (k={acc.k})")
-    if len(acc.u_csr.ids) >= 2**31:
-        raise NotImplementedError("over 2^31 unit postings: int32 ids")
+    """Device tables for an accelerator with a device form (see
+    `has_device_form`; the residency plan routes the others past this)."""
+    if not has_device_form(acc):
+        raise ValueError(f"no device form of these postings (k={acc.k}); "
+                         "the residency plan routes them to the host scour")
     return ScourTables(acc.u_csr, acc.k, device)
 
 

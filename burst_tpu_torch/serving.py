@@ -44,14 +44,27 @@ class Aligner:
     (`full_rows`), and the pairs scanned on the fused device path
     (`dev_pairs`) and on the side branch (`side_pairs`). Two-step:
     `qbunch`, the overflowed bunch and member rows re-scoured on the
-    host (`bunch_ov_rows`, `member_ov_rows`), `pairs` and `full_rows`."""
+    host (`bunch_ov_rows`, `member_ov_rows`), `pairs` and `full_rows`.
+
+    `tile_budget` bounds the database's device bytes (None: the card's
+    memory less a working-set reserve, or BURST_TPU_TILE_HBM_MB; no
+    limit on the CPU): what the residency plan (`db.plan`, see
+    `state.plan_residency`) does not hold streams through a staging ring
+    -- K2 in tile slabs, K3 over the winners' tiles, K4 in tile blocks
+    -- and without device tables the batch is scoured on the host. Where
+    the plan streams or scours on the host, `last_stats` (on every path)
+    also holds the scour route (`scour`, with an accelerator), the
+    streamed buckets (`streamed`, (length bucket, pad) pairs), the K2
+    slabs, K4 blocks and K3 winner pieces uploaded (`slabs`, `blocks`,
+    `pieces`) and the bytes copied host to device (`h2d_bytes`)."""
 
     def __init__(self, rd: RefData, acc=None, thres: float = 0.97,
                  mode: str = "BEST", do_rc: bool = False,
                  taxonomy: Taxonomy | None = None, z: int = 1,
                  taxacut: int = 10, taxasuppress: bool = False,
                  strict: bool = False,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 tile_budget: int | None = None):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode}")
         self.rd = rd
@@ -65,7 +78,7 @@ class Aligner:
         self.taxasuppress = taxasuppress
         self.strict = strict
         self.smat = score_matrix(z)
-        self.db = load_db(rd, acc, self.smat, device)
+        self.db = load_db(rd, acc, self.smat, device, tile_budget)
         self.last_stats: dict = {}
 
     @classmethod
@@ -96,12 +109,10 @@ class Aligner:
         return cls(rd, None, **kw)
 
     def warmup(self, read_len: int = 100, n: int = 256):
-        """Build the rescore's bucket tiles for reads of `read_len`, then
-        run one batch of random ACGT reads (kernel library loads,
-        first-use allocations)."""
-        W = -(-read_len // 32)
-        for lb in np.unique(engine._unit_lb(self.rd)):
-            self.db.bucket_tiles(int(lb), engine.rescore_pad(int(lb), W))
+        """Plan the rescore's bucket tiles for reads of `read_len` (built
+        where the residency plan holds them), then run one batch of
+        random ACGT reads (kernel library loads, first-use allocations)."""
+        self.db.plan_rescore(-(-read_len // 32))
         rng = np.random.default_rng(0)
         bases = np.frombuffer(b"ACGT", dtype=np.uint8)
         seqs = [rng.choice(bases, size=read_len) for _ in range(n)]
@@ -113,7 +124,8 @@ class Aligner:
         batch's blast6 bytes in order, with up to `depth` batches in
         flight on worker threads so one batch's host work overlaps
         another's device work. Batches are independent, exactly as
-        repeated align_batch calls."""
+        repeated align_batch calls; they share the database's staging
+        ring under its lock."""
         import collections
         from concurrent.futures import ThreadPoolExecutor
 
@@ -152,13 +164,16 @@ class Aligner:
                 self.last_stats = dict(
                     visits.stats or {}, qbunch=visits.qbunch,
                     pairs=len(ed.pj), full_rows=len(ed.full_rows))
-        elif mode == "ANY":
-            ed = engine.compute_ed_matrix(qd, self.db)
+        else:
+            self.last_stats = {}
+            if mode == "ANY":
+                ed = engine.compute_ed_matrix(qd, self.db)
         if mode == "ANY":
             if isinstance(ed, engine.SparseED):
                 modes.report_any_accel(ed, visits, qd, self.db, writer)
             else:
                 modes.report_any(ed, qd, self.db, writer)
+            self._note_stream(qd)
             return buf.getvalue().encode("latin-1")
         pod_order = win_cols = None
         if visits is not None:
@@ -182,4 +197,18 @@ class Aligner:
             modes.report_capitalist(pods, qd, self.rd, writer,
                                     self.taxonomy, self.taxacut,
                                     self.taxasuppress, self.strict)
+        self._note_stream(qd)
         return buf.getvalue().encode("latin-1")
+
+    def _note_stream(self, qd):
+        """Add the batch's streaming counts to `last_stats` where the
+        plan streams or scours on the host."""
+        plan = self.db.plan
+        if plan.streamed or plan.scour == "native":
+            st = engine._stream_stats(qd)
+            self.last_stats = dict(
+                self.last_stats, streamed=sorted(st["streamed"]),
+                slabs=st["slabs"], blocks=st["blocks"],
+                pieces=st["pieces"], h2d_bytes=st["h2d_bytes"])
+            if plan.scour is not None:
+                self.last_stats["scour"] = plan.scour

@@ -2,10 +2,14 @@
 
 `load_db` takes the package's numpy `RefData` and, for the accelerated
 path, its `Accelerator` (built by `process` / `accel`, or read from
-.edx/.acx) and builds the device tensors the aligner reads: the
-per-length-bucket tile matrices and the score table, and with an
-accelerator also the scour's postings tables and the nibble-packed
-all-units tile store.
+.edx/.acx), decides once where each piece of the database lives (the
+residency plan, `DeviceDB.plan`) and builds the device tensors the plan
+holds: the per-length-bucket tile matrices and the score table, and
+with an accelerator also the scour's postings tables and the
+nibble-packed all-units tile store. What the plan does not hold streams
+from host memory through the `DeviceDB`'s staging ring
+(`devtime.StagingRing`), or takes the host route set out in
+`plan_residency`.
 
 `from_reference` carries a database built by burst_tpu (the JAX package
 this one was ported from) across: its `RefData` / `Accelerator` are
@@ -15,66 +19,319 @@ take the same fields without copying the arrays.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 
 import numpy as np
 import torch
 
-from . import engine
+from . import devtime, engine
 from .accel import Accelerator, SparseCSR, build_unit_index
 from .kernels import scour_device
+from .kernels.myers_cuda import MAX_W
 from .native import _unit_ids_clump_grouped, load_host
 from .process import RefData
 
+SLAB_MIN_ROWS = 8           # rows of the smallest slab, block or piece
+RING_SLOT_MAX = 64 << 20    # bytes of one staging ring slot at most
+# card bytes the default budget leaves to a batch's working set (Peq
+# planes, the scour's slot matrices, results): the largest batch peak
+# over the resident database seen on an H100 is 3.9 GiB (PERF.md 5)
+WORKING_SET_RESERVE = 8 << 30
+A_PAD = engine.A_PAD
+
+
+@dataclasses.dataclass
+class Residency:
+    """Where each piece of a database lives: plain data.
+
+    `pieces` maps each piece to its device bytes (power-of-two rows
+    included), in the order in which they are kept; `resident` holds
+    the keys the device holds. Keys: ("tables",) the scour's postings
+    tables, ("tiles", lb, pad) a length bucket's tiles at `pad` pad
+    columns (pad 32: phase A's; else a rescore copy), ("store",) the
+    nibble-packed all-units store. `fixed` counts the score table;
+    `slot` is the staging ring's slot bytes (two of them on the device;
+    0 where nothing streams; at least `min_slot`). `scour` is "device",
+    or "native" where the tables are not held (`why` says why); None
+    without an accelerator.
+    """
+    budget: int | None
+    pieces: dict
+    resident: set
+    fixed: int = 0
+    slot: int = 0
+    scour: str | None = None
+    why: str | None = None
+    min_slot: int = 0
+
+    def holds(self, key) -> bool:
+        return key in self.resident
+
+    @property
+    def streamed(self) -> list:
+        """The tile pieces that stream, in keep order."""
+        return [k for k in self.pieces
+                if k[0] == "tiles" and k not in self.resident]
+
+    @property
+    def device_bytes(self) -> int:
+        """Resident pieces, the score table and the ring's two slots."""
+        return self.fixed + 2 * self.slot + sum(
+            self.pieces[k] for k in self.resident)
+
+    def describe(self) -> str:
+        def name(k):
+            return k[0] if len(k) == 1 else f"{k[0]} {k[1]}+{k[2]}"
+        held = ", ".join(f"{name(k)} {self.pieces[k]}" for k in self.pieces
+                         if k in self.resident)
+        off = ", ".join(f"{name(k)} {self.pieces[k]}" for k in self.pieces
+                        if k not in self.resident)
+        return (f"budget {self.budget} bytes, {self.device_bytes} on the "
+                f"device (ring slots 2 x {self.slot}); resident: "
+                f"{held or 'nothing'}; not resident: {off or 'nothing'}; "
+                f"scour {self.scour}" + (f" ({self.why})" if self.why
+                                         else ""))
+
+
+def default_budget(device: torch.device) -> int | None:
+    """The device bytes a database may take: the override in bytes
+    (BURST_TPU_TILE_HBM_MB, MiB, the reference's variable of the same
+    meaning) where set; else on a CUDA device its memory less the
+    working-set reserve, and None (no limit) on the CPU."""
+    env = os.environ.get("BURST_TPU_TILE_HBM_MB")
+    if env:
+        return int(float(env) * (1 << 20))
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1] - WORKING_SET_RESERVE
+
+
+def plan_residency(pieces: dict, budget: int | None, fixed: int = 0,
+                   accel: bool = False, widest: int = 0) -> Residency:
+    """Decide which pieces stay resident under `budget` bytes.
+
+    `pieces` (key -> bytes) in keep order: the scour's tables first,
+    then phase A's buckets, then the rescore copies, the packed store
+    last (each class smallest first). Pieces give way from the end of
+    that order until the rest fits: first the store (only the fused path
+    is lost: BEST goes down the two-step path), then the rescore copies
+    and phase A's buckets, largest first (they stream through a staging
+    ring of two slots), the tables last (with `accel`, the batch is then
+    scoured on the host, `scour` = "native", as it is where the tables
+    have no device form and `pieces` holds none). Under a budget the
+    plan always leaves
+    room for two slabs of SLAB_MIN_ROWS rows of `widest` bytes (the
+    widest tile row a batch can ask for): the ring's two slots where a
+    piece streams -- each takes half of what the resident pieces leave,
+    up to RING_SLOT_MAX -- else room for a rescore copy that no plan
+    named to stream (`DeviceDB.bucket_tiles`). Raises ValueError where
+    the budget cannot hold the score table and those two slabs."""
+    keys = list(pieces)
+    min_slot = SLAB_MIN_ROWS * widest
+    if budget is None:
+        return _scour_route(Residency(budget, dict(pieces), set(keys),
+                                      fixed, 0), accel)
+    if fixed + 2 * min_slot > budget:
+        raise ValueError(
+            f"a budget of {budget} bytes cannot hold this database: it "
+            f"needs at least {fixed + 2 * min_slot} bytes (the score "
+            f"table and two slabs of {SLAB_MIN_ROWS} rows of its widest "
+            f"tiles, {widest} bytes a row)")
+    cut = len(keys)
+    while fixed + 2 * min_slot + sum(pieces[k] for k in keys[:cut]) > \
+            budget:
+        cut -= 1
+    held = keys[:cut]
+    slot = 0
+    if any(k[0] == "tiles" for k in keys[cut:]):
+        rest = budget - fixed - sum(pieces[k] for k in held)
+        slot = min(RING_SLOT_MAX, rest // 2)
+    return _scour_route(Residency(budget, dict(pieces), set(held), fixed,
+                                  slot, min_slot=min_slot), accel)
+
+
+def _scour_route(plan: Residency, accel: bool) -> Residency:
+    if accel:
+        plan.scour = "device" if plan.holds(("tables",)) else "native"
+        if ("tables",) not in plan.pieces:
+            plan.why = "no device form: k > 15, or 2^31 unit postings"
+        elif plan.scour == "native":
+            plan.why = "the tables give way to the budget"
+    return plan
+
+
+def _tile_bytes(n: int, width: int) -> int:
+    return engine._pow2_ceil(max(1, n)) * width
+
+
+def _store_bytes(rd) -> int:
+    lbmax = int(engine._unit_lb(rd).max()) if rd.tot_units else 64
+    return engine._pow2_ceil(max(1, rd.tot_units)) * (-(-(lbmax + A_PAD)
+                                                         // 2))
+
+
+def widest_row(rd) -> int:
+    """Bytes of the widest tile row a batch can ask for: the longest
+    length bucket at the rescore's pad for the longest query."""
+    lbmax = int(engine._unit_lb(rd).max()) if rd.tot_units else 64
+    return lbmax + max(A_PAD, engine.rescore_pad(lbmax, MAX_W))
+
+
+def database_pieces(rd, acc, rescore_ws=()) -> dict:
+    """(key -> device bytes) of every piece of (rd, acc), in keep order
+    (see plan_residency)."""
+    lbs, counts = np.unique(engine._unit_lb(rd), return_counts=True)
+    out = {}
+    if acc is not None and scour_device.has_device_form(acc):
+        out[("tables",)] = scour_device.table_bytes(acc.u_csr, acc.k)
+    a = {("tiles", int(lb), A_PAD): _tile_bytes(int(n), int(lb) + A_PAD)
+         for lb, n in zip(lbs, counts)}
+    r = {}
+    for W in sorted(set(rescore_ws)):
+        for lb, n in zip(lbs, counts):
+            pad = engine.rescore_pad(int(lb), W)
+            if pad != A_PAD:
+                r[("tiles", int(lb), pad)] = _tile_bytes(int(n), int(lb)
+                                                         + pad)
+    for cls in (a, r):
+        out.update(sorted(cls.items(), key=lambda kv: (kv[1], kv[0])))
+    if acc is not None:
+        out[("store",)] = _store_bytes(rd)
+    return out
+
 
 class DeviceDB:
-    """Device-resident database state (see module docstring). Bucket
-    tiles are keyed by (length bucket, pad columns); the rescore's pad
-    depends on the batch's Myers word count, so those build on first
-    use, under a lock (streaming batches run on worker threads)."""
+    """Device state for one database under its residency plan (see the
+    module docstring). Resident bucket tiles are keyed by (length
+    bucket, pad columns); a streamed bucket keeps its host tile matrix
+    (its rows exactly, no power-of-two padding) cached here. A rescore
+    copy that no plan named (a read length `warmup` did not name) is
+    kept where it fits in what the budget has left, and streams
+    otherwise. Streaming batches run on worker threads: the maps build
+    under a lock, and the staging ring has its own."""
 
-    def __init__(self, rd, acc, smat: np.ndarray, device: torch.device):
+    def __init__(self, rd, acc, smat: np.ndarray, device: torch.device,
+                 budget: int | None):
         self.rd = rd
         self.acc = acc
         self.smat = smat
         self.device = device
+        self.budget = budget
         self.smat_dev = torch.from_numpy(np.ascontiguousarray(smat)
                                          ).to(device)
         self.tabs = self.tiles_packed = self.lp_all = None
-        if acc is not None:
-            self.tabs = scour_device.get_tables(acc, device)
-            self.tiles_packed, self.lp_all = engine._tiles_device_all(
-                rd, device)
+        self.ring = None
+        self.plan = None
         self._buckets: dict = {}
+        self._host: dict = {}
         self._lock = threading.Lock()
+        self.rescore_ws: set = set()
+        self._replan()
+
+    def plan_rescore(self, W: int):
+        """Plan the rescore copies for queries of W Myers words as well
+        (`Aligner.warmup`). Only between batches: a piece that now gives
+        way is freed."""
+        self.rescore_ws.add(int(W))
+        self._replan()
+
+    def _replan(self):
+        """Plan the database with rescore copies for `rescore_ws`, then
+        hold what the plan holds: build what is newly resident, free
+        what gave way."""
+        pieces = database_pieces(self.rd, self.acc, self.rescore_ws)
+        plan = plan_residency(pieces, self.budget, self.smat.nbytes,
+                              self.acc is not None, widest_row(self.rd))
+        with self._lock:
+            self._apply(plan)
+
+    def _apply(self, plan: Residency):
+        for key in [k for k in self._buckets if not plan.holds(k)]:
+            del self._buckets[key]
+        if not plan.holds(("store",)):
+            self.tiles_packed = self.lp_all = None
+        if not plan.holds(("tables",)):
+            self.tabs = None
+        if self.ring is not None and self.ring.slot_bytes != plan.slot:
+            self.ring = None
+        if plan.slot and self.ring is None:
+            self.ring = devtime.StagingRing(plan.slot, self.device)
+        if plan.holds(("tables",)) and self.tabs is None:
+            self.tabs = scour_device.get_tables(self.acc, self.device)
+        for key in plan.pieces:
+            if key[0] == "tiles" and plan.holds(key) and \
+                    key not in self._buckets:
+                self._build(key)
+        if plan.holds(("store",)) and self.tiles_packed is None:
+            self.tiles_packed, self.lp_all = engine._tiles_device_all(
+                self.rd, self.device)
+        self.plan = plan
+
+    def _build(self, key):
+        _, lb, pad = key
+        mat, pos2row = engine._tile_matrix(self.rd, lb, pad)
+        self._buckets[key] = (pos2row, torch.from_numpy(mat).to(
+            self.device))
 
     def bucket_tiles(self, lb: int, pad: int):
         """(sorted position -> row map, [pow2 rows, lb+pad] uint8 device
-        tiles) of one unit length bucket."""
-        key = (lb, pad)
+        tiles) of one unit length bucket the plan holds, or None where
+        it streams. A rescore copy no plan named joins the plan here:
+        resident if it fits in what the budget has left, else streamed
+        (see `slab_rows`)."""
+        key = ("tiles", int(lb), int(pad))
         with self._lock:
             got = self._buckets.get(key)
+            if got is not None or key in self.plan.pieces:
+                return got
+            nb = _tile_bytes(int(np.count_nonzero(
+                engine._unit_lb(self.rd) == lb)), lb + pad)
+            plan = self.plan
+            plan.pieces[key] = nb
+            # without a ring the plan left room for its two slots
+            room = None if plan.budget is None else \
+                plan.budget - plan.device_bytes - \
+                (0 if self.ring else 2 * plan.min_slot)
+            if room is None or nb <= room:
+                plan.resident.add(key)
+                self._build(key)
+                return self._buckets[key]
+            if self.ring is None:
+                plan.slot = min(RING_SLOT_MAX, (room + 2 * plan.min_slot)
+                                // 2)
+                self.ring = devtime.StagingRing(plan.slot, self.device)
+            return None
+
+    def host_tiles(self, lb: int, pad: int):
+        """(host [n, lb+pad] uint8 tile matrix of the bucket's n units,
+        sorted position -> row map) of a streamed bucket, cached."""
+        key = (int(lb), int(pad))
+        with self._lock:
+            got = self._host.get(key)
             if got is None:
-                nbkt = int(np.count_nonzero(engine._unit_lb(self.rd) == lb))
-                engine._check_budget(nbkt * (lb + pad), self.device,
-                                     f"length bucket {lb}")
-                mat, pos2row = engine._tile_matrix(self.rd, lb, pad)
-                got = self._buckets[key] = (
-                    pos2row, torch.from_numpy(mat).to(self.device))
+                got = self._host[key] = engine._tile_matrix(
+                    self.rd, lb, pad, pow2=False)
         return got
 
+    def slab_rows(self, width: int) -> int:
+        """Rows of `width` bytes that one ring slot holds."""
+        return max(1, self.ring.slot_bytes // width)
 
-def load_db(rd, acc, smat: np.ndarray, device) -> DeviceDB:
+
+def load_db(rd, acc, smat: np.ndarray, device,
+            tile_budget: int | None = None) -> DeviceDB:
     """Device state for (rd, acc) on `device`; acc=None builds the direct
-    path's state only (bucket tiles and the score table). Raises
-    NotImplementedError for databases outside the port: no unit-granular
-    clump-grouped index, or a tile store over the device's resident
-    budget."""
+    path's state only (bucket tiles and the score table). `tile_budget`
+    bounds the database's device bytes (None: `default_budget`); what
+    does not fit streams or takes the host scour (`plan_residency`).
+    Raises NotImplementedError for accelerators without a unit-granular
+    clump-grouped index, and ValueError for a budget under the least the
+    database needs."""
     device = torch.device(device)
     if load_host() is None:
         raise RuntimeError("the native host library (g++ build of "
                            "burst_tpu_torch/native) is required")
-    lbs = engine._unit_lb(rd)
     if acc is not None:
         build_unit_index(rd, acc)
         if acc.u_csr is None or not _unit_ids_clump_grouped(acc.u_csr,
@@ -83,14 +340,8 @@ def load_db(rd, acc, smat: np.ndarray, device) -> DeviceDB:
                 "accelerators without clump-grouped unit postings have no "
                 "device scour; the host scour pass that serves them comes "
                 "with ROADMAP M12")
-        lbmax = int(lbs.max()) if rd.tot_units else 64
-        engine._check_budget(
-            engine._pow2_ceil(max(1, rd.tot_units))
-            * (-(-(lbmax + 32) // 2)), device, "all-units tile store")
-    db = DeviceDB(rd, acc, smat, device)
-    for lb in np.unique(lbs):       # phase A's tiles (K2 and K4)
-        db.bucket_tiles(int(lb), 32)
-    return db
+    budget = default_budget(device) if tile_budget is None else tile_budget
+    return DeviceDB(rd, acc, smat, device, budget)
 
 
 def _copy_csr(csr) -> SparseCSR | None:

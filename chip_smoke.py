@@ -1,11 +1,15 @@
 """Smoke run of burst_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # needs one card; about 10 min
+    python3 chip_smoke.py                 # needs one card; about 11 min
     python3 chip_smoke.py kernels         # phases 1-2 only (a first check
                                           # of a new kernel; no result line)
     python3 chip_smoke.py twostep         # build, then phase 6 alone and
                                           # one more batch under the
                                           # profiler (no result line)
+    python3 chip_smoke.py slab            # build, the databases and
+                                          # resident batches of phases 3,
+                                          # 4 and 6, then phase 7 alone
+                                          # (no result line)
     python3 chip_smoke.py pairs [old.cu]  # the pair kernel alone: build,
                                           # checks and times of phase 2;
                                           # with a source of the earlier
@@ -78,10 +82,32 @@ Phases, each fatal on failure:
      call's own tensors and must equal its plain version on the card (the
      plain pair scan in slices of 2^16 pairs); K4 logged as in phase 3.
      Then 512 reads of it: the
-     card's b6 bytes must equal the port's CPU run (default QBUNCH 8).
+     card's b6 bytes must equal the port's CPU run (default QBUNCH 8);
+  7. databases larger than the budget, on the databases of phases 3, 4
+     and 6 (no new host build), each batch's bytes against its resident
+     batch's: the two-step cell with its tables resident and both unit
+     buckets streamed in 16 MiB slabs (K2 in 4 and 12 slabs, K3 over
+     winner tiles, K4 over streamed blocks), one warm and one timed
+     batch of the 20,000 reads; the same 512 reads under slots of 16 and
+     8 MiB; 2,000 reads with a budget under the tables (the native host
+     scour); the direct cell with its 448 bucket streamed in K4 blocks
+     through 4 MiB slots, warm and timed 20,000 reads; the fused cell's
+     first 500 reads under a budget without its packed store (BEST on
+     the two-step path at QBUNCH 1). Every (kernel, shape) the streamed
+     warm batches launched is held against its plain version; each timed
+     batch logs its plan, uploads, copy-stream time and rate against a
+     plain pinned 1 GiB copy, the share of copy time hidden under
+     kernels, its seconds against the resident batch's, and its peak
+     device memory against the budget;
+  8. prepass (-p): on phase 5's 2-family database (BEST -fr ITER 16,
+     ALLPATHS ITER 32) the card's bytes must equal the port's CPU run;
+     one timed prepass batch of 20,000 reads on phase 3's database logs
+     its rows, K2 launches and seconds.
 
 No scour knob is set: the slot budgets of every accelerated batch are
-the ones the package derives from the database's posting depth.
+the ones the package derives from the database's posting depth. Phases
+1-6 run under the default residency budget (the card's memory less the
+working-set reserve), where every database is resident.
 
 Prints the kernel record as one JSON line, then the card's name and
 power limit (nvidia-smi), then `{"ok": true, "device": {...}}` last.
@@ -117,6 +143,15 @@ AMPLICON_FAMILIES = 1200
 AMPLICON_MEMBERS, AMPLICON_LEN, AMPLICON_READ_LEN = 80, 1450, 292
 AMPLICON_THRES = 0.97
 AMPLICON_CHECK_READS = 512
+# Phase 7: the ring's slot on the two-step cell (both unit buckets in 3
+# or more slabs: 95,977 units of 544 bytes in 4, 288,000 of 672 in 12),
+# on the direct cell, the second slot of the two-budget check, and the
+# reads of the native-scour check
+SLAB_SLOT = 16 << 20
+DIRECT_SLOT = 4 << 20
+SLAB_SLOT_B = 8 << 20
+NATIVE_READS = 2000
+PREPASS_READS = 20000
 
 # The card's peaks for the bounds. Memory: 3.35 TB/s (H100 SXM data
 # sheet). 32-bit integer ALU: the SM issues 64 int32 lane-operations per
@@ -1058,13 +1093,17 @@ def _record_pair_launches():
     return seen, undo
 
 
-def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False):
+def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False,
+                          clone=False):
     """Wraps the engine's call sites of the named kernels (K2, K3 through
     its gather, K4). Returns (calls, undo): calls[kernel] maps every
     launch shape to [count, the first such call's arguments, a CUDA event
     pair around each such call (with `events`; else none)], so that each
     shape a batch launched can be run again on the batch's own tensors
-    (`hold_captured`) and K4's device time summed (`k4_report`)."""
+    (`hold_captured`) and K4's device time summed (`k4_report`). With
+    `clone` the first call's tensors are kept as copies: a streamed
+    batch's tiles are views of the staging ring, which later slabs
+    overwrite."""
     import torch
 
     from burst_tpu_torch import engine
@@ -1094,7 +1133,14 @@ def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False):
         calls[kern] = {}
 
         def capturing(*a, fn=fn, seen=calls[kern], shape_of=shape_of, **kw):
-            entry = seen.setdefault(shape_of(*a, **kw), [0, (a, kw), []])
+            shape = shape_of(*a, **kw)
+            if shape not in seen:
+                keep = a
+                if clone:
+                    keep = tuple(x.clone() if isinstance(x, torch.Tensor)
+                                 else x for x in a)
+                seen[shape] = [0, (keep, kw), []]
+            entry = seen[shape]
             entry[0] += 1
             if not events:
                 return fn(*a, **kw)
@@ -1186,6 +1232,18 @@ def scour_budgets(tabs, nwords: int) -> str:
             f"{scour_device.chunk_rows(E)} rows")
 
 
+def _all_resident(path: str, al):
+    """Fails unless the default budget holds the whole database (every
+    piece that a batch asked for); logs the plan."""
+    plan = al.db.plan
+    if plan.streamed or len(plan.resident) != len(plan.pieces) or \
+            plan.scour == "native":
+        fail(f"{path}: not fully resident under the default budget: "
+             f"{plan.describe()}")
+    log(f"[{path}] residency plan under the default budget: "
+        f"{plan.describe()}")
+
+
 def _same_bytes(what: str, gpu: bytes, cpu: bytes):
     if gpu != cpu:
         a, b = gpu.split(NL), cpu.split(NL)
@@ -1206,20 +1264,29 @@ def _build_db(n_fam, n_reads, with_acc):
     return rheads, refs, qheads, reads, rd, acc
 
 
-def phase_accel(launch_log):
+def accel_workload():
+    """Phase 3's database and reads: every 37th read with one N, every
+    997th cut to 11 bp (a full-scan row)."""
     import numpy as np
+    _, refs, qheads, reads, rd, acc = _build_db(ACCEL_FAMILIES, 20000, True)
+    rng = np.random.default_rng(SEED)
+    for i in range(0, len(reads), 37):
+        reads[i][int(rng.integers(0, len(reads[i])))] = ord("N")
+    for i in range(5, len(reads), 997):   # under k: full-scan rows (K4)
+        reads[i] = reads[i][:11].copy()
+    return refs, qheads, reads, rd, acc
+
+
+def phase_accel(launch_log):
+    """Phase 3; returns its database, reads and the card's bytes of the
+    first E2E_CHECK_READS reads (phase 7 reuses them)."""
     import torch
 
     from burst_tpu_torch.serving import Aligner
 
     n_fam = ACCEL_FAMILIES
     t0 = time.perf_counter()
-    _, refs, qheads, reads, rd, acc = _build_db(n_fam, 20000, True)
-    rng = np.random.default_rng(SEED)
-    for i in range(0, len(reads), 37):
-        reads[i][int(rng.integers(0, len(reads[i])))] = ord("N")
-    for i in range(5, len(reads), 997):   # under k: full-scan rows (K4)
-        reads[i] = reads[i][:11].copy()
+    refs, qheads, reads, rd, acc = accel_workload()
     log(f"[accel] workload + host DB build {time.perf_counter() - t0:.1f} "
         f"s: {n_fam} families (the headline has 1024), {len(refs)} refs x "
         f"{len(refs[0])} bp, {rd.tot_units} units, {len(acc.csr.ids)} "
@@ -1272,6 +1339,7 @@ def phase_accel(launch_log):
     if st["full_rows"] <= 0:
         fail("no full-scan row in the accelerated batch")
     launch_log["accel"] = launches
+    _all_resident("accel", al)
     launch_log["k4_batches"] = {"accel": k4_report("accel", calls["K4"])}
     launch_log["held"] = hold_captured("accel", calls)
     del calls
@@ -1289,6 +1357,7 @@ def phase_accel(launch_log):
     log(f"[accel] first {n} reads: b6 bytes identical to the CPU path")
     del al
     torch.cuda.empty_cache()
+    return dict(rd=rd, acc=acc, qheads=qheads, reads=reads, head=gpu)
 
 
 class _Stages:
@@ -1365,6 +1434,8 @@ class _Stages:
 
 
 def phase_direct(launch_log):
+    """Phase 4; returns its database, reads, the timed batch's bytes and
+    seconds (phase 7 reuses them)."""
     import numpy as np
     import torch
 
@@ -1395,6 +1466,7 @@ def phase_direct(launch_log):
     finally:
         uncapture()
     rows = b6.count(NL)
+    batch_s = dt
     qd = serving.process_queries(qheads, reads, THRES, True)
     nj = len(qd.seqs)
     pairs = nj * rd.tot_units
@@ -1409,6 +1481,7 @@ def phase_direct(launch_log):
     if rows < len(reads) // 2:
         fail(f"only {rows} b6 rows for {len(reads)} reads")
     launch_log["direct"] = launches
+    _all_resident("direct", al)
     k4 = k4_report("direct", calls["K4"])
     if k4["launches"] != launches["k4"]:
         fail(f"direct path: the engine's call site saw {k4['launches']} "
@@ -1507,6 +1580,8 @@ def phase_direct(launch_log):
         "piece")
     del al
     torch.cuda.empty_cache()
+    return dict(rd=rd, qheads=qheads, reads=reads, b6=b6, seconds=batch_s,
+                peak=peak)
 
 
 def phase_modes():
@@ -1588,6 +1663,7 @@ def phase_modes_accel():
             f"{' (every one with an N)' if batch is only_n else ''}: "
             f"{out['cuda'].count(NL)} b6 rows identical to the CPU path; "
             f"two-step {stats['cuda']}")
+    return dict(rd=rd, acc=acc, qheads=qheads, reads=reads)
 
 
 def make_amplicon_workload(n_fam: int, n_reads: int):
@@ -1660,25 +1736,16 @@ def _profiled_batch(al, qheads, reads):
                     for k, n, t in top))
 
 
-def phase_twostep(launch_log, profile=False):
-    """Phase 6: the amplicon workload through the two-step accelerated
-    path (CAPITALIST with an LCA taxonomy) on the card; then every
-    (kernel, shape) the batch launched, held against its plain version on
-    the batch's own tensors. With `profile`, one more batch under
-    torch.profiler: the device's busy share and its time by kernel."""
+def twostep_workload():
+    """Phase 6's database, taxonomy and reads: every 199th read with one
+    N, every 997th cut to 11 bp (a full-scan row)."""
     import numpy as np
-    import torch
 
-    from burst_tpu_torch import devtime, engine, modes, serving
     from burst_tpu_torch.accel import build_accelerator
     from burst_tpu_torch.io.taxonomy import Taxonomy
-    from burst_tpu_torch.kernels import scour_device
     from burst_tpu_torch.process import process_references
-    from burst_tpu_torch.serving import Aligner
-
-    t0 = time.perf_counter()
-    n_fam = AMPLICON_FAMILIES
-    rheads, refs, tax, qheads, reads = make_amplicon_workload(n_fam, 20000)
+    rheads, refs, tax, qheads, reads = make_amplicon_workload(
+        AMPLICON_FAMILIES, 20000)
     rng = np.random.default_rng(SEED + 7)
     for i in range(0, len(reads), 199):
         reads[i][int(rng.integers(0, len(reads[i])))] = ord("N")
@@ -1689,7 +1756,33 @@ def phase_twostep(launch_log, profile=False):
                             thres=AMPLICON_THRES, rebase=True,
                             rebase_amt=320, curate=2)
     acc = build_accelerator(rd, k=K, z=1)
-    tmap = Taxonomy(list(zip(rheads, tax)))
+    return refs, qheads, reads, rd, acc, Taxonomy(list(zip(rheads, tax)))
+
+
+def twostep_kw(tmap):
+    return dict(thres=AMPLICON_THRES, mode="CAPITALIST", do_rc=True,
+                taxonomy=tmap)
+
+
+def phase_twostep(launch_log, profile=False):
+    """Phase 6: the amplicon workload through the two-step accelerated
+    path (CAPITALIST with an LCA taxonomy) on the card; then every
+    (kernel, shape) the batch launched, held against its plain version on
+    the batch's own tensors. With `profile`, one more batch under
+    torch.profiler: the device's busy share and its time by kernel.
+    Returns the database, reads, the timed batch's bytes and seconds,
+    and the card's bytes of the first AMPLICON_CHECK_READS and
+    NATIVE_READS reads (phase 7 reuses them)."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch import devtime, engine, modes, serving
+    from burst_tpu_torch.kernels import scour_device
+    from burst_tpu_torch.serving import Aligner
+
+    t0 = time.perf_counter()
+    n_fam = AMPLICON_FAMILIES
+    refs, qheads, reads, rd, acc, tmap = twostep_workload()
     lbs, nlb = np.unique(engine._unit_lb(rd), return_counts=True)
     log(f"[twostep] workload + host DB build {time.perf_counter() - t0:.1f} "
         f"s: {n_fam} families (the source has 1200) x {AMPLICON_MEMBERS} x "
@@ -1698,8 +1791,7 @@ def phase_twostep(launch_log, profile=False):
         f"{dict(zip(lbs.tolist(), nlb.tolist()))}, {len(acc.csr.ids)} "
         f"accelerator postings, {len(reads)} reads of "
         f"{AMPLICON_READ_LEN} bp")
-    kw = dict(thres=AMPLICON_THRES, mode="CAPITALIST", do_rc=True,
-              taxonomy=tmap)
+    kw = twostep_kw(tmap)
     t0 = time.perf_counter()
     al = Aligner(rd, acc, device=torch.device("cuda"), **kw)
     torch.cuda.synchronize()
@@ -1746,6 +1838,7 @@ def phase_twostep(launch_log, profile=False):
         fail(f"not the two-step path at QBUNCH 16 with full-scan rows: "
              f"{st}, {launches}")
     launch_log["twostep"] = launches
+    _all_resident("twostep", al)
     counts = {k.lower(): sum(n for n, _, _ in v.values())
               for k, v in calls.items()}
     if any(counts[k] != launches[k] for k in counts):
@@ -1850,8 +1943,11 @@ def phase_twostep(launch_log, profile=False):
     _same_bytes("two-step CAPITALIST", gpu, cpu)
     log(f"[twostep] first {n} reads (QBUNCH {gst['qbunch']}): b6 bytes "
         "identical to the CPU path")
+    native = al.align_batch(qheads[:NATIVE_READS], reads[:NATIVE_READS])
     del al
     torch.cuda.empty_cache()
+    return dict(rd=rd, acc=acc, tmap=tmap, qheads=qheads, reads=reads,
+                b6=b6, seconds=dt, peak=peak, head=gpu, native=native)
 
 
 def phase_long_reads():
@@ -1918,6 +2014,354 @@ def phase_long_reads():
         f"kernel launches at (kernel, W): {widths}")
 
 
+def pinned_copy_gbs() -> float:
+    """GB/s of one plain 1 GiB host-to-device copy from pinned memory
+    (after one warm copy): what the staging ring's copies are held to."""
+    import torch
+    n = 1 << 30
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    dev.copy_(host, non_blocking=True)
+    e1.record()
+    e1.synchronize()
+    return n / e0.elapsed_time(e1) / 1e6
+
+
+def _streamed_run(path, al, qheads, reads, need, resident_s, plain_gbs,
+                  launch_log):
+    """One timed batch on a streamed plan (launch counts set to 0 just
+    before, read just after, as `_timed_batch`), with the staging ring's
+    copies timed by CUDA events: logs the plan, the uploads, the copy
+    stream's busy time and rate against the plain pinned copy, the share
+    of copy time hidden under the kernels (1 - the compute stream's waits
+    for copies over the copies' time), the batch seconds against the
+    resident batch's and the peak device memory against the budget.
+    Returns the batch's bytes."""
+    from burst_tpu_torch import devtime
+    ring = al.db.ring
+    ring.timing = []
+    try:
+        with devtime.track() as acct:
+            b6, dt, launches, peak = _timed_batch(al, qheads, reads, need)
+    finally:
+        timing, ring.timing = ring.timing, None
+    busy = sum(c0.elapsed_time(c1) for c0, c1, _, _ in timing)
+    waited = sum(w0.elapsed_time(w1) for _, _, w0, w1 in timing)
+    st = al.last_stats
+    plan = al.db.plan
+    gbs = st["h2d_bytes"] / max(busy, 1e-9) / 1e6
+    log(f"[slab] {path}: plan {plan.describe()}")
+    log(f"[slab] {path}: {len(reads)} reads in {dt:.3f} s (resident "
+        f"{resident_s:.3f} s, {dt / resident_s:.2f}x), {b6.count(NL)} rows; "
+        f"streamed {st['streamed']}: {st['slabs']} K2 slabs, "
+        f"{st['blocks']} K4 blocks, {st['pieces']} K3 winner pieces, "
+        f"{st['h2d_bytes']} bytes host to device in {len(timing)} copies; "
+        f"copy stream busy {busy:.3f} ms = {gbs:.2f} GB/s (plain pinned 1 "
+        f"GiB copy {plain_gbs:.2f} GB/s, {100 * gbs / plain_gbs:.0f} %); "
+        f"the compute stream waited {waited:.3f} ms for copies: "
+        f"{100 * (1 - waited / max(busy, 1e-9)):.1f} % of the copy time "
+        f"hidden under kernels; host blocked in the ring "
+        f"{acct['up_s']:.3f} s, in fetches {acct['s']:.3f} s; launches "
+        f"{launches}; peak device memory {peak / 2**30:.3f} GiB against a "
+        f"budget of {plan.budget / 2**30:.3f} GiB (the batch's working set "
+        "lies outside the budget)")
+    launch_log[path] = launches
+    return b6
+
+
+def _staged_streamed(al, ts):
+    """The streamed two-step batch once more with the stages that stream
+    timed apart (the device drained around each, as phase 6's staged
+    batch does), beside the whole batch's seconds."""
+    import torch
+
+    from burst_tpu_torch import engine
+    stg = _Stages()
+    names = ("_full_scan_rows", "_pairs_min_ed", "select_pods",
+             "rescore_winners")
+    undo = [(n, stg.wrap(engine, n, sync=True)) for n in names]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = al.align_batch(ts["qheads"], ts["reads"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        for n, fn in undo:
+            setattr(engine, n, fn)
+    _same_bytes("two-step streamed, staged batch", again, ts["b6"])
+    log(f"[slab] twostep streamed, staged batch {dt:.3f} s: "
+        + "; ".join(f"{n} {stg.host[n]:.3f} s" for n in names)
+        + " (phase 6's staged batch times the same stages resident)")
+
+
+def _slab_aligner(path, rd, acc, budget, kw, **extra):
+    """An Aligner on the card under `budget`; logs its load seconds."""
+    import torch
+
+    from burst_tpu_torch.serving import Aligner
+    t0 = time.perf_counter()
+    al = Aligner(rd, acc, device=torch.device("cuda"), tile_budget=budget,
+                 **kw, **extra)
+    torch.cuda.synchronize()
+    log(f"[slab] {path}: device DB load under {budget} bytes "
+        f"{time.perf_counter() - t0:.1f} s")
+    return al
+
+
+def _held_in_slabs(path, db, keys):
+    """Fails unless each tile piece in `keys` streams in 3 or more slabs
+    of the ring."""
+    import numpy as np
+
+    from burst_tpu_torch import engine
+    lbs, counts = np.unique(engine._unit_lb(db.rd), return_counts=True)
+    n = dict(zip(lbs.tolist(), counts.tolist()))
+    for key in keys:
+        if db.plan.holds(key):
+            fail(f"{path}: {key} resident, not streamed: "
+                 f"{db.plan.describe()}")
+        slabs = -(-n[key[1]] // db.slab_rows(key[1] + key[2]))
+        if slabs < 3:
+            fail(f"{path}: {key} in {slabs} slabs")
+
+
+def phase_slab(cells, launch_log):
+    """Phase 7: databases larger than the budget, on the databases of
+    phases 3, 4 and 6 (no new host build). Budgets are forced so that
+    the two-step cell's unit buckets stream in 3 or more slabs (its
+    rescore over winner tiles), the direct cell's 448 bucket streams in
+    K4 blocks, the fused cell loses its packed store (BEST goes down the
+    two-step path), and the two-step cell's tables give way (the native
+    host scour); and one more two-step budget. Each batch's bytes must
+    equal its resident batch's; every (kernel, shape) the streamed warm
+    batches launched is held against its plain version."""
+    import torch
+
+    from burst_tpu_torch import engine, state
+    from burst_tpu_torch.alphabet import score_matrix
+    fixed = score_matrix(1).nbytes
+    plain_gbs = pinned_copy_gbs()
+    log(f"[slab] plain pinned 1 GiB host-to-device copy: {plain_gbs:.2f} "
+        "GB/s")
+
+    # the two-step cell at full width: tables resident, tiles streamed
+    ts = cells["twostep"]
+    kw = twostep_kw(ts["tmap"])
+    pieces = state.database_pieces(ts["rd"], ts["acc"])
+    al = _slab_aligner("twostep", ts["rd"], ts["acc"], fixed + pieces[
+        ("tables",)] + 2 * SLAB_SLOT, kw)
+    _held_in_slabs("twostep", al.db, [k for k in pieces if k[0] == "tiles"])
+    calls, undo = _capture_kernel_calls(clone=True)
+    try:
+        t0 = time.perf_counter()
+        al.align_batch(ts["qheads"], ts["reads"])
+        torch.cuda.synchronize()
+        log(f"[slab] twostep: warm batch {time.perf_counter() - t0:.1f} s")
+    finally:
+        undo()
+    b6 = _streamed_run("twostep streamed", al, ts["qheads"], ts["reads"],
+                       ("k2", "k3", "k4"), ts["seconds"], plain_gbs,
+                       launch_log)
+    _same_bytes("two-step streamed against resident", b6, ts["b6"])
+    st = al.last_stats
+    if st["slabs"] < 6 or st["pieces"] < 1 or st.get("scour") != "device":
+        fail(f"two-step streamed: {st}")
+    log("[slab] twostep: 20,000 reads streamed, b6 bytes identical to the "
+        "resident batch")
+    _staged_streamed(al, ts)
+    launch_log["held"] += hold_captured("twostep streamed", calls)
+    del calls
+
+    # two budgets, the same bytes (the slab rotation), on 512 reads
+    n = AMPLICON_CHECK_READS
+    one = al.align_batch(ts["qheads"][:n], ts["reads"][:n])
+    slabs_one = al.last_stats["slabs"]
+    del al
+    al = _slab_aligner("twostep B", ts["rd"], ts["acc"], fixed + pieces[
+        ("tables",)] + 2 * SLAB_SLOT_B, kw)
+    two = al.align_batch(ts["qheads"][:n], ts["reads"][:n])
+    _same_bytes("two budgets (slot A)", one, ts["head"])
+    _same_bytes("two budgets (slot B)", two, ts["head"])
+    log(f"[slab] two budgets (slots of {SLAB_SLOT} and {SLAB_SLOT_B} "
+        f"bytes; {slabs_one} and {al.last_stats['slabs']} K2 slabs): "
+        f"{n} reads, b6 bytes identical to each other and to the resident "
+        "batch")
+    del al
+
+    # the native-scour route: a budget under the tables
+    n = NATIVE_READS
+    al = _slab_aligner("native", ts["rd"], ts["acc"], fixed + 2 * SLAB_SLOT,
+                       kw)
+    if al.db.plan.scour != "native" or al.db.tabs is not None:
+        fail(f"native route not planned: {al.db.plan.describe()}")
+    t0 = time.perf_counter()
+    got = al.align_batch(ts["qheads"][:n], ts["reads"][:n])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _same_bytes("native-scour route", got, ts["native"])
+    if al.last_stats.get("scour") != "native":
+        fail(f"native route: {al.last_stats}")
+    log(f"[slab] native scour ({al.db.plan.why}): {n} reads in {dt:.3f} s, "
+        f"b6 bytes identical to the resident device-scour batch; "
+        f"{al.last_stats}")
+    del al
+    torch.cuda.empty_cache()
+
+    # the direct cell at full width: its 448 bucket streams in K4 blocks
+    di = cells["direct"]
+    pieces = state.database_pieces(di["rd"], None, (4,))
+    a_keys = [k for k in pieces if k[2] == engine.A_PAD]
+    big = max(a_keys, key=pieces.get)
+    al = _slab_aligner("direct", di["rd"], None, fixed + sum(
+        pieces[k] for k in a_keys if k != big) + 2 * DIRECT_SLOT,
+        dict(thres=THRES, mode="BEST", do_rc=True))
+    _held_in_slabs("direct", al.db, [big])
+    al.warmup(read_len=READ_LEN)
+    calls, undo = _capture_kernel_calls(("K3", "K4"), clone=True)
+    try:
+        al.align_batch(di["qheads"], di["reads"])
+    finally:
+        undo()
+    b6 = _streamed_run("direct streamed", al, di["qheads"], di["reads"],
+                       ("k3", "k4"), di["seconds"], plain_gbs, launch_log)
+    _same_bytes("direct streamed against resident", b6, di["b6"])
+    if al.last_stats["blocks"] < 3:
+        fail(f"direct streamed: {al.last_stats}")
+    log("[slab] direct: 20,000 reads with the 448 bucket streamed, b6 "
+        "bytes identical to the resident batch")
+    launch_log["held"] += hold_captured("direct streamed", calls)
+    del calls, al
+
+    # the fused cell: a budget under the packed store
+    fu = cells["accel"]
+    n = E2E_CHECK_READS
+    pieces = state.database_pieces(fu["rd"], fu["acc"], (4,))
+    budget = fixed + sum(v for k, v in pieces.items() if k != ("store",)) \
+        + 2 * state.SLAB_MIN_ROWS * state.widest_row(fu["rd"])
+    al = _slab_aligner("fused", fu["rd"], fu["acc"], budget,
+                       dict(thres=THRES, mode="BEST", do_rc=True))
+    al.warmup(read_len=READ_LEN)
+    if al.db.tiles_packed is not None or al.db.plan.holds(("store",)):
+        fail(f"fused: the store was not planned out: "
+             f"{al.db.plan.describe()}")
+    got = al.align_batch(fu["qheads"][:n], fu["reads"][:n])
+    if al.last_stats.get("qbunch") != 1 or "dev_pairs" in al.last_stats:
+        fail(f"fused cell under its store: not the two-step path at "
+             f"QBUNCH 1: {al.last_stats}")
+    _same_bytes("fused cell without its store", got, fu["head"])
+    log(f"[slab] fused cell, budget under the packed store: BEST on the "
+        f"two-step path, {n} reads, b6 bytes identical to the fused "
+        f"batch; {al.last_stats}; plan {al.db.plan.describe()}")
+    del al
+    torch.cuda.empty_cache()
+
+
+def slab_inputs():
+    """For `chip_smoke.py slab`: the databases of phases 3, 4 and 6 and
+    the resident batches phase 7 holds its streamed ones to."""
+    import torch
+
+    from burst_tpu_torch.serving import Aligner
+    cuda = torch.device("cuda")
+    refs, qheads, reads, rd, acc = accel_workload()
+    al = Aligner(rd, acc, thres=THRES, mode="BEST", do_rc=True, device=cuda)
+    al.warmup(read_len=READ_LEN)
+    accel = dict(rd=rd, acc=acc, qheads=qheads, reads=reads,
+                 head=al.align_batch(qheads[:E2E_CHECK_READS],
+                                     reads[:E2E_CHECK_READS]))
+    del al
+    _, _, qheads, reads, rd, _ = _build_db(40, DIRECT_READS, False)
+    al = Aligner(rd, None, thres=THRES, mode="BEST", do_rc=True, device=cuda)
+    al.warmup(read_len=READ_LEN)
+    al.align_batch(qheads, reads)
+    b6, dt, _, peak = _timed_batch(al, qheads, reads, ("k3", "k4"))
+    direct = dict(rd=rd, qheads=qheads, reads=reads, b6=b6, seconds=dt,
+                  peak=peak)
+    del al
+    _, qheads, reads, rd, acc, tmap = twostep_workload()
+    al = Aligner(rd, acc, device=cuda, **twostep_kw(tmap))
+    al.align_batch(qheads, reads)
+    b6, dt, _, peak = _timed_batch(al, qheads, reads, ("k2", "k3", "k4"))
+    twostep = dict(rd=rd, acc=acc, tmap=tmap, qheads=qheads, reads=reads,
+                   b6=b6, seconds=dt, peak=peak, head=al.align_batch(
+                       qheads[:AMPLICON_CHECK_READS],
+                       reads[:AMPLICON_CHECK_READS]),
+                   native=al.align_batch(qheads[:NATIVE_READS],
+                                         reads[:NATIVE_READS]))
+    log(f"[slab] resident batches: direct {direct['seconds']:.3f} s, "
+        f"two-step {twostep['seconds']:.3f} s")
+    del al
+    torch.cuda.empty_cache()
+    return dict(accel=accel, direct=direct, twostep=twostep)
+
+
+def phase_prepass(cells, launch_log):
+    """Phase 8: prepass (-p). On phase 5's 2-family database the card's
+    bytes must equal the port's CPU run (BEST -fr at ITER 16, ALLPATHS at
+    32); then one timed prepass batch of PREPASS_READS reads on phase 3's
+    database: its rows, K2 launches and seconds."""
+    import io
+
+    import torch
+
+    from burst_tpu_torch import prepass
+    from burst_tpu_torch.alphabet import score_matrix
+    from burst_tpu_torch.process import process_queries
+    from burst_tpu_torch.state import load_db
+
+    def run(cell, device, a, n=None):
+        qd = process_queries(cell["qheads"][:n], cell["reads"][:n], THRES,
+                             False)
+        buf = io.StringIO()
+        prepass.run_prepass(qd, load_db(cell["rd"], cell["acc"],
+                                        score_matrix(1), device),
+                            cell["acc"], a, buf)
+        return buf.getvalue().encode("latin-1")
+
+    counters = _counters()
+    m5 = cells["modes"]
+    for a in (dict(mode="BEST", prepass=16, rc=True, heur=False),
+              dict(mode="ALLPATHS", prepass=32, rc=True, heur=False)):
+        before = counters["k2"].launches
+        gpu = run(m5, torch.device("cuda"), a)
+        if counters["k2"].launches == before:
+            fail(f"prepass {a['mode']}: K2 did not launch on the card")
+        _same_bytes(f"prepass {a['mode']}", gpu,
+                    run(m5, torch.device("cpu"), a))
+        log(f"[prepass] {a['mode']} ITER {a['prepass']} on "
+            f"{m5['rd'].tot_units} units, {len(m5['reads'])} reads: "
+            f"{gpu.count(NL)} rows identical to the CPU path")
+    fu = cells["accel"]
+    a = dict(mode="BEST", prepass=16, rc=True, heur=False)
+    db = load_db(fu["rd"], fu["acc"], score_matrix(1), torch.device("cuda"))
+    qd = process_queries(fu["qheads"][:PREPASS_READS],
+                         fu["reads"][:PREPASS_READS], THRES, False)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    prepass.run_prepass(qd, db, fu["acc"], a, buf)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    rows = buf.getvalue().count("\n")
+    if launches["k2"] <= 0 or rows < PREPASS_READS // 2:
+        fail(f"prepass batch: {rows} rows, launches {launches}")
+    launch_log["prepass"] = launches
+    log(f"[prepass] BEST -fr ITER 16 on phase 3's database: "
+        f"{PREPASS_READS} reads in {dt:.3f} s = {PREPASS_READS / dt:.1f} "
+        f"reads/s, {rows} rows, launches {launches}")
+    del db
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -1963,23 +2407,31 @@ def main():
         phase_twostep({"k4_batches": {}, "held": []}, profile=True)
         print(card_line(), flush=True)
         return
+    if sys.argv[1:] == ["slab"]:
+        phase_build()
+        phase_slab(slab_inputs(), {"held": []})
+        print(card_line(), flush=True)
+        return
     phase_sass(phase_build())
     recs, main_case = phase_kernels()
     if sys.argv[1:] == ["kernels"]:
         phase_pairs_path(main_case, PATH_B)
         return
     launch_log = {}
-    phase_accel(launch_log)
+    cells = {"accel": phase_accel(launch_log)}
     # K1 and K2 once more, at the B the batch launched K1 with: these lead
     # the kernel record, the B = 8192 entries ride along under "also"
     at_path = phase_pairs_path(main_case, launch_log.pop("k1_B"))
     del main_case
     recs = [at_path[0], recs[0], at_path[1], recs[1]] + recs[2:]
     phase_long_reads()
-    phase_direct(launch_log)
+    cells["direct"] = phase_direct(launch_log)
     phase_modes()
-    phase_modes_accel()
-    phase_twostep(launch_log)
+    cells["modes"] = phase_modes_accel()
+    cells["twostep"] = phase_twostep(launch_log)
+    phase_slab(cells, launch_log)
+    phase_prepass(cells, launch_log)
+    del cells
     held = launch_log.pop("held")
     k4_batches = launch_log.pop("k4_batches")
     # one entry per kernel, at the shape of the path that counts its

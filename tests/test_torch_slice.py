@@ -210,7 +210,8 @@ def test_import_without_jax():
                  for p in glob.glob(burst_tpu_torch.__path__[0] + "/**/*.py",
                                     recursive=True)]
         names = [n[:-9] if n.endswith(".__init__") else n for n in names]
-        assert len(names) >= 25, names
+        assert len(names) >= 25 and "burst_tpu_torch.prepass" in names, \
+            names
         for name in names:
             importlib.import_module(name)
         from burst_tpu_torch.accel import build_accelerator
