@@ -644,6 +644,32 @@ def rescore_pad(lb: int, W: int) -> int:
     return -(-(lb + 32 * W) // 64) * 64 - lb
 
 
+def _rescore_pieces(qd: QueryData, db, got, grp, refpos, lb: int,
+                    lp: int):
+    """(device tiles, the pairs of `grp` they hold, sorted position ->
+    row map) for one (W, length bucket) group of the rescore: the
+    resident bucket `got` whole, or where it streams the winner tiles
+    (burst_tpu's `_winner_tiles_device`): the group's units only, in
+    pieces of one ring slot (ANY's winners can be a whole bucket)."""
+    if got is not None:
+        pos2row, tiles_dev = got
+        yield tiles_dev, grp, lambda pos: pos2row[pos]
+        return
+    stats = _stream_stats(qd)
+    stats["streamed"].add((lb, lp - lb))
+    uniq = np.unique(refpos[grp])
+    step = db.slab_rows(lp)
+    for c0 in range(0, len(uniq), step):
+        piece = uniq[c0:c0 + step]
+        mat = np.zeros((len(piece), lp), dtype=np.uint8)
+        _fill_rows(mat, db.rd, piece)
+        with db.ring.staged(mat, stats) as tiles_dev:
+            yield (tiles_dev, grp & (refpos >= piece[0]) &
+                   (refpos <= piece[-1]),
+                   lambda pos, piece=piece: np.searchsorted(piece, pos))
+        stats["pieces"] += 1
+
+
 def rescore_winners(qd: QueryData, db, juni, refpos, eds, mode: str,
                     pod_order: np.ndarray | None = None,
                     last0: np.ndarray | None = None,
@@ -741,38 +767,15 @@ def rescore_winners(qd: QueryData, db, juni, refpos, eds, mode: str,
                 (span_all <= Lw - 1 - rows_g - bound - 1)
             if Lw >= L1_full:
                 fits &= False
-            if got is not None:
-                pos2row, tiles_dev = got
-                for sub, windowed in ((fits, True), (grp & ~fits, False)):
+            for tiles_dev, inp, rowmap in _rescore_pieces(
+                    qd, db, got, grp, refpos, int(lb), lp):
+                for sub, windowed in ((fits & inp, True),
+                                      (inp & ~fits, False)):
                     sel = order[sub]
                     if len(sel):
                         _dispatch(sel, W, peq_dev, tiles_dev,
-                                  row2local[juni[sel]],
-                                  pos2row[refpos[sel]],
+                                  row2local[juni[sel]], rowmap(refpos[sel]),
                                   x0_all[sel] if windowed else None, Lw)
-                continue
-            # winner tiles (burst_tpu's `_winner_tiles_device`): the
-            # group's units only, in pieces of one ring slot (ANY's
-            # winners can be a whole bucket)
-            stats = _stream_stats(qd)
-            stats["streamed"].add((int(lb), lp - int(lb)))
-            uniq = np.unique(refpos[grp])
-            step = db.slab_rows(lp)
-            for c0 in range(0, len(uniq), step):
-                piece = uniq[c0:c0 + step]
-                mat = np.zeros((len(piece), lp), dtype=np.uint8)
-                _fill_rows(mat, rd, piece)
-                inp = grp & (refpos >= piece[0]) & (refpos <= piece[-1])
-                with db.ring.staged(mat, stats) as tiles_dev:
-                    for sub, windowed in ((fits & inp, True),
-                                          (inp & ~fits, False)):
-                        sel = order[sub]
-                        if len(sel):
-                            _dispatch(sel, W, peq_dev, tiles_dev,
-                                      row2local[juni[sel]],
-                                      np.searchsorted(piece, refpos[sel]),
-                                      x0_all[sel] if windowed else None, Lw)
-                stats["pieces"] += 1
     if pending:
         host = devtime.fetch([dev for _, _, dev, _ in pending])
         for (part, qlens, _, xc), h in zip(pending, host):

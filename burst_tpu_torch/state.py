@@ -54,7 +54,8 @@ class Residency:
     `slot` is the staging ring's slot bytes (two of them on the device;
     0 where nothing streams; at least `min_slot`). `scour` is "device",
     or "native" where the tables are not held (`why` says why); None
-    without an accelerator.
+    without an accelerator. `plan_residency` makes a plan and
+    `place_piece` extends one; nothing else decides residency.
     """
     budget: int | None
     pieces: dict
@@ -95,10 +96,13 @@ class Residency:
 
 
 def default_budget(device: torch.device) -> int | None:
-    """The device bytes a database may take: the override in bytes
-    (BURST_TPU_TILE_HBM_MB, MiB, the reference's variable of the same
-    meaning) where set; else on a CUDA device its memory less the
-    working-set reserve, and None (no limit) on the CPU."""
+    """The device bytes a database may take: BURST_TPU_TILE_HBM_MB (MiB)
+    where set; else on a CUDA device its memory less the working-set
+    reserve, and None (no limit) on the CPU. The variable keeps
+    burst_tpu's name but not its scope: there it bounds each tile bucket
+    alone; here it bounds all the database's device pieces together
+    (tables, packed store, bucket tiles and the staging ring), so a value
+    too small for those raises ValueError (`plan_residency`)."""
     env = os.environ.get("BURST_TPU_TILE_HBM_MB")
     if env:
         return int(float(env) * (1 << 20))
@@ -125,8 +129,8 @@ def plan_residency(pieces: dict, budget: int | None, fixed: int = 0,
     widest tile row a batch can ask for): the ring's two slots where a
     piece streams -- each takes half of what the resident pieces leave,
     up to RING_SLOT_MAX -- else room for a rescore copy that no plan
-    named to stream (`DeviceDB.bucket_tiles`). Raises ValueError where
-    the budget cannot hold the score table and those two slabs."""
+    named (`place_piece`). Raises ValueError where the budget cannot
+    hold the score table and those two slabs."""
     keys = list(pieces)
     min_slot = SLAB_MIN_ROWS * widest
     if budget is None:
@@ -145,10 +149,34 @@ def plan_residency(pieces: dict, budget: int | None, fixed: int = 0,
     held = keys[:cut]
     slot = 0
     if any(k[0] == "tiles" for k in keys[cut:]):
-        rest = budget - fixed - sum(pieces[k] for k in held)
-        slot = min(RING_SLOT_MAX, rest // 2)
+        slot = _ring_slot(budget, fixed, sum(pieces[k] for k in held))
     return _scour_route(Residency(budget, dict(pieces), set(held), fixed,
                                   slot, min_slot=min_slot), accel)
+
+
+def _ring_slot(budget: int, fixed: int, held: int) -> int:
+    """A ring slot: half of what the score table and the `held` bytes of
+    resident pieces leave of the budget, up to RING_SLOT_MAX."""
+    return min(RING_SLOT_MAX, (budget - fixed - held) // 2)
+
+
+def place_piece(plan: Residency, key, nbytes: int) -> Residency:
+    """`plan` with one piece more (a rescore copy no plan named), the
+    pieces it placed left where they are: the new one is resident where
+    it fits in what the budget leaves beside the ring's two slots (or
+    the room for two minimal slabs that `plan_residency` keeps where
+    nothing streams), else it streams, through a ring sized as
+    `plan_residency` sizes it where the plan had none."""
+    held = sum(plan.pieces[k] for k in plan.resident)
+    room = None if plan.budget is None else \
+        plan.budget - plan.fixed - held - 2 * max(plan.slot, plan.min_slot)
+    resident, slot = set(plan.resident), plan.slot
+    if room is None or nbytes <= room:
+        resident.add(key)
+    elif not slot:
+        slot = _ring_slot(plan.budget, plan.fixed, held)
+    return dataclasses.replace(plan, pieces={**plan.pieces, key: nbytes},
+                               resident=resident, slot=slot)
 
 
 def _scour_route(plan: Residency, accel: bool) -> Residency:
@@ -206,10 +234,10 @@ class DeviceDB:
     module docstring). Resident bucket tiles are keyed by (length
     bucket, pad columns); a streamed bucket keeps its host tile matrix
     (its rows exactly, no power-of-two padding) cached here. A rescore
-    copy that no plan named (a read length `warmup` did not name) is
-    kept where it fits in what the budget has left, and streams
-    otherwise. Streaming batches run on worker threads: the maps build
-    under a lock, and the staging ring has its own."""
+    copy that no plan named (a read length `warmup` did not name) joins
+    the plan through `place_piece`. Streaming batches run on worker
+    threads: the maps build under a lock, and the staging ring has its
+    own."""
 
     def __init__(self, rd, acc, smat: np.ndarray, device: torch.device,
                  budget: int | None):
@@ -277,31 +305,15 @@ class DeviceDB:
     def bucket_tiles(self, lb: int, pad: int):
         """(sorted position -> row map, [pow2 rows, lb+pad] uint8 device
         tiles) of one unit length bucket the plan holds, or None where
-        it streams. A rescore copy no plan named joins the plan here:
-        resident if it fits in what the budget has left, else streamed
-        (see `slab_rows`)."""
+        it streams. A rescore copy no plan named joins the plan here
+        (`place_piece`)."""
         key = ("tiles", int(lb), int(pad))
         with self._lock:
-            got = self._buckets.get(key)
-            if got is not None or key in self.plan.pieces:
-                return got
-            nb = _tile_bytes(int(np.count_nonzero(
-                engine._unit_lb(self.rd) == lb)), lb + pad)
-            plan = self.plan
-            plan.pieces[key] = nb
-            # without a ring the plan left room for its two slots
-            room = None if plan.budget is None else \
-                plan.budget - plan.device_bytes - \
-                (0 if self.ring else 2 * plan.min_slot)
-            if room is None or nb <= room:
-                plan.resident.add(key)
-                self._build(key)
-                return self._buckets[key]
-            if self.ring is None:
-                plan.slot = min(RING_SLOT_MAX, (room + 2 * plan.min_slot)
-                                // 2)
-                self.ring = devtime.StagingRing(plan.slot, self.device)
-            return None
+            if key not in self.plan.pieces:
+                nb = _tile_bytes(int(np.count_nonzero(
+                    engine._unit_lb(self.rd) == lb)), lb + pad)
+                self._apply(place_piece(self.plan, key, nb))
+            return self._buckets.get(key)
 
     def host_tiles(self, lb: int, pad: int):
         """(host [n, lb+pad] uint8 tile matrix of the bucket's n units,

@@ -102,7 +102,8 @@ Phases, each fatal on failure:
   8. prepass (-p): on phase 5's 2-family database (BEST -fr ITER 16,
      ALLPATHS ITER 32) the card's bytes must equal the port's CPU run;
      one timed prepass batch of 20,000 reads on phase 3's database logs
-     its rows, K2 launches and seconds.
+     its rows, K2 launches and seconds, and each K2 shape it launched is
+     held against its plain version on the batch's own tensors.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -2305,7 +2306,8 @@ def phase_prepass(cells, launch_log):
     """Phase 8: prepass (-p). On phase 5's 2-family database the card's
     bytes must equal the port's CPU run (BEST -fr at ITER 16, ALLPATHS at
     32); then one timed prepass batch of PREPASS_READS reads on phase 3's
-    database: its rows, K2 launches and seconds."""
+    database: its rows, K2 launches and seconds, and every K2 shape it
+    launched held against the plain version on its own tensors."""
     import io
 
     import torch
@@ -2342,14 +2344,18 @@ def phase_prepass(cells, launch_log):
     db = load_db(fu["rd"], fu["acc"], score_matrix(1), torch.device("cuda"))
     qd = process_queries(fu["qheads"][:PREPASS_READS],
                          fu["reads"][:PREPASS_READS], THRES, False)
-    for c in counters.values():
-        c.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    buf = io.StringIO()
-    prepass.run_prepass(qd, db, fu["acc"], a, buf)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    calls, undo = _capture_kernel_calls(("K2",))
+    try:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        prepass.run_prepass(qd, db, fu["acc"], a, buf)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        undo()
     launches = {k: c.launches for k, c in counters.items()}
     rows = buf.getvalue().count("\n")
     if launches["k2"] <= 0 or rows < PREPASS_READS // 2:
@@ -2358,7 +2364,8 @@ def phase_prepass(cells, launch_log):
     log(f"[prepass] BEST -fr ITER 16 on phase 3's database: "
         f"{PREPASS_READS} reads in {dt:.3f} s = {PREPASS_READS / dt:.1f} "
         f"reads/s, {rows} rows, launches {launches}")
-    del db
+    launch_log["held"] += hold_captured("prepass", calls)
+    del calls, db
     torch.cuda.empty_cache()
 
 

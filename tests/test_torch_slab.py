@@ -230,6 +230,58 @@ def test_plan_counts_every_piece(work):
         load_db(work.prd, work.pacc, score_matrix(), "cpu", tile_budget=1000)
 
 
+@pytest.mark.parametrize("case", ["no budget", "fits", "new ring",
+                                  "ring"])
+def test_place_piece_extends_the_plan(work, case):
+    """A rescore copy no plan named joins the plan: resident where it
+    fits beside the ring (or the room for two minimal slabs), else
+    streamed, through a ring sized as plan_residency sizes it; the
+    pieces placed before stay where they were, the device bytes within
+    the budget."""
+    pieces = state.database_pieces(work.prd, work.pacc, (4,))
+    key, nb = next((k, b) for k, b in state.database_pieces(
+        work.prd, work.pacc, (8,)).items() if k not in pieces)
+    fixed = score_matrix().nbytes
+    widest = 448 + engine.rescore_pad(448, 16)
+    reserve = 2 * state.SLAB_MIN_ROWS * widest
+    total = fixed + reserve + sum(pieces.values())
+    budget = {"no budget": None, "fits": total + nb, "new ring": total,
+              "ring": total - pieces[("store",)] - pieces[list(pieces)[-2]]
+              }[case]
+    plan = state.plan_residency(pieces, budget, fixed, True, widest)
+    got = state.place_piece(plan, key, nb)
+    assert got.holds(key) == (case in ("no budget", "fits"))
+    assert got.resident - {key} == plan.resident
+    assert list(got.pieces) == list(pieces) + [key]
+    if budget is not None:
+        assert got.device_bytes <= budget
+    if case == "new ring":
+        assert plan.slot == 0 and got.slot >= state.SLAB_MIN_ROWS * widest
+        assert got.slot == min(state.RING_SLOT_MAX, (budget - fixed - sum(
+            pieces[k] for k in plan.resident)) // 2)
+    else:
+        assert got.slot == plan.slot
+    assert (plan.slot > 0) == (case == "ring")
+
+
+@pytest.mark.parametrize("streams", [False, True])
+def test_bucket_tiles_places_an_unnamed_copy(work, streams):
+    """DeviceDB.bucket_tiles asked for a rescore copy no plan named
+    extends the plan through place_piece: the tiles where it fits, None
+    (it streams through the ring) where it does not."""
+    db = load_db(work.prd, work.pacc, score_matrix(), "cpu",
+                 tile_budget=work.budget(True) if streams else None)
+    key = ("tiles", 448, engine.rescore_pad(448, 8))
+    assert key not in db.plan.pieces
+    got = db.bucket_tiles(448, key[2])
+    assert key in db.plan.pieces and db.plan.holds(key) != streams
+    assert (got is None) == streams and (db.ring is not None) == streams
+    if streams:
+        assert db.plan.device_bytes <= db.plan.budget
+    else:
+        assert got[1].shape[1] == 448 + key[2]
+
+
 # --------------------------------------------- (2) accelerated, streamed
 
 @pytest.mark.parametrize("mode", ["BEST", "ALLPATHS", "CAPITALIST", "ANY"])
