@@ -6,7 +6,9 @@
 // (`myers_cross_pallas`, `_make_cross_kernel`, `_myers_col`; K4).
 // Semantics are those of burst_tpu_torch/kernels/myers.py::
 // myers_cross_plain, bit for bit (the uint8 result is min(ed, 255) of the
-// int32 one).
+// int32 one). The Peq tables have C codes: 16 (nucleotide codes, a tile
+// byte's low nibble) or 256 (raw-byte queries, `-x`: the tile byte is the
+// code).
 //
 // What bounds it on an H100: integer-ALU issue. A pair costs Lp columns
 // of about 11 32-bit integer instructions per Myers word plus two for
@@ -42,9 +44,11 @@
 //    unit buckets under a byte cap, so that it fills the card whatever Q
 //    is: tens of thousands of tiles where Q is a few dozen rows.
 //  * The CTA's NQ Peq tables are staged once in shared memory and indexed
-//    by the code -- the TPU kernel's 16-way select tree existed only
+//    by the code -- the TPU kernel's C-way select tree existed only
 //    because the TPU has no lane gather; lanes with equal codes read one
-//    address (a broadcast).
+//    address (a broadcast). At C = 256 the tables take NQ x 1 KB x W
+//    (16 KB at W = 4, 32 KB at W = 16), still inside the 48 KB a CTA
+//    may hold without opting in, beside the 8 KB tile ring.
 //  * Tiles come in through a two-stage ring in shared memory, 32 columns
 //    a stage: each lane reads aligned 4-byte words, eight neighbouring
 //    lanes one 32-byte sector of a row of the row-major [T, Lp] store (a
@@ -145,7 +149,7 @@ __device__ __forceinline__ void store_words(
 // alternate word by word: an in-order scheduler with one warp finds the
 // next instruction independent of the last (a chain's words wait on the
 // carry from the word below).
-template <int W, int NQ>
+template <int W, int NQ, int C>
 __device__ __forceinline__ void step(uint32_t code,
                                      const uint32_t* __restrict__ s_peq,
                                      uint32_t (&VP)[NQ][W],
@@ -158,7 +162,7 @@ __device__ __forceinline__ void step(uint32_t code,
   for (int w = 0; w < W; ++w) {
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
-      const uint32_t eq = s_peq[(q * 16 + code) * W + w];
+      const uint32_t eq = s_peq[(q * C + code) * W + w];
       const uint32_t vp = VP[q][w];
       const uint32_t vn = VN[q][w];
       const uint64_t s =
@@ -186,7 +190,7 @@ __device__ __forceinline__ void step(uint32_t code,
 
 // The thread's tile columns of one staged chunk: all kChunkCols of them
 // (FULL) or the first `ncols`.
-template <int W, int NQ, bool FULL>
+template <int W, int NQ, int C, bool FULL>
 __device__ __forceinline__ void scan_chunk(
     const uint32_t (*stage)[kMaxThreads], int tid, int ncols,
     const uint32_t* __restrict__ s_peq, uint32_t (&VP)[NQ][W],
@@ -198,17 +202,18 @@ __device__ __forceinline__ void scan_chunk(
 #pragma unroll
     for (int sub = 0; sub < 4; ++sub)
       if (FULL || 4 * k + sub < ncols)
-        step<W, NQ>((word >> (8 * sub)) & 15u, s_peq, VP, VN, score, best);
+        step<W, NQ, C>((word >> (8 * sub)) & (uint32_t)(C - 1), s_peq, VP,
+                       VN, score, best);
   }
 }
 
-template <int W, int NQ, int U8>
+template <int W, int NQ, int C, int U8>
 __global__ void __launch_bounds__(kMaxThreads)
-myers_cross_kernel(const uint32_t* __restrict__ peq,    // [Q,16,W]
+myers_cross_kernel(const uint32_t* __restrict__ peq,    // [Q,C,W]
                    const uint8_t* __restrict__ tiles,   // [T,Lp]
                    void* __restrict__ out,              // [Q,T]
                    int Q, int T, int Lp, int aligned) {
-  __shared__ uint32_t s_peq[NQ * 16 * W];
+  __shared__ uint32_t s_peq[NQ * C * W];
   __shared__ uint32_t s_tile[2][kChunkWords][kMaxThreads];
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -219,9 +224,9 @@ myers_cross_kernel(const uint32_t* __restrict__ peq,    // [Q,16,W]
   const ChunkMap m{tiles, T, Lp, t0, tid, nthr};
 
   // the group's Peq tables; queries past Q read as zeros (never stored)
-  for (int i = tid; i < NQ * 16 * W; i += nthr) {
-    const int q = q0 + i / (16 * W);
-    s_peq[i] = q < Q ? __ldg(peq + (size_t)q0 * 16 * W + i) : 0u;
+  for (int i = tid; i < NQ * C * W; i += nthr) {
+    const int q = q0 + i / (C * W);
+    s_peq[i] = q < Q ? __ldg(peq + (size_t)q0 * C * W + i) : 0u;
   }
   uint32_t pre[kChunkWords][4];
   if (nchunks > 0) {
@@ -264,11 +269,11 @@ myers_cross_kernel(const uint32_t* __restrict__ peq,    // [Q,16,W]
     }
     if (t < T) {  // edge threads only help with the loads
       if (c0 + kChunkCols <= Lp)
-        scan_chunk<W, NQ, true>(s_tile[c & 1], tid, kChunkCols, s_peq, VP,
-                                VN, score, best);
+        scan_chunk<W, NQ, C, true>(s_tile[c & 1], tid, kChunkCols, s_peq,
+                                   VP, VN, score, best);
       else
-        scan_chunk<W, NQ, false>(s_tile[c & 1], tid, Lp - c0, s_peq, VP, VN,
-                                 score, best);
+        scan_chunk<W, NQ, C, false>(s_tile[c & 1], tid, Lp - c0, s_peq, VP,
+                                    VN, score, best);
     }
     if (more && !aligned) store_words(s_tile[(c + 1) & 1], m, pre);
   }
@@ -287,50 +292,54 @@ myers_cross_kernel(const uint32_t* __restrict__ peq,    // [Q,16,W]
   }
 }
 
-template <int W, int NQ>
+template <int W, int NQ, int C>
 int launch(const void* peq, const void* tiles, void* out, int Q, int T,
            int Lp, int out_u8, int threads, dim3 grid, int aligned,
            cudaStream_t stream) {
-  auto kern = out_u8 ? &myers_cross_kernel<W, NQ, 1>
-                     : &myers_cross_kernel<W, NQ, 0>;
+  auto kern = out_u8 ? &myers_cross_kernel<W, NQ, C, 1>
+                     : &myers_cross_kernel<W, NQ, C, 0>;
   kern<<<grid, threads, 0, stream>>>(
       static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
       out, Q, T, Lp, aligned);
   return (int)cudaGetLastError();
 }
 
-// The instances: NQ = 4 at W <= 4, 2 above.
+// The instances: NQ = 4 at W <= 4, 2 above; C = 16 or 256 codes.
 template <int W>
 int launch_w(const void* peq, const void* tiles, void* out, int Q, int T,
-             int Lp, int NQ, int out_u8, int threads, dim3 grid, int aligned,
-             cudaStream_t s) {
+             int Lp, int C, int NQ, int out_u8, int threads, dim3 grid,
+             int aligned, cudaStream_t s) {
   constexpr int kNQ = W <= 4 ? 4 : 2;
   if (NQ != kNQ) return (int)cudaErrorInvalidValue;
-  return launch<W, kNQ>(peq, tiles, out, Q, T, Lp, out_u8, threads, grid,
-                        aligned, s);
+  if (C == 16)
+    return launch<W, kNQ, 16>(peq, tiles, out, Q, T, Lp, out_u8, threads,
+                              grid, aligned, s);
+  return launch<W, kNQ, 256>(peq, tiles, out, Q, T, Lp, out_u8, threads,
+                             grid, aligned, s);
 }
 
 }  // namespace
 
 #define CROSS_CASE(w)                                                   \
   case w:                                                               \
-    return launch_w<w>(peq, tiles, out, Q, T, Lp, NQ, out_u8, threads,  \
-                       grid, aligned, s);
+    return launch_w<w>(peq, tiles, out, Q, T, Lp, C, NQ, out_u8,        \
+                       threads, grid, aligned, s);
 
-// out: [Q, T] int32 (out_u8 = 0) or uint8 clipped at 255 (out_u8 = 1).
-// The geometry comes from the caller: NQ queries a thread, `threads` tiles
+// peq: [Q, C, W] (C = 16 or 256 codes). out: [Q, T] int32 (out_u8 = 0)
+// or uint8 clipped at 255 (out_u8 = 1). The geometry comes from the caller: NQ queries a thread, `threads` tiles
 // a CTA (a multiple of 32, at most 128), grid (gx, gy) covering T and Q.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // arguments the kernel does not take).
 extern "C" int myers_cross_launch(const void* peq, const void* tiles,
                                   void* out, int Q, int T, int W, int Lp,
-                                  int NQ, int threads, int gx, int gy,
+                                  int C, int NQ, int threads, int gx, int gy,
                                   int out_u8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q <= 0 || T <= 0 || Lp < 0 || threads <= 0 || threads % 32 ||
       threads > kMaxThreads || NQ <= 0 || gx <= 0 || gy <= 0 ||
       gy > 65535 || (long long)gx * threads < T ||
-      (long long)gy * NQ < Q || (out_u8 != 0 && out_u8 != 1))
+      (long long)gy * NQ < Q || (out_u8 != 0 && out_u8 != 1) ||
+      (C != 16 && C != 256))
     return (int)cudaErrorInvalidValue;
   const int aligned =
       (Lp % 4 == 0) && (reinterpret_cast<uintptr_t>(tiles) % 4 == 0);

@@ -7,7 +7,9 @@
 // semantics are those of burst_tpu_torch/kernels/rescore.py::
 // rescore_plain, bit for bit: the key and payload packing, the tie rule
 // (ks < key) | ((ks == key) & (ps > pay)), a left-chain look-back of
-// exactly 2^levels columns, and the final reductions.
+// exactly 2^levels columns, and the final reductions. A pair's Peq table
+// has C codes: 16, or 256 for raw-byte queries (`-x`), whose tile byte is
+// the code.
 //
 // What bounds it on an H100: each DP row is a short elementwise step
 // followed by `levels` Hillis-Steele doublings, and every step needs the
@@ -25,7 +27,9 @@
 // on the main path, at most 1024). The row state (score, gap_q,
 // shiftR) and the key/payload exchange buffers live in shared memory;
 // each thread keeps its column's tile code and reads its cost bit from
-// the pair's Peq table, staged once in shared memory. Small CTAs
+// the pair's Peq table, staged once in shared memory (64 W bytes at
+// C = 16, 1,024 W at C = 256: with the row state at L1 = 1024 and W = 16
+// that is 36 KB, inside the 48 KB a CTA holds without opting in). Small CTAs
 // (L1 = 128 is four warps) let many pairs share an SM, so one pair's
 // barrier waits overlap another's work. The final min/max reductions
 // use shared-memory atomics, which are order-independent for min/max.
@@ -43,7 +47,7 @@ __global__ void rescore_kernel(const uint32_t* __restrict__ peq_flat,
                                const uint8_t* __restrict__ tiles,
                                const int32_t* __restrict__ qmeta,
                                int32_t* __restrict__ out, int N, int W,
-                               int levels, int rows, int L1) {
+                               int C, int levels, int rows, int L1) {
   extern __shared__ int smem[];
   int* sc = smem;
   int* sh = sc + L1;
@@ -56,8 +60,8 @@ __global__ void rescore_kernel(const uint32_t* __restrict__ peq_flat,
   const int n = blockIdx.x;
   const int x = threadIdx.x;
   const int Lp = L1 - 1;
-  for (int i = x; i < 16 * W; i += blockDim.x)
-    s_peq[i] = peq_flat[(size_t)n * 16 * W + i];
+  for (int i = x; i < C * W; i += blockDim.x)
+    s_peq[i] = peq_flat[(size_t)n * C * W + i];
   const int code = x >= 1 ? tiles[(size_t)n * Lp + x - 1] : 0;
   const bool pad = code == 0;
   const int qlen = qmeta[2 * n];
@@ -160,14 +164,17 @@ __global__ void rescore_kernel(const uint32_t* __restrict__ peq_flat,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch.
+// peq_flat: [N, C * W] (C = 16 or 256 codes). Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for another C).
 extern "C" int rescore_launch(const void* peq_flat, const void* tiles,
                               const void* qmeta, void* out, int N, int W,
-                              int levels, int rows, int L1, void* stream) {
-  const size_t smem = (5 * (size_t)L1 + 16 * (size_t)W) * sizeof(int);
+                              int C, int levels, int rows, int L1,
+                              void* stream) {
+  if (C != 16 && C != 256) return (int)cudaErrorInvalidValue;
+  const size_t smem = (5 * (size_t)L1 + (size_t)C * W) * sizeof(int);
   rescore_kernel<<<N, L1, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(peq_flat),
       static_cast<const uint8_t*>(tiles), static_cast<const int32_t*>(qmeta),
-      static_cast<int32_t*>(out), N, W, levels, rows, L1);
+      static_cast<int32_t*>(out), N, W, C, levels, rows, L1);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,11 @@ the side pairs, K4 for full-scan rows), and the two-step accelerated
 path of the other modes (`accel_candidates`: the device scour at any
 QBUNCH into candidate visit lists; `compute_ed_matrix_accel`: their
 expanded pairs through K2, full-scan rows through K4). All end in
-`rescore_winners` (K3). Host-side numpy logic is carried over unchanged
+`rescore_winners` (K3). A raw-byte database (`-x`, `db.xalpha`) takes
+256-code Peq tables through K4 and K3; the accelerator indexes none of
+its queries, so with one they all go to the full scan. The heuristic cut
+(`-hr`) scours on the host at clump level (no unit index) and sends the
+unpruned pairs through K2. Host-side numpy logic is carried over unchanged
 so that the pods, and so the b6 bytes, are identical; device work is
 PyTorch ops plus the hand-written kernels. A database larger than the
 card runs under the residency plan of `state.load_db`: K2, K3 and K4
@@ -255,8 +259,9 @@ def _stream_stats(qd: QueryData) -> dict:
 
 
 def _peq_device(qd: QueryData, W: int, db):
-    """(row2local, Peq [pow2 rows, 16, W] int32) for the unibin rows of
-    Myers word count W, built on the device; cached on the batch."""
+    """(row2local, Peq [pow2 rows, C, W] int32) for the unibin rows of
+    Myers word count W, built on the device (C = 16 codes, 256 for
+    raw-byte queries); cached on the batch."""
     cache = qd.__dict__.setdefault("_peq_torch", {})
     got = cache.get(W)
     if got is None:
@@ -269,7 +274,7 @@ def _peq_device(qd: QueryData, W: int, db):
         ql[: len(rows)] = qlens[rows]
         peq = build_peq_dev(torch.from_numpy(qm).to(db.device),
                             torch.from_numpy(ql).to(db.device),
-                            db.smat_dev, W)
+                            db.peq_smat(qd), W)
         # pad rows beyond the bucket are zeros, as the host build pads
         peq[len(rows):] = 0
         row2local = np.full(len(qd.seqs), -1, dtype=np.int64)
@@ -437,8 +442,6 @@ def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
     block shape: `compute_ed_matrix` writes each block into its place,
     and `compute_ed_select` sorts at the end and only ever drops entries
     above a running minimum that never rises."""
-    if getattr(qd, "xalpha", False):
-        raise NotImplementedError("xalpha queries (ROADMAP M11)")
     rd = db.rd
     qbuckets = _bucket_queries(qd)
     ubuckets = _bucket_units(rd)
@@ -815,13 +818,18 @@ def default_qbunch(n: int, threads: int) -> int:
     return max(1, min(16, qbunch))
 
 
-def bunch_thresholds(qd: QueryData, b1: int, k: int, qbunch: int):
+def bunch_thresholds(qd: QueryData, b1: int, k: int, qbunch: int,
+                     do_heur: bool = False):
     """Pigeonhole thresholds per unibin/bunch (burst.c:4091-4095,
-    4163-4168): returns (mm_bunch, mm_inner, n_bunches)."""
+    4163-4168): returns (mm_bunch, mm_inner, n_bunches). The heuristic
+    cut (`do_heur`, -hr) raises a member's candidate floor to
+    len/16 + 1 hits."""
     lns = qd.lens[qd.six[:b1]].astype(np.int64)
     errs = qd.ed[qd.six[:b1]].astype(np.int64)
     kload = errs * k + k
     mm_member = np.where(kload < lns, lns - kload, 0)
+    if do_heur:
+        mm_member = np.maximum(mm_member, (lns >> 4) + 1)
     mm_inner = np.where(kload < lns, lns - kload, 1)
     n_bunches = (b1 + qbunch - 1) // qbunch
     mm_bunch = np.full(n_bunches, 1 << 60, dtype=np.int64)
@@ -908,14 +916,13 @@ def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
     minimum threshold, and one visit order. The per-member threshold
     only skips evaluations (burst.c:4163-4168). Thread count changes
     QBUNCH and therefore row order; -t 1 is the canonical comparison.
-    """
-    if do_heur:
-        raise NotImplementedError(
-            "the heuristic cut (-hr) disables the unit index and with it "
-            "the device scour (ROADMAP M11)")
-    if getattr(qd, "xalpha", False):
-        raise NotImplementedError("xalpha queries (ROADMAP M11)")
+
+    The heuristic cut (`do_heur`, -hr) raises the bunch floor and turns
+    the unit index off, as in burst_tpu: the batch is scoured by the
+    native scour at clump level, and the visits carry no per-unit
+    prefilter (every lane of a visited clump is a pair)."""
     rd, acc = db.rd, db.acc
+    db.check_alphabet(qd)
     k = acc.k
     n = len(qd.seqs)
     n_clumps = rd.tot_units // VECSZ + (1 if rd.tot_units % VECSZ else 0)
@@ -931,7 +938,7 @@ def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
         full[:] = False
     if qbunch is None:
         qbunch = default_qbunch(n, threads)
-    mm_bunch, mm_inner, _ = bunch_thresholds(qd, b1, k, qbunch)
+    mm_bunch, mm_inner, _ = bunch_thresholds(qd, b1, k, qbunch, do_heur)
     qmat, qlens_all, _ = _query_matrix(qd)
     aq_off, aqw, aqm = _ambig_word_lists(qd, b0, k, acc.z)
     if not len(aqw) and not (b1 > b0 and
@@ -942,14 +949,14 @@ def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
         offs[1: b1 + 1] = np.arange(1, b1 + 1) * nb
         offs[b1 + 1:] = b1 * nb
         return Visits(flat=np.tile(bad_arr, b1), offs=offs, full=full)
-    if db.tabs is None:
-        # the residency plan holds no device tables: the whole batch
-        # through the native scour, as burst_tpu's
-        # `_accel_candidates_native` does for tables it has no device
-        # form of
+    if db.tabs is None or do_heur:
+        # the whole batch through the native scour, as burst_tpu's
+        # `_accel_candidates_native` does: where the residency plan holds
+        # no device tables, and under -hr, which has no unit index
         res = _native_scour(qmat, qlens_all, b0, b1, qbunch, k, aq_off,
                             aqw, aqm, acc.csr, n_clumps, mm_bunch,
-                            mm_inner, u_csr=acc.u_csr,
+                            mm_inner,
+                            u_csr=None if do_heur else acc.u_csr,
                             tot_units=rd.tot_units, vecsz=VECSZ)
         info = {}
     else:
@@ -958,16 +965,18 @@ def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
         res, info = scour(qd, db, b0, b1, qbunch, k, mm_bunch, mm_inner,
                           qmat, qlens_all, aq_off, aqw, aqm, n_clumps)
     vis = _assemble_visits(qd, res, b0, b1, qbunch, bad_arr, full,
-                           n_clumps)
+                           n_clumps, do_unit=not do_heur)
     vis.stats = {key: info.get(key, 0)
                  for key in ("bunch_ov_rows", "member_ov_rows")}
     return vis
 
 
 def _assemble_visits(qd, res, b0: int, b1: int, qbunch: int, bad_arr,
-                     full, n_clumps: int) -> Visits:
+                     full, n_clumps: int, do_unit: bool = True) -> Visits:
     """Visits CSR from a scour result tuple (bflat, bhits, bcnt, mflat,
-    mcnt, ukeys), shared by the two-step and the fused path."""
+    mcnt, ukeys), shared by the two-step and the fused path. Without
+    `do_unit` (-hr: no unit index) the visits carry no per-unit
+    prefilter."""
     n = len(qd.seqs)
     nb = len(bad_arr)
     kc, _, bcnt, mflat, mcnt, ukeys = res
@@ -994,13 +1003,15 @@ def _assemble_visits(qd, res, b0: int, b1: int, qbunch: int, bad_arr,
     n_bunches = (b1 + qbunch - 1) // qbunch
     boffs = np.zeros(n_bunches + 1, dtype=np.int64)
     boffs[1:] = np.cumsum(bcnt)
-    filtered = np.zeros(n, dtype=bool)
-    filtered[b0:b1] = True
-    bad_clump = np.zeros(n_clumps, dtype=bool)
-    bad_clump[bad_arr] = True
-    return Visits(flat=out, offs=offs, full=full, pass_keys=ukeys,
-                  filtered=filtered, bad_clump=bad_clump, bflat=kc,
-                  boffs=boffs, qbunch=qbunch, bad_list=bad_arr)
+    vis = Visits(flat=out, offs=offs, full=full, bflat=kc, boffs=boffs,
+                 qbunch=qbunch, bad_list=bad_arr)
+    if do_unit:
+        vis.pass_keys = ukeys
+        vis.filtered = np.zeros(n, dtype=bool)
+        vis.filtered[b0:b1] = True
+        vis.bad_clump = np.zeros(n_clumps, dtype=bool)
+        vis.bad_clump[bad_arr] = True
+    return vis
 
 
 def _ambig_word_lists(qd, b0: int, k: int, z: int):
@@ -1250,24 +1261,30 @@ def _scour_device_bunches(qd, db, b0, b1, qbunch, k, mm_bunch, mm_inner,
                  "member_ov_rows": int(ovm.sum())}
 
 
-def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
+def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray, qbunch: int,
+                     skip_ambig: bool = False):
     """Fused accelerator scan (QBUNCH=1): device scour + K1 over the
     clear rows in one dispatch chain; ambiguous rows, BadList units and
     rows the device overflowed go through K2; full-scan rows (reads the
     accelerator cannot index) against every unit through K4. Returns
     (visits, sed, stats) with stats counting the overflowed rows, the
-    full-scan rows and the pairs of each branch -- or None for a batch
-    without a clear row of length >= k, which has nothing to fuse, and
-    where the residency plan holds no packed store or no device tables:
-    as in burst_tpu, the caller sends the batch down the two-step path
-    at QBUNCH=1."""
+    full-scan rows and the pairs of each branch, and QBUNCH (1) -- or
+    None, as in
+    burst_tpu, where the caller runs the two-step path: unless the
+    caller's QBUNCH (`qbunch`, burst.c:4019-4021) is 1; on a raw-byte
+    database (`-x`); for a batch without a clear row of length >= k,
+    which has nothing to fuse; and where the residency plan holds no
+    packed store or no device tables. `skip_ambig` (-sa at align time)
+    drops the BadList pass and the full-scan rows, as the two-step path
+    does."""
     rd, acc = db.rd, db.acc
-    if getattr(qd, "xalpha", False):
-        raise NotImplementedError("xalpha queries (ROADMAP M11)")
+    n = len(qd.seqs)
+    db.check_alphabet(qd)
+    if qbunch != 1 or db.xalpha:
+        return None
     if db.tiles_packed is None or db.tabs is None:
         return None
     k = acc.k
-    n = len(qd.seqs)
     b0, b1 = int(qbins[0]), int(qbins[1])
     qmat, qlens_all, qw_all = _query_matrix(qd)
     if b1 <= b0 or not bool((qlens_all[b0:b1] >= k).any()):
@@ -1291,6 +1308,9 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
         aqw, aqm, n_clumps, fused_W=W)
     full = np.ones(n, dtype=bool)
     full[:b1] = False
+    if skip_ambig:
+        bad_arr = bad_arr[:0]
+        full[:] = False
     vis = _assemble_visits(qd, res, b0, b1, 1, bad_arr, full, n_clumps)
 
     # side pairs: ambiguous rows (every lane of their visit lists),
@@ -1331,7 +1351,8 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray):
     sed = SparseED(pj=pj, pp=pp, pe=None, full_rows=full_rows,
                    ed_full=ed_full, pending=pending)
     stats = {"ov_rows": len(pinfo["ov_rows"]), "side_pairs": nh,
-             "dev_pairs": len(pinfo["uj"]), "full_rows": len(full_rows)}
+             "dev_pairs": len(pinfo["uj"]), "full_rows": len(full_rows),
+             "qbunch": 1}
     return vis, sed, stats
 
 

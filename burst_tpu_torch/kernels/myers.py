@@ -1,7 +1,8 @@
 """Phase-A Myers/Hyyro bit-vector scan: plain PyTorch versions.
 
 Counterparts of `burst_tpu.kernels.myers` (`_pos_scan`, `myers_min_ed_cross`,
-`unpack_nibbles`, `pack_nibbles_np`), `burst_tpu.kernels.scour_device._build_peq_dev` and
+`build_peq_x`, `unpack_nibbles`, `pack_nibbles_np`),
+`burst_tpu.kernels.scour_device._build_peq_dev` and
 `burst_tpu.kernels.myers_pallas._words_from_packed`. They define the
 integer semantics the CUDA kernels (`csrc/myers_pairs.cu` and
 `csrc/myers_cross.cu`, wrapped by `myers_cuda`) must reproduce bit for
@@ -17,9 +18,13 @@ words in int64 masked to 32 bits and takes the add's carry-out as
 Glocal semantics: the query is consumed end to end, the reference start
 and end are free; rows past a query's length are wildcards (they match
 every code, the pad code 0 included).
+
+A Peq table has C codes: 16 for nucleotide codes, or 256 for raw-byte
+queries (`-x`), where a row matches a tile byte iff the bytes are equal.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 WORD = 32
@@ -35,29 +40,67 @@ def to_i32_bits(v: torch.Tensor) -> torch.Tensor:
     return (v - ((v >> 31) & 1) * (1 << 32)).to(torch.int32)
 
 
+def xalpha_smat() -> np.ndarray:
+    """[256, 256] uint8 score table of raw-byte equality (`-x`): cost 0
+    iff the bytes are equal. Through `build_peq_dev` it gives the
+    tables of `build_peq_x`."""
+    return np.where(np.eye(256, dtype=bool), 0, 1).astype(np.uint8)
+
+
+def build_peq_x(queries: np.ndarray, qlens: np.ndarray, W: int,
+                ncodes: int = 256) -> np.ndarray:
+    """Peq tables [B, ncodes, W] uint32 for raw-byte queries (burst.c
+    aded_xalpha): zero-cost match iff the bytes are equal; the pad code 0
+    matches nothing real (queries never hold NUL). Rows >= qlen are
+    wildcards."""
+    B = queries.shape[0]
+    m_pad = W * WORD
+    q = np.zeros((B, m_pad), dtype=np.uint8)
+    q[:, : queries.shape[1]] = queries[:, :m_pad]
+    rows = np.arange(m_pad)[None, :]
+    is_pad_row = rows >= qlens[:, None]
+    codes = np.arange(ncodes, dtype=np.uint8)
+    match = (q[:, :, None] == codes[None, None, :]) | \
+        is_pad_row[:, :, None]                     # [B, m_pad, C]
+    bits = (np.uint32(1) << (np.arange(m_pad, dtype=np.uint32) % WORD))
+    words = rows // WORD
+    peq = np.zeros((B, ncodes, W), dtype=np.uint32)
+    for w in range(W):
+        sel = (words[0] == w)
+        chunk = match[:, sel, :]
+        peq[:, :, w] = (chunk.astype(np.uint32)
+                        * bits[sel][None, :, None]).sum(axis=1)
+    return peq
+
+
 def build_peq_dev(qmat: torch.Tensor, lens: torch.Tensor,
                   smat_dev: torch.Tensor, W: int,
-                  chunk: int = 8192) -> torch.Tensor:
-    """Peq planes [n, 16, W] (int32 holding u32 bits): bit y of word w
+                  chunk: int | None = None) -> torch.Tensor:
+    """Peq planes [n, C, W] (int32 holding u32 bits): bit y of word w
     set iff query row 32w+y costs 0 against code c; rows >= len are
-    wildcards. qmat [n, >=32W] uint8 codes, lens [n], smat_dev [16, 16]
-    uint8 score table. Built `chunk` rows at a time: the int64
-    [rows, 32W, 16] temporaries take 4096 W bytes per row twice over,
-    which at 65,536 rows and W=4 is 2 GiB when built in one piece."""
+    wildcards. qmat [n, >=32W] uint8 codes, lens [n], smat_dev [C, C]
+    uint8 score table (16 codes, or `xalpha_smat` for raw bytes). Built
+    `chunk` rows at a time (8192 x 16 / C by default): the int64
+    [rows, 32W, C] temporaries take 256 C W bytes per row twice over,
+    which at 65,536 rows, W=4 and C=16 is 2 GiB when built in one
+    piece."""
     n = qmat.shape[0]
+    C = smat_dev.shape[1]
+    if chunk is None:
+        chunk = 8192 * 16 // C
     if n > chunk:
         return torch.cat([
             build_peq_dev(qmat[i:i + chunk], lens[i:i + chunk], smat_dev,
                           W, chunk) for i in range(0, n, chunk)])
     m_pad = WORD * W
     q = qmat[:, :m_pad].long()
-    match = smat_dev[q] == 0                              # [n, m_pad, 16]
+    match = smat_dev[q] == 0                              # [n, m_pad, C]
     rows = torch.arange(m_pad, device=qmat.device)
     match = match | (rows[None, :] >= lens.long()[:, None])[:, :, None]
     bits = torch.ones(WORD, dtype=torch.int64, device=qmat.device) \
         << torch.arange(WORD, device=qmat.device)
-    v = (match.reshape(n, W, WORD, 16).long()
-         * bits[None, None, :, None]).sum(dim=2)          # [n, W, 16]
+    v = (match.reshape(n, W, WORD, C).long()
+         * bits[None, None, :, None]).sum(dim=2)          # [n, W, C]
     return to_i32_bits(v).transpose(1, 2).contiguous()
 
 
@@ -114,7 +157,7 @@ def _col_step(eq, VP, VN, W: int):
 def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
               ) -> torch.Tensor:
     """[3, B] int32 (min ED, first and last 1-based column reaching it)
-    for B gathered pairs: peq [B, 16, W] int32 bits, tiles [B, Lp]."""
+    for B gathered pairs: peq [B, C, W] int32 bits, tiles [B, Lp]."""
     B, Lp = tiles.shape
     dev = tiles.device
     peq64 = peq.long() & M32
@@ -143,7 +186,8 @@ def myers_cross_plain(peq: torch.Tensor, tiles: torch.Tensor, W: int,
                       out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """[Q, T] int32 minimum glocal edit distance of every query against
     every tile, over all Lp columns (trailing pad columns included):
-    peq [Q, 16, W] int32 bits, tiles [T, Lp] uint8 codes. Counterpart of
+    peq [Q, C, W] int32 bits (C = 16, or 256 for raw bytes), tiles
+    [T, Lp] uint8 codes under C. Counterpart of
     `burst_tpu.kernels.myers.myers_min_ed_cross`. With
     out_dtype=torch.uint8 the result is min(ed, 255), as uint8."""
     Q = peq.shape[0]

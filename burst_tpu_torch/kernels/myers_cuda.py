@@ -2,7 +2,8 @@
 (`csrc/myers_pairs.cu`; K1 over the nibble-packed tile store, K2 over
 tiles of one code per byte, one kernel family reading the rows in place)
 and the dense cross kernel (`csrc/myers_cross.cu`; K4, int32 or uint8
-clipped at 255). The launch geometry of each is pure Python
+clipped at 255, over Peq tables of 16 codes or, for raw-byte queries,
+256). The launch geometry of each is pure Python
 (`pair_geometry`, `cross_geometry`), so the CPU tests reach it.
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
@@ -21,6 +22,7 @@ from .myers import (myers_cross_plain, myers_pairs_packed_plain,
                     myers_pairs_plain)
 
 MAX_W = 16          # Myers words per query the kernels take (512 bp)
+CROSS_CODES = (16, 256)       # K4: Peq codes, nucleotide or raw byte
 CROSS_TILES_PER_CTA = 128     # K4: tiles per CTA at most, one per thread
 CROSS_MAX_QGROUPS = 65535     # K4: query groups ride on grid.y
 PAIR_SMEM_LIMIT = 48 * 1024   # static limit: no opt-in needed below it
@@ -28,7 +30,7 @@ FMT_PACKED, FMT_BYTES = 0, 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"myers_pairs_launch": [_P] * 5 + [_I] * 10 + [_P]}
-_SIG_CROSS = {"myers_cross_launch": [_P, _P, _P] + [_I] * 9 + [_P]}
+_SIG_CROSS = {"myers_cross_launch": [_P, _P, _P] + [_I] * 10 + [_P]}
 _CROSS_DTYPES = {torch.int32: 0, torch.uint8: 1}
 
 
@@ -156,8 +158,9 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
                 out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """K4: [Q, T] minimum glocal edit distance of every query against
     every tile over all Lp columns, as int32 or (out_dtype=torch.uint8)
-    clipped at 255. peq [Q, 16, W] int32 bits, tiles [T, Lp] uint8 (one
-    code per byte, trailing pad columns); any Q, T and Lp."""
+    clipped at 255. peq [Q, C, W] int32 bits with C = 16 codes, or 256
+    for raw-byte queries (`build_peq_x`), tiles [T, Lp] uint8 (one code
+    per byte, trailing pad columns); any Q, T and Lp."""
     if tiles.device != peq.device:
         raise ValueError(f"tiles on {tiles.device}, peq on {peq.device}")
     if not peq.is_contiguous() or not tiles.is_contiguous():
@@ -167,9 +170,10 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
             f"W={W}: the cross kernel takes W <= {MAX_W} (queries "
             f"up to {32 * MAX_W} bp; longer ones: ROADMAP, limits)")
     if peq.dtype != torch.int32 or peq.dim() != 3 or \
-            tuple(peq.shape[1:]) != (16, W):
-        raise ValueError(f"peq must be int32 [Q, 16, {W}], got "
-                         f"{peq.dtype} {tuple(peq.shape)}")
+            peq.shape[1] not in CROSS_CODES or peq.shape[2] != W:
+        raise ValueError(f"peq must be int32 [Q, C, {W}] with C in "
+                         f"{CROSS_CODES}, got {peq.dtype} "
+                         f"{tuple(peq.shape)}")
     if tiles.dtype != torch.uint8 or tiles.dim() != 2:
         raise ValueError("tiles must be a 2-D uint8 tensor")
     if out_dtype not in _CROSS_DTYPES:
@@ -186,8 +190,8 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
     if Q == 0 or T == 0:
         return out
     err = _build.load("myers_cross", _SIG_CROSS).myers_cross_launch(
-        peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp, NQ,
-        threads, gx, gy, _CROSS_DTYPES[out_dtype],
+        peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
+        peq.shape[1], NQ, threads, gx, gy, _CROSS_DTYPES[out_dtype],
         torch.cuda.current_stream(peq.device).cuda_stream)
     _build.check(err, "myers_cross_launch")
     myers_cross.launches += 1

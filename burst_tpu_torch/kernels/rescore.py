@@ -5,7 +5,7 @@ Counterpart of `burst_tpu.kernels.rescore` (`make_rescore`,
 `_window_tiles`, `_levels_for`, the rows/L1/Lw arithmetic of
 `rescore_pairs_gather_async`, `rescore_finalize_host`) and of the
 Pallas kernel `burst_tpu.kernels.rescore_pallas._make_kernel`, whose
-block contract it takes: per pair a Peq row [16*W], a tile of exactly
+block contract it takes: per pair a Peq row [C*W], a tile of exactly
 L1-1 columns and (qlen, max_ed); result (ed <= 255, gap_q, gap_r,
 final_pos). The CUDA kernel (`csrc/rescore.cu`, wrapped by
 `rescore_cuda`) must reproduce it bit for bit.
@@ -63,9 +63,9 @@ def window_tiles(tiles: torch.Tensor, x0: torch.Tensor, Lw: int
 def rescore_plain(peq_flat: torch.Tensor, tiles: torch.Tensor,
                   qmeta: torch.Tensor, W: int, levels: int, rows: int,
                   L1: int) -> torch.Tensor:
-    """[4, N] int32 (ed, gap_q, gap_r, final_pos). peq_flat [N, 16W]
-    int32 bits (index c*W + w), tiles [N, L1-1] uint8, qmeta [N, 2]
-    int32 (qlen, max_ed)."""
+    """[4, N] int32 (ed, gap_q, gap_r, final_pos). peq_flat [N, C*W]
+    int32 bits (index c*W + w; C = 16, or 256 for raw bytes), tiles
+    [N, L1-1] uint8 codes under C, qmeta [N, 2] int32 (qlen, max_ed)."""
     N = peq_flat.shape[0]
     Lp = L1 - 1
     dev = tiles.device

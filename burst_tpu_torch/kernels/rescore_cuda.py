@@ -23,19 +23,24 @@ MAX_L1 = 1024     # one thread per DP column
 MAX_ROWS = 511    # 9-bit shiftR payload field
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"rescore_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
+RESCORE_CODES = (16, 256)   # Peq codes, nucleotide or raw byte
+_SIG = {"rescore_launch": [_P, _P, _P, _P] + [_I] * 6 + [_P]}
 
 
 def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
             qmeta: torch.Tensor, W: int, levels: int, rows: int,
             L1: int) -> torch.Tensor:
     """K3: [4, N] int32 (ed, gap_q, gap_r, final_pos). peq_flat
-    [N, 16W] int32 bits, tiles [N, L1-1] uint8, qmeta [N, 2] int32
-    (qlen, max_ed)."""
+    [N, C*W] int32 bits (C = 16 codes, or 256 for raw-byte queries),
+    tiles [N, L1-1] uint8, qmeta [N, 2] int32 (qlen, max_ed)."""
     N = peq_flat.shape[0]
     dev = peq_flat.device
+    C = peq_flat.shape[1] // W if peq_flat.dim() == 2 else 0
+    if C not in RESCORE_CODES:
+        raise ValueError(f"peq_flat: expected [N, C*{W}] with C in "
+                         f"{RESCORE_CODES}, got {tuple(peq_flat.shape)}")
     for name, t, dt, shape in (
-            ("peq_flat", peq_flat, torch.int32, (N, 16 * W)),
+            ("peq_flat", peq_flat, torch.int32, (N, C * W)),
             ("tiles", tiles, torch.uint8, (N, L1 - 1)),
             ("qmeta", qmeta, torch.int32, (N, 2))):
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
@@ -58,7 +63,7 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
         return out
     err = _build.load("rescore", _SIG).rescore_launch(
         peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
-        out.data_ptr(), N, W, levels, rows, L1,
+        out.data_ptr(), N, W, C, levels, rows, L1,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rescore_launch")
     rescore.launches += 1
@@ -74,7 +79,7 @@ def rescore_pairs_gather(peq_all: torch.Tensor, tiles_all: torch.Tensor,
                          x0: np.ndarray | None = None,
                          Lw: int | None = None) -> torch.Tensor:
     """Rescore one chunk of pairs against device-resident Peq planes
-    [NQ, 16, W] and tiles [NT, Lt]; returns the [4, N] device result.
+    [NQ, C, W] and tiles [NT, Lt]; returns the [4, N] device result.
 
     With x0/Lw the DP runs on per-pair [Lw-1]-column windows starting
     at column x0 (final_pos is window-local: the caller adds x0 back);
@@ -84,7 +89,7 @@ def rescore_pairs_gather(peq_all: torch.Tensor, tiles_all: torch.Tensor,
     L1 = l1_for(tiles_all.shape[1] if Lw is None else Lw - 1)
     pi = torch.from_numpy(np.asarray(pidx, dtype=np.int64)).to(dev)
     ti = torch.from_numpy(np.asarray(tidx, dtype=np.int64)).to(dev)
-    peq = peq_all[pi].reshape(len(pidx), 16 * W)
+    peq = peq_all[pi].reshape(len(pidx), peq_all.shape[1] * W)
     tiles = tiles_all[ti]
     if x0 is not None:
         x0_d = torch.from_numpy(np.asarray(x0, dtype=np.int64)).to(dev)

@@ -19,11 +19,11 @@ printed rows (capped lanes always exceed the final print ceiling).
 Counterpart of `burst_tpu.prepass`, numpy only but for the pair scan:
 the exact per-unit EDs come from the port's `engine._pairs_min_ed` (K2
 on the card, over tile slabs where the residency plan streams a
-bucket), its deferred chunks resolved here into one array. Until the
-port has its CLI, call `run_prepass(qd, db, acc, a, out_fh)` directly,
-with `qd = process_queries(heads, seqs, thres, False)`: prepass never
-makes RC twins or accelerator bins (burst.c:3065, 3113); `a` holds the
-CLI's "mode", "prepass" (ITER, 16 for a bare -p), "rc" and "heur".
+bucket), its deferred chunks resolved here into one array. The CLI's
+-p calls `run_prepass(qd, db, acc, a, out_fh, taxonomy)` with
+`qd = process_queries(heads, seqs, thres, False)`: prepass never makes
+RC twins or accelerator bins (burst.c:3065, 3113); `a` holds the CLI's
+"mode", "prepass" (ITER, 16 for a bare -p), "rc" and "heur".
 """
 from __future__ import annotations
 

@@ -41,8 +41,9 @@ class Aligner:
     through the pair kernel. `last_stats` holds the last accelerated
     batch's branch counts. Fused: rows re-scoured on the host for
     overflowing the slot budget (`ov_rows`), full-scan rows
-    (`full_rows`), and the pairs scanned on the fused device path
-    (`dev_pairs`) and on the side branch (`side_pairs`). Two-step:
+    (`full_rows`), the pairs scanned on the fused device path
+    (`dev_pairs`) and on the side branch (`side_pairs`), and `qbunch`
+    (1). Two-step:
     `qbunch`, the overflowed bunch and member rows re-scoured on the
     host (`bunch_ov_rows`, `member_ov_rows`), `pairs` and `full_rows`.
 
@@ -143,72 +144,104 @@ class Aligner:
         """Align one batch of raw (ASCII) or translated reads; returns
         blast6 bytes."""
         qd = process_queries(headers, seqs, self.thres, self.do_rc)
-        mode = self.mode
         buf = io.StringIO()
-        writer = modes.B6Writer(buf)
-        visits = ed = None
-        if self.acc is not None:
-            qbins = bin_queries_for_accel(qd, self.acc.k, self.z)
-            # BEST's reporter does not depend on the pod order, so the
-            # QBUNCH=1 fused scan is byte-safe there; the other modes
-            # keep the reference's batch-derived bunch width
-            fused = engine.accel_scan_fused(qd, self.db, qbins) \
-                if mode == "BEST" else None
-            if fused is not None:
-                visits, ed, self.last_stats = fused
-            else:
-                visits = engine.accel_candidates(
-                    qd, self.db, qbins,
-                    qbunch=1 if mode == "BEST" else None)
-                ed = engine.compute_ed_matrix_accel(qd, self.db, visits)
-                self.last_stats = dict(
-                    visits.stats or {}, qbunch=visits.qbunch,
-                    pairs=len(ed.pj), full_rows=len(ed.full_rows))
-        else:
-            self.last_stats = {}
-            if mode == "ANY":
-                ed = engine.compute_ed_matrix(qd, self.db)
-        if mode == "ANY":
-            if isinstance(ed, engine.SparseED):
-                modes.report_any_accel(ed, visits, qd, self.db, writer)
-            else:
-                modes.report_any(ed, qd, self.db, writer)
-            self._note_stream(qd)
-            return buf.getvalue().encode("latin-1")
-        pod_order = win_cols = None
-        if visits is not None:
-            juni, refpos, eds = engine.select_pods(qd, self.rd, ed, mode)
-            pod_order = engine.accel_pod_order(qd, self.rd, visits, juni,
-                                               refpos)
-            win_cols = ed.lookup_cols(juni, refpos, self.rd.tot_units)
-        else:
-            # direct path: streamed selection, no dense matrix
-            juni, refpos, eds = engine.compute_ed_select(qd, self.db, mode)
-        pods = engine.rescore_winners(qd, self.db, juni, refpos, eds, mode,
-                                      pod_order, win_cols=win_cols)
-        if mode in ("ALLPATHS", "FORAGE"):
-            modes.report_allpaths_or_forage(
-                pods, qd, self.rd, writer, self.taxonomy,
-                forage=(mode == "FORAGE"))
-        elif mode == "BEST":
-            modes.report_best(pods, qd, self.rd, writer, self.taxonomy,
-                              self.taxasuppress, self.strict)
-        else:
-            modes.report_capitalist(pods, qd, self.rd, writer,
-                                    self.taxonomy, self.taxacut,
-                                    self.taxasuppress, self.strict)
-        self._note_stream(qd)
+        # BEST's reporter does not depend on the pod order, so the
+        # QBUNCH=1 fused scan is byte-safe there; the other modes keep
+        # the reference's batch-derived bunch width
+        best = self.mode == "BEST"
+        _, self.last_stats = align_queries(
+            qd, self.db, self.mode, modes.B6Writer(buf),
+            qbunch=1 if best else engine.default_qbunch(len(qd.seqs), 1),
+            fuse=best, z=self.z, taxonomy=self.taxonomy,
+            taxacut=self.taxacut, taxasuppress=self.taxasuppress,
+            strict=self.strict)
         return buf.getvalue().encode("latin-1")
 
-    def _note_stream(self, qd):
-        """Add the batch's streaming counts to `last_stats` where the
-        plan streams or scours on the host."""
-        plan = self.db.plan
-        if plan.streamed or plan.scour == "native":
-            st = engine._stream_stats(qd)
-            self.last_stats = dict(
-                self.last_stats, streamed=sorted(st["streamed"]),
-                slabs=st["slabs"], blocks=st["blocks"],
-                pieces=st["pieces"], h2d_bytes=st["h2d_bytes"])
-            if plan.scour is not None:
-                self.last_stats["scour"] = plan.scour
+
+def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
+                  z: int = 1, heur: bool = False, skip_ambig: bool = False,
+                  taxonomy: Taxonomy | None = None, taxacut: int = 10,
+                  taxasuppress: bool = False, strict: bool = False,
+                  mark=lambda name: None) -> tuple[str, dict]:
+    """Align the batch `qd` on `db` in `mode`, its b6 rows through
+    `writer`: the flow of `Aligner.align_batch` and of the CLI. With an
+    accelerator, the fused scan where `fuse` is set, -hr (`heur`) is off
+    and QBUNCH (`qbunch`) is 1, else the two-step path at `qbunch`; ANY
+    prints in the visit order of that QBUNCH. Without one, the direct
+    path. `skip_ambig` is -sa at align time; `mark(name)` ends each of
+    the CLI's phases. Returns (path, stats): path "fused", "two-step" or
+    "direct"; stats the accelerated branch's counts (`Aligner`), and
+    where the residency plan streams or scours on the host the batch's
+    streaming counts."""
+    rd, acc = db.rd, db.acc
+    visits = ed = sel = None
+    stats: dict = {}
+    if acc is None:
+        path = "direct"
+        if mode == "ANY":
+            ed = engine.compute_ed_matrix(qd, db)
+        else:
+            # streamed running-min selection, never the dense
+            # [numUnibins, tot_units] matrix (burst.c:4318-4521)
+            sel = engine.compute_ed_select(qd, db, mode)
+    else:
+        qbins = bin_queries_for_accel(qd, acc.k, z, heur)
+        fused = engine.accel_scan_fused(qd, db, qbins, qbunch, skip_ambig) \
+            if fuse and not heur else None
+        if fused is not None:
+            path = "fused"
+            visits, ed, stats = fused
+            mark("Accelerator scour")
+        else:
+            path = "two-step"
+            visits = engine.accel_candidates(qd, db, qbins, heur,
+                                             qbunch=qbunch,
+                                             skip_ambig=skip_ambig)
+            mark("Accelerator scour")
+            ed = engine.compute_ed_matrix_accel(qd, db, visits)
+            stats = dict(visits.stats or {}, qbunch=visits.qbunch,
+                         pairs=len(ed.pj), full_rows=len(ed.full_rows))
+    mark("Alignment phase A")
+    if mode == "ANY":
+        if visits is not None:
+            modes.report_any_accel(ed, visits, qd, db, writer,
+                                   qbunch=qbunch)
+        else:
+            modes.report_any(ed, qd, db, writer)
+        mark("Reporting")
+        return path, dict(stats, **_stream_counts(qd, db))
+    pod_order = win_cols = None
+    if visits is not None:
+        juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
+        pod_order = engine.accel_pod_order(qd, rd, visits, juni, refpos)
+        win_cols = ed.lookup_cols(juni, refpos, rd.tot_units)
+    else:
+        juni, refpos, eds = sel
+    pods = engine.rescore_winners(qd, db, juni, refpos, eds, mode,
+                                  pod_order, win_cols=win_cols)
+    if mode in ("ALLPATHS", "FORAGE"):
+        modes.report_allpaths_or_forage(pods, qd, rd, writer, taxonomy,
+                                        forage=(mode == "FORAGE"))
+    elif mode == "BEST":
+        modes.report_best(pods, qd, rd, writer, taxonomy, taxasuppress,
+                          strict)
+    else:
+        modes.report_capitalist(pods, qd, rd, writer, taxonomy, taxacut,
+                                taxasuppress, strict)
+    mark("Rescore + reporting")
+    return path, dict(stats, **_stream_counts(qd, db))
+
+
+def _stream_counts(qd, db) -> dict:
+    """The batch's streaming counts where the plan streams or scours on
+    the host (else none)."""
+    plan = db.plan
+    if not (plan.streamed or plan.scour == "native"):
+        return {}
+    st = engine._stream_stats(qd)
+    got = dict(streamed=sorted(st["streamed"]), slabs=st["slabs"],
+               blocks=st["blocks"], pieces=st["pieces"],
+               h2d_bytes=st["h2d_bytes"])
+    if plan.scour is not None:
+        got["scour"] = plan.scour
+    return got

@@ -28,6 +28,7 @@ import torch
 from . import devtime, engine
 from .accel import Accelerator, SparseCSR, build_unit_index
 from .kernels import scour_device
+from .kernels.myers import xalpha_smat
 from .kernels.myers_cuda import MAX_W
 from .native import _unit_ids_clump_grouped, load_host
 from .process import RefData
@@ -240,14 +241,16 @@ class DeviceDB:
     own."""
 
     def __init__(self, rd, acc, smat: np.ndarray, device: torch.device,
-                 budget: int | None):
+                 budget: int | None, xalpha: bool = False):
         self.rd = rd
         self.acc = acc
+        self.xalpha = xalpha
         self.smat = smat
         self.device = device
         self.budget = budget
         self.smat_dev = torch.from_numpy(np.ascontiguousarray(smat)
                                          ).to(device)
+        self._smat_x_dev = None
         self.tabs = self.tiles_packed = self.lp_all = None
         self.ring = None
         self.plan = None
@@ -256,6 +259,31 @@ class DeviceDB:
         self._lock = threading.Lock()
         self.rescore_ws: set = set()
         self._replan()
+
+    def check_alphabet(self, qd):
+        """Raises ValueError unless the batch `qd` is of the database's
+        alphabet: raw bytes (-x) on a raw-byte database, codes on a
+        coded one. The tiles' format, and so the Peq tables' code count,
+        follow the database."""
+        if qd.xalpha != self.xalpha:
+            raise ValueError(
+                f"queries of {'raw bytes' if self.xalpha else 'codes'} "
+                "expected: the database was loaded with xalpha="
+                f"{self.xalpha}")
+
+    def peq_smat(self, qd) -> torch.Tensor:
+        """The device score table that the batch `qd`'s Peq tables are
+        built from: the database's 16-code table, or on a raw-byte
+        database (-x) the 256-code table of byte equality (built at
+        first use). Raises ValueError for a batch of the other
+        alphabet."""
+        self.check_alphabet(qd)
+        if not self.xalpha:
+            return self.smat_dev
+        if self._smat_x_dev is None:
+            self._smat_x_dev = torch.from_numpy(xalpha_smat()).to(
+                self.device)
+        return self._smat_x_dev
 
     def plan_rescore(self, W: int):
         """Plan the rescore copies for queries of W Myers words as well
@@ -268,9 +296,13 @@ class DeviceDB:
         """Plan the database with rescore copies for `rescore_ws`, then
         hold what the plan holds: build what is newly resident, free
         what gave way."""
-        pieces = database_pieces(self.rd, self.acc, self.rescore_ws)
+        # a raw-byte database (-x) has no scour tables or packed store:
+        # the accelerator indexes none of its queries, and the nibble
+        # store cannot hold a raw byte
+        acc = None if self.xalpha else self.acc
+        pieces = database_pieces(self.rd, acc, self.rescore_ws)
         plan = plan_residency(pieces, self.budget, self.smat.nbytes,
-                              self.acc is not None, widest_row(self.rd))
+                              acc is not None, widest_row(self.rd))
         with self._lock:
             self._apply(plan)
 
@@ -332,19 +364,21 @@ class DeviceDB:
 
 
 def load_db(rd, acc, smat: np.ndarray, device,
-            tile_budget: int | None = None) -> DeviceDB:
+            tile_budget: int | None = None,
+            xalpha: bool = False) -> DeviceDB:
     """Device state for (rd, acc) on `device`; acc=None builds the direct
-    path's state only (bucket tiles and the score table). `tile_budget`
-    bounds the database's device bytes (None: `default_budget`); what
-    does not fit streams or takes the host scour (`plan_residency`).
-    Raises NotImplementedError for accelerators without a unit-granular
-    clump-grouped index, and ValueError for a budget under the least the
-    database needs."""
+    path's state only (bucket tiles and the score table), as does a
+    database of raw bytes (`xalpha`, -x), whose queries the accelerator
+    never indexes. `tile_budget` bounds the database's device bytes
+    (None: `default_budget`); what does not fit streams or takes the
+    host scour (`plan_residency`). Raises NotImplementedError for
+    accelerators without a unit-granular clump-grouped index, and
+    ValueError for a budget under the least the database needs."""
     device = torch.device(device)
     if load_host() is None:
         raise RuntimeError("the native host library (g++ build of "
                            "burst_tpu_torch/native) is required")
-    if acc is not None:
+    if acc is not None and not xalpha:
         build_unit_index(rd, acc)
         if acc.u_csr is None or not _unit_ids_clump_grouped(acc.u_csr,
                                                             engine.VECSZ):
@@ -353,7 +387,7 @@ def load_db(rd, acc, smat: np.ndarray, device,
                 "device scour; the host scour pass that serves them comes "
                 "with ROADMAP M12")
     budget = default_budget(device) if tile_budget is None else tile_budget
-    return DeviceDB(rd, acc, smat, device, budget)
+    return DeviceDB(rd, acc, smat, device, budget, xalpha)
 
 
 def _copy_csr(csr) -> SparseCSR | None:

@@ -1,6 +1,6 @@
 """Smoke run of burst_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # needs one card; about 11 min
+    python3 chip_smoke.py                 # needs one card; about 13 min
     python3 chip_smoke.py kernels         # phases 1-2 only (a first check
                                           # of a new kernel; no result line)
     python3 chip_smoke.py twostep         # build, then phase 6 alone and
@@ -9,6 +9,8 @@
     python3 chip_smoke.py slab            # build, the databases and
                                           # resident batches of phases 3,
                                           # 4 and 6, then phase 7 alone
+                                          # (no result line)
+    python3 chip_smoke.py cli             # build, then phase 9 alone
                                           # (no result line)
     python3 chip_smoke.py pairs [old.cu]  # the pair kernel alone: build,
                                           # checks and times of phase 2;
@@ -42,7 +44,8 @@ Phases, each fatal on failure:
      width, the kernel's widest). K4 in both result types (int32, uint8)
      at each path's shape (`CROSS_SHAPES`), on the first block that
      `engine.cross_blocks` plans for this card: the direct block, the
-     two-step and fused full-scan rows, one ragged shape;
+     two-step and fused full-scan rows, one ragged shape, and the
+     raw-byte (-x) block of phase 9's protein set at 256 codes;
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -89,7 +92,7 @@ Phases, each fatal on failure:
      buckets streamed in 16 MiB slabs (K2 in 4 and 12 slabs, K3 over
      winner tiles, K4 over streamed blocks), one warm and one timed
      batch of the 20,000 reads; the same 512 reads under slots of 16 and
-     8 MiB; 2,000 reads with a budget under the tables (the native host
+     8 MiB, each in 3 or more K2 slabs; 2,000 reads with a budget under the tables (the native host
      scour); the direct cell with its 448 bucket streamed in K4 blocks
      through 4 MiB slots, warm and timed 20,000 reads; the fused cell's
      first 500 reads under a budget without its packed store (BEST on
@@ -103,7 +106,22 @@ Phases, each fatal on failure:
      ALLPATHS ITER 32) the card's bytes must equal the port's CPU run;
      one timed prepass batch of 20,000 reads on phase 3's database logs
      its rows, K2 launches and seconds, and each K2 shape it launched is
-     held against its plain version on the batch's own tensors.
+     held against its plain version on the batch's own tensors;
+  9. the command line (`burst_tpu_torch.cli.main` in process, so that
+     the launch counters can be read): makedb of phase 4's generator
+     (40 families, 10 Mbp; phase 4's shear, -d QUICK 100 -s 320) with an
+     accelerator (k=12), and -d DNA 320 -s -a on two of its families,
+     then on its 20,000 reads (phase 3's N and 11 bp reads, both
+     strands): the direct path BEST, -a at -t 1 (two-step, QBUNCH 16) and
+     -t 160 (fused), CAPITALIST -b, each byte-equal to
+     `Aligner.align_batch` on the card; -hr -i 0.84 and -p, whose first
+     512 reads must equal the CLI's CPU run; raw-byte queries (-x) on
+     3,000 protein references, without and with an accelerator (every
+     row to K4 at 256 codes, no pair kernel), the first 200 reads
+     against the CPU run and each K3/K4 shape of the batch held against
+     its plain version on its own tensors; the fused run once more as a
+     `python -m burst_tpu_torch.cli` subprocess. Each run logs its phase
+     seconds and its align phases' reads/s beside the Aligner's.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -255,8 +273,9 @@ def phase_build(sources=KERNEL_SOURCES):
         regs, entry = [], ""
         for ln in lines:
             if "Compiling entry function" in ln:
-                # template arguments of the mangled name: W (and NQ, or
-                # the pair kernel's tile format: 0 packed, 1 bytes)
+                # template arguments of the mangled name: W, and the pair
+                # kernel's tile format (0 packed, 1 bytes) or the cross
+                # kernel's NQ, codes and result type (0 int32, 1 uint8)
                 entry = "W=" + "/".join(re.findall(r"Li(\d+)E", ln))
             elif "Used " in ln:
                 regs.append(f"{entry}: " + ln.split("Used ")[1].split(
@@ -339,13 +358,13 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
         held(f"pair scan (format {fmt}) other integer operations per step",
              OPS_COL, per_step)
     if "myers_cross" in sources:
-        # K4 at W=4, 4 queries a thread, both result types (0: int32, 1:
-        # uint8): the scan loop is the one with the most LOP3 among the
-        # loops that step queries (VIMNMX, one per (query, column) step)
-        # and stage no tiles (no global load, copy or barrier): one tile
-        # word, 4 columns
-        for u8 in ("0", "1"):
-            args = "4/4/" + u8
+        # K4 at W=4, 4 queries a thread, both code counts (16, 256) and
+        # both result types (0: int32, 1: uint8): the scan loop is the one
+        # with the most LOP3 among the loops that step queries (VIMNMX,
+        # one per (query, column) step) and stage no tiles (no global
+        # load, copy or barrier): one tile word, 4 columns
+        for args in (f"4/4/{c}/{u8}" for c in ("16", "256")
+                     for u8 in ("0", "1")):
             scan = [l for l in fns["myers_cross", args] if l[3]["VIMNMX"]
                     and not any(l[3][k] for k in ("LDG", "LDGSTS", "BAR"))]
             if not scan:
@@ -685,13 +704,13 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
     import torch
 
     from burst_tpu_torch.kernels import rescore, rescore_cuda
-    dev, N = peq.device, len(rp)
+    dev, N, C = peq.device, len(rp), peq.shape[1]
     rows, lv = rescore.rows_for(rq, W), rescore.levels_for(red)
     L1 = rescore.l1_for(bt_d.shape[1] if Lw is None else Lw - 1)
     run = lambda: rescore_cuda.rescore_pairs_gather(
         peq, bt_d, rp, rt, rq, red, W, x0=x0, Lw=Lw)
     to_dev = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
-    peq_f = peq[to_dev(rp)].reshape(N, 16 * W).contiguous()
+    peq_f = peq[to_dev(rp)].reshape(N, C * W).contiguous()
     tl = bt_d[to_dev(rt)]
     if x0 is not None:
         tl = rescore.window_tiles(tl, to_dev(x0), L1)
@@ -709,10 +728,11 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
         source="burst_tpu_torch/csrc/rescore.cu",
         replaces="burst_tpu/kernels/rescore_pallas.py:155",
         max_abs_err=err, ms=time_ms(kern, 20), plain_ms=time_ms(plain, 1),
-        **bound(N * (64 * W + L1 - 1 + 8 + 16),
+        **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
                 N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
         library_ms=None, counter="k3",
-        shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N}")
+        shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N}"
+        + ("" if C == 16 else f" C={C}"))
 
 
 def hold_rescore(recs, case, host, qlen, budget, lt, N):
@@ -755,10 +775,11 @@ def hold_rescore(recs, case, host, qlen, budget, lt, N):
         recs.append(rec)
 
 
-def cross_bound(W: int, Q: int, T: int, Lp: int, out_bytes: int) -> dict:
-    """K4's bound over Q x T pairs: Peq and tiles read once, the result
-    written once, the scan's int32 operations."""
-    return bound(Q * 64 * W + T * Lp + out_bytes * Q * T,
+def cross_bound(W: int, Q: int, T: int, Lp: int, out_bytes: int,
+                C: int = 16) -> dict:
+    """K4's bound over Q x T pairs: Peq (C codes) and tiles read once,
+    the result written once, the scan's int32 operations."""
+    return bound(Q * 4 * C * W + T * Lp + out_bytes * Q * T,
                  scan_ops(Q * T, Lp, W))
 
 
@@ -775,7 +796,7 @@ def hold_cross_call(label, peq, tiles, W, out_dtype=None, host=None,
 
     from burst_tpu_torch.kernels import myers, myers_cuda
     dt = out_dtype or torch.int32
-    (Q, (T, Lp)) = peq.shape[0], tiles.shape
+    (Q, C, (T, Lp)) = peq.shape[0], peq.shape[1], tiles.shape
     k4 = lambda: myers_cuda.myers_cross(peq, tiles, W, dt)
     got = k4().cpu().numpy()
     ty = "uint8" if dt == torch.uint8 else "int32"
@@ -794,12 +815,13 @@ def hold_cross_call(label, peq, tiles, W, out_dtype=None, host=None,
         source="burst_tpu_torch/csrc/myers_cross.cu",
         replaces="burst_tpu/kernels/myers_pallas.py:98",
         max_abs_err=err, ms=time_ms(k4, reps), plain_ms=e0.elapsed_time(e1),
-        **cross_bound(W, Q, T, Lp, got.itemsize),
+        **cross_bound(W, Q, T, Lp, got.itemsize, C),
         library_ms=None, counter="k4",
-        shape=f"W={W} Q={Q} T={T} Lp={Lp} {ty}")
+        shape=f"W={W} Q={Q} T={T} Lp={Lp} {ty}"
+        + ("" if C == 16 else f" C={C}"))
 
 
-PLAIN_SLICE = 1 << 16   # pairs per call of the plain pair scan
+PLAIN_SLICE = 1 << 18   # pairs per call of the plain pair scan
 
 
 def hold_pairs_call(label, peq, tiles, pidx, tidx, W):
@@ -848,9 +870,10 @@ def phase_kernels(earlier=None):
 
     recs += phase_cross()[0]
     for r in recs:
+        twin = "" if "C=256" in r["shape"] else " and host twin"
         log(f"[kernels] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}), exact vs plain and host twin")
+            f"({r['bound_by']}), exact vs plain{twin}")
     return recs, main
 
 
@@ -861,33 +884,45 @@ def phase_kernels(earlier=None):
 # against both its buckets, 287,999 units of 640 bp and 95,977 of 512;
 # the fused cell's (21 reads) against its 195,688 units of 448 bp (256
 # families; 2,529 more of 384); one ragged shape at the 292 bp amplicon
-# width with IUPAC codes, odd Lp and a partial tile group.
+# width with IUPAC codes, odd Lp and a partial tile group; the raw-byte
+# (-x) block of phase 9's protein set (60-residue reads against its 256
+# bucket, 256-code Peq tables).
 CROSS_SHAPES = (
     ("direct block", 4, 2048, 30546, 480, 100, 5),
     ("two-step full-scan rows, Lp 672", 1, 42, 287999, 672, 11, 5),
     ("two-step full-scan rows, Lp 544", 1, 42, 95977, 544, 11, 5),
     ("fused full-scan rows", 1, 42, 195688, 480, 11, 5),
-    ("ragged", 10, 77, 301, 347, 292, 16))
+    ("ragged", 10, 77, 301, 347, 292, 16),
+    ("raw bytes (-x)", 2, 2048, 1100, 288, 60, 256))
+PROTEIN = b"ACDEFGHIKLMNPQRSTVWY"
 
 
 def _cross_inputs(rng, smat_d, W, Q, T, Lp, qlen, codes):
     """K4 inputs on the card: Q queries of qlen codes, half of them cut
     from a tile with two substitutions (near pairs), and T tiles of
-    random length padded with zeros to Lp columns."""
+    random length padded with zeros to Lp columns. codes=256: raw
+    protein bytes under 256-code Peq tables (`xalpha_smat`)."""
     import numpy as np
     import torch
 
     from burst_tpu_torch.kernels import myers
-    qs = rng.integers(1, codes, size=(Q, 32 * W)).astype(np.uint8)
-    tiles = rng.integers(1, codes, size=(T, Lp)).astype(np.uint8)
+    if codes == 256:
+        alpha = np.frombuffer(PROTEIN, dtype=np.uint8)
+        near = lambda n: alpha[rng.integers(0, len(alpha), n)]
+        smat_d = torch.from_numpy(myers.xalpha_smat()).to(smat_d.device)
+    else:
+        alpha = np.arange(1, codes, dtype=np.uint8)
+        near = lambda n: rng.integers(1, 5, n)           # plain bases
+    qs = alpha[rng.integers(0, len(alpha), size=(Q, 32 * W))]
+    tiles = alpha[rng.integers(0, len(alpha), size=(T, Lp))]
     ul = rng.integers(max(qlen + 8, Lp - 120), Lp - 31, T)
     tiles[np.arange(Lp)[None, :] >= ul[:, None]] = 0
     for q in range(0, Q, 2):
         t = int(rng.integers(0, T))
         st = int(rng.integers(0, ul[t] - qlen))
-        tiles[t, st:st + qlen] = rng.integers(1, 5, qlen)   # plain bases
+        tiles[t, st:st + qlen] = near(qlen)
         cut = tiles[t, st:st + qlen].copy()
-        cut[rng.integers(0, qlen, 2)] = rng.integers(1, 5, 2)
+        cut[rng.integers(0, qlen, 2)] = near(2)
         qs[q, :qlen] = cut
     dev = smat_d.device
     peq = myers.build_peq_dev(torch.from_numpy(qs).to(dev),
@@ -921,15 +956,18 @@ def phase_cross(earlier=None, variants=False):
                                    codes)
         _, T = engine.cross_blocks(Q, units, W, sms, engine.CROSS_BLOCK_BYTES)
         tb = tiles[:T]
-        host = host_cross(peq.cpu().numpy().view(np.uint32),
-                          tb.cpu().numpy(), W)
-        if host.min() > 4:
-            fail(f"K4 {label}: no near pair in the block (min {host.min()})")
+        # the native host twin takes 16 codes: a 256-code block is held
+        # against the plain version alone
+        host = None if codes == 256 else host_cross(
+            peq.cpu().numpy().view(np.uint32), tb.cpu().numpy(), W)
         for dt in (torch.uint8, torch.int32):
-            _, rec = hold_cross_call(label, peq, tb, W, dt, host,
-                                     reps=5 if Q * T > 1 << 22 else 20)
+            got, rec = hold_cross_call(label, peq, tb, W, dt, host,
+                                       reps=5 if Q * T > 1 << 22 else 20)
+            if got.min() > 4:
+                fail(f"K4 {label}: no near pair in the block (min "
+                     f"{got.min()})")
             recs.append(rec)
-        if earlier is not None:
+        if earlier is not None and codes != 256:   # the parent's has 16
             turns.append(cross_in_turns(label, peq, tiles, W, earlier, sms))
         if variants:
             cross_variants(label, peq, tb, W)
@@ -1117,11 +1155,12 @@ def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False,
                  Lw=None):
         return (W, rescore.rows_for(qlens, W), rescore.levels_for(max_ed),
                 rescore.l1_for(tiles.shape[1] if Lw is None else Lw - 1),
-                len(pidx), "windowed" if x0 is not None else "full width")
+                len(pidx), "windowed" if x0 is not None else "full width",
+                peq.shape[1])
 
     def k4_shape(peq, tiles, W, out_dtype=torch.int32):
         return (W, peq.shape[0], tiles.shape[0], tiles.shape[1],
-                str(out_dtype).removeprefix("torch."))
+                str(out_dtype).removeprefix("torch."), peq.shape[1])
 
     sites = {"K2": ("myers_pairs", k2_shape),
              "K3": ("rescore_pairs_gather", k3_shape),
@@ -1169,11 +1208,13 @@ def k4_report(path: str, k4) -> dict:
     n = sum(count for count, _, _ in k4.values())
     ms = sum(e0.elapsed_time(e1) for _, _, ev in k4.values()
              for e0, e1 in ev)
-    b = sum(count * cross_bound(W, Q, T, Lp, 1 if ty == "uint8" else 4)
-            ["bound_ms"] for (W, Q, T, Lp, ty), (count, _, _) in k4.items())
+    b = sum(count * cross_bound(W, Q, T, Lp, 1 if ty == "uint8" else 4, C)
+            ["bound_ms"] for (W, Q, T, Lp, ty, C), (count, _, _)
+            in k4.items())
     log(f"[{path}] K4 over the timed batch: {n} launches ("
-        + ", ".join(f"W={W} Q={Q} T={T} Lp={Lp} {ty} x {count}"
-                    for (W, Q, T, Lp, ty), (count, _, _) in sorted(k4.items()))
+        + ", ".join(f"W={W} Q={Q} T={T} Lp={Lp} {ty} C={C} x {count}"
+                    for (W, Q, T, Lp, ty, C), (count, _, _)
+                    in sorted(k4.items()))
         + f"), {ms:.3f} ms on the device against a summed bound of "
         f"{b:.3f} ms: {100 * b / max(ms, 1e-9):.0f} % of the bound's rate")
     return dict(launches=n, ms=ms, bound_ms=b)
@@ -2179,7 +2220,8 @@ def phase_slab(cells, launch_log):
     launch_log["held"] += hold_captured("twostep streamed", calls)
     del calls
 
-    # two budgets, the same bytes (the slab rotation), on 512 reads
+    # two budgets, the same bytes (the slab rotation), on 512 reads, each
+    # in 3 or more K2 slabs
     n = AMPLICON_CHECK_READS
     one = al.align_batch(ts["qheads"][:n], ts["reads"][:n])
     slabs_one = al.last_stats["slabs"]
@@ -2189,6 +2231,9 @@ def phase_slab(cells, launch_log):
     two = al.align_batch(ts["qheads"][:n], ts["reads"][:n])
     _same_bytes("two budgets (slot A)", one, ts["head"])
     _same_bytes("two budgets (slot B)", two, ts["head"])
+    if min(slabs_one, al.last_stats["slabs"]) < 3:
+        fail(f"two budgets: {slabs_one} and {al.last_stats['slabs']} K2 "
+             "slabs, 3 or more each expected")
     log(f"[slab] two budgets (slots of {SLAB_SLOT} and {SLAB_SLOT_B} "
         f"bytes; {slabs_one} and {al.last_stats['slabs']} K2 slabs): "
         f"{n} reads, b6 bytes identical to each other and to the resident "
@@ -2369,6 +2414,308 @@ def phase_prepass(cells, launch_log):
     torch.cuda.empty_cache()
 
 
+# Phase 9: the command line. The direct cell's generator (40 families,
+# 20,000 reads, with phase 3's N and 11 bp reads), its .edx/.acx built by
+# the CLI's own makedb with phase 4's shear (-d QUICK for 100 bp reads,
+# windows of 320: the database phase 4 builds in memory; -d DNA's
+# compressive shear takes 50 s there, so it runs on two families only);
+# a protein set for raw-byte queries (-x).
+CLI_DB = ["-d", "QUICK", str(READ_LEN), "-s", "320", "--kmer", str(K),
+          "-i", str(THRES)]
+CLI_DNA_FAMILIES = 2
+CLI_CHECK_READS = 512
+CLI_FUSED_THREADS = 160     # QBUNCH 40,000 // (160 x 128) = 1: fused
+XALPHA_REFS, XALPHA_READS, XALPHA_CHECK = 3000, 4000, 200
+CLI_SETUP = ("Parsed/processed queries", "Reference database ready",
+             "Database on the device")
+
+
+def _write_fasta(path, heads, seqs):
+    with open(path, "wb") as f:
+        for h, s in zip(heads, seqs):
+            f.write(b">" + h + b"\n" + bytes(s) + b"\n")
+
+
+def cli_workload(work):
+    """Phase 9's inputs under `work`: refs.fa and reads.fa (the direct
+    cell's generator; every 37th read with one N, every 997th cut to 11
+    bp, as phase 3's), refs2.fa (the first CLI_DNA_FAMILIES families),
+    reads512.fa (their first CLI_CHECK_READS), tax.tsv
+    (a 7-level lineage per family), and the raw-byte set: prot.fa
+    (XALPHA_REFS random protein references of 120-260 residues),
+    pread.fa (XALPHA_READS reads of 60 cut from them with up to two
+    substitutions) and pread200.fa. Returns the reads (heads, seqs)."""
+    import numpy as np
+    rheads, refs, qheads, reads = make_workload(40, DIRECT_READS)
+    rng = np.random.default_rng(SEED + 9)
+    for i in range(0, len(reads), 37):
+        reads[i][int(rng.integers(0, len(reads[i])))] = ord("N")
+    for i in range(5, len(reads), 997):
+        reads[i] = reads[i][:11].copy()
+    _write_fasta(os.path.join(work, "refs.fa"), rheads, refs)
+    n2 = 10 * CLI_DNA_FAMILIES                  # make_workload's members
+    _write_fasta(os.path.join(work, "refs2.fa"), rheads[:n2], refs[:n2])
+    _write_fasta(os.path.join(work, "reads.fa"), qheads, reads)
+    _write_fasta(os.path.join(work, "reads512.fa"),
+                 qheads[:CLI_CHECK_READS], reads[:CLI_CHECK_READS])
+    with open(os.path.join(work, "tax.tsv"), "wb") as f:
+        for h in rheads:
+            fam, m = int(h[1:6]), int(h[7:9])
+            f.write(h + b"\tk__B;p__P%d;c__C%d;o__O%d;f__F%d;g__G%d%d;"
+                    b"s__S%d\n" % (fam % 3, fam % 7, fam % 11, fam, fam,
+                                   m % 3, m))
+    alpha = np.frombuffer(PROTEIN, dtype=np.uint8)
+    prots = [alpha[rng.integers(0, len(alpha), int(n))]
+             for n in rng.integers(120, 261, XALPHA_REFS)]
+    preads = []
+    for _ in range(XALPHA_READS):
+        p = prots[int(rng.integers(0, len(prots)))]
+        st = int(rng.integers(0, len(p) - 60))
+        r = p[st:st + 60].copy()
+        r[rng.integers(0, 60, int(rng.integers(0, 3)))] = \
+            alpha[rng.integers(0, len(alpha), 1)]
+        preads.append(r)
+    pheads = [b"p%05d" % i for i in range(XALPHA_REFS)]
+    rh = [b"r%05d" % i for i in range(XALPHA_READS)]
+    _write_fasta(os.path.join(work, "prot.fa"), pheads, prots)
+    _write_fasta(os.path.join(work, "pread.fa"), rh, preads)
+    _write_fasta(os.path.join(work, "pread200.fa"), rh[:XALPHA_CHECK],
+                 preads[:XALPHA_CHECK])
+    return qheads, reads
+
+
+def cli_run(label, argv, device, need=(), rc=0):
+    """One `burst_tpu_torch.cli.main` run in process on `device`, every
+    launch count set to 0 just before it and read just after (fails if a
+    kernel in `need` never launched, or on another exit code than `rc`).
+    Returns (the b6 bytes, the CLI's phase seconds, launches, the path's
+    stats, wall seconds); logs the phases and the align phases'
+    reads/s."""
+    import contextlib
+    import io
+
+    import torch
+
+    from burst_tpu_torch import cli
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        got = cli.main(["burst_tpu_torch"] + argv, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if got != rc:
+        fail(f"[cli] {label}: exit code {got}, expected {rc}:\n"
+             f"{out.getvalue()[-2000:]}")
+    for k in need:
+        if launches[k] <= 0:
+            fail(f"[cli] {label}: kernel {k} never launched: {launches}")
+    phases = {}
+    for ln in out.getvalue().splitlines():
+        m = re.fullmatch(r"(.+): (\d+\.\d+)s", ln.strip())
+        if m:
+            phases[m.group(1)] = float(m.group(2))
+    with open(argv[argv.index("-o") + 1], "rb") as f:
+        b6 = f.read()
+    return b6, phases, launches, dict(cli.last_stats), dt
+
+
+def _align_s(phases, wall: float) -> float:
+    """The align phases' seconds: the run (its "Total time", or the wall
+    time where it prints none, as -p does) less its setup phases."""
+    return phases.get("Total time", wall) - sum(
+        phases.get(p, 0.0) for p in CLI_SETUP)
+
+
+def phase_cli(launch_log):
+    """Phase 9: `burst_tpu_torch.cli` on the card. makedb of the direct
+    cell's database with an accelerator (phase 4's shear, -d QUICK, k=12;
+    -d DNA 320 -s -a on two of its families), then on the 20,000 reads
+    (both strands): the direct path BEST; with -a at
+    -t 1 (two-step, QBUNCH 16) and at -t 160 (fused); CAPITALIST -b; each
+    byte-equal to `Aligner.align_batch` on the card over the same
+    database; -hr -i 0.84 and -p, whose first 512 reads' run must equal
+    the CLI's CPU run. Then raw-byte queries (-x) on a protein set,
+    without and with an accelerator (every row to K4 at 256 codes), the
+    first 200 reads against the CPU run, and every K3/K4 shape of the
+    -x batch held against its plain version on its own tensors; last the
+    fused run once more as a `python -m burst_tpu_torch.cli`
+    subprocess. Logs each run's phases and its align phases' reads/s
+    beside the Aligner's seconds for the same batch."""
+    import shutil
+
+    import torch
+
+    from burst_tpu_torch.accel import read_acx
+    from burst_tpu_torch.db import edx
+    from burst_tpu_torch.io.taxonomy import Taxonomy
+    from burst_tpu_torch.serving import Aligner
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    p = lambda name: os.path.join(work, name)
+    t0 = time.perf_counter()
+    qheads, reads = cli_workload(work)
+    log(f"[cli] inputs written in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli_run("makedb", ["-r", p("refs.fa"), "-o", p("db.edx"), "-a",
+                       p("db.acx")] + CLI_DB, "cpu")
+    t1 = time.perf_counter()
+    cli_run("makedb -d DNA", ["-r", p("refs2.fa"), "-o", p("dna.edx"), "-a",
+                              p("dna.acx"), "-d", "DNA", "320", "-s",
+                              "--kmer", str(K)], "cpu")
+    dna_units = edx.read_edx(p("dna.edx"))[0].tot_units
+    log(f"[cli] makedb {' '.join(CLI_DB)} -a on the 10 Mbp database: "
+        f"{t1 - t0:.1f} s on the host; -d DNA 320 -s -a on "
+        f"{CLI_DNA_FAMILIES} families: {time.perf_counter() - t1:.1f} s, "
+        f"{dna_units} units")
+    cli_run("makedb -x", ["-r", p("prot.fa"), "-o", p("x.edx"), "-a",
+                          p("x.acx"), "-x", "-d", "QUICK", "120", "-s",
+                          "300", "--kmer", str(K)], "cpu")
+    rd, _ = edx.read_edx(p("db.edx"))
+    acc = read_acx(p("db.acx"))
+    tax = Taxonomy.parse(p("tax.tsv"))
+    cuda = torch.device("cuda")
+    base = ["-r", p("db.edx"), "-q", p("reads.fa"), "-fr", "-i",
+            str(THRES)]
+    accel = base + ["-a", p("db.acx")]
+    aligned = {}
+
+    def aligner_bytes(key, acc_, **kw):
+        """Aligner's bytes over the same reads and the seconds of its
+        first batch after the load (as the CLI's) and of a warm one
+        (cached per key)."""
+        if key not in aligned:
+            al = Aligner(rd, acc_, thres=THRES, do_rc=True, device=cuda,
+                         **kw)
+            secs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                b6 = al.align_batch(qheads, reads)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            aligned[key] = (b6, secs)
+            del al
+        return aligned[key]
+
+    def report(label, phases, launches, stats, n, wall):
+        a_s = _align_s(phases, wall)
+        log(f"[cli] {label}: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in phases.items())
+            + f"; align phases {a_s:.3f} s = {n / a_s:.1f} reads/s; "
+            f"launches {launches}; {stats}")
+        return a_s
+
+    runs = (
+        ("direct BEST -fr", base + ["-m", "BEST"], ("k3", "k4"),
+         "direct", None, {}),
+        ("-a -t 1 BEST -fr", accel + ["-m", "BEST", "-t", "1"],
+         ("k2", "k3", "k4"), "two-step", "best", {}),
+        (f"-a -t {CLI_FUSED_THREADS} BEST -fr", accel + [
+            "-m", "BEST", "-t", str(CLI_FUSED_THREADS)],
+         ("k1", "k2", "k3", "k4"), "fused", "best", {}),
+        ("-a -t 1 CAPITALIST -b -fr", accel + [
+            "-m", "CAPITALIST", "-b", p("tax.tsv"), "-t", "1"],
+         ("k2", "k3", "k4"), "two-step", "capitalist", {"taxonomy": tax}))
+    for i, (label, argv, need, path, key, kw) in enumerate(runs):
+        argv = argv + ["-o", p(f"run{i}.b6")]
+        b6, ph, launches, stats, wall = cli_run(label, argv, cuda, need)
+        if stats.get("path") != path:
+            fail(f"[cli] {label}: took the {stats.get('path')} path, not "
+                 f"the {path} path")
+        a_s = report(label, ph, launches, stats, len(reads), wall)
+        if key is None:
+            ref, (first, warm) = aligner_bytes("direct", None, mode="BEST")
+        else:
+            ref, (first, warm) = aligner_bytes(key, acc, mode=key.upper(),
+                                               **kw)
+        _same_bytes(f"[cli] {label} vs Aligner", b6, ref)
+        log(f"[cli] {label}: {b6.count(NL)} rows identical to "
+            f"Aligner.align_batch on the card (its first batch {first:.3f} "
+            f"s, a warm one {warm:.3f} s = {len(reads) / warm:.1f} reads/s; "
+            f"the CLI's align phases {a_s:.3f} s)")
+        if path == "two-step" and key == "best":
+            launch_log["cli"] = launches
+    del aligned
+    torch.cuda.empty_cache()
+
+    # -hr and -p: the 20,000 reads timed, the first 512 against the CPU
+    for label, argv, need, rc in (
+            ("-a -hr -i 0.84 BEST -fr", accel + [
+                "-i", "0.84", "-m", "BEST", "-hr"], ("k2", "k3", "k4"), 0),
+            ("-a -p BEST -fr", accel + ["-m", "BEST", "-p"], ("k2",), 101)):
+        b6, ph, launches, stats, wall = cli_run(
+            label, argv + ["-o", p("big.b6")], cuda, need, rc)
+        report(label, ph, launches, stats, len(reads), wall)
+        argv = [p("reads512.fa") if a == p("reads.fa") else a for a in argv]
+        gpu = cli_run(label, argv + ["-o", p("gpu.b6")], cuda, need, rc)[0]
+        t = time.perf_counter()
+        cpu = cli_run(label, argv + ["-o", p("cpu.b6")], "cpu", (), rc)[0]
+        _same_bytes(f"[cli] {label}, first {CLI_CHECK_READS} reads", gpu,
+                    cpu)
+        log(f"[cli] {label}: {b6.count(NL)} rows; the first "
+            f"{CLI_CHECK_READS} reads' {gpu.count(NL)} rows identical to "
+            f"the CPU run ({time.perf_counter() - t:.1f} s)")
+
+    # raw-byte queries (-x): K4 and K3 at 256 codes
+    xbase = ["-r", p("prot.fa"), "-q", p("pread.fa"), "-x", "-m", "BEST",
+             "-i", "0.9"]
+    for label, argv in (("-x BEST", xbase),
+                        ("-x -a BEST", xbase + ["-a", p("x.acx")])):
+        calls, undo = _capture_kernel_calls(("K2", "K3", "K4"))
+        try:
+            b6, ph, launches, stats, wall = cli_run(
+                label, argv + ["-o", p("x.b6")], cuda, ("k3", "k4"))
+        finally:
+            undo()
+        if launches["k2"] or launches["k1"]:
+            fail(f"[cli] {label}: a pair kernel launched: {launches}")
+        report(label, ph, launches, stats, XALPHA_READS, wall)
+        if "-a" in argv:
+            if stats.get("pairs") != 0 or not stats.get("full_rows"):
+                fail(f"[cli] {label}: not every row in the full scan: "
+                     f"{stats}")
+        else:
+            launch_log["cli -x"] = launches
+            launch_log["held"] += hold_captured("cli -x", calls)
+        del calls
+        argv = [p("pread200.fa") if a == p("pread.fa") else a for a in argv]
+        gpu = cli_run(label, argv + ["-o", p("gpu.b6")], cuda, ())[0]
+        cpu = cli_run(label, argv + ["-o", p("cpu.b6")], "cpu")[0]
+        _same_bytes(f"[cli] {label}, first {XALPHA_CHECK} reads", gpu, cpu)
+        log(f"[cli] {label}: {b6.count(NL)} rows of {XALPHA_READS} reads "
+            f"against {XALPHA_REFS} protein references; the first "
+            f"{XALPHA_CHECK} reads' {gpu.count(NL)} rows identical to the "
+            "CPU run")
+
+    # the fused run once more as `python -m burst_tpu_torch.cli`
+    argv = runs[2][1] + ["-o", p("sub.b6")]
+    t = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k != "BURST_TPU_TORCH_DEVICE"}
+    res = subprocess.run([sys.executable, "-m", "burst_tpu_torch.cli",
+                          *argv], capture_output=True, text=True, env=env,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         timeout=600)
+    if res.returncode != 0:
+        fail(f"[cli] subprocess: exit {res.returncode}: {res.stderr[-2000:]}")
+    with open(p("sub.b6"), "rb") as f, open(p("run2.b6"), "rb") as g:
+        _same_bytes("[cli] python -m burst_tpu_torch.cli", f.read(),
+                    g.read())
+    log(f"[cli] python -m burst_tpu_torch.cli, {runs[2][0]}: "
+        f"{time.perf_counter() - t:.1f} s in all, the same bytes; its "
+        "phases: " + "; ".join(res.stdout.strip().splitlines()))
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2419,11 +2766,21 @@ def main():
         phase_slab(slab_inputs(), {"held": []})
         print(card_line(), flush=True)
         return
+    if sys.argv[1:] == ["cli"]:
+        phase_build()
+        phase_cli({"held": []})
+        print(card_line(), flush=True)
+        return
     phase_sass(phase_build())
     recs, main_case = phase_kernels()
     if sys.argv[1:] == ["kernels"]:
         phase_pairs_path(main_case, PATH_B)
         return
+
+    def done(phase):
+        # the script has a time limit: where its seconds go
+        log(f"[smoke] {phase} done at {time.perf_counter() - t_all:.0f} s")
+    done("phases 1-2")
     launch_log = {}
     cells = {"accel": phase_accel(launch_log)}
     # K1 and K2 once more, at the B the batch launched K1 with: these lead
@@ -2432,13 +2789,20 @@ def main():
     del main_case
     recs = [at_path[0], recs[0], at_path[1], recs[1]] + recs[2:]
     phase_long_reads()
+    done("phase 3")
     cells["direct"] = phase_direct(launch_log)
+    done("phase 4")
     phase_modes()
     cells["modes"] = phase_modes_accel()
+    done("phase 5")
     cells["twostep"] = phase_twostep(launch_log)
+    done("phase 6")
     phase_slab(cells, launch_log)
+    done("phase 7")
     phase_prepass(cells, launch_log)
+    done("phase 8")
     del cells
+    phase_cli(launch_log)
     held = launch_log.pop("held")
     k4_batches = launch_log.pop("k4_batches")
     # one entry per kernel, at the shape of the path that counts its

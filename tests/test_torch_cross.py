@@ -3,9 +3,11 @@ the `myers_cross` wrapper on CPU tensors, equal burst_tpu's jnp
 `myers_min_ed_cross` at W in {1, 4, 10} on ragged Q/T with IUPAC codes
 and trailing pad columns, and the Pallas kernel `myers_cross_pallas` in
 interpret mode at one shape; the uint8 result is that int32 one clipped
-at 255. The launch geometry (`cross_geometry`) and the engine's block
-plan (`cross_blocks`) are pure Python and held here too. All integers;
-tolerance 0."""
+at 255. The same over 256-code Peq tables of raw-byte queries (`-x`,
+`build_peq_x`), and the port's builds of those tables. The kernel's own
+source, compiled for the CPU, at both code counts. The launch geometry
+(`cross_geometry`) and the engine's block plan (`cross_blocks`) are pure
+Python and held here too. All integers; tolerance 0."""
 import numpy as np
 import pytest
 import torch
@@ -20,10 +22,16 @@ from burst_tpu_torch.kernels import myers, myers_cuda
 torch.set_num_threads(2)
 
 
+PROTEIN = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+
+
 def _inputs(seed, W, Q, T, Lp, codes=16):
     """Queries of mixed lengths up to 32W over `codes` symbols, tiles of
     mixed lengths padded with code 0; every other query is cut from a
-    tile with two substitutions, so small distances occur."""
+    tile with two substitutions, so small distances occur. codes=256:
+    raw protein bytes under 256-code Peq tables (`build_peq_x`)."""
+    if codes == 256:
+        return _inputs_x(seed, W, Q, T, Lp)
     rng = np.random.default_rng(seed)
     qlens = rng.integers(max(2, 32 * W - 40), 32 * W + 1, Q)
     qs = np.zeros((Q, 32 * W), np.uint8)
@@ -45,10 +53,37 @@ def _inputs(seed, W, Q, T, Lp, codes=16):
     return peq, tiles
 
 
+def _raw_queries(seed, W, Q, T, Lp):
+    """Raw protein bytes: (qs, qlens, tiles) as `_inputs` makes them."""
+    rng = np.random.default_rng(seed)
+    qlens = rng.integers(max(2, 32 * W - 40), 32 * W + 1, Q)
+    qs = np.zeros((Q, 32 * W), np.uint8)
+    tiles = np.zeros((T, Lp), np.uint8)
+    ulen = rng.integers(max(Lp // 2, 32 * W + 1), Lp - 8, T)
+    for t in range(T):
+        tiles[t, :ulen[t]] = PROTEIN[rng.integers(0, 20, ulen[t])]
+    for q in range(Q):
+        qs[q, :qlens[q]] = PROTEIN[rng.integers(0, 20, qlens[q])]
+        if q % 2 == 0:
+            t = int(rng.integers(0, T))
+            n = int(min(qlens[q], ulen[t]))
+            st = int(rng.integers(0, ulen[t] - n + 1))
+            cut = tiles[t, st:st + n].copy()
+            cut[rng.integers(0, n, 2)] = PROTEIN[rng.integers(0, 20, 2)]
+            qs[q, :n] = cut
+    return qs, qlens, tiles
+
+
+def _inputs_x(seed, W, Q, T, Lp):
+    qs, qlens, tiles = _raw_queries(seed, W, Q, T, Lp)
+    return jmyers.build_peq_x(qs, qlens, W), tiles
+
+
 @pytest.mark.parametrize("W,Q,T,Lp,codes", [
     (1, 13, 37, 70, 16), (4, 21, 130, 150, 16), (10, 9, 19, 347, 16),
-    (4, 8, 128, 160, 5)],
-    ids=["W1", "W4", "W10-amplicon", "W4-acgt"])
+    (4, 8, 128, 160, 5), (2, 11, 41, 120, 256), (5, 6, 17, 230, 256)],
+    ids=["W1", "W4", "W10-amplicon", "W4-acgt", "W2-xalpha",
+         "W5-xalpha"])
 def test_cross_plain_matches_jnp(W, Q, T, Lp, codes):
     peq, tiles = _inputs(100 + W + Q, W, Q, T, Lp, codes)
     ref = np.asarray(jmyers.myers_min_ed_cross(peq, tiles, W))
@@ -58,11 +93,27 @@ def test_cross_plain_matches_jnp(W, Q, T, Lp, codes):
     assert got.dtype == torch.int32 and tuple(got.shape) == (Q, T)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert ref.min() <= 3 and ref.max() > 10     # near and far pairs
+    assert peq.shape[1] == (256 if codes == 256 else 16)
     # the wrapper takes the plain version for CPU tensors, no launch
     before = myers_cuda.myers_cross.launches
     np.testing.assert_array_equal(
         myers_cuda.myers_cross(peq_t, tiles_t, W).numpy(), ref)
     assert myers_cuda.myers_cross.launches == before
+
+
+@pytest.mark.parametrize("W", [1, 3])
+def test_build_peq_x_matches_jnp(W):
+    """256-code tables: the port's `build_peq_x` and its device build
+    (`build_peq_dev` from `xalpha_smat`, in chunks) equal burst_tpu's
+    `build_peq_x`, wildcard tail rows included."""
+    qs, qlens, _ = _raw_queries(50 + W, W, 37, 8, 200)
+    ref = jmyers.build_peq_x(qs, qlens, W)
+    np.testing.assert_array_equal(myers.build_peq_x(qs, qlens, W), ref)
+    dev = myers.build_peq_dev(
+        torch.from_numpy(qs), torch.from_numpy(qlens),
+        torch.from_numpy(myers.xalpha_smat()), W, chunk=16)
+    assert tuple(dev.shape) == (37, 256, W)
+    np.testing.assert_array_equal(dev.numpy(), ref.view(np.int32))
 
 
 def test_cross_plain_matches_pallas_interpret(monkeypatch):
@@ -177,7 +228,7 @@ def test_cross_blocks_fill_the_card():
 
 
 @pytest.mark.parametrize("bad", ["W", "dtype", "shape", "contiguity",
-                                 "out_dtype"])
+                                 "out_dtype", "codes"])
 def test_cross_wrapper_rejects(bad):
     peq = torch.zeros((4, 16, 2), dtype=torch.int32)
     tiles = torch.zeros((5, 40), dtype=torch.uint8)
@@ -191,6 +242,11 @@ def test_cross_wrapper_rejects(bad):
     elif bad == "shape":
         with pytest.raises(ValueError, match="2-D"):
             myers_cuda.myers_cross(peq, tiles[0], 2)
+    elif bad == "codes":
+        for c in (8, 32, 255):
+            with pytest.raises(ValueError, match="C in"):
+                myers_cuda.myers_cross(
+                    torch.zeros((4, c, 2), dtype=torch.int32), tiles, 2)
     elif bad == "out_dtype":
         for dt in (torch.int64, torch.int16, torch.float32):
             with pytest.raises(ValueError, match="out_dtype"):
@@ -301,26 +357,29 @@ def emulated_cross(tmp_path_factory):
         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-3000:]
     fn = ctypes.CDLL(str(so)).myers_cross_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-@pytest.mark.parametrize("W,Q,T,Lp,offset,u8", [
-    (1, 13, 300, 70, 0, 0),      # Lp % 4: register staging
-    (2, 16, 140, 100, 0, 1),     # cp.async, partial last chunk
-    (1, 9, 61, 96, 1, 0),        # base off alignment, 64 threads
-    (3, 5, 33, 131, 0, 1),
-    (4, 7, 200, 160, 2, 0),
-    (10, 5, 70, 347, 0, 1),      # two chains at W=10, clipped
-    (16, 3, 40, 544, 0, 0),
-    (1, 3, 10, 0, 0, 1)],        # no column at all
+@pytest.mark.parametrize("W,Q,T,Lp,offset,u8,C", [
+    (1, 13, 300, 70, 0, 0, 16),      # Lp % 4: register staging
+    (2, 16, 140, 100, 0, 1, 16),     # cp.async, partial last chunk
+    (1, 9, 61, 96, 1, 0, 16),        # base off alignment, 64 threads
+    (3, 5, 33, 131, 0, 1, 16),
+    (4, 7, 200, 160, 2, 0, 16),
+    (10, 5, 70, 347, 0, 1, 16),      # two chains at W=10, clipped
+    (16, 3, 40, 544, 0, 0, 16),
+    (1, 3, 10, 0, 0, 1, 16),         # no column at all
+    (2, 9, 150, 130, 0, 1, 256),     # raw bytes, cp.async
+    (4, 6, 70, 170, 1, 0, 256),      # raw bytes, register staging
+    (16, 3, 20, 600, 0, 0, 256)],    # the largest 256-code table
     ids=["W1-bytes", "W2-async", "W1-off1", "W3", "W4-off2", "W10", "W16",
-         "Lp0"])
+         "Lp0", "W2-x256", "W4-x256-off1", "W16-x256"])
 def test_cross_kernel_source_on_cpu(emulated_cross, W, Q, T, Lp, offset,
-                                    u8):
-    peq, tiles = _inputs(600 + W + Lp, W, Q, T, max(Lp, 32 * W + 40))
+                                    u8, C):
+    peq, tiles = _inputs(600 + W + Lp, W, Q, T, max(Lp, 32 * W + 40), C)
     tiles = np.ascontiguousarray(tiles[:, :Lp])
     if W == 10:
         peq[1::2] = jmyers.build_peq(np.full((Q, 320), 5, np.uint8),
@@ -332,14 +391,16 @@ def test_cross_kernel_source_on_cpu(emulated_cross, W, Q, T, Lp, offset,
     out = np.zeros((Q, T), np.uint8 if u8 else np.int32)
     peq32 = np.ascontiguousarray(peq.view(np.int32))
     assert emulated_cross(peq32.ctypes.data, buf.ctypes.data + offset,
-                          out.ctypes.data, Q, T, W, Lp, NQ, threads, gx, gy,
-                          u8, None) == 0
+                          out.ctypes.data, Q, T, W, Lp, C, NQ, threads, gx,
+                          gy, u8, None) == 0
     ref = myers.myers_cross_plain(torch.from_numpy(peq32),
                                   torch.from_numpy(tiles), W,
                                   torch.uint8 if u8 else torch.int32)
     np.testing.assert_array_equal(out, ref.numpy())
     if W == 10:
         assert ref.numpy().max() == 255 and ref.numpy().min() < 20
+    if C == 256 and Lp:
+        assert ref.numpy().min() <= 3
 
 
 @pytest.mark.parametrize("W,NQ,threads,gx,gy", [
@@ -353,12 +414,17 @@ def test_cross_launch_rejects_other_geometry(emulated_cross, W, NQ, threads,
                                              gx, gy):
     """The launcher takes only the geometry `cross_geometry` gives: any
     other NQ, a CTA of part of a warp or a grid that misses tiles is
-    refused before a launch, and nothing is written."""
+    refused before a launch, and nothing is written; so is a Peq table of
+    another code count than 16 or 256."""
     Q, T, Lp = 4, 200, 64
-    peq = np.zeros((Q, 16, W), np.int32)
+    peq = np.zeros((Q, 256, W), np.int32)
     tiles = np.zeros((T, Lp), np.uint8)
     out = np.full((Q, T), 7, np.int32)
     assert emulated_cross(peq.ctypes.data, tiles.ctypes.data,
-                          out.ctypes.data, Q, T, W, Lp, NQ, threads, gx, gy,
-                          0, None) == 1
+                          out.ctypes.data, Q, T, W, Lp, 16, NQ, threads, gx,
+                          gy, 0, None) == 1
+    nq, th, (x, y) = myers_cuda.cross_geometry(Q, T, W)
+    assert emulated_cross(peq.ctypes.data, tiles.ctypes.data,
+                          out.ctypes.data, Q, T, W, Lp, 32, nq, th, x, y, 0,
+                          None) == 1
     assert (out == 7).all()

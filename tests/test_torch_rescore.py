@@ -1,7 +1,8 @@
 """Port parity: burst_tpu_torch's plain rescore DP (K3) equals
 burst_tpu's jnp rescore (`make_rescore_gather`'s fn and fn_win) and the
-numpy host twin, bit for bit, windowed and full width. Inputs come from
-numpy seeds; tolerance is exact equality (integer DP)."""
+numpy host twin, bit for bit, windowed and full width, over Peq tables
+of 16 codes and of 256 (raw-byte queries, `build_peq_x`). Inputs come
+from numpy seeds; tolerance is exact equality (integer DP)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,17 +20,27 @@ from burst_tpu_torch.kernels import rescore_cuda
 torch.set_num_threads(2)
 
 
-def _case(seed, W=4, NT=12, lb=128, P=48, qlen_lo=80):
+PROTEIN = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+
+
+def _case(seed, W=4, NT=12, lb=128, P=48, qlen_lo=80, alpha=None):
     """Reads cut from the tiles with up to 3 substitutions or indels,
     a few unrelated ones; tiles padded like the engine's buckets
-    (lb + 32W rounded up to 64)."""
+    (lb + 32W rounded up to 64). Codes 1-4, or with `alpha` raw bytes
+    drawn from it under 256-code Peq tables."""
     rng = np.random.default_rng(seed)
+    codes = np.arange(1, 5, dtype=np.uint8) if alpha is None else alpha
+
+    class _Draw:
+        @staticmethod
+        def integers(lo, hi, n=None):
+            return codes[rng.integers(0, len(codes), n)]
     smat = score_matrix()
     lp = -(-(lb + 32 * W) // 64) * 64
     tiles = np.zeros((NT, lp), np.uint8)
     ulen = rng.integers(lb - 40, lb + 1, NT)
     for t in range(NT):
-        tiles[t, :ulen[t]] = rng.integers(1, 5, ulen[t])
+        tiles[t, :ulen[t]] = _Draw.integers(1, 5, ulen[t])
     qs = np.zeros((P, 32 * W), np.uint8)
     qlens = rng.integers(qlen_lo, min(32 * W, lb - 40) + 1, P)
     tidx = rng.integers(0, NT, P).astype(np.int32)
@@ -38,19 +49,22 @@ def _case(seed, W=4, NT=12, lb=128, P=48, qlen_lo=80):
         st = int(rng.integers(0, ulen[tidx[i]] - qlens[i] + 1))
         q = src[st:st + qlens[i]].copy()
         if i % 7 == 3:
-            q = rng.integers(1, 5, qlens[i]).astype(np.uint8)
+            q = _Draw.integers(1, 5, qlens[i]).astype(np.uint8)
         for _ in range(int(rng.integers(0, 4))):
             p = int(rng.integers(0, len(q)))
             op = int(rng.integers(0, 3))
             if op == 0:
-                q[p] = rng.integers(1, 5)
+                q[p] = _Draw.integers(1, 5)
             elif op == 1 and len(q) > qlen_lo:
                 q = np.delete(q, p)
             else:
-                q = np.insert(q, p, rng.integers(1, 5))[:32 * W]
+                q = np.insert(q, p, _Draw.integers(1, 5))[:32 * W]
         qlens[i] = len(q)
         qs[i, :len(q)] = q
-    peq = jmyers.build_peq(qs, qlens.astype(np.int64), W, smat)
+    if alpha is None:
+        peq = jmyers.build_peq(qs, qlens.astype(np.int64), W, smat)
+    else:
+        peq = jmyers.build_peq_x(qs, qlens.astype(np.int64), W)
     pidx = np.arange(P, dtype=np.int32)
     max_ed = rng.integers(2, 6, P).astype(np.int64)
     return smat, peq, tiles, pidx, tidx, qlens.astype(np.int64), max_ed
@@ -149,3 +163,43 @@ def test_wrapper_rejects_bad_shapes():
         rescore_cuda.rescore(z((4, 64), dtype=torch.int32),
                              z((4, 2047), dtype=torch.uint8),
                              z((4, 2), dtype=torch.int32), 4, 2, 8, 2048)
+
+
+@pytest.mark.parametrize("windowed", [False, True], ids=["full", "window"])
+def test_xalpha_matches_jax(windowed):
+    """256-code Peq tables (raw-byte queries, -x): the plain rescore
+    equals burst_tpu's jnp rescore, whose Eq select then runs eight bit
+    steps, full width and windowed; a table of another code count is
+    refused."""
+    smat, peq, tiles, pidx, tidx, qlens, max_ed = _case(
+        21 + windowed, W=2, lb=256 if windowed else 128, qlen_lo=40,
+        alpha=PROTEIN)
+    W = 2
+    assert peq.shape[1] == 256
+    rows = prescore.rows_for(qlens, W)
+    fn, fn_win = make_rescore_gather(smat)
+    args = [jnp.asarray(a) for a in (peq, tiles, pidx, tidx,
+                                     qlens.astype(np.int32),
+                                     max_ed.astype(np.int32))]
+    kw = {}
+    if windowed:
+        rng = np.random.default_rng(5)
+        x0 = rng.integers(0, tiles.shape[1] - 100, len(pidx)).astype(
+            np.int64)
+        Lw = -(-(rows + int(max_ed.max()) + 2) // 128) * 128
+        ref = np.asarray(fn_win(*args, jnp.asarray(x0.astype(np.int32)), W,
+                                Lw, prescore.levels_for(max_ed), rows))
+        kw = dict(x0=x0, Lw=Lw)
+    else:
+        ref = np.asarray(fn(*args, W, prescore.levels_for(max_ed), rows))
+    got = rescore_cuda.rescore_pairs_gather(
+        _t(peq.view(np.int32)), _t(tiles), pidx, tidx, qlens, max_ed, W,
+        **kw)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    if not windowed:           # random windows miss most alignments
+        assert _host_ok(ref, max_ed).sum() > len(pidx) // 2
+        assert (ref[0] == 0).any()
+    with pytest.raises(ValueError):
+        rescore_cuda.rescore(_t(np.zeros((4, 32 * W), np.int32)),
+                             _t(np.zeros((4, 127), np.uint8)),
+                             _t(np.zeros((4, 2), np.int32)), W, 1, 8, 128)

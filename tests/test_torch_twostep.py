@@ -457,16 +457,41 @@ def test_batch_without_clear_rows_matches_jax(served, mode):
 # ------------------------------------------------- what still raises
 
 def test_outside_the_slice_raises(work):
-    _, _, pqd, pbins = work.batch(work.heads[:8], work.reads[:8])
-    with pytest.raises(NotImplementedError, match="M11"):
-        engine.accel_candidates(pqd, work.db, pbins, do_heur=True)
+    """What the slice leaves out raises, naming why: a read over 512 bp
+    (17 Myers words) on the fused path. What it takes in does not: the
+    heuristic cut's visits (the native scour at clump level, no unit
+    prefilter) equal burst_tpu's at QBUNCH 1 and 4, and a raw-byte
+    database has nothing to fuse (None: the two-step path's full scan).
+    A batch whose alphabet is not its database's raises ValueError."""
+    long_read = np.tile(work.reads[0], 6)[:530]
+    _, _, pqd, pbins = work.batch(work.heads[:8],
+                                  work.reads[:7] + [long_read])
+    with pytest.raises(NotImplementedError, match="W=17"):
+        engine.accel_scan_fused(pqd, work.db, pbins, qbunch=1)
+    heads, reads = work.heads[:120], work.reads[:120]
+    for qbunch in (1, 4):
+        jqd = jprocess_queries(heads, [r.copy() for r in reads],
+                               work.thres, work.do_rc)
+        pqd = process_queries(heads, [r.copy() for r in reads],
+                              work.thres, work.do_rc)
+        ref = jengine.accel_candidates(jqd, work.rd, work.acc,
+                                       jbin(jqd, work.k, 1, True), True,
+                                       qbunch=qbunch)
+        got = engine.accel_candidates(
+            pqd, work.db, bin_queries_for_accel(pqd, work.k, 1, True),
+            True, qbunch=qbunch)
+        _same_visits(got, ref)
+        assert got.pass_keys is None and len(got.flat) > 100
+    xdb = load_db(work.prd, work.pacc, score_matrix(), CPU, xalpha=True)
+    with pytest.raises(ValueError, match="raw bytes expected"):
+        engine.accel_scan_fused(pqd, xdb, pbins, qbunch=1)
     pqd.xalpha = True
-    with pytest.raises(NotImplementedError, match="xalpha.*M11"):
-        engine.accel_candidates(pqd, work.db, pbins)
-    with pytest.raises(NotImplementedError, match="xalpha.*M11"):
-        engine.accel_scan_fused(pqd, work.db, pbins)
-    with pytest.raises(NotImplementedError, match="xalpha.*M11"):
-        engine.compute_ed_matrix(pqd, work.db)
+    assert engine.accel_scan_fused(pqd, xdb, pbins, qbunch=1) is None
+    for call in (lambda: engine.accel_scan_fused(pqd, work.db, pbins, 1),
+                 lambda: engine.accel_candidates(pqd, work.db, pbins),
+                 lambda: engine.compute_ed_matrix(pqd, work.db)):
+        with pytest.raises(ValueError, match="codes expected"):
+            call()
 
 
 def test_amplicon_shape_b6_matches_jax(monkeypatch):
