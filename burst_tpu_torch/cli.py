@@ -24,12 +24,6 @@ Left out of burst_tpu's CLI, each for its reason:
     by design, so a run that fails on the card fails.
   * `--shards`/`--qshards` above 1 and BURST_TPU_MULTIHOST (a database
     over several cards or hosts) raise NotImplementedError: ROADMAP M12.
-
-Limits that raise NotImplementedError on the card (ROADMAP, "Shapes
-still without a CUDA route"): reads over 512 bp (more than 16 Myers
-words), and rescore pairs beyond 511 DP rows or 1,024 tile columns
-(references of about 900 bp and more as whole units, `-r refs.fa`
-without `-s`).
 """
 from __future__ import annotations
 

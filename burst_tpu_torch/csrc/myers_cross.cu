@@ -66,6 +66,20 @@
 //    keep, one byte a pair written by the kernel itself.
 // Any Q, T and Lp: edges are bounds-checked here, there is no padding
 // contract.
+//
+// Past W = 16 (queries over 512 residues), `myers_cross_wide_kernel`:
+// W at run time, one query a CTA (grid.y) and one tile a thread, the
+// same tile ring, scan order and epilogue (int32, or uint8 clipped in
+// the kernel). A thread's VP/VN words live in dynamic shared memory
+// laid out [word][thread] (8W bytes a thread, conflict-free; 128
+// threads at W = 46 take 47 KB, so the launcher opts in past 48 KB), the
+// query's Peq words are read through the L1 cache (one table per CTA,
+// 64 W bytes at 16 codes, 1 KB x W at 256: threads with equal codes
+// read one address). Where even 32 threads' words pass the 227 KB a CTA
+// may hold (W > 900), the words go to a global scratch the wrapper
+// allocates, one slice per CTA. The words run in order through a 64-bit
+// add's carry, as in the plain version. A simple first design; PERF.md
+// has its rate against the bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -292,6 +306,116 @@ myers_cross_kernel(const uint32_t* __restrict__ peq,    // [Q,C,W]
   }
 }
 
+
+// One tile column (code) of the wide route: the thread's W words at
+// vp/vn, `stride` words apart.
+__device__ __forceinline__ void step_wide(uint32_t code,
+                                          const uint32_t* __restrict__ eq,
+                                          uint32_t* vp, uint32_t* vn,
+                                          int stride, int W, int& score,
+                                          int& best) {
+  eq += code * W;
+  uint32_t carry = 0u, ph_prev = 0u, mh_prev = 0u, ph = 0u, mh = 0u;
+#pragma unroll 4
+  for (int w = 0; w < W; ++w) {
+    const uint32_t e = __ldg(eq + w);
+    const uint32_t v = vp[(size_t)w * stride];
+    const uint32_t n = vn[(size_t)w * stride];
+    const uint64_t s = (uint64_t)(e & v) + (uint64_t)v + (uint64_t)carry;
+    carry = (uint32_t)(s >> 32);
+    const uint32_t xh = ((uint32_t)s ^ v) | e;
+    ph = n | ~(xh | v);
+    mh = v & xh;
+    const uint32_t xv = e | n;
+    const uint32_t phs = __funnelshift_l(ph_prev, ph, 1);
+    const uint32_t mhs = __funnelshift_l(mh_prev, mh, 1);
+    ph_prev = ph;
+    mh_prev = mh;
+    vp[(size_t)w * stride] = mhs | ~(xv | phs);
+    vn[(size_t)w * stride] = phs & xv;
+  }
+  score += (int)(ph >> 31) - (int)(mh >> 31);
+  best = min(best, score);
+}
+
+// GLOBAL: the words in `scratch`, 2W x blockDim.x words per CTA of the
+// launch; else in dynamic shared memory.
+template <bool GLOBAL>
+__global__ void __launch_bounds__(kMaxThreads)
+myers_cross_wide_kernel(const uint32_t* __restrict__ peq,    // [Q,C,W]
+                        const uint8_t* __restrict__ tiles,   // [T,Lp]
+                        void* __restrict__ out,              // [Q,T]
+                        uint32_t* __restrict__ scratch, int Q, int T,
+                        int W, int Lp, int C, int aligned, int out_u8) {
+  extern __shared__ uint32_t s_state[];  // [2][W][blockDim.x]
+  __shared__ uint32_t s_tile[2][kChunkWords][kMaxThreads];
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int t0 = blockIdx.x * nthr;
+  const int q = blockIdx.y;
+  const int t = t0 + tid;
+  const int nchunks = (Lp + kChunkCols - 1) / kChunkCols;
+  const ChunkMap m{tiles, T, Lp, t0, tid, nthr};
+  uint32_t* vp =
+      (GLOBAL ? scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                              2 * W * nthr
+              : s_state) + tid;
+  uint32_t* vn = vp + (size_t)W * nthr;
+  const uint32_t* eq = peq + (size_t)q * C * W;
+  const uint32_t mask = (uint32_t)(C - 1);
+
+  uint32_t pre[kChunkWords][4];
+  if (nchunks > 0) {
+    if (aligned) {
+      stage_async(s_tile[0], m, 0);
+      cp_async_commit();
+    } else {
+      load_bytes(pre, m, 0);
+      store_words(s_tile[0], m, pre);
+    }
+  }
+  for (int w = 0; w < W; ++w) {
+    vp[(size_t)w * nthr] = 0xFFFFFFFFu;
+    vn[(size_t)w * nthr] = 0u;
+  }
+  int score = 32 * W, best = 32 * W;
+
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait_all();
+    __syncthreads();
+    const int c0 = c * kChunkCols;
+    const bool more = c + 1 < nchunks;
+    if (more) {
+      if (aligned) {
+        stage_async(s_tile[(c + 1) & 1], m, c0 + kChunkCols);
+        cp_async_commit();
+      } else {
+        load_bytes(pre, m, c0 + kChunkCols);
+      }
+    }
+    if (t < T) {
+      const int ncols = min(kChunkCols, Lp - c0);
+#pragma unroll 1
+      for (int k = 0; k < (ncols + 3) / 4; ++k) {
+        const uint32_t word = s_tile[c & 1][k][tid];
+#pragma unroll 1
+        for (int sub = 0; sub < 4 && 4 * k + sub < ncols; ++sub)
+          step_wide((word >> (8 * sub)) & mask, eq, vp, vn, nthr, W, score,
+                    best);
+      }
+    }
+    if (more && !aligned) store_words(s_tile[(c + 1) & 1], m, pre);
+  }
+
+  if (t < T) {
+    const size_t i = (size_t)q * T + t;
+    if (out_u8)
+      static_cast<uint8_t*>(out)[i] = (uint8_t)min(best, 255);
+    else
+      static_cast<int32_t*>(out)[i] = best;
+  }
+}
+
 template <int W, int NQ, int C>
 int launch(const void* peq, const void* tiles, void* out, int Q, int T,
            int Lp, int out_u8, int threads, dim3 grid, int aligned,
@@ -351,4 +475,40 @@ extern "C" int myers_cross_launch(const void* peq, const void* tiles,
     CROSS_CASE(13) CROSS_CASE(14) CROSS_CASE(15) CROSS_CASE(16)
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wide route (any W): one query a CTA, grid (gx, gy = Q) with
+// gx x threads >= T, `threads` a multiple of 32 up to 128; `smem` =
+// threads x 8W bytes of dynamic shared memory with `scratch` null, else
+// 0 and `scratch` holding gx x gy x threads x 2W words. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernel does not take).
+extern "C" int myers_cross_wide_launch(const void* peq, const void* tiles,
+                                       void* out, void* scratch, int Q, int T,
+                                       int W, int Lp, int C, int threads,
+                                       int gx, int gy, int smem, int out_u8,
+                                       void* stream) {
+  const bool global = scratch != nullptr;
+  if (Q <= 0 || T <= 0 || W <= 0 || Lp < 0 || threads <= 0 ||
+      threads % 32 || threads > kMaxThreads || gx <= 0 || gy != Q ||
+      gy > 65535 || (long long)gx * threads < T ||
+      (out_u8 != 0 && out_u8 != 1) || (C != 16 && C != 256) ||
+      (long long)smem != (global ? 0LL : 8LL * W * threads) ||
+      smem > 232448 - (int)sizeof(uint32_t) * 2 * kChunkWords * kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const int aligned =
+      (Lp % 4 == 0) && (reinterpret_cast<uintptr_t>(tiles) % 4 == 0);
+  auto wide = global ? &myers_cross_wide_kernel<true>
+                     : &myers_cross_wide_kernel<false>;
+  if (smem > 48 * 1024 - (int)sizeof(uint32_t) * 2 * kChunkWords *
+                             kMaxThreads) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(gx, gy);
+  wide<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
+      out, static_cast<uint32_t*>(scratch), Q, T, W, Lp, C, aligned, out_u8);
+  return (int)cudaGetLastError();
 }

@@ -55,6 +55,22 @@
 //    per CTA while B is small, so the pairs spread over every SM, larger
 //    CTAs at large B; shared memory stays within the 48 KB a kernel may
 //    use without opting in.
+//
+// Past W = 16, or where a score could pass the packed keys' 15 bits
+// (32W + columns >= 32,768), `myers_pairs_wide_kernel`: W at run time,
+// one thread per pair as above, the thread's VP/VN words in shared
+// memory laid out [word][thread] (8W bytes a thread, conflict-free),
+// its Eq words read through the L1 cache (the pairs of a warp are most
+// often one query's: a broadcast), its tile one byte a column (the byte
+// load is one per W word steps), and the position tracked with plain
+// 32-bit compares (no packed keys, so no score limit). The words run
+// in order with a 64-bit add's carry, as in the plain version. CTAs of
+// 64 threads (32 for small launches) hold 512W bytes of state; past the
+// 48 KB a CTA holds without opting in, dynamic shared memory up to the
+// card's 227 KB (W <= 453 at 64 threads, 907 at 32), beyond that the
+// state in a global scratch the wrapper allocates, the CTAs walking
+// over the pairs. A simple first design for the shapes burst_tpu sends
+// to its jnp routes; PERF.md has its rate against the bound.
 
 #include <climits>
 #include <cstdint>
@@ -300,6 +316,77 @@ __global__ void myers_pairs_kernel(const uint32_t* __restrict__ peq_all,
   out[2 * B + b] = last;
 }
 
+
+// The wide route. GLOBAL: `state` is a global scratch of
+// gridDim.x x blockDim.x x 2W words, the CTAs walking over the pairs;
+// else dynamic shared memory of blockDim.x x 2W words.
+template <bool GLOBAL>
+__global__ void myers_pairs_wide_kernel(const uint32_t* __restrict__ peq_all,
+                                        const uint8_t* __restrict__ tiles,
+                                        const int32_t* __restrict__ pidx,
+                                        const int32_t* __restrict__ tidx,
+                                        int32_t* __restrict__ out,  // [3,B]
+                                        uint32_t* __restrict__ scratch,
+                                        int B, int W, int fmt, int rowbytes,
+                                        int ncols, int NQ, int NT) {
+  extern __shared__ uint32_t s_state[];  // [2][W][blockDim.x]
+  const int nthr = blockDim.x;
+  uint32_t* vp = (GLOBAL ? scratch + (size_t)blockIdx.x * 2 * W * nthr
+                         : s_state) + threadIdx.x;
+  uint32_t* vn = vp + (size_t)W * nthr;
+  for (int b = blockIdx.x * nthr + threadIdx.x; b < B;
+       b += gridDim.x * nthr) {
+    const int p = pidx[b];
+    const int t = tidx[b];
+    if (p < 0 || p >= NQ || t < 0 || t >= NT) {
+      out[b] = -1;  // caller contract broken: index out of range
+      out[B + b] = -1;
+      out[2 * B + b] = -1;
+      continue;
+    }
+    const uint32_t* pq = peq_all + (size_t)p * 16 * W;
+    const uint8_t* row = tiles + (size_t)t * rowbytes;
+    for (int w = 0; w < W; ++w) {
+      vp[(size_t)w * nthr] = 0xFFFFFFFFu;
+      vn[(size_t)w * nthr] = 0u;
+    }
+    int score = 32 * W, best = 32 * W, first = 0, last = 0;
+#pragma unroll 1
+    for (int j = 0; j < ncols; ++j) {
+      const uint32_t code =
+          fmt == kPacked ? (__ldg(row + (j >> 1)) >> (4 * (j & 1))) & 15u
+                         : __ldg(row + j) & 15u;
+      const uint32_t* eq = pq + code * W;
+      uint32_t carry = 0u, ph_prev = 0u, mh_prev = 0u, ph = 0u, mh = 0u;
+#pragma unroll 4
+      for (int w = 0; w < W; ++w) {
+        const uint32_t e = __ldg(eq + w);
+        const uint32_t v = vp[(size_t)w * nthr];
+        const uint32_t n = vn[(size_t)w * nthr];
+        const uint64_t sum = (uint64_t)(e & v) + v + carry;
+        carry = (uint32_t)(sum >> 32);
+        const uint32_t xh = ((uint32_t)sum ^ v) | e;
+        ph = n | ~(xh | v);
+        mh = v & xh;
+        const uint32_t xv = e | n;
+        const uint32_t phs = __funnelshift_l(ph_prev, ph, 1);
+        const uint32_t mhs = __funnelshift_l(mh_prev, mh, 1);
+        ph_prev = ph;
+        mh_prev = mh;
+        vp[(size_t)w * nthr] = mhs | ~(xv | phs);
+        vn[(size_t)w * nthr] = phs & xv;
+      }
+      score += (int)(ph >> 31) - (int)(mh >> 31);
+      first = score < best ? j + 1 : first;
+      last = score <= best ? j + 1 : last;
+      best = min(best, score);
+    }
+    out[b] = best;
+    out[B + b] = first;
+    out[2 * B + b] = last;
+  }
+}
+
 template <int W>
 int launch(const void* peq, const void* tiles, const void* pidx,
            const void* tidx, void* out, int B, int fmt, int rowbytes,
@@ -348,4 +435,39 @@ extern "C" int myers_pairs_launch(const void* peq, const void* tiles,
     PAIRS_CASE(13) PAIRS_CASE(14) PAIRS_CASE(15) PAIRS_CASE(16)
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wide route (any W; any ncols): `threads` per CTA (a multiple of
+// 32), `blocks` CTAs, `smem` = threads x 8W bytes of dynamic shared
+// memory with `scratch` null (blocks x threads >= B), else smem 0 and
+// `scratch` holding blocks x threads x 2W words (the CTAs walk over the
+// pairs). Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int myers_pairs_wide_launch(const void* peq, const void* tiles,
+                                       const void* pidx, const void* tidx,
+                                       void* out, void* scratch, int B, int W,
+                                       int fmt, int rowbytes, int ncols,
+                                       int NQ, int NT, int blocks,
+                                       int threads, int smem, void* stream) {
+  const bool global = scratch != nullptr;
+  const int cols_per_byte = fmt == kPacked ? 2 : 1;
+  if ((fmt != kPacked && fmt != kBytes) || W <= 0 || threads <= 0 ||
+      threads % 32 || threads > 1024 || blocks <= 0 || ncols < 0 ||
+      ncols > rowbytes * cols_per_byte ||
+      (long long)smem != (global ? 0LL : 8LL * W * threads) ||
+      smem > 232448 || (!global && (long long)blocks * threads < B))
+    return (int)cudaErrorInvalidValue;
+  auto kern = global ? &myers_pairs_wide_kernel<true>
+                     : &myers_pairs_wide_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
+      static_cast<const int32_t*>(pidx), static_cast<const int32_t*>(tidx),
+      static_cast<int32_t*>(out), static_cast<uint32_t*>(scratch), B, W, fmt,
+      rowbytes, ncols, NQ, NT);
+  return (int)cudaGetLastError();
 }

@@ -20,9 +20,9 @@ PyTorch ops plus the hand-written kernels. A database larger than the
 card runs under the residency plan of `state.load_db`: K2, K3 and K4
 read the buckets it streams through the staging ring, and where it holds
 no device tables the batch is scoured on the host (a plan decision, as
-in burst_tpu). There is no fallback that hides the device: a step that
-the port does not cover raises NotImplementedError naming the ROADMAP
-item that will bring it.
+in burst_tpu). Reads of any length run: past 16 Myers words (512 bp)
+and past 511 DP rows or 1,024 rescore columns each kernel takes its wide
+route. There is no fallback that hides the device.
 """
 from __future__ import annotations
 
@@ -37,8 +37,8 @@ from . import devtime
 from .accel import query_words
 from .kernels import scour_device
 from .kernels.myers import build_peq_dev, words_for
-from .kernels.myers_cuda import (MAX_W, cross_geometry, myers_cross,
-                                 myers_pairs, sm_count)
+from .kernels.myers_cuda import (cross_geometry, myers_cross, myers_pairs,
+                                 sm_count)
 from .kernels.rescore import rescore_finalize_host
 from .kernels.rescore_cuda import rescore_pairs_gather
 from .native import expand_pairs_native, pad_rows_native, scour_native
@@ -1290,10 +1290,6 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray, qbunch: int,
     if b1 <= b0 or not bool((qlens_all[b0:b1] >= k).any()):
         return None
     W = int(qw_all[:b1].max())
-    if W > MAX_W:
-        raise NotImplementedError(
-            f"W={W}: reads over {32 * MAX_W} bp exceed the pair kernel "
-            "(ROADMAP, limits)")
     tot_units = rd.tot_units
     n_clumps = tot_units // VECSZ + (1 if tot_units % VECSZ else 0)
     bad_arr = np.asarray(acc.bad, dtype=np.int64)

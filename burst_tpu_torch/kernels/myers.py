@@ -29,6 +29,10 @@ import torch
 
 WORD = 32
 M32 = 0xFFFFFFFF
+# The scan's state words under which a column takes the one-tensor step
+# at any W past 1: there every operation is a small launch, and the
+# per-word step makes W times more of them
+SMALL_STATE = 1 << 16
 
 
 def words_for(qlen: int) -> int:
@@ -80,14 +84,14 @@ def build_peq_dev(qmat: torch.Tensor, lens: torch.Tensor,
     set iff query row 32w+y costs 0 against code c; rows >= len are
     wildcards. qmat [n, >=32W] uint8 codes, lens [n], smat_dev [C, C]
     uint8 score table (16 codes, or `xalpha_smat` for raw bytes). Built
-    `chunk` rows at a time (8192 x 16 / C by default): the int64
-    [rows, 32W, C] temporaries take 256 C W bytes per row twice over,
-    which at 65,536 rows, W=4 and C=16 is 2 GiB when built in one
-    piece."""
+    `chunk` rows at a time (8192 x 16 / C by default, fewer in
+    proportion above W = 16): the int64 [rows, 32W, C] temporaries take
+    256 C W bytes per row twice over, which at 65,536 rows, W=4 and
+    C=16 is 2 GiB when built in one piece."""
     n = qmat.shape[0]
     C = smat_dev.shape[1]
     if chunk is None:
-        chunk = 8192 * 16 // C
+        chunk = max(1, 8192 * 16 * 16 // (C * max(W, 16)))
     if n > chunk:
         return torch.cat([
             build_peq_dev(qmat[i:i + chunk], lens[i:i + chunk], smat_dev,
@@ -154,6 +158,60 @@ def _col_step(eq, VP, VN, W: int):
     return (ph[W - 1] >> 31) - (mh[W - 1] >> 31)
 
 
+def _col_step_wide(eq, VP, VN):
+    """`_col_step` over every word at once (see `_start`): eq, VP, VN
+    are int64 tensors [..., W] of u32 values; returns (VP', VN', score
+    change). The add's carry runs through the words in order: word w
+    generates a carry (its sum reaches 2^32) or kills one (its low 32
+    bits are not all ones) or passes the one from below on, so each
+    word's carry-in is the generate bit of the nearest word under it
+    that does not pass (a running maximum of indices), 0 where none.
+    Any W costs the same few tensor operations; at a few words the
+    per-word lists move fewer bytes."""
+    W = eq.shape[-1]
+    s = (eq & VP) + VP
+    gen = s >> 32
+    decides = (gen == 1) | ((s & M32) != M32)
+    at = torch.arange(W, device=eq.device).expand_as(s)
+    last = torch.where(decides, at, -1).cummax(dim=-1).values
+    cout = torch.where(last >= 0, gen.gather(-1, last.clamp(min=0)), 0)
+    cin = torch.nn.functional.pad(cout[..., :-1], (1, 0))
+    xh = (((s + cin) & M32) ^ VP) | eq
+    ph = VN | (~(xh | VP) & M32)
+    mh = VP & xh
+    xv = eq | VN
+    # (x << 1) | the top bit of the word below
+    phs = ((ph << 1) & M32) | torch.nn.functional.pad(ph[..., :-1] >> 31,
+                                                      (1, 0))
+    mhs = ((mh << 1) & M32) | torch.nn.functional.pad(mh[..., :-1] >> 31,
+                                                      (1, 0))
+    return (mhs | (~(xv | phs) & M32), phs & xv,
+            (ph[..., W - 1] >> 31) - (mh[..., W - 1] >> 31))
+
+
+def _start(shape, W: int, dev):
+    """VP, VN at column 0: one [*shape, W] tensor each (the one-tensor
+    `_col_step_wide`) past 16 words, or at any W past 1 where the state
+    holds at most SMALL_STATE words; else W tensors of `shape` (the
+    per-word `_col_step`, which moves fewer bytes over a large state)."""
+    if W > 16 or (W > 1 and int(np.prod(shape)) * W <= SMALL_STATE):
+        return (torch.full((*shape, W), M32, dtype=torch.int64, device=dev),
+                torch.zeros((*shape, W), dtype=torch.int64, device=dev))
+    return ([torch.full(shape, M32, dtype=torch.int64, device=dev)
+             for _ in range(W)],
+            [torch.zeros(shape, dtype=torch.int64, device=dev)
+             for _ in range(W)])
+
+
+def _step(eq, VP, VN, W: int):
+    """One column from Eq words eq [..., W] on the state of `_start`:
+    (VP, VN, score change)."""
+    if isinstance(VP, torch.Tensor):
+        return _col_step_wide(eq, VP, VN)
+    delta = _col_step([eq[..., w] for w in range(W)], VP, VN, W)
+    return VP, VN, delta
+
+
 def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
               ) -> torch.Tensor:
     """[3, B] int32 (min ED, first and last 1-based column reaching it)
@@ -162,9 +220,7 @@ def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
     dev = tiles.device
     peq64 = peq.long() & M32
     cols = tiles.long()
-    VP = [torch.full((B,), M32, dtype=torch.int64, device=dev)
-          for _ in range(W)]
-    VN = [torch.zeros(B, dtype=torch.int64, device=dev) for _ in range(W)]
+    VP, VN = _start((B,), W, dev)
     score = torch.full((B,), WORD * W, dtype=torch.int64, device=dev)
     best = score.clone()
     first = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -172,8 +228,8 @@ def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
     for j in range(Lp):
         eq_b = peq64.gather(
             1, cols[:, j].view(B, 1, 1).expand(B, 1, W)).squeeze(1)
-        score = score + _col_step([eq_b[:, w] for w in range(W)], VP, VN,
-                                  W)
+        VP, VN, delta = _step(eq_b, VP, VN, W)
+        score = score + delta
         strict = score < best
         upd = score <= best
         best = torch.where(upd, score, best)
@@ -195,16 +251,12 @@ def myers_cross_plain(peq: torch.Tensor, tiles: torch.Tensor, W: int,
     dev = tiles.device
     peq64 = peq.long() & M32
     cols = tiles.long()
-    VP = [torch.full((Q, T), M32, dtype=torch.int64, device=dev)
-          for _ in range(W)]
-    VN = [torch.zeros((Q, T), dtype=torch.int64, device=dev)
-          for _ in range(W)]
+    VP, VN = _start((Q, T), W, dev)
     score = torch.full((Q, T), WORD * W, dtype=torch.int64, device=dev)
     best = score.clone()
     for j in range(Lp):
-        eq = peq64[:, cols[:, j], :]                      # [Q, T, W]
-        score = score + _col_step([eq[:, :, w] for w in range(W)], VP,
-                                  VN, W)
+        VP, VN, delta = _step(peq64[:, cols[:, j], :], VP, VN, W)
+        score = score + delta
         best = torch.minimum(best, score)
     if out_dtype == torch.uint8:
         return best.clamp_(max=255).to(torch.uint8)

@@ -6,9 +6,16 @@ clipped at 255, over Peq tables of 16 codes or, for raw-byte queries,
 256). The launch geometry of each is pure Python
 (`pair_geometry`, `cross_geometry`), so the CPU tests reach it.
 
+Each kernel has a second, wide route for W > 16 (queries over 512
+residues; for the pair kernel also where a score could pass its packed
+position keys' 15 bits): W at run time, the Myers words in shared
+memory, or past what a CTA holds in a global scratch allocated here
+(`pair_wide_geometry`, `cross_wide_geometry`).
+
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version from `kernels.myers`. Each wrapper
-counts its own launches in its `launches` attribute.
+counts its own launches in its `launches` attribute, and the wide
+routes' among them in `wide`.
 """
 from __future__ import annotations
 
@@ -21,16 +28,22 @@ from . import _build
 from .myers import (myers_cross_plain, myers_pairs_packed_plain,
                     myers_pairs_plain)
 
-MAX_W = 16          # Myers words per query the kernels take (512 bp)
+NARROW_W = 16       # Myers words of the register-resident instances
+KEY_LIMIT = 32768   # the narrow pair kernel's packed keys: scores under it
 CROSS_CODES = (16, 256)       # K4: Peq codes, nucleotide or raw byte
 CROSS_TILES_PER_CTA = 128     # K4: tiles per CTA at most, one per thread
 CROSS_MAX_QGROUPS = 65535     # K4: query groups ride on grid.y
 PAIR_SMEM_LIMIT = 48 * 1024   # static limit: no opt-in needed below it
+SMEM_OPT_IN = 232448          # dynamic shared memory a CTA may opt into
+CROSS_RING_BYTES = 2 * 8 * CROSS_TILES_PER_CTA * 4   # K4's tile ring
+GLOBAL_SCRATCH = 256 << 20    # a global route's scratch per launch, at most
 FMT_PACKED, FMT_BYTES = 0, 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"myers_pairs_launch": [_P] * 5 + [_I] * 10 + [_P]}
-_SIG_CROSS = {"myers_cross_launch": [_P, _P, _P] + [_I] * 10 + [_P]}
+_SIG = {"myers_pairs_launch": [_P] * 5 + [_I] * 10 + [_P],
+        "myers_pairs_wide_launch": [_P] * 6 + [_I] * 10 + [_P]}
+_SIG_CROSS = {"myers_cross_launch": [_P, _P, _P] + [_I] * 10 + [_P],
+              "myers_cross_wide_launch": [_P] * 4 + [_I] * 10 + [_P]}
 _CROSS_DTYPES = {torch.int32: 0, torch.uint8: 1}
 
 
@@ -57,10 +70,59 @@ def cross_geometry(Q: int, T: int, W: int
     runs at least two independent carry chains (4 at W <= 4, 2 above:
     VP/VN of NQ x W words in registers); one tile a thread, 128 tiles a
     CTA (fewer, in whole warps, when T is smaller); tile groups on grid.x
-    and query groups on grid.y."""
+    and query groups on grid.y. Past W = 16 the wide route's: one query
+    a CTA (`cross_wide_geometry`)."""
+    if W > NARROW_W:
+        threads, grid, _, _ = cross_wide_geometry(Q, T, W)
+        return 1, threads, grid
     nq = 4 if W <= 4 else 2
     threads = min(CROSS_TILES_PER_CTA, max(32, -(-T // 32) * 32))
     return nq, threads, (-(-T // threads), -(-Q // nq))
+
+
+def pair_wide(W: int, ncols: int) -> bool:
+    """Whether a pair launch takes the wide route: past the narrow
+    instances' W, or where a score (at most 32W + columns) could pass
+    their packed keys."""
+    return W > NARROW_W or 32 * W + ncols >= KEY_LIMIT
+
+
+def pair_wide_geometry(B: int, W: int, sms: int = 132
+                       ) -> tuple[int, int, int, int]:
+    """(blocks, threads per CTA, dynamic shared-memory bytes, global
+    scratch words) of a wide pair launch over B pairs: one thread a
+    pair, 8W bytes of Myers words a thread; CTAs of 64 threads (32 while
+    that leaves under four CTAs an SM), in shared memory while a CTA's
+    words fit the 227 KB it may opt into (scratch 0), else in a global
+    scratch of at most GLOBAL_SCRATCH bytes, the CTAs walking over the
+    pairs (shared memory 0)."""
+    threads = 64 if -(-B // 64) >= 4 * sms else 32
+    if threads * 8 * W > SMEM_OPT_IN:
+        threads = 32
+    blocks = -(-B // threads)
+    if threads * 8 * W <= SMEM_OPT_IN:
+        return blocks, threads, threads * 8 * W, 0
+    blocks = max(1, min(blocks, GLOBAL_SCRATCH // (threads * 8 * W)))
+    return blocks, threads, 0, blocks * threads * 2 * W
+
+
+def cross_wide_geometry(Q: int, T: int, W: int
+                        ) -> tuple[int, tuple[int, int], int, int]:
+    """(threads per CTA, grid (x, y), dynamic shared-memory bytes, global
+    scratch words) of a wide K4 launch (W > 16) over Q queries and T
+    tiles: one query a CTA (grid.y), one tile a thread, 128 tiles a CTA
+    (fewer, in whole warps, when T is smaller), 8W bytes of Myers words
+    a thread in shared memory beside the 8 KB tile ring; where even 32
+    threads' words pass what a CTA may opt into, they go to a global
+    scratch of 2W words a thread (shared memory 0), and the caller
+    launches the queries in groups that keep it under GLOBAL_SCRATCH."""
+    threads = min(CROSS_TILES_PER_CTA, max(32, -(-T // 32) * 32))
+    while threads > 32 and threads * 8 * W + CROSS_RING_BYTES > SMEM_OPT_IN:
+        threads -= 32
+    grid = (-(-T // threads), Q)
+    if threads * 8 * W + CROSS_RING_BYTES <= SMEM_OPT_IN:
+        return threads, grid, threads * 8 * W, 0
+    return threads, grid, 0, grid[0] * Q * threads * 2 * W
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,10 +140,8 @@ def _check_inputs(peq_all, tiles, pidx, tidx, W: int):
             raise ValueError(f"{name} on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= W <= MAX_W:
-        raise NotImplementedError(
-            f"W={W}: the pair kernel takes W <= {MAX_W} (queries up to "
-            f"{32 * MAX_W} bp; longer ones: ROADMAP, limits)")
+    if W < 1:
+        raise ValueError(f"W={W}: a query has at least one Myers word")
     if peq_all.dtype != torch.int32 or peq_all.dim() != 3 or \
             tuple(peq_all.shape[1:]) != (16, W):
         raise ValueError(f"peq_all must be int32 [NQ, 16, {W}], got "
@@ -96,24 +156,37 @@ def _check_inputs(peq_all, tiles, pidx, tidx, W: int):
 def _launch(peq_all, tiles, pidx, tidx, W: int, fmt: int, ncols: int):
     """[3, B] int32 from the pair kernel over the first `ncols` columns
     of the rows of `tiles` (format `fmt`), read in place through tidx:
-    one launch, nothing allocated but the result."""
+    one launch, nothing allocated but the result (and, on the wide
+    route past a CTA's shared memory, its scratch). Returns (result,
+    whether the wide route ran)."""
     if peq_all.data_ptr() % 16:
         raise ValueError("peq_all must be 16-byte aligned")
-    if 32 * W + ncols >= 32768:
-        raise ValueError(f"{ncols} tile columns: the kernel's packed "
-                         "position keys hold scores under 32768")
     B = pidx.shape[0]
     out = torch.empty((3, B), dtype=torch.int32, device=pidx.device)
+    wide = pair_wide(W, ncols)
     if B == 0:
-        return out
-    blocks, threads, smem = pair_geometry(B, W, sm_count(pidx.device))
-    err = _build.load("myers_pairs", _SIG).myers_pairs_launch(
+        return out, wide
+    lib = _build.load("myers_pairs", _SIG)
+    stream = torch.cuda.current_stream(pidx.device).cuda_stream
+    sms = sm_count(pidx.device)
+    if wide:
+        blocks, threads, smem, words = pair_wide_geometry(B, W, sms)
+        scratch = torch.empty(words, dtype=torch.int32, device=pidx.device)
+        err = lib.myers_pairs_wide_launch(
+            peq_all.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
+            tidx.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if words else None, B, W, fmt,
+            tiles.shape[1], ncols, peq_all.shape[0], tiles.shape[0],
+            blocks, threads, smem, stream)
+        _build.check(err, "myers_pairs_wide_launch")
+        return out, wide
+    blocks, threads, smem = pair_geometry(B, W, sms)
+    err = lib.myers_pairs_launch(
         peq_all.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
         tidx.data_ptr(), out.data_ptr(), B, W, fmt, tiles.shape[1], ncols,
-        peq_all.shape[0], tiles.shape[0], blocks, threads, smem,
-        torch.cuda.current_stream(pidx.device).cuda_stream)
+        peq_all.shape[0], tiles.shape[0], blocks, threads, smem, stream)
     _build.check(err, "myers_pairs_launch")
-    return out
+    return out, wide
 
 
 def myers_pairs_packed(peq_all: torch.Tensor, tiles_packed: torch.Tensor,
@@ -127,13 +200,14 @@ def myers_pairs_packed(peq_all: torch.Tensor, tiles_packed: torch.Tensor,
     if not tiles_packed.is_cuda:
         return myers_pairs_packed_plain(peq_all, tiles_packed, pidx,
                                         tidx, W)
-    out = _launch(peq_all, tiles_packed, pidx, tidx, W, FMT_PACKED,
-                  2 * tiles_packed.shape[1])
+    out, wide = _launch(peq_all, tiles_packed, pidx, tidx, W, FMT_PACKED,
+                        2 * tiles_packed.shape[1])
     myers_pairs_packed.launches += int(pidx.shape[0] > 0)
+    myers_pairs_packed.wide += int(pidx.shape[0] > 0 and wide)
     return out
 
 
-myers_pairs_packed.launches = 0
+myers_pairs_packed.launches = myers_pairs_packed.wide = 0
 
 
 def myers_pairs(peq_all: torch.Tensor, tiles_all: torch.Tensor,
@@ -145,13 +219,14 @@ def myers_pairs(peq_all: torch.Tensor, tiles_all: torch.Tensor,
     _check_inputs(peq_all, tiles_all, pidx, tidx, W)
     if not tiles_all.is_cuda:
         return myers_pairs_plain(peq_all, tiles_all, pidx, tidx, W)
-    out = _launch(peq_all, tiles_all, pidx, tidx, W, FMT_BYTES,
-                  tiles_all.shape[1])
+    out, wide = _launch(peq_all, tiles_all, pidx, tidx, W, FMT_BYTES,
+                        tiles_all.shape[1])
     myers_pairs.launches += int(pidx.shape[0] > 0)
+    myers_pairs.wide += int(pidx.shape[0] > 0 and wide)
     return out
 
 
-myers_pairs.launches = 0
+myers_pairs.launches = myers_pairs.wide = 0
 
 
 def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
@@ -165,10 +240,8 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
         raise ValueError(f"tiles on {tiles.device}, peq on {peq.device}")
     if not peq.is_contiguous() or not tiles.is_contiguous():
         raise ValueError("peq and tiles must be contiguous")
-    if not 1 <= W <= MAX_W:
-        raise NotImplementedError(
-            f"W={W}: the cross kernel takes W <= {MAX_W} (queries "
-            f"up to {32 * MAX_W} bp; longer ones: ROADMAP, limits)")
+    if W < 1:
+        raise ValueError(f"W={W}: a query has at least one Myers word")
     if peq.dtype != torch.int32 or peq.dim() != 3 or \
             peq.shape[1] not in CROSS_CODES or peq.shape[2] != W:
         raise ValueError(f"peq must be int32 [Q, C, {W}] with C in "
@@ -182,6 +255,8 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
     if not peq.is_cuda:
         return myers_cross_plain(peq, tiles, W, out_dtype)
     Q, (T, Lp) = peq.shape[0], tiles.shape
+    if W > NARROW_W:
+        return _cross_wide(peq, tiles, W, out_dtype)
     NQ, threads, (gx, gy) = cross_geometry(Q, T, W)
     if gy > CROSS_MAX_QGROUPS:
         raise ValueError(f"Q={Q}: over the launch grid's "
@@ -198,4 +273,34 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
     return out
 
 
-myers_cross.launches = 0
+def _cross_wide(peq, tiles, W: int, out_dtype):
+    """K4's wide route (W > 16): one launch, or where the Myers words
+    take a global scratch, one launch per group of queries that keeps
+    it under GLOBAL_SCRATCH bytes."""
+    Q, (T, Lp) = peq.shape[0], tiles.shape
+    if Q > CROSS_MAX_QGROUPS:
+        raise ValueError(f"Q={Q}: over the launch grid's "
+                         f"{CROSS_MAX_QGROUPS} queries per call")
+    out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
+    if Q == 0 or T == 0:
+        return out
+    lib = _build.load("myers_cross", _SIG_CROSS)
+    stream = torch.cuda.current_stream(peq.device).cuda_stream
+    threads, (gx, _), smem, words = cross_wide_geometry(Q, T, W)
+    per = Q if not words else max(1, GLOBAL_SCRATCH // (4 * words // Q))
+    for q0 in range(0, Q, per):
+        nq = min(per, Q - q0)
+        scratch = torch.empty(words // Q * nq, dtype=torch.int32,
+                              device=peq.device)
+        err = lib.myers_cross_wide_launch(
+            peq[q0:].data_ptr(), tiles.data_ptr(), out[q0:].data_ptr(),
+            scratch.data_ptr() if words else None, nq, T, W, Lp,
+            peq.shape[1], threads, gx, nq, smem, _CROSS_DTYPES[out_dtype],
+            stream)
+        _build.check(err, "myers_cross_wide_launch")
+        myers_cross.launches += 1
+        myers_cross.wide += 1
+    return out
+
+
+myers_cross.launches = myers_cross.wide = 0

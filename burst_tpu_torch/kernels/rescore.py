@@ -14,9 +14,13 @@ The DP runs over query rows 1..rows. A row's unit costs come from the
 Peq bits (0 match, 1 mismatch, DEAD on pad columns); row 1 is special
 cased like the reference. The diagonal/up merge prefers the lower
 score, then the larger gap_q; the left-gap chain is a Hillis-Steele
-prefix selection over packed keys ((s-x+Lp)<<13)|(8191-(g-x+Lp)) with
-payload (x<<9)|shiftR, looking back exactly 2^levels columns. A cell
-whose score reaches max_ed+1 is DEAD.
+prefix selection over keys ((s-x+Lp)<<32)|(GMASK-(g-x+Lp)) with payload
+(x<<32)|shiftR, compared as int64, looking back exactly 2^levels
+columns. Those are burst_tpu's 13- and 9-bit fields (the Pallas kernel
+and the narrow jnp route) and its int32 planes compared in turn (the
+wide route, past 511 rows or 7,679 columns) in one packing: each field
+has 31 bits, so every shape orders the same way. A cell whose score
+reaches max_ed+1 is DEAD.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 
 DEAD = 511
 M32 = 0xFFFFFFFF
-NEG_INF_KEY = (8191 << 13) | 8191
+GMASK = (1 << 31) - 1
+NEG_INF_KEY = (1 << 62) | GMASK     # above every real key
 
 
 def rows_for(qlens: np.ndarray, W: int) -> int:
@@ -99,9 +104,9 @@ def rescore_plain(peq_flat: torch.Tensor, tiles: torch.Tensor,
         bg = torch.cat([zero, torch.where(takeU, gU, gO)], dim=1)
         br = torch.cat([one * y, torch.where(takeU, shr[:, 1:] + 1,
                                              shr[:, :-1])], dim=1)
-        key = ((torch.clamp(bs, max=DEAD + 1) - xs + Lp) << 13) \
-            | (8191 - (bg - xs + Lp))
-        pay = (xs << 9) | br
+        key = ((torch.clamp(bs, max=DEAD + 1) - xs + Lp) << 32) \
+            | (GMASK - (bg - xs + Lp))
+        pay = (xs << 32) | br
         d_shift = 1
         while d_shift < d_stop:
             ks = torch.cat([torch.full((N, d_shift), NEG_INF_KEY,
@@ -114,9 +119,9 @@ def rescore_plain(peq_flat: torch.Tensor, tiles: torch.Tensor,
             key = torch.where(better, ks, key)
             pay = torch.where(better, ps, pay)
             d_shift <<= 1
-        nsc = (key >> 13) - Lp + xs
-        nsh = (8191 - (key & 8191)) - Lp + xs
-        nshr = pay & 511
+        nsc = (key >> 32) - Lp + xs
+        nsh = (GMASK - (key & GMASK)) - Lp + xs
+        nshr = pay & M32
         nsc = torch.where(nsc >= bad, DEAD, nsc)
         nsc[:, 0] = y
         nsh[:, 0] = 0

@@ -3,7 +3,12 @@ per-chunk gather that feeds it.
 
 `rescore` launches the kernel for CUDA tensors (or raises) and runs
 `rescore_plain` for CPU tensors; it counts its launches in its
-`launches` attribute. `rescore_pairs_gather` is the counterpart of
+`launches` attribute, and by route in `routes`: "block" (one thread a
+column, up to 511 rows and 1,024 columns), "wide" (threads striding over
+the columns, int64 keys, the row state in shared memory) and "global"
+(the same with the state in a global scratch, past what a CTA's shared
+memory holds). `rescore_geometry` picks the route and its launch shape
+in plain Python. `rescore_pairs_gather` is the counterpart of
 `burst_tpu.kernels.rescore.rescore_pairs_gather_async`: it gathers each
 pair's Peq row and tile (or tile window) in PyTorch, then calls
 `rescore`.
@@ -16,15 +21,45 @@ import numpy as np
 import torch
 
 from . import _build
+from .myers_cuda import GLOBAL_SCRATCH, sm_count
 from .rescore import l1_for, levels_for, rescore_plain, rows_for, \
     window_tiles
 
-MAX_L1 = 1024     # one thread per DP column
-MAX_ROWS = 511    # 9-bit shiftR payload field
+BLOCK_L1 = 1024      # the block route: one thread per DP column
+BLOCK_ROWS = 511     # and its 9-bit shiftR payload field
+WIDE_THREADS = 1024  # the wide routes: threads striding over columns
+WIDE_COL_BYTES = 33  # their row state: two int64 key and payload rows
+BLOCK_SMEM = 48 * 1024     # the block route's shared memory, no opt-in
+SMEM_MAX = 232448 - 1024    # dynamic shared memory a CTA may opt into
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 RESCORE_CODES = (16, 256)   # Peq codes, nucleotide or raw byte
-_SIG = {"rescore_launch": [_P, _P, _P, _P] + [_I] * 6 + [_P]}
+_SIG = {"rescore_launch": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+        "rescore_wide_launch": [_P] * 5 + [_I] * 9 + [_P]}
+
+
+def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
+                     sms: int = 132) -> tuple[str, int, int, int]:
+    """(route, threads per CTA, CTAs, dynamic shared-memory bytes of the
+    wide routes; 0 for the block route, which sizes its own) of a K3
+    launch over N pairs of `pequ32` (C x W) Peq words: the block route
+    up to 511 rows and 1,024 columns while its row state and Peq table
+    stay within 48 KB (one CTA per pair, a thread per column); else the
+    wide route, L1 split evenly into at most 1,024 threads, its 33 bytes
+    a column in shared memory where they fit (one CTA per pair), else
+    the global route at any L1 (no shared memory but the reduction's:
+    the row state in a scratch of 32 bytes a column a CTA, the codes
+    read from the tiles; one CTA per SM, fewer where the scratch would
+    pass GLOBAL_SCRATCH bytes, walking over the pairs)."""
+    if rows <= BLOCK_ROWS and L1 <= BLOCK_L1 and \
+            (5 * L1 + pequ32) * 4 <= BLOCK_SMEM:
+        return "block", L1, N, 0
+    per = -(-L1 // WIDE_THREADS)        # columns a thread
+    threads = -(-(-(-L1 // per)) // 32) * 32    # L1 / per, whole warps
+    if WIDE_COL_BYTES * L1 <= SMEM_MAX:
+        return "wide", threads, N, WIDE_COL_BYTES * L1
+    cap = GLOBAL_SCRATCH // (4 * 8 * L1)
+    return "global", threads, max(1, min(N, sms, cap)), 0
 
 
 def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
@@ -48,12 +83,11 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
             raise ValueError(
                 f"{name}: expected contiguous {dt} {shape} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 1 <= rows <= min(MAX_ROWS, 32 * W):
-        raise NotImplementedError(f"rows={rows} outside 1..{MAX_ROWS}")
-    if L1 % 32 or not 32 <= L1 <= MAX_L1:
-        raise NotImplementedError(
-            f"L1={L1}: the rescore kernel takes a multiple of 32 up to "
-            f"{MAX_L1} columns")
+    if not 1 <= rows <= 32 * W:
+        raise ValueError(f"rows={rows} outside 1..32W = {32 * W}")
+    if L1 % 32 or L1 < 32:
+        raise ValueError(f"L1={L1}: the rescore takes a multiple of 32 "
+                         "columns")
     if levels < 1:
         raise ValueError("levels must be >= 1")
     if not peq_flat.is_cuda:
@@ -61,16 +95,29 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
     out = torch.empty((4, N), dtype=torch.int32, device=dev)
     if N == 0:
         return out
-    err = _build.load("rescore", _SIG).rescore_launch(
-        peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
-        out.data_ptr(), N, W, C, levels, rows, L1,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "rescore_launch")
+    route, threads, grid, smem = rescore_geometry(N, rows, L1, C * W,
+                                                  sm_count(dev))
+    lib = _build.load("rescore", _SIG)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "block":
+        err = lib.rescore_launch(
+            peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
+            out.data_ptr(), N, W, C, levels, rows, L1, stream)
+    else:
+        scratch = torch.empty(4 * grid * L1 if route == "global" else 0,
+                              dtype=torch.int64, device=dev)
+        err = lib.rescore_wide_launch(
+            peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
+            out.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+            N, W, C, levels, rows, L1, threads, grid, smem, stream)
+    _build.check(err, f"rescore_launch ({route})")
     rescore.launches += 1
+    rescore.routes[route] += 1
     return out
 
 
 rescore.launches = 0
+rescore.routes = {"block": 0, "wide": 0, "global": 0}
 
 
 def rescore_pairs_gather(peq_all: torch.Tensor, tiles_all: torch.Tensor,

@@ -126,7 +126,9 @@ class Aligner:
         flight on worker threads so one batch's host work overlaps
         another's device work. Batches are independent, exactly as
         repeated align_batch calls; they share the database's staging
-        ring under its lock."""
+        ring under its lock, and a batch of reads longer than the plan
+        had room for regrows it only once no other batch is in flight
+        (`DeviceDB.batch`)."""
         import collections
         from concurrent.futures import ThreadPoolExecutor
 
@@ -172,64 +174,78 @@ def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
     the CLI's phases. Returns (path, stats): path "fused", "two-step" or
     "direct"; stats the accelerated branch's counts (`Aligner`), and
     where the residency plan streams or scours on the host the batch's
-    streaming counts."""
+    streaming counts; `regrow` where the batch's reads were longer than
+    any the plan had room for (`DeviceDB.fit_words`: their Myers words
+    and the ring's new slot bytes)."""
     rd, acc = db.rd, db.acc
     visits = ed = sel = None
     stats: dict = {}
-    if acc is None:
-        path = "direct"
+    W = int(engine._query_matrix(qd)[2].max()) if len(qd.seqs) else 1
+    # the plan holds still while the batch runs (`DeviceDB.batch`)
+    with db.batch(W) as grew:
+        regrow = {"words": W, "slot": db.plan.slot} if grew else None
+        if acc is None:
+            path = "direct"
+            if mode == "ANY":
+                ed = engine.compute_ed_matrix(qd, db)
+            else:
+                # streamed running-min selection, never the dense
+                # [numUnibins, tot_units] matrix (burst.c:4318-4521)
+                sel = engine.compute_ed_select(qd, db, mode)
+        else:
+            qbins = bin_queries_for_accel(qd, acc.k, z, heur)
+            fused = engine.accel_scan_fused(qd, db, qbins, qbunch,
+                                            skip_ambig) \
+                if fuse and not heur else None
+            if fused is not None:
+                path = "fused"
+                visits, ed, stats = fused
+                mark("Accelerator scour")
+            else:
+                path = "two-step"
+                visits = engine.accel_candidates(qd, db, qbins, heur,
+                                                 qbunch=qbunch,
+                                                 skip_ambig=skip_ambig)
+                mark("Accelerator scour")
+                ed = engine.compute_ed_matrix_accel(qd, db, visits)
+                stats = dict(visits.stats or {}, qbunch=visits.qbunch,
+                             pairs=len(ed.pj), full_rows=len(ed.full_rows))
+        mark("Alignment phase A")
         if mode == "ANY":
-            ed = engine.compute_ed_matrix(qd, db)
-        else:
-            # streamed running-min selection, never the dense
-            # [numUnibins, tot_units] matrix (burst.c:4318-4521)
-            sel = engine.compute_ed_select(qd, db, mode)
-    else:
-        qbins = bin_queries_for_accel(qd, acc.k, z, heur)
-        fused = engine.accel_scan_fused(qd, db, qbins, qbunch, skip_ambig) \
-            if fuse and not heur else None
-        if fused is not None:
-            path = "fused"
-            visits, ed, stats = fused
-            mark("Accelerator scour")
-        else:
-            path = "two-step"
-            visits = engine.accel_candidates(qd, db, qbins, heur,
-                                             qbunch=qbunch,
-                                             skip_ambig=skip_ambig)
-            mark("Accelerator scour")
-            ed = engine.compute_ed_matrix_accel(qd, db, visits)
-            stats = dict(visits.stats or {}, qbunch=visits.qbunch,
-                         pairs=len(ed.pj), full_rows=len(ed.full_rows))
-    mark("Alignment phase A")
-    if mode == "ANY":
+            if visits is not None:
+                modes.report_any_accel(ed, visits, qd, db, writer,
+                                       qbunch=qbunch)
+            else:
+                modes.report_any(ed, qd, db, writer)
+            mark("Reporting")
+            return path, _batch_stats(stats, qd, db, regrow)
+        pod_order = win_cols = None
         if visits is not None:
-            modes.report_any_accel(ed, visits, qd, db, writer,
-                                   qbunch=qbunch)
+            juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
+            pod_order = engine.accel_pod_order(qd, rd, visits, juni, refpos)
+            win_cols = ed.lookup_cols(juni, refpos, rd.tot_units)
         else:
-            modes.report_any(ed, qd, db, writer)
-        mark("Reporting")
-        return path, dict(stats, **_stream_counts(qd, db))
-    pod_order = win_cols = None
-    if visits is not None:
-        juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
-        pod_order = engine.accel_pod_order(qd, rd, visits, juni, refpos)
-        win_cols = ed.lookup_cols(juni, refpos, rd.tot_units)
-    else:
-        juni, refpos, eds = sel
-    pods = engine.rescore_winners(qd, db, juni, refpos, eds, mode,
-                                  pod_order, win_cols=win_cols)
-    if mode in ("ALLPATHS", "FORAGE"):
-        modes.report_allpaths_or_forage(pods, qd, rd, writer, taxonomy,
-                                        forage=(mode == "FORAGE"))
-    elif mode == "BEST":
-        modes.report_best(pods, qd, rd, writer, taxonomy, taxasuppress,
-                          strict)
-    else:
-        modes.report_capitalist(pods, qd, rd, writer, taxonomy, taxacut,
-                                taxasuppress, strict)
-    mark("Rescore + reporting")
-    return path, dict(stats, **_stream_counts(qd, db))
+            juni, refpos, eds = sel
+        pods = engine.rescore_winners(qd, db, juni, refpos, eds, mode,
+                                      pod_order, win_cols=win_cols)
+        if mode in ("ALLPATHS", "FORAGE"):
+            modes.report_allpaths_or_forage(pods, qd, rd, writer, taxonomy,
+                                            forage=(mode == "FORAGE"))
+        elif mode == "BEST":
+            modes.report_best(pods, qd, rd, writer, taxonomy, taxasuppress,
+                              strict)
+        else:
+            modes.report_capitalist(pods, qd, rd, writer, taxonomy, taxacut,
+                                    taxasuppress, strict)
+        mark("Rescore + reporting")
+        return path, _batch_stats(stats, qd, db, regrow)
+
+
+def _batch_stats(stats: dict, qd, db, regrow) -> dict:
+    got = dict(stats, **_stream_counts(qd, db))
+    if regrow is not None:
+        got["regrow"] = regrow
+    return got
 
 
 def _stream_counts(qd, db) -> dict:

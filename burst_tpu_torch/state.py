@@ -18,6 +18,7 @@ take the same fields without copying the arrays.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -29,11 +30,11 @@ from . import devtime, engine
 from .accel import Accelerator, SparseCSR, build_unit_index
 from .kernels import scour_device
 from .kernels.myers import xalpha_smat
-from .kernels.myers_cuda import MAX_W
 from .native import _unit_ids_clump_grouped, load_host
 from .process import RefData
 
 SLAB_MIN_ROWS = 8           # rows of the smallest slab, block or piece
+PLAN_W = 16                 # Myers words of the reads a plan first admits
 RING_SLOT_MAX = 64 << 20    # bytes of one staging ring slot at most
 # card bytes the default budget leaves to a batch's working set (Peq
 # planes, the scour's slot matrices, results): the largest batch peak
@@ -200,11 +201,12 @@ def _store_bytes(rd) -> int:
                                                          // 2))
 
 
-def widest_row(rd) -> int:
-    """Bytes of the widest tile row a batch can ask for: the longest
-    length bucket at the rescore's pad for the longest query."""
+def widest_row(rd, W: int) -> int:
+    """Bytes of the widest tile row a batch of reads of up to W Myers
+    words can ask for: the longest length bucket at the rescore's pad
+    for such a read."""
     lbmax = int(engine._unit_lb(rd).max()) if rd.tot_units else 64
-    return lbmax + max(A_PAD, engine.rescore_pad(lbmax, MAX_W))
+    return lbmax + max(A_PAD, engine.rescore_pad(lbmax, W))
 
 
 def database_pieces(rd, acc, rescore_ws=()) -> dict:
@@ -238,7 +240,16 @@ class DeviceDB:
     copy that no plan named (a read length `warmup` did not name) joins
     the plan through `place_piece`. Streaming batches run on worker
     threads: the maps build under a lock, and the staging ring has its
-    own."""
+    own.
+
+    The plan keeps room for the rescore rows of reads up to `plan_w`
+    Myers words (PLAN_W, 512 bp, at first): two slabs of SLAB_MIN_ROWS
+    of the widest such row. A batch of longer reads regrows that room
+    before its first copy (`batch`, `fit_words`): the plan is made again
+    for its W, so the ring's two slots hold its widest rescore rows, and
+    pieces give way where the budget asks for it. A regrowth waits until
+    no other batch is in flight (`align_stream` runs batches on worker
+    threads), and holds back new batches until it is done."""
 
     def __init__(self, rd, acc, smat: np.ndarray, device: torch.device,
                  budget: int | None, xalpha: bool = False):
@@ -257,7 +268,13 @@ class DeviceDB:
         self._buckets: dict = {}
         self._host: dict = {}
         self._lock = threading.Lock()
+        # batches in flight, and whether a regrowth waits for or holds
+        # the plan (`batch`)
+        self._gate = threading.Condition()
+        self._in_flight = 0
+        self._regrowing = False
         self.rescore_ws: set = set()
+        self.plan_w = PLAN_W
         self._replan()
 
     def check_alphabet(self, qd):
@@ -292,6 +309,54 @@ class DeviceDB:
         self.rescore_ws.add(int(W))
         self._replan()
 
+    @contextlib.contextmanager
+    def batch(self, W: int):
+        """Hold the plan for one batch of reads of up to W Myers words:
+        first make room for them (`fit_words`), then keep any regrowth
+        waiting until the batch ends. Yields whether it replanned."""
+        grew = self.fit_words(W)
+        with self._gate:
+            self._gate.wait_for(lambda: not self._regrowing)
+            self._in_flight += 1
+        try:
+            yield grew
+        finally:
+            with self._gate:
+                self._in_flight -= 1
+                self._gate.notify_all()
+
+    def fit_words(self, W: int) -> bool:
+        """Make room for a batch of reads of up to W Myers words before
+        its first copy: where W passes what the plan was made for, plan
+        again for W (the ring's slots grow to two slabs of the widest
+        rescore row of such reads), once no batch is in flight (`batch`)
+        and no other regrowth runs. Without a budget there is nothing to
+        make room in. Returns whether it replanned."""
+        if W <= self.plan_w:
+            return False
+        if self.budget is None:
+            with self._gate:
+                self.plan_w = max(self.plan_w, int(W))
+            return False
+        with self._gate:
+            self._gate.wait_for(lambda: not self._regrowing)
+            if W <= self.plan_w:        # another batch regrew for it
+                return False
+            self._regrowing = True
+            self._gate.wait_for(lambda: self._in_flight == 0)
+        try:
+            was, self.plan_w = self.plan_w, int(W)
+            try:
+                self._replan()
+            except ValueError:      # the budget cannot hold such rows
+                self.plan_w = was
+                raise
+            return True
+        finally:
+            with self._gate:
+                self._regrowing = False
+                self._gate.notify_all()
+
     def _replan(self):
         """Plan the database with rescore copies for `rescore_ws`, then
         hold what the plan holds: build what is newly resident, free
@@ -301,8 +366,9 @@ class DeviceDB:
         # store cannot hold a raw byte
         acc = None if self.xalpha else self.acc
         pieces = database_pieces(self.rd, acc, self.rescore_ws)
-        plan = plan_residency(pieces, self.budget, self.smat.nbytes,
-                              acc is not None, widest_row(self.rd))
+        plan = plan_residency(
+            pieces, self.budget, self.smat.nbytes, acc is not None,
+            widest_row(self.rd, max([self.plan_w, *self.rescore_ws])))
         with self._lock:
             self._apply(plan)
 

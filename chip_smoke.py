@@ -1,6 +1,6 @@
 """Smoke run of burst_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # needs one card; about 13 min
+    python3 chip_smoke.py                 # needs one card; about 17 min
     python3 chip_smoke.py kernels         # phases 1-2 only (a first check
                                           # of a new kernel; no result line)
     python3 chip_smoke.py twostep         # build, then phase 6 alone and
@@ -12,6 +12,11 @@
                                           # (no result line)
     python3 chip_smoke.py cli             # build, then phase 9 alone
                                           # (no result line)
+    python3 chip_smoke.py long            # build, then phase 10 alone
+                                          # (no result line)
+    python3 chip_smoke.py wide            # build, the machine-code
+                                          # recount, then each kernel's
+                                          # wide route held and timed
     python3 chip_smoke.py pairs [old.cu]  # the pair kernel alone: build,
                                           # checks and times of phase 2;
                                           # with a source of the earlier
@@ -121,7 +126,25 @@ Phases, each fatal on failure:
      against the CPU run and each K3/K4 shape of the batch held against
      its plain version on its own tensors; the fused run once more as a
      `python -m burst_tpu_torch.cli` subprocess. Each run logs its phase
-     seconds and its align phases' reads/s beside the Aligner's.
+     seconds and its align phases' reads/s beside the Aligner's;
+ 10. full-length reads and whole references (each kernel's wide route:
+     W > 16, or past 511 DP rows or 1,024 columns; phase 2 holds and
+     times those routes at these shapes, and where no workload reaches
+     them, a score past the narrow pair kernel's 15-bit keys and W =
+     920): (a) the amplicon generator's 1,200 families sheared to one
+     unit a reference (max_len_q 1,500, -i 0.97: a 1,546 bp shear) with a
+     k=12 accelerator, 20,000 reads of 1,300-1,450 bp on both strands,
+     every 199th with an N: BEST fused at QBUNCH 1 (K1 at W = 41-46, K2
+     on the N rows, K3 at up to 1,456 rows), then CAPITALIST with the
+     7-level LCA over 2,000 of them at QBUNCH 16 (two-step: K2, K3);
+     each a warm and a timed batch (reads/s, peak memory, launches), every
+     (kernel, shape) it launched held against its plain version, the
+     first 64 reads against the port's CPU run; (b) two families and four
+     random 16,569 bp references unsheared through the command line
+     without -s, 1,960 reads of 150-300 bp (every 20th from a 16,569 bp
+     reference) and 40 of 1,300-1,450 bp: BEST and CAPITALIST -b (K4 at
+     W up to 46, K3 past 1,024 columns and on its global route), every
+     shape held, 48 of the reads against the CLI's CPU run.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -262,6 +285,21 @@ def scan_ops(pairs: float, cols: float, W: int) -> float:
     return pairs * cols * (OPS_WORD * W + OPS_COL)
 
 
+def _template_args(mangled: str) -> str:
+    """A kernel instance's template arguments from its mangled name,
+    "/"-joined: W, NQ, codes and the like (ints), and the wide routes'
+    GLOBAL flag (a bool: "g0" or "g1"), so each instance has its own."""
+    return "/".join(("g" if t == "b" else "") + v
+                    for t, v in re.findall(r"L([ib])(\d+)E", mangled))
+
+
+def _entry_name(ptxas_line: str) -> str:
+    """'W=<args>' of a ptxas entry line, with 'wide ' before a wide
+    route's instance."""
+    wide = "wide " if "_wide_kernel" in ptxas_line else ""
+    return f"{wide}W=" + _template_args(ptxas_line)
+
+
 def phase_build(sources=KERNEL_SOURCES):
     from burst_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -276,7 +314,7 @@ def phase_build(sources=KERNEL_SOURCES):
                 # template arguments of the mangled name: W, and the pair
                 # kernel's tile format (0 packed, 1 bytes) or the cross
                 # kernel's NQ, codes and result type (0 int32, 1 uint8)
-                entry = "W=" + "/".join(re.findall(r"Li(\d+)E", ln))
+                entry = _entry_name(ln)
             elif "Used " in ln:
                 regs.append(f"{entry}: " + ln.split("Used ")[1].split(
                     " registers")[0])
@@ -328,7 +366,7 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
         sass = subprocess.run([dump, "-sass", so], capture_output=True,
                               text=True, check=True).stdout
         for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-            args = "/".join(re.findall(r"Li(\d+)E", fn.split("\n", 1)[0]))
+            args = _template_args(fn.split("\n", 1)[0])
             fns[name, args] = sass_loops(fn)
 
     def show(name, args, loops=None):
@@ -343,6 +381,38 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
             fail(f"{what}: the bound's constant {const} is above the "
                  f"machine code's {count:.2f}")
 
+    # The wide routes' instances ("g0": words in shared memory, "g1": in
+    # a global scratch). Pair and cross scans: the word loop is the one
+    # with the most LOP3 among the loops that store, each word storing
+    # VP and VN. The rescore: the cell loop takes the diagonal/up minimum
+    # (VIMNMX), the doubling loop takes none and selects (SEL, the most
+    # of any loop: it is unrolled); each column stores a key and a
+    # payload.
+    stores = lambda l: l[3]["STS"] + l[3]["STG"] + l[3]["ST"]
+    for (name, args), loops in sorted(fns.items()):
+        if not args.startswith("g"):
+            continue
+        if name == "rescore":
+            found = (
+                ("cell", OPS_CELL, [l for l in loops if stores(l) and
+                                    l[3]["VIMNMX"]]),
+                ("doubling", OPS_LEVEL, [l for l in loops if stores(l) and
+                                         not l[3]["VIMNMX"] and
+                                         l[3]["SEL"]]))
+        else:
+            found = (("word", OPS_WORD, [l for l in loops if stores(l)
+                                         and l[3]["LOP3"]]),)
+        for what, const, cands in found:
+            if not cands:
+                show(name, args)
+                fail(f"{name} <{args}>: no {what} loop in the machine code")
+            key = (lambda l: l[3]["SEL"]) if what == "doubling" else \
+                (lambda l: l[3]["LOP3"])
+            hot = max(cands, key=key)
+            show(name, args, [hot])
+            ops = CELL_OPCODES if name == "rescore" else SCAN_WORD_OPCODES
+            held(f"{name} wide <{args}> operations per {what}", const,
+                 sum(hot[3][k] for k in ops) / (stores(hot) / 2))
     # K1/K2 at W=4: the loop with the most LOP3 is one tile word, 8
     # columns of the packed format (0) and 4 of the byte format (1). Its
     # steps also keep the two position keys, which the bound leaves out
@@ -719,15 +789,21 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
     tl = tl.contiguous()
     qmeta = torch.from_numpy(np.stack([rq, red], 1).astype(np.int32)).to(dev)
     kern = lambda: rescore_cuda.rescore(peq_f, tl, qmeta, W, lv, rows, L1)
-    plain = lambda: rescore.rescore_plain(peq_f, tl, qmeta, W, lv, rows, L1)
     got = run().cpu().numpy()
     exact(f"K3 {label} gather vs block", kern().cpu().numpy(), got)
-    err = exact(f"K3 {label} vs plain", got, plain().cpu().numpy())
+    # the plain version once, timed by events (seconds at 1,456 rows)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = rescore.rescore_plain(peq_f, tl, qmeta, W, lv, rows, L1)
+    e1.record()
+    err = exact(f"K3 {label} vs plain", got, ref.cpu().numpy())
     return got, dict(
         name=f"K3 rescore ({label})", route="cuda",
         source="burst_tpu_torch/csrc/rescore.cu",
         replaces="burst_tpu/kernels/rescore_pallas.py:155",
-        max_abs_err=err, ms=time_ms(kern, 20), plain_ms=time_ms(plain, 1),
+        max_abs_err=err, ms=time_ms(kern, 20 if N * rows * L1 <= 2e9 else 3),
+        plain_ms=e0.elapsed_time(e1),
         **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
                 N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
         library_ms=None, counter="k3",
@@ -824,21 +900,28 @@ def hold_cross_call(label, peq, tiles, W, out_dtype=None, host=None,
 PLAIN_SLICE = 1 << 18   # pairs per call of the plain pair scan
 
 
-def hold_pairs_call(label, peq, tiles, pidx, tidx, W):
-    """One K2 call on the card (all tensors there), exact against the
-    plain version over the same pairs. The plain version runs them in
-    slices of PLAIN_SLICE (it gathers a [B, Lp] int64 block per call);
-    its time is that of all slices. Returns (result on the host, the
-    kernel record's entry)."""
+def hold_pairs_packed_call(label, peq, tiles, pidx, tidx, W):
+    """`hold_pairs_call` for K1 (the nibble-packed store)."""
+    return hold_pairs_call(label, peq, tiles, pidx, tidx, W, packed=True)
+
+
+def hold_pairs_call(label, peq, tiles, pidx, tidx, W, packed=False):
+    """One K2 call (K1 with `packed`) on the card (all tensors there),
+    exact against the plain version over the same pairs. The plain version
+    runs them in slices of PLAIN_SLICE (it gathers a [B, Lp] int64 block
+    per call); its time is that of all slices. Returns (result on the
+    host, the kernel record's entry)."""
     import torch
 
     from burst_tpu_torch.kernels import myers, myers_cuda
-    B, Lp = len(pidx), tiles.shape[1]
-    kern = lambda: myers_cuda.myers_pairs(peq, tiles, pidx, tidx, W)
+    B, Lp = len(pidx), tiles.shape[1] * (2 if packed else 1)
+    k_fn, p_fn = (myers_cuda.myers_pairs_packed,
+                  myers.myers_pairs_packed_plain) if packed else \
+        (myers_cuda.myers_pairs, myers.myers_pairs_plain)
+    kern = lambda: k_fn(peq, tiles, pidx, tidx, W)
     plain = lambda: torch.cat([
-        myers.myers_pairs_plain(peq, tiles, pidx[s:s + PLAIN_SLICE],
-                                tidx[s:s + PLAIN_SLICE], W)
-        for s in range(0, B, PLAIN_SLICE)], dim=1)
+        p_fn(peq, tiles, pidx[s:s + PLAIN_SLICE], tidx[s:s + PLAIN_SLICE],
+             W) for s in range(0, B, PLAIN_SLICE)], dim=1)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -846,16 +929,282 @@ def hold_pairs_call(label, peq, tiles, pidx, tidx, W):
     e1.record()
     e1.synchronize()
     got = kern().cpu().numpy()
-    err = exact(f"K2 {label} vs plain", got, ref.cpu().numpy())
+    name = "K1" if packed else "K2"
+    err = exact(f"{name} {label} vs plain", got, ref.cpu().numpy())
     nbytes = (len(torch.unique(pidx)) * 64 * W
-              + len(torch.unique(tidx)) * Lp + 20 * B)
+              + len(torch.unique(tidx)) * tiles.shape[1] + 20 * B)
     return got, dict(
-        name=f"K2 myers_pairs ({label})", route="cuda",
-        source="burst_tpu_torch/csrc/myers_pairs.cu",
-        replaces="burst_tpu/kernels/myers_pallas.py:221",
+        name=f"{name} myers_pairs{'_packed' if packed else ''} ({label})",
+        route="cuda", source="burst_tpu_torch/csrc/myers_pairs.cu",
+        replaces="burst_tpu/kernels/myers_pallas.py:"
+        + ("207" if packed else "221"),
         max_abs_err=err, ms=time_ms(kern, 5), plain_ms=e0.elapsed_time(e1),
-        **bound(nbytes, scan_ops(B, Lp, W)), library_ms=None, counter="k2",
-        shape=f"W={W} Lp={Lp} B={B}")
+        **bound(nbytes, scan_ops(B, Lp, W)), library_ms=None,
+        counter=name.lower(),
+        shape=f"W={W} {'Lpb' if packed else 'Lp'}={tiles.shape[1]} B={B}")
+
+
+# The wide routes (phase 10's shapes): full-length 16S reads of 1,300-
+# 1,450 bp (W = 46) against units of up to 1,472 bp, phase A's tiles
+# padded by 32 columns, the rescore's by rescore_pad(1472, 46); 620-
+# residue raw-byte queries (W = 20, 256 codes); a 16,569 bp reference
+# rescored whole for 300 bp reads (W = 10, L1 = 17,024: the global
+# route); and the routes no workload of the script reaches, each held
+# once: a score past the narrow kernel's 15-bit keys, and W = 920 (the
+# Myers words in a global scratch).
+LONG_W, LONG_QLEN, LONG_LB = 46, 1450, 1472
+WIDE_PAIR_B = 1 << 18
+
+
+def _near_rescore_inputs(rng, smat_d, W, N, lb, lt, qlen, budget):
+    """K3 inputs on the card as engine.rescore_winners gathers them: N
+    queries of qlen codes, each cut from its own tile with a few
+    substitutions and one indel, tiles of up to lb codes padded to lt
+    columns; (Peq planes, tiles, query lengths, budgets, window starts
+    x0 from the pair kernel's first best column, window width Lw)."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.kernels import myers, myers_cuda, rescore
+    dev = smat_d.device
+    qs = np.zeros((N, 32 * W), np.uint8)
+    tiles = np.zeros((N, lt), np.uint8)
+    ul = rng.integers(max(qlen + 8, lb - 120), lb + 1, N)
+    for i in range(N):
+        tiles[i, :ul[i]] = rng.integers(1, 5, ul[i])
+        st = int(rng.integers(0, ul[i] - qlen))
+        cut = tiles[i, st:st + qlen].copy()
+        cut[rng.integers(0, qlen, budget // 3)] = rng.integers(1, 5,
+                                                               budget // 3)
+        cut = np.delete(cut, int(rng.integers(0, qlen)))
+        qs[i, :len(cut)] = cut
+    ql = np.full(N, qlen - 1, np.int64)
+    peq = myers.build_peq_dev(torch.from_numpy(qs).to(dev),
+                              torch.from_numpy(ql).to(dev), smat_d, W)
+    tiles_d = torch.from_numpy(tiles).to(dev)
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    first = myers_cuda.myers_pairs(peq, tiles_d, idx, idx, W)[1]
+    red = np.full(N, budget, np.int64)
+    x0 = np.maximum(first.cpu().numpy() - 32 * W - red - 1, 0)
+    rows = rescore.rows_for(ql, W)
+    return peq, tiles_d, ql, red, x0, -(-(rows + budget + 2) // 128) * 128
+
+
+def scratch_variant(kern, peq, tiles, W, pidx=None, tidx=None,
+                    out_dtype=None):
+    """A call of K2 (given pairs) or K4 on the wide route's second
+    variant, its Myers words in a global scratch (which the geometry
+    takes only where a CTA's shared memory cannot hold them, W past
+    ~450 for K2 and ~900 for K4), forced at a shape where the geometry
+    takes the shared-memory variant; the launch shape otherwise the
+    geometry's (K2: 64 threads a CTA, the scratch capped at
+    GLOBAL_SCRATCH as there)."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers_cuda as mc
+    dev = peq.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kern == "K2":
+        lib = _build.load("myers_pairs", mc._SIG)
+        B, threads = len(pidx), 64
+        blocks = max(1, min(-(-B // threads),
+                            mc.GLOBAL_SCRATCH // (threads * 8 * W)))
+        out = torch.empty((3, B), dtype=torch.int32, device=dev)
+        scratch = torch.empty(blocks * threads * 2 * W, dtype=torch.int32,
+                              device=dev)
+
+        def run():
+            _build.check(lib.myers_pairs_wide_launch(
+                peq.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
+                tidx.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, W,
+                mc.FMT_BYTES, tiles.shape[1], tiles.shape[1], peq.shape[0],
+                tiles.shape[0], blocks, threads, 0, stream),
+                "myers_pairs_wide_launch (scratch)")
+            return out
+        return run
+    lib = _build.load("myers_cross", mc._SIG_CROSS)
+    Q, (T, Lp) = peq.shape[0], tiles.shape
+    threads, (gx, _), _, _ = mc.cross_wide_geometry(Q, T, W)
+    dt = out_dtype or torch.int32
+    out = torch.empty((Q, T), dtype=dt, device=dev)
+    scratch = torch.empty(gx * Q * threads * 2 * W, dtype=torch.int32,
+                          device=dev)
+
+    def run():
+        _build.check(lib.myers_cross_wide_launch(
+            peq.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), Q, T, W, Lp, peq.shape[1], threads, gx, Q,
+            0, mc._CROSS_DTYPES[dt], stream),
+            "myers_cross_wide_launch (scratch)")
+        return out
+    return run
+
+
+def time_scratch_variant(label, shared, scratch, reps=3):
+    """The wide route's two variants on the same inputs, in turns
+    (shared, scratch, scratch, shared): the same result; logs and
+    returns both times."""
+    exact(f"{label}: scratch variant vs shared", scratch().cpu().numpy(),
+          shared().cpu().numpy())
+    t = [time_ms(shared, reps), time_ms(scratch, reps),
+         time_ms(scratch, reps), time_ms(shared, reps)]
+    sh, sc = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    log(f"[wide] {label}: Myers words in shared memory {t[0]:.3f} and "
+        f"{t[3]:.3f} ms, in a global scratch {t[1]:.3f} and {t[2]:.3f} "
+        f"ms (the scratch variant {sc / sh:.2f}x the shared one's time)")
+    return dict(shared_ms=sh, scratch_ms=sc)
+
+
+def phase_wide_kernels():
+    """Each kernel's wide route (W > 16, or past 511 DP rows or 1,024
+    columns) at the shapes phase 10's paths give it, exact against the
+    plain version on the card and timed beside its bound: K1 and K2 at
+    W = 46 over B = 2^18 pairs, K4 at W = 46 (16 codes, 64 x 4,096,
+    uint8) and W = 20 (256 codes, uint8 and int32), K3 at 1,456 rows
+    windowed (L1 = 1,536) and full width (L1 = 3,072), and on the global
+    route at L1 = 17,024 and past 232,448 columns; K2 and K4 at W = 46
+    also with the Myers words forced into the global scratch, timed in
+    turns with the shared-memory variant; then, held once, the routes no
+    workload here reaches (a 32-bit score, W = 920). Returns the kernel
+    record's entries."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.alphabet import score_matrix
+    from burst_tpu_torch.kernels import myers, myers_cuda, rescore_cuda
+    smat_d = torch.from_numpy(score_matrix()).to("cuda")
+    rng = np.random.default_rng(SEED + 10)
+    recs = []
+    lp_a = LONG_LB + engine.A_PAD
+    case = _PairCase(rng, smat_d, W=LONG_W, NQ=4096, NT=16384, Lp=lp_a,
+                     B=WIDE_PAIR_B, qlen=LONG_QLEN, ulen=(1300, LONG_LB + 1))
+    fns = case.fns(case.pidx, case.tidx)
+    times = time_pairs(case, fns, WIDE_PAIR_B, reps=3)
+    for kern, fn, line in (("K1", "myers_pairs_packed", 207),
+                           ("K2", "myers_pairs", 221)):
+        # the plain version once (9 s at this shape), timed by events
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref = fns[kern][1]()
+        e1.record()
+        got = fns[kern][0]().cpu().numpy()
+        err = exact(f"{kern} wide W={LONG_W} vs plain", got,
+                    ref.cpu().numpy())
+        if got[0].min() > 50:
+            fail(f"{kern} wide: no near pair (min {got[0].min()})")
+        recs.append(dict(
+            name=f"{kern} {fn}", route="cuda",
+            source="burst_tpu_torch/csrc/myers_pairs.cu",
+            replaces=f"burst_tpu/kernels/myers_pallas.py:{line}",
+            max_abs_err=err, plain_ms=e0.elapsed_time(e1), library_ms=None,
+            counter=kern.lower(),
+            shape=case.shape(kern, WIDE_PAIR_B) + " (wide route)",
+            **times[kern]))
+        del ref
+    a2 = fns["K2"][2]
+    time_scratch_variant(f"K2 W={LONG_W} B={WIDE_PAIR_B}", fns["K2"][0],
+                         scratch_variant("K2", case.peq, case.tiles_d,
+                                         LONG_W, a2[2], a2[3]))
+    del case, fns
+
+    # uint8 at 16 codes (what every path keeps), both types at 256
+    for label, W, Q, T, Lp, qlen, codes, dts in (
+            ("wide, 1,450 bp reads", LONG_W, 64, 4096, lp_a, LONG_QLEN,
+             16, (torch.uint8,)),
+            ("wide, raw bytes", 20, 64, 2048, 1024, 620, 256,
+             (torch.uint8, torch.int32))):
+        peq, tiles = _cross_inputs(rng, smat_d, W, Q, T, Lp, qlen, codes)
+        for dt in dts:
+            got, rec = hold_cross_call(label, peq, tiles, W, dt, reps=3)
+            if got.min() > 4:
+                fail(f"K4 {label}: no near pair (min {got.min()})")
+            recs.append(rec)
+        if codes == 16:
+            time_scratch_variant(
+                f"K4 W={W} Q={Q} T={T} uint8",
+                lambda: myers_cuda.myers_cross(peq, tiles, W, torch.uint8),
+                scratch_variant("K4", peq, tiles, W,
+                                out_dtype=torch.uint8))
+        del peq, tiles
+
+    lt_full = LONG_LB + engine.rescore_pad(LONG_LB, LONG_W)
+    peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
+        rng, smat_d, LONG_W, 1024, LONG_LB, lt_full, LONG_QLEN, 43)
+    idx = np.arange(1024)
+    for label, kw in (("wide, windowed", dict(x0=x0, Lw=Lw)),
+                      ("wide, full width", {})):
+        got, rec = hold_rescore_call(label, peq, tiles, idx, idx, ql, red,
+                                     LONG_W, **kw)
+        if (got[0] <= red).sum() < 512:
+            fail(f"K3 {label}: only {(got[0] <= red).sum()} in budget")
+        recs.append(rec)
+    del peq, tiles
+    lb_g = 16576
+    peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
+        rng, smat_d, 10, 64, lb_g, lb_g + engine.rescore_pad(lb_g, 10),
+        300, 9)
+    got, rec = hold_rescore_call("global, a 16,569 bp reference", peq,
+                                 tiles, np.arange(64), np.arange(64), ql,
+                                 red, 10)
+    if (got[0] <= red).sum() < 32:
+        fail(f"K3 global: only {(got[0] <= red).sum()} in budget")
+    recs.append(rec)
+    del peq, tiles
+    # past 232,448 columns, more than a CTA could stage one code a column
+    # of in shared memory (a 240 kbp contig rescored whole)
+    lb_c = 240000
+    peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
+        rng, smat_d, 4, 2, lb_c, lb_c + engine.rescore_pad(lb_c, 4), 100, 2)
+    g0 = rescore_cuda.rescore.routes["global"]
+    got, rec = hold_rescore_call("global, a 240,000 bp contig", peq, tiles,
+                                 np.arange(2), np.arange(2), ql, red, 4)
+    if rescore_cuda.rescore.routes["global"] == g0 or (got[0] > red).any():
+        fail(f"K3 past 232,448 columns: not the global route, or a pair "
+             f"out of budget: {got[0]}")
+    recs.append(rec)
+    del peq, tiles
+    routes = dict(rescore_cuda.rescore.routes)
+    if not routes["wide"] or not routes["global"]:
+        fail(f"K3: a wide route did not launch: {routes}")
+
+    # held once: a score past the narrow kernel's packed keys (W = 4,
+    # 32,640 columns), and W = 920 (the words in a global scratch)
+    for W, Lp, B, Q, T in ((4, 32768 - 128, 64, 0, 0),
+                           (920, 96, 64, 2, 64)):
+        c = _PairCase(rng, smat_d, W=W, NQ=8, NT=8, Lp=Lp, B=B,
+                      qlen=min(32 * W, Lp - 40), ulen=(Lp - 40, Lp - 8))
+        if not myers_cuda.pair_wide(W, Lp):
+            fail(f"pair kernel W={W} Lp={Lp}: not the wide route")
+        n0 = myers_cuda.myers_pairs.wide
+        if W <= 32:
+            # the native host twin: the plain version would take 8 s a
+            # format for 32,640 columns of small launches
+            hold_pairs(f"W={W} Lp={Lp} (wide route)", c, c.pidx, c.tidx,
+                       plain=False)
+        else:
+            f = c.fns(c.pidx, c.tidx)
+            for kern in ("K1", "K2"):
+                exact(f"{kern} W={W} Lp={Lp} (wide route) vs plain",
+                      f[kern][0]().cpu().numpy(),
+                      f[kern][1]().cpu().numpy())
+        if myers_cuda.myers_pairs.wide != n0 + 1:
+            fail("K2: the wide route did not launch")
+        if Q:
+            peq, tiles = _cross_inputs(rng, smat_d, W, Q, T, Lp,
+                                       min(32 * W, Lp - 40), 16)
+            got = myers_cuda.myers_cross(peq, tiles, W)
+            exact(f"K4 W={W} (global route) vs plain", got.cpu().numpy(),
+                  myers.myers_cross_plain(peq, tiles, W).cpu().numpy())
+        log(f"[wide] W={W} Lp={Lp}: K1 and K2" + (" and K4" if Q else "")
+            + " exact vs plain")
+    for r in recs:
+        log(f"[wide] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.0f} % of "
+            "the bound's rate, exact vs plain")
+    return recs
 
 
 def phase_kernels(earlier=None):
@@ -869,12 +1218,24 @@ def phase_kernels(earlier=None):
     hold_rescore(recs, amp, amp_host, AMPLICON_READ_LEN, 9, 960, 2048)
 
     recs += phase_cross()[0]
+    wide = phase_wide_kernels()
     for r in recs:
         twin = "" if "C=256" in r["shape"] else " and host twin"
         log(f"[kernels] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}), exact vs plain{twin}")
-    return recs, main
+    return recs, main, wide
+
+
+def after_own_kernel(recs, more):
+    """`recs` with each entry of `more` placed after the last entry of
+    its kernel: the record merges a kernel's shapes under its first
+    entry, from the entries that follow it."""
+    recs = list(recs)
+    for r in more:
+        order = [x["name"][:2] for x in recs]
+        recs.insert(len(order) - order[::-1].index(r["name"][:2]), r)
+    return recs
 
 
 # K4 at each path's shape: (label, W, query rows, units of the bucket,
@@ -1134,10 +1495,11 @@ def _record_pair_launches():
 
 def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False,
                           clone=False):
-    """Wraps the engine's call sites of the named kernels (K2, K3 through
-    its gather, K4). Returns (calls, undo): calls[kernel] maps every
-    launch shape to [count, the first such call's arguments, a CUDA event
-    pair around each such call (with `events`; else none)], so that each
+    """Wraps the call sites of the named kernels (K1 in the fused scour;
+    the engine's K2, K3 through its gather, K4). Returns (calls, undo):
+    calls[kernel] maps every launch shape to [count, the first such
+    call's arguments, a CUDA event pair around each such call (with
+    `events`; else none)], so that each
     shape a batch launched can be run again on the batch's own tensors
     (`hold_captured`) and K4's device time summed (`k4_report`). With
     `clone` the first call's tensors are kept as copies: a streamed
@@ -1146,7 +1508,7 @@ def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False,
     import torch
 
     from burst_tpu_torch import engine
-    from burst_tpu_torch.kernels import rescore
+    from burst_tpu_torch.kernels import rescore, scour_device
 
     def k2_shape(peq, tiles, pidx, tidx, W):
         return W, len(pidx), tiles.shape[1]
@@ -1162,14 +1524,15 @@ def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False,
         return (W, peq.shape[0], tiles.shape[0], tiles.shape[1],
                 str(out_dtype).removeprefix("torch."), peq.shape[1])
 
-    sites = {"K2": ("myers_pairs", k2_shape),
-             "K3": ("rescore_pairs_gather", k3_shape),
-             "K4": ("myers_cross", k4_shape)}
+    sites = {"K1": (scour_device, "myers_pairs_packed", k2_shape),
+             "K2": (engine, "myers_pairs", k2_shape),
+             "K3": (engine, "rescore_pairs_gather", k3_shape),
+             "K4": (engine, "myers_cross", k4_shape)}
     calls, saved = {}, []
     for kern in kernels:
-        name, shape_of = sites[kern]
-        fn = getattr(engine, name)
-        saved.append((name, fn))
+        mod, name, shape_of = sites[kern]
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
         calls[kern] = {}
 
         def capturing(*a, fn=fn, seen=calls[kern], shape_of=shape_of, **kw):
@@ -1191,11 +1554,11 @@ def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False,
             e1.record()
             entry[2].append((e0, e1))
             return out
-        setattr(engine, name, capturing)
+        setattr(mod, name, capturing)
 
     def undo():
-        for name, fn in saved:
-            setattr(engine, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     return calls, undo
 
 
@@ -1226,7 +1589,8 @@ def hold_captured(path: str, calls):
     the card. Returns [(kernel, record entry)] with the shape's launch
     count in the batch."""
     out = []
-    for kern, hold in (("K2", hold_pairs_call), ("K3", hold_rescore_call),
+    for kern, hold in (("K1", hold_pairs_packed_call),
+                       ("K2", hold_pairs_call), ("K3", hold_rescore_call),
                        ("K4", hold_cross_call)):
         for shape, (count, (a, kw), _) in sorted(calls.get(kern,
                                                          {}).items()):
@@ -2056,6 +2420,381 @@ def phase_long_reads():
         f"kernel launches at (kernel, W): {widths}")
 
 
+# Phase 10: full-length reads and whole references. (a) The amplicon
+# generator's database (1,200 families x 80 x 1,450 bp; the Greengenes 97 %
+# OTU set's ~99k full-length 16S sequences are its scale) sheared to one
+# unit per reference (max_len_q 1,500 at -i 0.97: a 1,546 bp shear) with
+# a k=12 accelerator, and reads of 1,300-1,450 bp. (b) Two of its families
+# and four random references of 16,569 bp (a human mitochondrial genome's
+# length) unsheared, through the command line without -s.
+# Cut so that the script stays inside its time limit (each cut logged):
+# 300 of the 1,200 families, 5,000 of the 20,000 fused reads, 1,100 of
+# the 2,000 two-step reads (as many as QBUNCH 16 needs: 2,048 unique
+# rows). The CPU checks take 64 reads, the batch's N reads among them.
+FULL_FAMILIES = 300
+FULL_READS, FULL_CAP_READS, FULL_CHECK_READS = 5000, 1100, 64
+FULL_MAX_LEN_Q = 1500
+WHOLE_FAMILIES, WHOLE_MITO, WHOLE_MITO_LEN = 2, 4, 16569
+WHOLE_READS, WHOLE_LONG_READS = 2000, 40
+
+
+def _full_reads(rng, refs, n, lo, hi, n_every=199):
+    """n reads of lo..hi bp cut from random references with the
+    amplicon generator's substitution rate (0-5 per 292 bp), every other
+    one reverse complemented, every n_every-th with one N."""
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    reads, heads = [], []
+    for i in range(n):
+        s = refs[int(rng.integers(0, len(refs)))]
+        ln = int(rng.integers(lo, min(hi, len(s)) + 1))
+        st = int(rng.integers(0, len(s) - ln + 1))
+        r = s[st:st + ln].copy()
+        for _ in range(int(rng.integers(0, 6 * ln // AMPLICON_READ_LEN))):
+            r[int(rng.integers(0, ln))] = bases[int(rng.integers(0, 4))]
+        if i % 2:
+            r = np.frombuffer(r[::-1].tobytes().translate(comp),
+                              np.uint8).copy()
+        if n_every and i % n_every == n_every - 1:
+            r[int(rng.integers(0, ln))] = ord("N")
+        reads.append(r)
+        heads.append(b"fq%06d" % i)
+    return heads, reads
+
+
+def _check_reads(reads, n):
+    """Indices of the n reads the CPU run checks for a batch `reads`:
+    its N reads among the first 1,000 (the fused path's K2 side branch),
+    then its first reads, and one read of each Myers width that those
+    leave out (the fused scan runs every clear row at the batch's widest
+    W, so the check batch has the timed batch's widest W too)."""
+    ws = [-(-len(r) // 32) for r in reads]
+    ck = [i for i in range(min(1000, len(reads)))
+          if (reads[i] == ord("N")).any()]
+    ck += [i for i in range(len(reads)) if i not in ck][:n - len(ck)]
+    have = {ws[i] for i in ck}
+    ck += [ws.index(w) for w in sorted(set(ws) - have)]
+    return sorted(ck)
+
+
+FULL_MODES = (("BEST", FULL_READS), ("CAPITALIST", FULL_CAP_READS))
+
+
+def _full_inputs():
+    """Phase 10 (a)'s database and reads, made from the seed (the card's
+    run and `full_cpu_checks` make the same): (reference heads,
+    references, taxonomy strings, query heads, reads, rd, acc, taxonomy
+    map, the generator, which (b) goes on drawing from)."""
+    import numpy as np
+
+    from burst_tpu_torch.accel import build_accelerator
+    from burst_tpu_torch.io.taxonomy import Taxonomy
+    from burst_tpu_torch.process import process_references
+    rheads, refs, tax, _, _ = make_amplicon_workload(FULL_FAMILIES, 0)
+    rng = np.random.default_rng(SEED + 20)
+    qheads, reads = _full_reads(rng, refs, FULL_READS, 1300, AMPLICON_LEN)
+    rd = process_references(rheads, [r.copy() for r in refs],
+                            max_len_q=FULL_MAX_LEN_Q, thres=AMPLICON_THRES,
+                            rebase=True, rebase_amt=320, curate=2)
+    acc = build_accelerator(rd, k=K, z=1)
+    tmap = Taxonomy(list(zip(rheads, tax)))
+    return rheads, refs, tax, qheads, reads, rd, acc, tmap, rng
+
+
+def _full_aligner(mode, rd, acc, tmap, device):
+    from burst_tpu_torch.serving import Aligner
+    extra = {"taxonomy": tmap} if mode == "CAPITALIST" else {}
+    return Aligner(rd, acc, mode=mode, device=device, thres=AMPLICON_THRES,
+                   do_rc=True, **extra)
+
+
+def full_cpu_checks(out_dir):
+    """`python3 chip_smoke.py full-cpu DIR`, which phase 10 starts: (a)'s
+    CPU runs in a process of their own, so that they overlap the card's
+    work. The same database and reads, from the seed; each mode on the
+    port's CPU path over its batch's check reads (`_check_reads`), the
+    bytes to DIR/<mode>.b6 (written whole, then renamed)."""
+    import torch
+    torch.set_num_threads(3)
+    _, _, _, qheads, reads, rd, acc, tmap, _ = _full_inputs()
+    for mode, n in FULL_MODES:
+        ck = _check_reads(reads[:n], FULL_CHECK_READS)
+        t0 = time.perf_counter()
+        b6 = _full_aligner(mode, rd, acc, tmap, "cpu").align_batch(
+            [qheads[i] for i in ck], [reads[i] for i in ck])
+        path = os.path.join(out_dir, f"{mode}.b6")
+        with open(path + ".part", "wb") as f:
+            f.write(b6)
+        os.replace(path + ".part", path)
+        log(f"[full] {mode}: the CPU run of {len(ck)} check reads took "
+            f"{time.perf_counter() - t0:.1f} s (3 threads, beside the "
+            "card's work)")
+
+
+def _background(args, log_path, **env):
+    """`python3 args` started from the checkout's root, its output to
+    log_path: (process, log_path)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "wb") as f:
+        proc = subprocess.Popen([sys.executable] + args, cwd=root,
+                                stdout=f, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, **env))
+    return proc, log_path
+
+
+def _joined(label, bg, timeout=900) -> str:
+    """Waits for a `_background` process; fails on another exit code
+    than 0. Returns its output."""
+    proc, log_path = bg
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its time limit"
+    with open(log_path, "rb") as f:
+        out = f.read().decode(errors="replace")
+    if rc != 0:
+        fail(f"{label}: exit {rc}:\n{out[-3000:]}")
+    return out
+
+
+def _full_run(label, al, qheads, reads, need, launch_log):
+    """A warm batch, then a timed one whose kernel calls are captured:
+    logs reads/s, peak memory and launches, holds every (kernel, shape)
+    it launched against the plain version on its own tensors, and fails
+    where a kernel of `need` did not launch past 16 words or 1,024
+    columns. Returns the timed batch's bytes."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda, rescore_cuda
+    t0 = time.perf_counter()
+    al.align_batch(qheads, reads)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    wide0 = {k: getattr(c, "wide", None) for k, c in _counters().items()}
+    routes0 = dict(rescore_cuda.rescore.routes)
+    calls, undo = _capture_kernel_calls(("K1", "K2", "K3", "K4"),
+                                        events=True)
+    try:
+        b6, dt, launches, peak = _timed_batch(al, qheads, reads, need)
+    finally:
+        undo()
+    wide = {k: c.wide - wide0[k] for k, c in _counters().items()
+            if wide0[k] is not None}
+    routes = {r: n - routes0[r] for r, n in
+              rescore_cuda.rescore.routes.items()}
+    log(f"[full] {label}: warm batch {warm:.1f} s; timed batch "
+        f"{len(reads)} reads in {dt:.3f} s = {len(reads) / dt:.1f} reads/s, "
+        f"{b6.count(NL)} b6 rows, peak device memory {peak / 2**30:.3f} GiB; "
+        f"launches {launches}, of them on the wide routes {wide}, K3 by "
+        f"route {routes}; stats {al.last_stats}")
+    for kern, key in (("k1", "k1"), ("k2", "k2"), ("k4", "k4")):
+        if kern in need and not wide[key]:
+            fail(f"[full] {label}: {kern} never took its wide route")
+    if "k3" in need and not (routes["wide"] + routes["global"]):
+        fail(f"[full] {label}: K3 never took a wide route: {routes}")
+    launch_log[f"full {label}"] = launches
+    launch_log["held"] += hold_captured(f"full {label}", calls)
+    return b6
+
+
+def phase_full_length(launch_log):
+    """Phase 10. (a) BEST fused at QBUNCH 1 over FULL_READS reads of
+    1,300-1,450 bp (K1 at W = 41-46 over the clear rows, K2 over the N
+    rows' side pairs, K3 at up to 1,456 rows), then CAPITALIST with the
+    7-level LCA on the two-step path at QBUNCH 16 (K2, K3) over
+    FULL_CAP_READS of them; each a warm and a timed batch, every shape
+    held, FULL_CHECK_READS reads' bytes (`_check_reads`: the N reads
+    among them, and every width of the timed batch) against the port's
+    CPU run. (b) The command line without -s on two families and four
+    16,569 bp references (every reference one unit): BEST and
+    CAPITALIST -b over WHOLE_READS reads of 150-300 bp and 1,300-1,450
+    bp, both strands (K4 at W up to 46, K3 past 1,024 columns and on its
+    global route for the 16,569 bp units; every K3 and K4 shape of the
+    two runs held, each once), each against the CLI's CPU run on 32
+    reads of 289-300 bp (4 of them from the 16,569 bp references) and
+    up to 4 of the long reads, those of the longest one's width. The
+    CPU runs go in processes of their own beside the card's work
+    (`full_cpu_checks`, the CLI with BURST_TPU_TORCH_DEVICE=cpu)."""
+    import shutil
+
+    import torch
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke_whole")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    p = lambda name: os.path.join(work, name)
+    bg = {"full-cpu": _background(["chip_smoke.py", "full-cpu", work],
+                                  p("full_cpu.log"))}
+    try:
+        _full_length(launch_log, p, bg)
+    finally:
+        for proc, _ in bg.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _full_length(launch_log, p, bg):
+    """`phase_full_length`'s body: `p(name)` a path in its work
+    directory, its background processes in `bg`."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.kernels import rescore_cuda
+    t0 = time.perf_counter()
+    rheads, refs, tax, qheads, reads, rd, acc, tmap, rng = _full_inputs()
+    log(f"[full] workload + host DB build {time.perf_counter() - t0:.1f} s: "
+        f"{FULL_FAMILIES} families (the source has 1200) x "
+        f"{AMPLICON_MEMBERS} x {AMPLICON_LEN} bp = "
+        f"{len(refs) * AMPLICON_LEN / 1e6:.1f} Mbp, shear {rd.shear}, "
+        f"{rd.tot_units} units (one a reference), {FULL_READS} reads of "
+        f"1,300-{AMPLICON_LEN} bp (the cell asks for 20000), "
+        f"{FULL_CAP_READS} of them two-step (2000)")
+    cuda = torch.device("cuda")
+    gpu_checks = {}
+    for mode, n in FULL_MODES:
+        t0 = time.perf_counter()
+        al = _full_aligner(mode, rd, acc, tmap, cuda)
+        torch.cuda.synchronize()
+        if mode == "BEST":
+            log(f"[full] device DB load {time.perf_counter() - t0:.1f} s; "
+                + scour_budgets(al.db.tabs, AMPLICON_LEN - K + 1))
+            b6 = _full_run("BEST fused", al, qheads, reads,
+                           ("k1", "k2", "k3"), launch_log)
+            if al.last_stats.get("qbunch") != 1 or "dev_pairs" not in \
+                    al.last_stats or b6.count(NL) < n // 10:
+                fail(f"[full] BEST: not the fused path, or few rows: "
+                     f"{al.last_stats}, {b6.count(NL)} rows")
+        else:
+            b6 = _full_run("CAPITALIST two-step", al, qheads[:n],
+                           reads[:n], ("k2", "k3"), launch_log)
+            if al.last_stats.get("qbunch") != 16 or b6.count(NL) < n // 10:
+                fail(f"[full] CAPITALIST: not QBUNCH 16, or few rows: "
+                     f"{al.last_stats}, {b6.count(NL)} rows")
+        ck = _check_reads(reads[:n], FULL_CHECK_READS)
+        gpu_checks[mode] = (ck, al.align_batch([qheads[i] for i in ck],
+                                               [reads[i] for i in ck]))
+        del al
+        torch.cuda.empty_cache()
+    del rd, acc
+
+    # (b) whole references through the command line, without -s
+    n2 = WHOLE_FAMILIES * AMPLICON_MEMBERS
+    mito = [rng.choice(np.frombuffer(b"ACGT", np.uint8), WHOLE_MITO_LEN)
+            for _ in range(WHOLE_MITO)]
+    wrefs = refs[:n2] + mito
+    wheads = rheads[:n2] + [b"mito%d" % i for i in range(WHOLE_MITO)]
+    _write_fasta(p("refs.fa"), wheads, wrefs)
+    with open(p("tax.tsv"), "wb") as f:
+        mtax = [b"k__Bacteria;p__M"] * WHOLE_MITO
+        for h, t in zip(wheads, tax[:n2] + mtax):
+            f.write(h + b"\t" + t + b"\n")
+    # every 20th short read from a 16,569 bp reference (K3's global route)
+    sh, sr = _full_reads(rng, refs[:n2], WHOLE_READS - WHOLE_LONG_READS,
+                         150, 300, n_every=0)
+    for i in range(0, len(sr), 20):
+        sr[i] = _full_reads(rng, mito, 1, 150, 300, n_every=0)[1][0]
+    lh, lr = _full_reads(rng, refs[:n2], WHOLE_LONG_READS, 1300,
+                         AMPLICON_LEN, n_every=0)
+    wq = [b"w" + h for h in sh] + [b"l" + h for h in lh]
+    wr = sr + lr
+    # the CPU check: reads of one Myers width each (W = 10 short, 46
+    # long: the plain cross scan costs seconds per width over the 16,608
+    # columns of the 16,569 bp bucket), from the 1,450 bp and the
+    # 16,569 bp references
+    w10 = [i for i in range(len(sr)) if 289 <= len(sr[i]) <= 300]
+    ck = [i for i in w10 if i % 20][:28] + [i for i in w10 if not i % 20][:4]
+    wl = -(-max(len(r) for r in lr) // 32)      # the longest reads' W
+    ck += [len(sr) + i for i in range(len(lr))
+           if len(lr[i]) > 32 * (wl - 1)][:4]
+    if len(ck) < 33 or ck[-1] < len(sr):
+        fail(f"[full] whole references: {len(ck)} check reads")
+    _write_fasta(p("reads.fa"), wq, wr)
+    _write_fasta(p("check.fa"), [wq[i] for i in ck], [wr[i] for i in ck])
+    runs = (("BEST", ["-m", "BEST"]),
+            ("CAPITALIST -b", ["-m", "CAPITALIST", "-b", p("tax.tsv")]))
+    base = lambda extra: ["-r", p("refs.fa"), "-i", str(AMPLICON_THRES),
+                          "-fr"] + extra
+    for i, (label, extra) in enumerate(runs):
+        bg[label] = _background(
+            ["-m", "burst_tpu_torch.cli"] + base(extra)
+            + ["-q", p("check.fa"), "-o", p(f"cpu{i}.b6")], p(f"cpu{i}.log"),
+            BURST_TPU_TORCH_DEVICE="cpu", OMP_NUM_THREADS="2")
+    held = {"K3": set(), "K4": set()}
+    for i, (label, extra) in enumerate(runs):
+        routes0 = dict(rescore_cuda.rescore.routes)
+        wide0 = _counters()["k4"].wide
+        calls, undo = _capture_kernel_calls(("K3", "K4"))
+        try:
+            b6, ph, launches, stats, wall = cli_run(
+                f"whole {label}", base(extra) + ["-q", p("reads.fa"), "-o",
+                                                 p("gpu.b6")],
+                "cuda", ("k3", "k4"))
+        finally:
+            undo()
+        routes = {r: c - routes0[r]
+                  for r, c in rescore_cuda.rescore.routes.items()}
+        k4_wide = _counters()["k4"].wide - wide0
+        l1s = sorted({sh_[3] for sh_ in calls["K3"]})
+        log(f"[full] whole references, {label}: {len(wr)} reads, "
+            f"{b6.count(NL)} rows, {_align_s(ph, wall):.3f} s in the align "
+            f"phases, launches {launches}, K3 by route {routes} at L1 "
+            f"{l1s}, K4 wide {k4_wide}; path {stats.get('path')}")
+        if stats.get("path") != "direct" or not routes["global"] or \
+                not routes["wide"] or not k4_wide or max(l1s) <= 1024 or \
+                b6.count(NL) < len(wr) // 2:
+            fail(f"[full] whole {label}: the wide routes did not all "
+                 f"launch, or few rows: {routes}, K4 wide {k4_wide}, L1 "
+                 f"{l1s}, {b6.count(NL)} rows")
+        launch_log[f"whole {label}"] = launches
+        # every K3 and K4 shape the run launched, on its own tensors (the
+        # 16,569 bp bucket's K4 at every read width, Lp = 16,608),
+        # each shape once over both modes (phase A's are the same in
+        # every mode)
+        for kern in held:
+            seen = len(calls[kern])
+            calls[kern] = {k: v for k, v in calls[kern].items()
+                           if k not in held[kern]}
+            held[kern] |= set(calls[kern])
+            log(f"[full] whole references, {label}: {seen} {kern} shapes, "
+                f"{seen - len(calls[kern])} of them held already")
+        launch_log["held"] += hold_captured(f"whole {label}", calls)
+        del calls
+        gpu = cli_run(f"whole {label}", base(extra) + [
+            "-q", p("check.fa"), "-o", p("gpu.b6")], "cuda")[0]
+        t0 = time.perf_counter()
+        _joined(f"[full] whole {label}: the CLI's CPU run", bg[label])
+        with open(p(f"cpu{i}.b6"), "rb") as f:
+            cpu = f.read()
+        _same_bytes(f"[full] whole {label}, {len(ck)} reads", gpu, cpu)
+        log(f"[full] whole references, {label}: {len(ck)} reads' "
+            f"{gpu.count(NL)} rows identical to the CLI's CPU run (its "
+            f"process beside the card's work; waited "
+            f"{time.perf_counter() - t0:.1f} s for it)")
+
+    t0 = time.perf_counter()
+    out = _joined("[full] the CPU runs of (a)", bg["full-cpu"])
+    sys.stdout.write(out)
+    for mode, n in FULL_MODES:
+        ck, gpu = gpu_checks[mode]
+        with open(p(f"{mode}.b6"), "rb") as f:
+            cpu = f.read()
+        r = [reads[i] for i in ck]
+        ws = sorted({-(-len(x) // 32) for x in r})
+        _same_bytes(f"[full] {mode}, {len(ck)} check reads", gpu, cpu)
+        log(f"[full] {mode}: {len(ck)} check reads ("
+            f"{sum(int((x == ord('N')).any()) for x in r)} with an N, W "
+            f"{ws[0]}-{ws[-1]}; the timed batch's widest "
+            f"{max(-(-len(x) // 32) for x in reads[:n])}): {gpu.count(NL)} "
+            f"rows identical to the CPU run (waited "
+            f"{time.perf_counter() - t0:.1f} s for it)")
+
+
 def pinned_copy_gbs() -> float:
     """GB/s of one plain 1 GiB host-to-device copy from pinned memory
     (after one warm copy): what the staging ring's copies are held to."""
@@ -2289,7 +3028,8 @@ def phase_slab(cells, launch_log):
     n = E2E_CHECK_READS
     pieces = state.database_pieces(fu["rd"], fu["acc"], (4,))
     budget = fixed + sum(v for k, v in pieces.items() if k != ("store",)) \
-        + 2 * state.SLAB_MIN_ROWS * state.widest_row(fu["rd"])
+        + 2 * state.SLAB_MIN_ROWS * state.widest_row(fu["rd"],
+                                                     state.PLAN_W)
     al = _slab_aligner("fused", fu["rd"], fu["acc"], budget,
                        dict(thres=THRES, mode="BEST", do_rc=True))
     al.warmup(read_len=READ_LEN)
@@ -2731,6 +3471,9 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    if sys.argv[1:2] == ["full-cpu"]:      # phase 10's own CPU runs
+        full_cpu_checks(sys.argv[2])
+        return
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
@@ -2756,6 +3499,18 @@ def main():
             print(json.dumps({"cross_in_turns": turns}), flush=True)
         print(card_line(), flush=True)
         return
+    if sys.argv[1:] == ["long"]:
+        phase_build()
+        launch_log = {"held": []}
+        phase_full_length(launch_log)
+        print(card_line(), flush=True)
+        return
+    if sys.argv[1:] == ["wide"]:
+        phase_sass(phase_build())
+        print(json.dumps({"wide_kernels": phase_wide_kernels()}),
+              flush=True)
+        print(card_line(), flush=True)
+        return
     if sys.argv[1:] == ["twostep"]:
         phase_build()
         phase_twostep({"k4_batches": {}, "held": []}, profile=True)
@@ -2772,7 +3527,7 @@ def main():
         print(card_line(), flush=True)
         return
     phase_sass(phase_build())
-    recs, main_case = phase_kernels()
+    recs, main_case, wide = phase_kernels()
     if sys.argv[1:] == ["kernels"]:
         phase_pairs_path(main_case, PATH_B)
         return
@@ -2787,7 +3542,8 @@ def main():
     # the kernel record, the B = 8192 entries ride along under "also"
     at_path = phase_pairs_path(main_case, launch_log.pop("k1_B"))
     del main_case
-    recs = [at_path[0], recs[0], at_path[1], recs[1]] + recs[2:]
+    recs = after_own_kernel(
+        [at_path[0], recs[0], at_path[1], recs[1]] + recs[2:], wide)
     phase_long_reads()
     done("phase 3")
     cells["direct"] = phase_direct(launch_log)
@@ -2803,6 +3559,8 @@ def main():
     done("phase 8")
     del cells
     phase_cli(launch_log)
+    done("phase 9")
+    phase_full_length(launch_log)
     held = launch_log.pop("held")
     k4_batches = launch_log.pop("k4_batches")
     # one entry per kernel, at the shape of the path that counts its

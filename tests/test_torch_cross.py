@@ -233,9 +233,16 @@ def test_cross_wrapper_rejects(bad):
     peq = torch.zeros((4, 16, 2), dtype=torch.int32)
     tiles = torch.zeros((5, 40), dtype=torch.uint8)
     if bad == "W":
-        with pytest.raises(NotImplementedError, match="W=17"):
+        # W = 17 (queries over 512 bp) runs and equals burst_tpu's cross
+        # scan; a table of no words is refused
+        peq17, tiles17 = _inputs(717, 17, 4, 5, 600)
+        np.testing.assert_array_equal(
+            myers_cuda.myers_cross(torch.from_numpy(peq17.view(np.int32)),
+                                   torch.from_numpy(tiles17), 17).numpy(),
+            np.asarray(jmyers.myers_min_ed_cross(peq17, tiles17, 17)))
+        with pytest.raises(ValueError, match="W=0"):
             myers_cuda.myers_cross(
-                torch.zeros((4, 16, 17), dtype=torch.int32), tiles, 17)
+                torch.zeros((4, 16, 0), dtype=torch.int32), tiles, 0)
     elif bad == "dtype":
         with pytest.raises(ValueError, match="int32"):
             myers_cuda.myers_cross(peq.long(), tiles, 2)
@@ -281,11 +288,14 @@ struct dim3 {
 };
 struct uint3 { unsigned x, y, z; };
 extern thread_local uint3 threadIdx, blockIdx;
-extern dim3 blockDim;
+extern dim3 blockDim, gridDim;
 extern std::barrier<>* g_bar;
 typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1 };
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class T> T __ldg(const T* p) { return *p; }
 inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
   return (unsigned)(((((uint64_t)hi << 32) | lo) << (s & 31)) >> 32);
@@ -298,12 +308,13 @@ _EMU_TAIL = r"""
 #include <thread>
 #include <vector>
 thread_local uint3 threadIdx, blockIdx;
-dim3 blockDim;
+dim3 blockDim, gridDim;
 std::barrier<>* g_bar;
 namespace {
 template <class K, class... A>
 void run_grid(K kern, dim3 grid, int threads, A... a) {
   blockDim = dim3(threads);
+  gridDim = grid;
   for (unsigned y = 0; y < grid.y; ++y)
     for (unsigned x = 0; x < grid.x; ++x) {
       std::barrier<> bar(threads);
@@ -322,9 +333,30 @@ void run_grid(K kern, dim3 grid, int threads, A... a) {
 """
 
 
+class _EmulatedCross:
+    """The launch entries of the emulated library: a call is
+    `myers_cross_launch`, `.wide` is `myers_cross_wide_launch`."""
+
+    def __init__(self, lib):
+        import ctypes
+        self.narrow = lib.myers_cross_launch
+        self.narrow.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p]
+        self.wide = lib.myers_cross_wide_launch
+        self.wide.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p]
+        for f in (self.narrow, self.wide):
+            f.restype = ctypes.c_int
+
+    def __call__(self, *args):
+        return self.narrow(*args)
+
+
 @pytest.fixture(scope="module")
 def emulated_cross(tmp_path_factory):
-    """`myers_cross_launch` of csrc/myers_cross.cu built for the CPU."""
+    """csrc/myers_cross.cu built for the CPU: its two launch entries,
+    the narrow kernels' and the wide route's (its dynamic shared memory
+    a static buffer, as the emulated CTAs run one at a time)."""
     import ctypes
     import os
     import subprocess
@@ -342,9 +374,15 @@ def emulated_cross(tmp_path_factory):
         assert head in src, fn
         i = src.index(head) + len(head)
         src = src[:i] + body + src[src.index("\n}\n", i) + 3:]
-    assert src.count("kern<<<grid, threads, 0, stream>>>(") == 1
-    src = src.replace("kern<<<grid, threads, 0, stream>>>(",
-                      "run_grid(kern, grid, threads, ")
+    for launch, kern in (
+            ("kern<<<grid, threads, 0, stream>>>(", "kern"),
+            ("wide<<<grid, threads, smem, static_cast<cudaStream_t>"
+             "(stream)>>>(", "wide")):
+        assert src.count(launch) == 1, launch
+        src = src.replace(launch, f"run_grid({kern}, grid, threads, ")
+    dyn = "extern __shared__ uint32_t s_state[];"
+    assert src.count(dyn) == 1
+    src = src.replace(dyn, "static uint32_t s_state[1 << 20];")
     src = src.replace("namespace {\n", "namespace {\ntemplate <class K, "
                       "class... A> void run_grid(K, dim3, int, A...);\n", 1)
     d = tmp_path_factory.mktemp("emu")
@@ -356,11 +394,7 @@ def emulated_cross(tmp_path_factory):
          str(so), str(d / "emu.cpp"), "-lpthread"],
         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-3000:]
-    fn = ctypes.CDLL(str(so)).myers_cross_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _EmulatedCross(ctypes.CDLL(str(so)))
 
 
 @pytest.mark.parametrize("W,Q,T,Lp,offset,u8,C", [
@@ -374,9 +408,14 @@ def emulated_cross(tmp_path_factory):
     (1, 3, 10, 0, 0, 1, 16),         # no column at all
     (2, 9, 150, 130, 0, 1, 256),     # raw bytes, cp.async
     (4, 6, 70, 170, 1, 0, 256),      # raw bytes, register staging
-    (16, 3, 20, 600, 0, 0, 256)],    # the largest 256-code table
+    (16, 3, 20, 600, 0, 0, 256),     # the largest narrow 256-code table
+    (17, 3, 150, 640, 0, 1, 16),     # the wide route: words in shared
+    (46, 2, 40, 1500, 1, 0, 16),     # memory, register staging
+    (20, 2, 35, 680, 0, 1, 256),     # raw bytes past 16 words
+    (920, 1, 33, 40, 0, 0, 16)],     # words in a global scratch
     ids=["W1-bytes", "W2-async", "W1-off1", "W3", "W4-off2", "W10", "W16",
-         "Lp0", "W2-x256", "W4-x256-off1", "W16-x256"])
+         "Lp0", "W2-x256", "W4-x256-off1", "W16-x256", "W17", "W46-off1",
+         "W20-x256", "W920-global"])
 def test_cross_kernel_source_on_cpu(emulated_cross, W, Q, T, Lp, offset,
                                     u8, C):
     peq, tiles = _inputs(600 + W + Lp, W, Q, T, max(Lp, 32 * W + 40), C)
@@ -387,12 +426,22 @@ def test_cross_kernel_source_on_cpu(emulated_cross, W, Q, T, Lp, offset,
                                      score_matrix())[1::2]
     buf = np.zeros(T * Lp + offset + 4, np.uint8)
     buf[offset:offset + T * Lp] = tiles.ravel()
-    NQ, threads, (gx, gy) = myers_cuda.cross_geometry(Q, T, W)
     out = np.zeros((Q, T), np.uint8 if u8 else np.int32)
     peq32 = np.ascontiguousarray(peq.view(np.int32))
-    assert emulated_cross(peq32.ctypes.data, buf.ctypes.data + offset,
-                          out.ctypes.data, Q, T, W, Lp, C, NQ, threads, gx,
-                          gy, u8, None) == 0
+    if W > myers_cuda.NARROW_W:
+        threads, (gx, gy), smem, words = myers_cuda.cross_wide_geometry(
+            Q, T, W)
+        assert (words > 0) == (W == 920) and gy == Q
+        scratch = np.zeros(max(1, words), np.uint32)
+        assert emulated_cross.wide(
+            peq32.ctypes.data, buf.ctypes.data + offset, out.ctypes.data,
+            scratch.ctypes.data if words else None, Q, T, W, Lp, C,
+            threads, gx, gy, smem, u8, None) == 0
+    else:
+        NQ, threads, (gx, gy) = myers_cuda.cross_geometry(Q, T, W)
+        assert emulated_cross(peq32.ctypes.data, buf.ctypes.data + offset,
+                              out.ctypes.data, Q, T, W, Lp, C, NQ, threads,
+                              gx, gy, u8, None) == 0
     ref = myers.myers_cross_plain(torch.from_numpy(peq32),
                                   torch.from_numpy(tiles), W,
                                   torch.uint8 if u8 else torch.int32)

@@ -125,12 +125,22 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         myers_cuda.myers_pairs(peq_t, _t(tiles), _t(pidx.astype(np.int64)),
                                _t(tidx), 2)
-    W = myers_cuda.MAX_W + 1
-    assert W == 17
-    for fn in (myers_cuda.myers_pairs, myers_cuda.myers_pairs_packed):
-        with pytest.raises(NotImplementedError, match="W <= 16"):
-            fn(torch.zeros((1, 16, W), dtype=torch.int32), _t(tiles),
-               _t(pidx), _t(tidx), W)
+    # W = 17 (queries over 512 bp) runs in both tile formats and equals
+    # burst_tpu's pair scan; a table of no words is refused
+    W = myers_cuda.NARROW_W + 1
+    _, _, peq, tiles, pidx, tidx = _pairs(4, W, 600, NQ=3, NT=4, B=6)
+    ref = np.asarray(jmyers.myers_min_ed_gather_pos(
+        jnp.asarray(peq), jnp.asarray(tiles), jnp.asarray(pidx),
+        jnp.asarray(tidx), W))
+    packed = jmyers.pack_nibbles_np(tiles)
+    for fn, tl in ((myers_cuda.myers_pairs, tiles),
+                   (myers_cuda.myers_pairs_packed, packed)):
+        np.testing.assert_array_equal(
+            fn(_t(peq.view(np.int32)), _t(tl), _t(pidx), _t(tidx),
+               W).numpy(), ref)
+        with pytest.raises(ValueError, match="W=0"):
+            fn(torch.zeros((1, 16, 0), dtype=torch.int32), _t(tl),
+               _t(pidx), _t(tidx), 0)
 
 
 def _tie_pairs(seed, W, Lp, NQ=8, NT=8, B=48):
@@ -231,7 +241,7 @@ def _fused_column_np(eq, VP, VN):
         (mh >> np.uint64(31)).astype(np.int64)
 
 
-@pytest.mark.parametrize("W", range(1, 17))
+@pytest.mark.parametrize("W", [*range(1, 17), 17, 46])
 def test_fused_column_equals_two_pass(W):
     """Random VP/VN/Eq states and the cases whose carry runs through
     every word (Eq and VP all ones, with and without one low bit), over
@@ -247,16 +257,24 @@ def test_fused_column_equals_two_pass(W):
         eq[:4] = M32
         eq[4:8] = 1
         eq[8:12] = M32
-        tVP = [torch.from_numpy(VP[:, w].astype(np.int64)) for w in range(W)]
-        tVN = [torch.from_numpy(VN[:, w].astype(np.int64)) for w in range(W)]
-        teq = [torch.from_numpy(eq[:, w].astype(np.int64)) for w in range(W)]
-        ref = myers._col_step(teq, tVP, tVN, W)
+        if W <= 16:
+            tVP = [torch.from_numpy(VP[:, w].astype(np.int64))
+                   for w in range(W)]
+            tVN = [torch.from_numpy(VN[:, w].astype(np.int64))
+                   for w in range(W)]
+            teq = [torch.from_numpy(eq[:, w].astype(np.int64))
+                   for w in range(W)]
+            ref = myers._col_step(teq, tVP, tVN, W)
+            tVP, tVN = torch.stack(tVP, 1), torch.stack(tVN, 1)
+        else:     # past 16 words: every word in one tensor step
+            tVP, tVN, ref = myers._col_step_wide(
+                torch.from_numpy(eq.astype(np.int64)),
+                torch.from_numpy(VP.astype(np.int64)),
+                torch.from_numpy(VN.astype(np.int64)))
         got = _fused_column_np(eq, VP, VN)
         np.testing.assert_array_equal(got, ref.numpy())
-        np.testing.assert_array_equal(
-            VP.astype(np.int64), torch.stack(tVP, 1).numpy())
-        np.testing.assert_array_equal(
-            VN.astype(np.int64), torch.stack(tVN, 1).numpy())
+        np.testing.assert_array_equal(VP.astype(np.int64), tVP.numpy())
+        np.testing.assert_array_equal(VN.astype(np.int64), tVN.numpy())
 
 
 def _pair_kernel_np(peq, mem, base, NT, rowbytes, ncols, pidx, tidx, W,

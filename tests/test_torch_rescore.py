@@ -159,10 +159,29 @@ def test_wrapper_rejects_bad_shapes():
         rescore_cuda.rescore(z((4, 64), dtype=torch.int32),
                              z((4, 100), dtype=torch.uint8),
                              z((4, 2), dtype=torch.int32), 4, 2, 8, 128)
-    with pytest.raises(NotImplementedError):
-        rescore_cuda.rescore(z((4, 64), dtype=torch.int32),
+    # L1 = 2048 (past the block route's 1,024 columns) runs and equals
+    # burst_tpu's jnp rescore at that width; rows past 32W are refused
+    smat, peq, tiles, pidx, tidx, qlens, max_ed = _case(
+        31, W=2, NT=4, lb=1900, P=5, qlen_lo=50)
+    L1 = 2048
+    tl = np.zeros((len(pidx), L1 - 1), np.uint8)
+    tl[:, :tiles.shape[1]] = tiles[tidx]
+    rows = prescore.rows_for(qlens, 2)
+    levels = prescore.levels_for(max_ed)
+    ref = np.stack([np.asarray(o) for o in make_rescore(smat)(
+        jnp.asarray(peq[pidx]), jnp.asarray(qlens.astype(np.int32)),
+        jnp.asarray(tl), jnp.asarray(max_ed.astype(np.int32)), 2, levels,
+        rows)])
+    qmeta = np.stack([qlens, max_ed], axis=1).astype(np.int32)
+    got = rescore_cuda.rescore(
+        _t(peq[pidx].reshape(len(pidx), 32).view(np.int32)), _t(tl),
+        _t(qmeta), 2, levels, rows, L1)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert rescore_cuda.rescore_geometry(len(pidx), rows, L1)[0] == "wide"
+    with pytest.raises(ValueError, match="rows=72"):
+        rescore_cuda.rescore(z((4, 32), dtype=torch.int32),
                              z((4, 2047), dtype=torch.uint8),
-                             z((4, 2), dtype=torch.int32), 4, 2, 8, 2048)
+                             z((4, 2), dtype=torch.int32), 2, 2, 72, 2048)
 
 
 @pytest.mark.parametrize("windowed", [False, True], ids=["full", "window"])

@@ -156,8 +156,8 @@ def test_align_stream_matches_batches(bench_db):
 
 
 def test_outside_slice_raises(bench_db):
-    """What the port does not cover yet raises NotImplementedError
-    naming its ROADMAP item; what it now covers no longer does (every
+    """What the port does not cover raises; what it now covers no
+    longer does (reads of any length, every
     mode with an accelerator, and a batch without a clear row, are held
     to burst_tpu's bytes in test_torch_twostep.py)."""
     from burst_tpu_torch.serving import MODES, Aligner
@@ -181,14 +181,32 @@ def test_outside_slice_raises(bench_db):
     assert al.align_batch([b"s"], batch[:1]) == \
         direct.align_batch([b"s"], batch[:1]) != b""
     assert al.last_stats == dict(qbunch=1, pairs=0, full_rows=1)
-    # reads of 257-512 bp (W = 9..16) are inside the pair kernel's range
-    # now; longer ones still raise, on either path
+    # reads of any length align, on either path: a 520 bp read (W = 17,
+    # the pair and cross kernels' wide route) beside a 300 bp one gives
+    # burst_tpu's bytes, here a 520 bp cut of a reference with one
+    # substitution and a random one
+    from burst_tpu.serving import Aligner as JAligner
     rng = np.random.default_rng(5)
-    for acc in (None, pacc):
-        al = Aligner(prd, acc, thres=0.98, mode="BEST", device="cpu")
-        al.align_batch([b"u"], [rng.choice(bases, size=300)])
-        with pytest.raises(NotImplementedError, match="W=17"):
-            al.align_batch([b"v"], [rng.choice(bases, size=520)])
+    from burst_tpu_torch.alphabet import codes_to_str
+    cut = np.frombuffer(codes_to_str(bench_db[0].seqs[0][:520]).encode(),
+                        np.uint8).copy()
+    cut[200] = ord("A") if cut[200] != ord("A") else ord("C")
+    heads = [b"u", b"v", b"w"]
+    longs = [rng.choice(bases, size=300), rng.choice(bases, size=520), cut]
+    # one slot budget in both packages: a row that overflows it is
+    # scanned at its own W, one that does not at the batch's widest
+    os.environ.update(BURST_TPU_DEV_SCOUR="1", BURST_TPU_SCOUR_E="3072")
+    try:
+        for jacc, acc in ((None, None), (bench_db[1], pacc)):
+            al = Aligner(prd, acc, thres=0.98, mode="BEST", device="cpu")
+            got = al.align_batch(heads, [r.copy() for r in longs])
+            ref = JAligner(bench_db[0], jacc, thres=0.98, mode="BEST"
+                           ).align_batch(heads, [r.copy() for r in longs])
+            assert got == ref
+            assert got.count(b"\n") == (acc is None)
+    finally:
+        os.environ.pop("BURST_TPU_DEV_SCOUR")
+        os.environ.pop("BURST_TPU_SCOUR_E")
 
 
 def test_import_without_jax():

@@ -457,17 +457,27 @@ def test_batch_without_clear_rows_matches_jax(served, mode):
 # ------------------------------------------------- what still raises
 
 def test_outside_the_slice_raises(work):
-    """What the slice leaves out raises, naming why: a read over 512 bp
-    (17 Myers words) on the fused path. What it takes in does not: the
-    heuristic cut's visits (the native scour at clump level, no unit
-    prefilter) equal burst_tpu's at QBUNCH 1 and 4, and a raw-byte
-    database has nothing to fuse (None: the two-step path's full scan).
-    A batch whose alphabet is not its database's raises ValueError."""
+    """What the slice takes in does not raise: a read over 512 bp (17
+    Myers words) on the fused path gives burst_tpu's visits and pair
+    results; the heuristic cut's visits (the native scour at clump
+    level, no unit prefilter) equal burst_tpu's at QBUNCH 1 and 4, and a
+    raw-byte database has nothing to fuse (None: the two-step path's
+    full scan). A batch whose alphabet is not its database's raises
+    ValueError."""
     long_read = np.tile(work.reads[0], 6)[:530]
-    _, _, pqd, pbins = work.batch(work.heads[:8],
-                                  work.reads[:7] + [long_read])
-    with pytest.raises(NotImplementedError, match="W=17"):
-        engine.accel_scan_fused(pqd, work.db, pbins, qbunch=1)
+    jqd, jbins, pqd, pbins = work.batch(work.heads[:8],
+                                        work.reads[:7] + [long_read])
+    jvis, jsed = jengine.accel_scan_fused(jqd, work.rd, work.acc, jbins,
+                                          qbunch=1)
+    vis, sed, stats = engine.accel_scan_fused(pqd, work.db, pbins,
+                                              qbunch=1)
+    _same_visits(vis, jvis)
+    jsed.materialize()
+    sed.materialize()
+    assert stats["dev_pairs"] > 0 and len(sed.pj) == len(jsed.pj)
+    for name in ("pj", "pp", "pe", "pfirst", "plast"):
+        np.testing.assert_array_equal(getattr(sed, name),
+                                      getattr(jsed, name), err_msg=name)
     heads, reads = work.heads[:120], work.reads[:120]
     for qbunch in (1, 4):
         jqd = jprocess_queries(heads, [r.copy() for r in reads],
