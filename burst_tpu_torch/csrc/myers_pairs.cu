@@ -57,20 +57,19 @@
 //    use without opting in.
 //
 // Past W = 16, or where a score could pass the packed keys' 15 bits
-// (32W + columns >= 32,768), `myers_pairs_wide_kernel`: W at run time,
-// one thread per pair as above, the thread's VP/VN words in shared
-// memory laid out [word][thread] (8W bytes a thread, conflict-free),
-// its Eq words read through the L1 cache (the pairs of a warp are most
-// often one query's: a broadcast), its tile one byte a column (the byte
-// load is one per W word steps), and the position tracked with plain
-// 32-bit compares (no packed keys, so no score limit). The words run
-// in order with a 64-bit add's carry, as in the plain version. CTAs of
-// 64 threads (32 for small launches) hold 512W bytes of state; past the
-// 48 KB a CTA holds without opting in, dynamic shared memory up to the
-// card's 227 KB (W <= 453 at 64 threads, 907 at 32), beyond that the
-// state in a global scratch the wrapper allocates, the CTAs walking
-// over the pairs. A simple first design for the shapes burst_tpu sends
-// to its jnp routes; PERF.md has its rate against the bound.
+// (32W + columns >= 32,768), `myers_pairs_wide_kernel`: W at run time.
+// The work is the same ~10.6 integer operations a Myers word a column;
+// what held the first, one-thread-a-pair design to a tenth to a fifth of
+// that rate was its serial chain (2W shared-memory round trips and W
+// Eq loads a column on one thread) and its 64-thread CTAs (at the fused
+// batch's 5,824 pairs, 91 CTAs on 132 SMs). Here a pair is a group of G
+// = 8, 16 or 32 lanes, each lane K <= 28 consecutive words in
+// registers, the carry across the lanes of a column resolved by two
+// ballots and one add (carry-lookahead over the warp's bits), the shift
+// across them by one shuffle: G times the lanes on a pair and no memory
+// on the chain. G and K come from W (`pair_wide_geometry`); past W =
+// 896 the words stay in a global scratch (`myers_pairs_scratch_kernel`,
+// the first design). PERF.md has both designs' rates against the bound.
 
 #include <climits>
 #include <cstdint>
@@ -317,22 +316,148 @@ __global__ void myers_pairs_kernel(const uint32_t* __restrict__ peq_all,
 }
 
 
-// The wide route. GLOBAL: `state` is a global scratch of
-// gridDim.x x blockDim.x x 2W words, the CTAs walking over the pairs;
-// else dynamic shared memory of blockDim.x x 2W words.
-template <bool GLOBAL>
+// The wide route: a group of G = 8, 16 or 32 lanes a pair
+// (`pair_wide_geometry` in kernels/myers_cuda.py picks G and K). Lane l
+// of a group owns Myers words l K .. l K + K - 1 of a G K-word column,
+// VP/VN in registers; the query's W words are its top W, the G K - W
+// below them stay VP = ~0, VN = 0, Eq = 0, which carry nothing and shift
+// nothing in. A column's sum a + VP runs through a lane's K words with
+// carry-in 0; two ballots give every lane whether it generates a carry
+// and whether a carry-in would pass through it (its sums all ones), and
+// the carry into each lane is then one add over the warp's bits; each
+// group's top lane is masked out of both, so no carry crosses to the
+// next pair. HP/HN's shift into a lane's first word is one shuffle of
+// the top bits below. The score is word W-1's, on the group's top lane.
+// The Eq words are staged once in shared memory ([code][K][G], one
+// conflict-free load a word); the tile codes come an aligned word at a
+// time, the same address across the group.
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+template <int K>
 __global__ void myers_pairs_wide_kernel(const uint32_t* __restrict__ peq_all,
                                         const uint8_t* __restrict__ tiles,
                                         const int32_t* __restrict__ pidx,
                                         const int32_t* __restrict__ tidx,
                                         int32_t* __restrict__ out,  // [3,B]
-                                        uint32_t* __restrict__ scratch,
                                         int B, int W, int fmt, int rowbytes,
-                                        int ncols, int NQ, int NT) {
-  extern __shared__ uint32_t s_state[];  // [2][W][blockDim.x]
+                                        int ncols, int NQ, int NT, int G) {
+  extern __shared__ uint32_t s_eq[];  // [groups][16][K][G]
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int lig = lane & (G - 1);
+  const int b = (blockIdx.x * blockDim.x + tid) / G;
+  uint32_t* eq_g = s_eq + (size_t)(tid / G) * 16 * K * G;
+  int p = -1, t = -1;
+  if (b < B) {
+    p = pidx[b];
+    t = tidx[b];
+  }
+  const bool live = p >= 0 && p < NQ && t >= 0 && t < NT;
+  // Peq into [code][i][lane]: slot l K + i holds word l K + i - pad
+  const int pad = G * K - W;
+  const uint32_t* pq = peq_all + (size_t)(live ? p : 0) * 16 * W;
+  for (int idx = lig; idx < 16 * K * G; idx += G) {
+    const int code = idx / (K * G), rem = idx - code * K * G;
+    const int w = (rem % G) * K + rem / G - pad;
+    eq_g[idx] = live && w >= 0 ? __ldg(pq + code * W + w) : 0u;
+  }
+  __syncwarp();
+
+  // tile codes: the units (nibbles or bytes) of aligned 4-byte words
+  const int bits = fmt == kPacked ? 4 : 8;
+  const int upw = 32 / bits;
+  const uint8_t* lo = tiles;
+  const uint8_t* hi = tiles + (size_t)NT * rowbytes;
+  const uint8_t* row = tiles + (size_t)(live ? t : 0) * rowbytes;
+  const int mis = (int)(reinterpret_cast<uintptr_t>(row) & 3u);
+  const uint8_t* base = row - mis;
+  int u = fmt == kPacked ? 2 * mis : mis;  // unit of column 0
+  uint32_t word = live ? safe_word(base + 4 * (u / upw), lo, hi) : 0u;
+  uint32_t next = live ? safe_word(base + 4 * (u / upw + 1), lo, hi) : 0u;
+
+  // the group's top lane is masked from the carry ballots
+  const unsigned notop = ~(G == 32 ? 0x80000000u
+                                   : G == 16 ? 0x80008000u : 0x80808080u);
+  uint32_t VP[K], VN[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    VP[i] = 0xFFFFFFFFu;
+    VN[i] = 0u;
+  }
+  int score = 32 * W, best = 32 * W, first = 0, last = 0;
+#pragma unroll 1
+  for (int j = 0; j < ncols; ++j) {
+    const uint32_t code = (word >> (bits * (u & (upw - 1)))) & 15u;
+    ++u;
+    if ((u & (upw - 1)) == 0) {
+      word = next;
+      next = live ? safe_word(base + 4 * (u / upw + 1), lo, hi) : 0u;
+    }
+    const uint32_t* eqc = eq_g + code * K * G + lig;
+    uint32_t e[K], s[K];
+    uint32_t c = 0u, all = 0xFFFFFFFFu;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      e[i] = eqc[i * G];
+      const uint64_t sum = (uint64_t)(e[i] & VP[i]) + VP[i] + c;
+      s[i] = (uint32_t)sum;
+      c = (uint32_t)(sum >> 32);
+      all &= s[i];
+    }
+    const unsigned gen = __ballot_sync(kFull, c) & notop;
+    const unsigned x = (__ballot_sync(kFull, all == 0xFFFFFFFFu) & notop) | gen;
+    uint32_t cin = (((gen + x) ^ x ^ gen) >> lane) & 1u;
+    uint32_t ph[K], mh[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint64_t sum = (uint64_t)s[i] + cin;
+      cin = (uint32_t)(sum >> 32);
+      const uint32_t xh = ((uint32_t)sum ^ VP[i]) | e[i];
+      ph[i] = VN[i] | ~(xh | VP[i]);
+      mh[i] = VP[i] & xh;
+    }
+    // the top bits of the lane below shift into this lane's first word
+    uint32_t up = __shfl_up_sync(kFull, (ph[K - 1] >> 31) |
+                                            ((mh[K - 1] >> 31) << 1), 1, G);
+    if (lig == 0) up = 0u;
+    uint32_t php = up & 1u, mhp = up >> 1;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint32_t xv = e[i] | VN[i];
+      const uint32_t phs = (ph[i] << 1) | php;
+      const uint32_t mhs = (mh[i] << 1) | mhp;
+      php = ph[i] >> 31;
+      mhp = mh[i] >> 31;
+      VP[i] = mhs | ~(xv | phs);
+      VN[i] = phs & xv;
+    }
+    score += (int)(ph[K - 1] >> 31) - (int)(mh[K - 1] >> 31);
+    first = score < best ? j + 1 : first;
+    last = score <= best ? j + 1 : last;
+    best = min(best, score);
+  }
+  if (b < B && lig == G - 1) {
+    out[b] = live ? best : -1;  // -1: caller contract broken (index)
+    out[B + b] = live ? first : -1;
+    out[2 * B + b] = live ? last : -1;
+  }
+}
+
+// Past the words that a lane's registers hold (W > 28 x 32): the first
+// design, one thread a pair, its VP/VN words in a global scratch of
+// gridDim.x x blockDim.x x 2W words laid out [word][thread], the CTAs
+// walking over the pairs, its Eq words read through the L1 cache, the
+// words in order with a 64-bit add's carry.
+__global__ void myers_pairs_scratch_kernel(const uint32_t* __restrict__ peq_all,
+                                           const uint8_t* __restrict__ tiles,
+                                           const int32_t* __restrict__ pidx,
+                                           const int32_t* __restrict__ tidx,
+                                           int32_t* __restrict__ out,  // [3,B]
+                                           uint32_t* __restrict__ scratch,
+                                           int B, int W, int fmt,
+                                           int rowbytes, int ncols, int NQ,
+                                           int NT) {
   const int nthr = blockDim.x;
-  uint32_t* vp = (GLOBAL ? scratch + (size_t)blockIdx.x * 2 * W * nthr
-                         : s_state) + threadIdx.x;
+  uint32_t* vp = scratch + (size_t)blockIdx.x * 2 * W * nthr + threadIdx.x;
   uint32_t* vn = vp + (size_t)W * nthr;
   for (int b = blockIdx.x * nthr + threadIdx.x; b < B;
        b += gridDim.x * nthr) {
@@ -437,37 +562,65 @@ extern "C" int myers_pairs_launch(const void* peq, const void* tiles,
   }
 }
 
-// The wide route (any W; any ncols): `threads` per CTA (a multiple of
-// 32), `blocks` CTAs, `smem` = threads x 8W bytes of dynamic shared
-// memory with `scratch` null (blocks x threads >= B), else smem 0 and
-// `scratch` holding blocks x threads x 2W words (the CTAs walk over the
-// pairs). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).
+// Words a lane of the wide route: the instances, in order
+#define WIDE_K(X) X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(10) X(12) X(16) \
+  X(20) X(24) X(28)
+
+// The wide route (any W; any ncols), the launch of
+// kernels/myers_cuda.py::pair_wide_geometry: `group` = 8, 16 or 32 lanes
+// a pair, K the fewest instantiated words a lane holding W / group,
+// `threads` per CTA (a multiple of 32), `blocks` x threads / group >= B,
+// `smem` = threads x 64 K bytes, `scratch` null; or `group` = 1 (one
+// thread a pair), smem 0 and `scratch` holding blocks x threads x 2W
+// words (the CTAs walk over the pairs). Returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for arguments the kernel does not
+// take).
 extern "C" int myers_pairs_wide_launch(const void* peq, const void* tiles,
                                        const void* pidx, const void* tidx,
                                        void* out, void* scratch, int B, int W,
                                        int fmt, int rowbytes, int ncols,
-                                       int NQ, int NT, int blocks,
+                                       int NQ, int NT, int group, int blocks,
                                        int threads, int smem, void* stream) {
-  const bool global = scratch != nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cols_per_byte = fmt == kPacked ? 2 : 1;
   if ((fmt != kPacked && fmt != kBytes) || W <= 0 || threads <= 0 ||
       threads % 32 || threads > 1024 || blocks <= 0 || ncols < 0 ||
-      ncols > rowbytes * cols_per_byte ||
-      (long long)smem != (global ? 0LL : 8LL * W * threads) ||
-      smem > 232448 || (!global && (long long)blocks * threads < B))
+      ncols > rowbytes * cols_per_byte || smem > 232448)
     return (int)cudaErrorInvalidValue;
-  auto kern = global ? &myers_pairs_wide_kernel<true>
-                     : &myers_pairs_wide_kernel<false>;
+  if (group == 1) {
+    if (scratch == nullptr || smem != 0) return (int)cudaErrorInvalidValue;
+    myers_pairs_scratch_kernel<<<blocks, threads, 0, s>>>(
+        static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
+        static_cast<const int32_t*>(pidx), static_cast<const int32_t*>(tidx),
+        static_cast<int32_t*>(out), static_cast<uint32_t*>(scratch), B, W,
+        fmt, rowbytes, ncols, NQ, NT);
+    return (int)cudaGetLastError();
+  }
+  if ((group != 8 && group != 16 && group != 32) || scratch != nullptr ||
+      (long long)blocks * (threads / group) < B)
+    return (int)cudaErrorInvalidValue;
+  const int need = (W + group - 1) / group;
+  int K = 0;
+#define PICK_K(k) \
+  if (!K && k >= need) K = k;
+  WIDE_K(PICK_K)
+#undef PICK_K
+  if (!K || smem != threads * 64 * K) return (int)cudaErrorInvalidValue;
+  void (*kern)(const uint32_t*, const uint8_t*, const int32_t*,
+               const int32_t*, int32_t*, int, int, int, int, int, int, int,
+               int) = nullptr;
+#define KERN_K(k) \
+  if (K == k) kern = &myers_pairs_wide_kernel<k>;
+  WIDE_K(KERN_K)
+#undef KERN_K
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<blocks, threads, smem, s>>>(
       static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
       static_cast<const int32_t*>(pidx), static_cast<const int32_t*>(tidx),
-      static_cast<int32_t*>(out), static_cast<uint32_t*>(scratch), B, W, fmt,
-      rowbytes, ncols, NQ, NT);
+      static_cast<int32_t*>(out), B, W, fmt, rowbytes, ncols, NQ, NT, group);
   return (int)cudaGetLastError();
 }

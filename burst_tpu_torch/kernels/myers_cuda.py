@@ -8,9 +8,11 @@ clipped at 255, over Peq tables of 16 codes or, for raw-byte queries,
 
 Each kernel has a second, wide route for W > 16 (queries over 512
 residues; for the pair kernel also where a score could pass its packed
-position keys' 15 bits): W at run time, the Myers words in shared
-memory, or past what a CTA holds in a global scratch allocated here
-(`pair_wide_geometry`, `cross_wide_geometry`).
+position keys' 15 bits), W at run time: the pair kernel's a group of
+8-32 lanes a pair, the words in registers, the carry across lanes by
+ballots (`pair_wide_geometry`); the cross kernel's the words in shared
+memory (`cross_wide_geometry`); each past what that holds with the
+words in a global scratch allocated here.
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version from `kernels.myers`. Each wrapper
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,11 +40,14 @@ PAIR_SMEM_LIMIT = 48 * 1024   # static limit: no opt-in needed below it
 SMEM_OPT_IN = 232448          # dynamic shared memory a CTA may opt into
 CROSS_RING_BYTES = 2 * 8 * CROSS_TILES_PER_CTA * 4   # K4's tile ring
 GLOBAL_SCRATCH = 256 << 20    # a global route's scratch per launch, at most
+PAIR_GROUPS = (8, 16, 32)     # K1/K2 wide: lanes a pair
+PAIR_WORDS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 28)  # words a lane
+PAIR_THREADS = 128            # K1/K2 wide: threads a CTA (32 small launches)
 FMT_PACKED, FMT_BYTES = 0, 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"myers_pairs_launch": [_P] * 5 + [_I] * 10 + [_P],
-        "myers_pairs_wide_launch": [_P] * 6 + [_I] * 10 + [_P]}
+        "myers_pairs_wide_launch": [_P] * 6 + [_I] * 11 + [_P]}
 _SIG_CROSS = {"myers_cross_launch": [_P, _P, _P] + [_I] * 10 + [_P],
               "myers_cross_wide_launch": [_P] * 4 + [_I] * 10 + [_P]}
 _CROSS_DTYPES = {torch.int32: 0, torch.uint8: 1}
@@ -87,23 +93,51 @@ def pair_wide(W: int, ncols: int) -> bool:
     return W > NARROW_W or 32 * W + ncols >= KEY_LIMIT
 
 
-def pair_wide_geometry(B: int, W: int, sms: int = 132
-                       ) -> tuple[int, int, int, int]:
-    """(blocks, threads per CTA, dynamic shared-memory bytes, global
-    scratch words) of a wide pair launch over B pairs: one thread a
-    pair, 8W bytes of Myers words a thread; CTAs of 64 threads (32 while
-    that leaves under four CTAs an SM), in shared memory while a CTA's
-    words fit the 227 KB it may opt into (scratch 0), else in a global
-    scratch of at most GLOBAL_SCRATCH bytes, the CTAs walking over the
-    pairs (shared memory 0)."""
-    threads = 64 if -(-B // 64) >= 4 * sms else 32
-    if threads * 8 * W > SMEM_OPT_IN:
-        threads = 32
-    blocks = -(-B // threads)
-    if threads * 8 * W <= SMEM_OPT_IN:
-        return blocks, threads, threads * 8 * W, 0
-    blocks = max(1, min(blocks, GLOBAL_SCRATCH // (threads * 8 * W)))
-    return blocks, threads, 0, blocks * threads * 2 * W
+class PairWideLaunch(NamedTuple):
+    """A wide pair launch: lanes a pair (1: one thread a pair, its words
+    in a global scratch), Myers words a lane, CTAs, threads a CTA,
+    dynamic shared-memory bytes and global scratch words."""
+    group: int
+    words: int
+    blocks: int
+    threads: int
+    smem: int
+    scratch: int
+
+
+def pair_group(W: int) -> tuple[int, int] | None:
+    """(lanes a pair G, words a lane K) for W Myers words: K the fewest
+    instantiated words that hold W / G; of the G whose idle word slots
+    (G K - W) are at most a quarter, the fewest lanes, else the fewest
+    idle slots' share; None past 28 words a lane at 32 lanes."""
+    best = None
+    for G in PAIR_GROUPS:
+        K = next((k for k in PAIR_WORDS if G * k >= W), None)
+        if K is None:
+            continue
+        idle = (G * K - W) / (G * K)
+        rank = (idle > 0.25, idle if idle > 0.25 else 0, G)
+        if best is None or rank < best[0]:
+            best = (rank, G, K)
+    return None if best is None else best[1:]
+
+
+def pair_wide_geometry(B: int, W: int, sms: int = 132) -> PairWideLaunch:
+    """The wide pair launch over B pairs: a group of G lanes a pair, K
+    words a lane in registers (`pair_group`), the group's Peq table in
+    shared memory (64 K G bytes); CTAs of 128 threads, 32 while that
+    leaves under eight warps an SM. Past 28 x 32 words one thread a
+    pair, 32 threads a CTA, its words in a global scratch of at most
+    GLOBAL_SCRATCH bytes, the CTAs walking over the pairs (shared memory
+    0)."""
+    gk = pair_group(W)
+    if gk is None:
+        blocks = max(1, min(-(-B // 32), GLOBAL_SCRATCH // (32 * 8 * W)))
+        return PairWideLaunch(1, 0, blocks, 32, 0, blocks * 32 * 2 * W)
+    G, K = gk
+    threads = 32 if B * G < 32 * 8 * sms else PAIR_THREADS
+    return PairWideLaunch(G, K, -(-B * G // threads), threads,
+                          threads * 64 * K, 0)
 
 
 def cross_wide_geometry(Q: int, T: int, W: int
@@ -170,14 +204,15 @@ def _launch(peq_all, tiles, pidx, tidx, W: int, fmt: int, ncols: int):
     stream = torch.cuda.current_stream(pidx.device).cuda_stream
     sms = sm_count(pidx.device)
     if wide:
-        blocks, threads, smem, words = pair_wide_geometry(B, W, sms)
-        scratch = torch.empty(words, dtype=torch.int32, device=pidx.device)
+        g = pair_wide_geometry(B, W, sms)
+        scratch = torch.empty(g.scratch, dtype=torch.int32,
+                              device=pidx.device)
         err = lib.myers_pairs_wide_launch(
             peq_all.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
             tidx.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if words else None, B, W, fmt,
+            scratch.data_ptr() if g.scratch else None, B, W, fmt,
             tiles.shape[1], ncols, peq_all.shape[0], tiles.shape[0],
-            blocks, threads, smem, stream)
+            g.group, g.blocks, g.threads, g.smem, stream)
         _build.check(err, "myers_pairs_wide_launch")
         return out, wide
     blocks, threads, smem = pair_geometry(B, W, sms)

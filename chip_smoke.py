@@ -18,9 +18,18 @@
                                           # recount, then each kernel's
                                           # wide route held and timed
     python3 chip_smoke.py pairs [old.cu]  # the pair kernel alone: build,
-                                          # checks and times of phase 2;
-                                          # with a source of the earlier
-                                          # interface, both timed in turns
+                                          # recount, checks and times of
+                                          # phase 2; with a source of the
+                                          # 12-argument interface, both
+                                          # timed in turns; with one of
+                                          # the 17-argument wide entry,
+                                          # the wide route's shapes in
+                                          # turns
+    python3 chip_smoke.py rescore [old.cu]  # K3 alone: build, recount,
+                                          # the wide and global routes'
+                                          # checks and times; with a
+                                          # source of the 15-argument wide
+                                          # entry, both timed in turns
     python3 chip_smoke.py cross [old.cu]  # the cross kernel (K4) alone:
                                           # build, checks and times at
                                           # each path's shape, cp.async
@@ -33,7 +42,13 @@ Phases, each fatal on failure:
   1. build the CUDA kernels from `burst_tpu_torch/csrc` (one nvcc per
      source, all started together), and recount in their machine code
      (`cuobjdump -sass`) the integer operations per Myers word, per scan
-     step and per rescore cell that the kernels' bounds are made of;
+     step, per rescore cell and per look-back doubling that the
+     kernels' bounds are made of: the narrow instances' hot loops, the
+     K1/K2 wide route's column loop (the one with the carry ballots,
+     VOTE: its count a word the slope over the words-a-lane instances),
+     the K3 wide route's row loop and the doubling loop across lanes
+     nested in it (the one that shuffles, SHFL), K4's wide route and the
+     global-scratch routes' loops by their stores;
   2. hold each kernel (K1, K2, K3, K4) against its plain PyTorch version
      on the card and against the package's native host twin, at the
      shapes its path gives it (exact equality: all integer arithmetic);
@@ -50,7 +65,16 @@ Phases, each fatal on failure:
      at each path's shape (`CROSS_SHAPES`), on the first block that
      `engine.cross_blocks` plans for this card: the direct block, the
      two-step and fused full-scan rows, one ragged shape, and the
-     raw-byte (-x) block of phase 9's protein set at 256 codes;
+     raw-byte (-x) block of phase 9's protein set at 256 codes. The
+     wide routes at phase 10's shapes (`wide_pair_recs`, K4's,
+     `wide_rescore_recs`): K1/K2 at W = 46 over 2^18 pairs and the fused
+     batch's 5,824, K2 at W = 44 and 43, every lane-group size (8, 16,
+     32) at W = 46, a query of one base against a run of it (a carry
+     through every lane), the Myers words forced into the global
+     scratch; K3 at 1,456 rows windowed and full width, the fused
+     batch's W = 45, the whole references' W = 9, L1 = 17,024 (18
+     warps, windows across the warps' halos) and 240,256 columns (the
+     global route);
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -143,8 +167,9 @@ Phases, each fatal on failure:
      random 16,569 bp references unsheared through the command line
      without -s, 1,960 reads of 150-300 bp (every 20th from a 16,569 bp
      reference) and 40 of 1,300-1,450 bp: BEST and CAPITALIST -b (K4 at
-     W up to 46, K3 past 1,024 columns and on its global route), every
-     shape held, 48 of the reads against the CLI's CPU run.
+     W up to 46, K3 past 1,024 columns on its wide route, the 16,569 bp
+     units' L1 = 17,024 included), every shape held, 48 of the reads
+     against the CLI's CPU run.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -160,6 +185,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -219,14 +245,18 @@ SCAN_STEP_OPCODES = ("LEA", "VIMNMX")
 OPS_WORD, OPS_COL = 10.59, 2
 # Per DP cell of the rescore and per look-back doubling: the same pipe's
 # instructions of the row loop and of the doubling loop in the rescore
-# kernel's machine code (its compares and selects are the tie rule, so
-# ISETP and SEL count there), recounted by phase 1 as well.
-# (H100, CUDA 12.8: 6 ISETP + 5 LOP3 + 5 SEL + 3 VIADD + 2 LEA + 2
-# VIADDMNMX + 1 SHF + 1 VIMNMX per row of one column, 5 ISETP + 2 SEL per
-# doubling, less each loop's own compare and the row counter's add.)
+# kernels' machine code (their compares and selects are the tie rule, so
+# ISETP and SEL count there), recounted by phase 1 as well. (H100, CUDA
+# 12.8: the block route's 6 ISETP + 5 LOP3 + 5 SEL + 3 VIADD + 2 LEA + 2
+# VIADDMNMX + 1 SHF + 1 VIMNMX per row of one column, less the loop's
+# compare and the row counter's add, 23. A doubling: 5 ISETP + 2 SEL less
+# the loop's compare in the block route, 6, but the wide
+# route's packed keys select in 1 ISETP + 2 SEL (their projection an
+# IMAD, off this pipe), 3.06 a column over a 32-column run: the least
+# the compiler has shown is 3, for every K3 route.)
 CELL_OPCODES = SCAN_WORD_OPCODES + SCAN_STEP_OPCODES + (
     "ISETP", "SEL", "VIADD", "VIADDMNMX")
-OPS_CELL, OPS_LEVEL = 23, 6
+OPS_CELL, OPS_LEVEL = 23, 3
 
 
 def log(msg: str):
@@ -287,17 +317,31 @@ def scan_ops(pairs: float, cols: float, W: int) -> float:
 
 def _template_args(mangled: str) -> str:
     """A kernel instance's template arguments from its mangled name,
-    "/"-joined: W, NQ, codes and the like (ints), and the wide routes'
-    GLOBAL flag (a bool: "g0" or "g1"), so each instance has its own."""
+    "/"-joined: W, NQ, codes, words a lane, columns a thread and the
+    like (ints), and K4's wide GLOBAL flag (a bool: "g0" or "g1"), so
+    each instance has its own."""
     return "/".join(("g" if t == "b" else "") + v
                     for t, v in re.findall(r"L([ib])(\d+)E", mangled))
 
 
+def _mangled_kernel(mangled: str) -> str:
+    """The kernel function's own name in a mangled one:
+    "myers_pairs_kernel", "rescore_wide_kernel", "myers_pairs_scratch_
+    kernel" and the like."""
+    m = re.search(r"\d+((?:myers_pairs|myers_cross|rescore)[a-z_]*_kernel)",
+                  mangled)
+    return m.group(1) if m else ""
+
+
 def _entry_name(ptxas_line: str) -> str:
-    """'W=<args>' of a ptxas entry line, with 'wide ' before a wide
-    route's instance."""
-    wide = "wide " if "_wide_kernel" in ptxas_line else ""
-    return f"{wide}W=" + _template_args(ptxas_line)
+    """'W=<args>' of a ptxas entry line; 'wide <args>' for a wide
+    route's instance (K1/K2: words a lane; K3: columns a thread; K4:
+    the scratch flag), 'scratch' for a global-scratch route."""
+    name = _mangled_kernel(ptxas_line)
+    if "_scratch_" in name:
+        return "scratch"
+    wide = "wide " if "_wide_" in name else "W="
+    return wide + _template_args(ptxas_line)
 
 
 def phase_build(sources=KERNEL_SOURCES):
@@ -366,8 +410,9 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
         sass = subprocess.run([dump, "-sass", so], capture_output=True,
                               text=True, check=True).stdout
         for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-            args = _template_args(fn.split("\n", 1)[0])
-            fns[name, args] = sass_loops(fn)
+            head = fn.split("\n", 1)[0]
+            fns[_mangled_kernel(head), _template_args(head)] = \
+                sass_loops(fn)
 
     def show(name, args, loops=None):
         for lo, hi, depth, ops in loops or fns[name, args]:
@@ -381,18 +426,68 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
             fail(f"{what}: the bound's constant {const} is above the "
                  f"machine code's {count:.2f}")
 
-    # The wide routes' instances ("g0": words in shared memory, "g1": in
-    # a global scratch). Pair and cross scans: the word loop is the one
-    # with the most LOP3 among the loops that store, each word storing
-    # VP and VN. The rescore: the cell loop takes the diagonal/up minimum
-    # (VIMNMX), the doubling loop takes none and selects (SEL, the most
-    # of any loop: it is unrolled); each column stores a key and a
-    # payload.
+    # The wide routes. K1/K2 (`myers_pairs_wide_kernel<K>`, K words a
+    # lane): the column loop holds the two carry ballots (VOTE); its
+    # integer operations grow by the count a word from one instance to
+    # the next, so the slope over the instances is held against OPS_WORD
+    # and what a column adds on each lane (the ballots' carry, the shift
+    # between lanes, the score) against OPS_COL.
+    if "myers_pairs" in sources:
+        cols = {int(a): [l for l in loops if l[3]["VOTE"]]
+                for (k, a), loops in fns.items()
+                if k == "myers_pairs_wide_kernel"}
+        if not cols or not all(len(v) == 1 for v in cols.values()):
+            found = {k: len(v) for k, v in cols.items()}
+            fail(f"myers_pairs wide: no single column loop with the carry "
+                 f"ballots in every instance: {found}")
+        ops = {k: sum(v[0][3][o] for o in SCAN_WORD_OPCODES)
+               for k, v in cols.items()}
+        lo, hi = min(ops), max(ops)
+        for k in (lo, hi):
+            show("myers_pairs_wide_kernel", str(k), cols[k])
+        per_word = (ops[hi] - ops[lo]) / (hi - lo)
+        held("pair scan wide (K = %d..%d words a lane) operations per word"
+             % (lo, hi), OPS_WORD, per_word)
+        held("pair scan wide other integer operations per column and lane",
+             OPS_COL, ops[lo] - lo * per_word)
+    # K3 (`rescore_wide_kernel<C>`, C columns a thread): the doublings
+    # across lanes are the loop nested in the row loop that shuffles
+    # (SHFL), C selections an iteration, held against OPS_LEVEL; the row
+    # loop's own operations (C cells, each doubling inside a lane's run,
+    # log2 C of them, C selections each, at that count, the new state)
+    # over C, against OPS_CELL.
+    if "rescore" in sources:
+        for (k, a), loops in sorted(fns.items()):
+            if k != "rescore_wide_kernel":
+                continue
+            C = int(a)
+            rows = [l for l in loops if l[2] == 0 and l[3]["SHFL"]]
+            across = [l for l in loops if l[2] == 1 and l[3]["SHFL"]]
+            if len(rows) != 1 or len(across) != 1:
+                show(k, a)
+                fail(f"rescore wide <{a}>: {len(rows)} row loops and "
+                     f"{len(across)} doubling loops across lanes")
+            show(k, a, rows + across)
+            level = sum(across[0][3][o] for o in CELL_OPCODES) / C
+            held(f"rescore wide <{a}> operations per doubling", OPS_LEVEL,
+                 level)
+            held(f"rescore wide <{a}> operations per cell", OPS_CELL,
+                 sum(rows[0][3][o] for o in CELL_OPCODES) / C
+                 - math.log2(C) * level)
+    # K4 wide (<g0>: words in shared memory, <g1>: in a global scratch),
+    # and the global-scratch routes of K1/K2 and K3 (their first designs):
+    # the word loop is the one with the most LOP3 among the loops that
+    # store, each word storing VP and VN; K3's cell loop takes the
+    # diagonal/up minimum (VIMNMX), its doubling loop none and selects
+    # (SEL); each column stores a key and a payload; the doubling loop is
+    # the innermost such.
     stores = lambda l: l[3]["STS"] + l[3]["STG"] + l[3]["ST"]
     for (name, args), loops in sorted(fns.items()):
-        if not args.startswith("g"):
+        if name not in ("myers_cross_wide_kernel",
+                        "myers_pairs_scratch_kernel",
+                        "rescore_scratch_kernel"):
             continue
-        if name == "rescore":
+        if name == "rescore_scratch_kernel":
             found = (
                 ("cell", OPS_CELL, [l for l in loops if stores(l) and
                                     l[3]["VIMNMX"]]),
@@ -406,20 +501,21 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
             if not cands:
                 show(name, args)
                 fail(f"{name} <{args}>: no {what} loop in the machine code")
-            key = (lambda l: l[3]["SEL"]) if what == "doubling" else \
-                (lambda l: l[3]["LOP3"])
+            key = (lambda l: (l[2], l[3]["SEL"])) if what == "doubling" \
+                else (lambda l: l[3]["LOP3"])
             hot = max(cands, key=key)
             show(name, args, [hot])
-            ops = CELL_OPCODES if name == "rescore" else SCAN_WORD_OPCODES
-            held(f"{name} wide <{args}> operations per {what}", const,
+            ops = CELL_OPCODES if what != "word" else SCAN_WORD_OPCODES
+            held(f"{name} <{args}> operations per {what}", const,
                  sum(hot[3][k] for k in ops) / (stores(hot) / 2))
     # K1/K2 at W=4: the loop with the most LOP3 is one tile word, 8
     # columns of the packed format (0) and 4 of the byte format (1). Its
     # steps also keep the two position keys, which the bound leaves out
     for fmt, steps in (("0", 8), ("1", 4)) if "myers_pairs" in sources \
             else ():
-        hot = max(fns["myers_pairs", "4/" + fmt], key=lambda l: l[3]["LOP3"])
-        show("myers_pairs", "4/" + fmt, [hot])
+        hot = max(fns["myers_pairs_kernel", "4/" + fmt],
+                  key=lambda l: l[3]["LOP3"])
+        show("myers_pairs_kernel", "4/" + fmt, [hot])
         ops = hot[3]
         held(f"pair scan (format {fmt}) operations per word", OPS_WORD,
              sum(ops[k] for k in SCAN_WORD_OPCODES) / (4 * steps))
@@ -435,14 +531,15 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
         # load, copy or barrier): one tile word, 4 columns
         for args in (f"4/4/{c}/{u8}" for c in ("16", "256")
                      for u8 in ("0", "1")):
-            scan = [l for l in fns["myers_cross", args] if l[3]["VIMNMX"]
+            scan = [l for l in fns["myers_cross_kernel", args]
+                    if l[3]["VIMNMX"]
                     and not any(l[3][k] for k in ("LDG", "LDGSTS", "BAR"))]
             if not scan:
-                show("myers_cross", args)
+                show("myers_cross_kernel", args)
                 fail(f"myers_cross <{args}>: no scan loop in the machine "
                      "code")
             hot = max(scan, key=lambda l: l[3]["LOP3"])
-            show("myers_cross", args, [hot])
+            show("myers_cross_kernel", args, [hot])
             ops = hot[3]
             steps = ops["VIMNMX"]
             if steps <= 0:
@@ -456,8 +553,8 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
         return
     # K3: the doubling loop is the nested one that holds the barriers, the
     # row loop the one around it; each thread owns one DP column
-    show("rescore", "")
-    loops = fns["rescore", ""]
+    show("rescore_kernel", "")
+    loops = fns["rescore_kernel", ""]
     level = [l for l in loops if l[2] == 1 and l[3]["BAR"]]
     row = [l for l in loops if l[2] == 0 and any(
         l[0] <= m[0] and m[1] <= l[1] for m in level)]
@@ -620,20 +717,57 @@ def pair_recs(case, fns, errs, times, B):
                                ("K2", "myers_pairs", 221))]
 
 
-def earlier_pair_kernel(src):
-    """{K1, K2: call} over a pair-kernel source of the earlier interface
-    (`myers_pairs_launch` over a packed store with 4-byte rows, W <= 8;
-    K2 gathered, padded and packed by PyTorch before it), for timing an
-    earlier kernel beside the package's in one run."""
-    import torch
-
-    from burst_tpu_torch.kernels import _build, myers
-    so = os.path.join(_build.BUILD, "libmyers_pairs_earlier.so")
+def _build_earlier(src, name):
+    """An earlier kernel source built with the package's flags into the
+    gitignored build directory; returns the loaded library."""
+    from burst_tpu_torch.kernels import _build
+    so = os.path.join(_build.BUILD, f"lib{name}_earlier.so")
     os.makedirs(_build.BUILD, exist_ok=True)
     subprocess.run([_build.nvcc_path(), *_build.ARCH, "-std=c++17", "-O3",
                     "-shared", "-Xcompiler", "-fPIC", "-o", so, src],
                    check=True)
-    fn = ctypes.CDLL(so).myers_pairs_launch
+    return ctypes.CDLL(so)
+
+
+def earlier_pair_kernel(src):
+    """Calls over an earlier pair-kernel source, for timing it beside the
+    package's in one run. A source with the earlier wide entry
+    (`myers_pairs_wide_launch` of 17 arguments: one thread a pair, its
+    words in shared memory [word][thread], 64 threads a CTA, 32 while
+    that leaves under four CTAs an SM) gives {"K1 wide", "K2 wide"} at
+    that launch shape; else the earlier 12-argument `myers_pairs_launch`
+    (a packed store with 4-byte rows, W <= 8; K2 gathered, padded and
+    packed by PyTorch before it) gives {K1, K2}."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers, myers_cuda
+    lib = _build_earlier(src, "myers_pairs")
+    if hasattr(lib, "myers_pairs_wide_launch"):
+        fn = lib.myers_pairs_wide_launch
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def wide(fmt):
+            def run(peq, tiles, pidx, tidx, W):
+                B = len(pidx)
+                threads = 64 if -(-B // 64) >= 4 * myers_cuda.sm_count(
+                    pidx.device) else 32
+                out = torch.empty((3, B), dtype=torch.int32,
+                                  device=pidx.device)
+                _build.check(fn(
+                    peq.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
+                    tidx.data_ptr(), out.data_ptr(), None, B, W, fmt,
+                    tiles.shape[1], tiles.shape[1] * (2 - fmt),
+                    peq.shape[0], tiles.shape[0], -(-B // threads), threads,
+                    threads * 8 * W,
+                    torch.cuda.current_stream().cuda_stream),
+                    "earlier myers_pairs_wide_launch")
+                return out
+            return run
+        return {"K1 wide": wide(myers_cuda.FMT_PACKED),
+                "K2 wide": wide(myers_cuda.FMT_BYTES)}
+    fn = lib.myers_pairs_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -661,6 +795,55 @@ def earlier_pair_kernel(src):
         return launch(peq, myers.pack_nibbles(tiles).contiguous(), pidx,
                       ident, W, Lp)
     return {"K1": k1, "K2": k2}
+
+
+def earlier_rescore_kernel(src):
+    """A call over an earlier rescore source (`rescore_wide_launch` of 15
+    arguments: threads striding over the columns, L1 split into at most
+    1,024; its 33 bytes a column in shared memory up to what a CTA may
+    opt into, else the global route, one CTA an SM over a scratch), with
+    `rescore_cuda.rescore`'s arguments, for the shapes past the block
+    route; for timing it beside the package's kernel in one run."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers_cuda, rescore_cuda
+    fn = _build_earlier(src, "rescore").rescore_wide_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(peq_flat, tiles, qmeta, W, levels, rows, L1):
+        N, dev = peq_flat.shape[0], peq_flat.device
+        per = -(-L1 // 1024)
+        threads = -(-(-(-L1 // per)) // 32) * 32
+        grid, smem, words = N, 33 * L1, 0
+        if 33 * L1 > rescore_cuda.SMEM_MAX:
+            grid = max(1, min(N, myers_cuda.sm_count(dev),
+                              myers_cuda.GLOBAL_SCRATCH // (32 * L1)))
+            smem, words = 0, 4 * grid * L1
+        out = torch.empty((4, N), dtype=torch.int32, device=dev)
+        scratch = torch.empty(words, dtype=torch.int64, device=dev)
+        _build.check(fn(
+            peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
+            out.data_ptr(), scratch.data_ptr() if words else None, N, W,
+            peq_flat.shape[1] // W, levels, rows, L1, threads, grid, smem,
+            torch.cuda.current_stream().cuda_stream),
+            "earlier rescore_wide_launch")
+        return out
+    return run
+
+
+def in_turns(label, new, old, reps):
+    """`old` then `new` timed in turns (old, new, new, old), the same
+    result exactly; logs both and returns (new ms, earlier ms)."""
+    exact(f"{label}: earlier kernel vs this one", old().cpu().numpy(),
+          new().cpu().numpy())
+    t = [time_ms(old, reps), time_ms(new, reps), time_ms(new, reps),
+         time_ms(old, reps)]
+    ms, was = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    log(f"[turns] {label}: earlier kernel {t[0]:.4f} and {t[3]:.4f} ms, "
+        f"this one {t[1]:.4f} and {t[2]:.4f} ms ({was / ms:.2f}x)")
+    return ms, was
 
 
 def phase_pairs(earlier=None):
@@ -764,12 +947,13 @@ def phase_pairs_path(main, B, earlier=None):
 
 
 def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
-                      Lw=None):
+                      Lw=None, earlier=None):
     """One K3 call as engine.rescore_winners makes it (Peq planes `peq`
     and bucket tiles `bt_d` on the card, host index, length, budget and
     window vectors): the gathered launch, exact against the kernel on the
-    same block gathered here and against the plain version on the card.
-    Returns (result on the host, the kernel record's entry)."""
+    same block gathered here and against the plain version on the card;
+    given an earlier kernel's call (`earlier_rescore_kernel`), both timed
+    in turns. Returns (result on the host, the kernel record's entry)."""
     import numpy as np
     import torch
 
@@ -798,11 +982,19 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
     ref = rescore.rescore_plain(peq_f, tl, qmeta, W, lv, rows, L1)
     e1.record()
     err = exact(f"K3 {label} vs plain", got, ref.cpu().numpy())
+    reps = 20 if N * rows * L1 <= 2e9 else 3
+    turns = {}
+    if earlier is None:
+        ms = time_ms(kern, reps)
+    else:
+        ms, was = in_turns(f"K3 {label}", kern, lambda: earlier(
+            peq_f, tl, qmeta, W, lv, rows, L1), reps)
+        turns = dict(earlier_ms=was)
     return got, dict(
         name=f"K3 rescore ({label})", route="cuda",
         source="burst_tpu_torch/csrc/rescore.cu",
         replaces="burst_tpu/kernels/rescore_pallas.py:155",
-        max_abs_err=err, ms=time_ms(kern, 20 if N * rows * L1 <= 2e9 else 3),
+        max_abs_err=err, ms=ms, **turns,
         plain_ms=e0.elapsed_time(e1),
         **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
                 N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
@@ -994,11 +1186,10 @@ def scratch_variant(kern, peq, tiles, W, pidx=None, tidx=None,
                     out_dtype=None):
     """A call of K2 (given pairs) or K4 on the wide route's second
     variant, its Myers words in a global scratch (which the geometry
-    takes only where a CTA's shared memory cannot hold them, W past
-    ~450 for K2 and ~900 for K4), forced at a shape where the geometry
-    takes the shared-memory variant; the launch shape otherwise the
-    geometry's (K2: 64 threads a CTA, the scratch capped at
-    GLOBAL_SCRATCH as there)."""
+    takes only past what the first variant holds, W past 896 for K2 and
+    ~900 for K4), forced at a shape where the geometry takes the first
+    variant; the launch shape otherwise the geometry's (K2: one thread a
+    pair, 32 a CTA, the scratch capped at GLOBAL_SCRATCH as there)."""
     import torch
 
     from burst_tpu_torch.kernels import _build, myers_cuda as mc
@@ -1006,7 +1197,7 @@ def scratch_variant(kern, peq, tiles, W, pidx=None, tidx=None,
     stream = torch.cuda.current_stream(dev).cuda_stream
     if kern == "K2":
         lib = _build.load("myers_pairs", mc._SIG)
-        B, threads = len(pidx), 64
+        B, threads = len(pidx), 32
         blocks = max(1, min(-(-B // threads),
                             mc.GLOBAL_SCRATCH // (threads * 8 * W)))
         out = torch.empty((3, B), dtype=torch.int32, device=dev)
@@ -1018,7 +1209,7 @@ def scratch_variant(kern, peq, tiles, W, pidx=None, tidx=None,
                 peq.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
                 tidx.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, W,
                 mc.FMT_BYTES, tiles.shape[1], tiles.shape[1], peq.shape[0],
-                tiles.shape[0], blocks, threads, 0, stream),
+                tiles.shape[0], 1, blocks, threads, 0, stream),
                 "myers_pairs_wide_launch (scratch)")
             return out
         return run
@@ -1040,41 +1231,63 @@ def scratch_variant(kern, peq, tiles, W, pidx=None, tidx=None,
     return run
 
 
-def time_scratch_variant(label, shared, scratch, reps=3):
+def time_scratch_variant(label, first, scratch, reps=3):
     """The wide route's two variants on the same inputs, in turns
-    (shared, scratch, scratch, shared): the same result; logs and
-    returns both times."""
-    exact(f"{label}: scratch variant vs shared", scratch().cpu().numpy(),
-          shared().cpu().numpy())
-    t = [time_ms(shared, reps), time_ms(scratch, reps),
-         time_ms(scratch, reps), time_ms(shared, reps)]
+    (first, scratch, scratch, first): the same result; logs and returns
+    both times."""
+    exact(f"{label}: scratch variant vs the first",
+          scratch().cpu().numpy(), first().cpu().numpy())
+    t = [time_ms(first, reps), time_ms(scratch, reps),
+         time_ms(scratch, reps), time_ms(first, reps)]
     sh, sc = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    log(f"[wide] {label}: Myers words in shared memory {t[0]:.3f} and "
-        f"{t[3]:.3f} ms, in a global scratch {t[1]:.3f} and {t[2]:.3f} "
-        f"ms (the scratch variant {sc / sh:.2f}x the shared one's time)")
-    return dict(shared_ms=sh, scratch_ms=sc)
+    log(f"[wide] {label}: Myers words in registers (K1/K2) or shared "
+        f"memory (K4) {t[0]:.3f} and {t[3]:.3f} ms, in a global scratch "
+        f"{t[1]:.3f} and {t[2]:.3f} ms (the scratch variant {sc / sh:.2f}x "
+        "the first one's time)")
+    return dict(first_ms=sh, scratch_ms=sc)
 
 
-def phase_wide_kernels():
-    """Each kernel's wide route (W > 16, or past 511 DP rows or 1,024
-    columns) at the shapes phase 10's paths give it, exact against the
-    plain version on the card and timed beside its bound: K1 and K2 at
-    W = 46 over B = 2^18 pairs, K4 at W = 46 (16 codes, 64 x 4,096,
-    uint8) and W = 20 (256 codes, uint8 and int32), K3 at 1,456 rows
-    windowed (L1 = 1,536) and full width (L1 = 3,072), and on the global
-    route at L1 = 17,024 and past 232,448 columns; K2 and K4 at W = 46
-    also with the Myers words forced into the global scratch, timed in
-    turns with the shared-memory variant; then, held once, the routes no
-    workload here reaches (a 32-bit score, W = 920). Returns the kernel
-    record's entries."""
+def forced_group(case, pidx, tidx, G):
+    """A K2 call over these pairs at G lanes a pair (the geometry's words
+    a lane for that G), beside the group the geometry picks."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers_cuda as mc
+    dev, W = case.peq.device, case.W
+    pd = torch.from_numpy(pidx).to(dev)
+    td = torch.from_numpy(tidx).to(dev)
+    K = next(k for k in mc.PAIR_WORDS if G * k >= W)
+    B, threads = len(pidx), mc.PAIR_THREADS
+    out = torch.empty((3, B), dtype=torch.int32, device=dev)
+    lib = _build.load("myers_pairs", mc._SIG)
+    tiles = case.tiles_d
+
+    def run():
+        _build.check(lib.myers_pairs_wide_launch(
+            case.peq.data_ptr(), tiles.data_ptr(), pd.data_ptr(),
+            td.data_ptr(), out.data_ptr(), None, B, W, mc.FMT_BYTES,
+            tiles.shape[1], tiles.shape[1], case.peq.shape[0],
+            tiles.shape[0], G, -(-B * G // threads), threads,
+            threads * 64 * K, torch.cuda.current_stream().cuda_stream),
+            f"myers_pairs_wide_launch (G={G})")
+        return out
+    return run
+
+
+def wide_pair_recs(rng, smat_d, earlier=None):
+    """K1/K2's wide route at phase 10's shapes, exact against the plain
+    version on the card and timed beside the bound (with `earlier`, PR
+    8's kernel in turns): W = 46 over 2^18 pairs, the fused batch's own
+    5,824 (K1), W = 44 over 2,048 (K2, the N rows) and W = 43 over
+    32,768 (two-step); every lane-group size at W = 46 against the one
+    the geometry picks; a carry through every lane (queries of one base
+    against runs of it); the scratch variant in turns. Returns the
+    kernel record's entries."""
     import numpy as np
     import torch
 
     from burst_tpu_torch import engine
-    from burst_tpu_torch.alphabet import score_matrix
-    from burst_tpu_torch.kernels import myers, myers_cuda, rescore_cuda
-    smat_d = torch.from_numpy(score_matrix()).to("cuda")
-    rng = np.random.default_rng(SEED + 10)
+    from burst_tpu_torch.kernels import myers_cuda
     recs = []
     lp_a = LONG_LB + engine.A_PAD
     case = _PairCase(rng, smat_d, W=LONG_W, NQ=4096, NT=16384, Lp=lp_a,
@@ -1094,6 +1307,11 @@ def phase_wide_kernels():
                     ref.cpu().numpy())
         if got[0].min() > 50:
             fail(f"{kern} wide: no near pair (min {got[0].min()})")
+        if earlier is not None:
+            old = earlier[f"{kern} wide"]
+            times[kern]["ms"], times[kern]["earlier_ms"] = in_turns(
+                f"{kern} wide W={LONG_W} B={WIDE_PAIR_B}", fns[kern][0],
+                lambda: old(*fns[kern][2]), 3)
         recs.append(dict(
             name=f"{kern} {fn}", route="cuda",
             source="burst_tpu_torch/csrc/myers_pairs.cu",
@@ -1103,11 +1321,147 @@ def phase_wide_kernels():
             shape=case.shape(kern, WIDE_PAIR_B) + " (wide route)",
             **times[kern]))
         del ref
+    # the fused batch's K1 launch: 5,824 pairs
+    sel = rng.integers(0, WIDE_PAIR_B, 5824)
+    pd = torch.from_numpy(case.pidx[sel]).to(case.peq.device)
+    td = torch.from_numpy(case.tidx[sel]).to(case.peq.device)
+    _, rec = hold_pairs_packed_call("wide, the fused batch's", case.peq,
+                                    case.packed_d, pd, td, LONG_W)
+    if earlier is not None:
+        rec["ms"], rec["earlier_ms"] = in_turns(
+            f"K1 wide W={LONG_W} B=5824",
+            lambda: myers_cuda.myers_pairs_packed(case.peq, case.packed_d,
+                                                  pd, td, LONG_W),
+            lambda: earlier["K1 wide"](case.peq, case.packed_d, pd, td,
+                                       LONG_W), 20)
+    recs.append(rec)
+    # every lane-group size at W = 46, each against the geometry's pick
+    sel = rng.integers(0, WIDE_PAIR_B, 1 << 14)
+    p14, t14 = case.pidx[sel], case.tidx[sel]
+    pick = forced_group(case, p14, t14, 8)
+    ref = pick().cpu().numpy()
+    t_g = {}
+    for G in (8, 16, 32):
+        run = forced_group(case, p14, t14, G)
+        exact(f"K2 wide W={LONG_W} at G={G} vs G=8", run().cpu().numpy(),
+              ref)
+        t_g[G] = time_ms(run, 5)
+    log(f"[wide] K2 W={LONG_W} Lp={lp_a} B={1 << 14} by lanes a pair: "
+        + ", ".join(f"G={G} {ms:.4f} ms" for G, ms in t_g.items())
+        + " (the geometry picks G=8), each exact")
     a2 = fns["K2"][2]
     time_scratch_variant(f"K2 W={LONG_W} B={WIDE_PAIR_B}", fns["K2"][0],
                          scratch_variant("K2", case.peq, case.tiles_d,
                                          LONG_W, a2[2], a2[3]))
     del case, fns
+    # N rows (K2 at W = 44 over 2,048 pairs) and the two-step batch's
+    # W = 43 over 32,768
+    for W, B in ((44, 2048), (43, 32768)):
+        c = _PairCase(rng, smat_d, W=W, NQ=512, NT=4096, Lp=lp_a, B=B,
+                      qlen=32 * W - 20, ulen=(1300, LONG_LB + 1))
+        pd = torch.from_numpy(c.pidx).to(c.peq.device)
+        td = torch.from_numpy(c.tidx).to(c.peq.device)
+        _, rec = hold_pairs_call("wide", c.peq, c.tiles_d, pd, td, W)
+        if earlier is not None:
+            rec["ms"], rec["earlier_ms"] = in_turns(
+                f"K2 wide W={W} B={B}", lambda: myers_cuda.myers_pairs(
+                    c.peq, c.tiles_d, pd, td, W),
+                lambda: earlier["K2 wide"](c.peq, c.tiles_d, pd, td, W), 20)
+        recs.append(rec)
+    # a carry through every lane: queries of one base against runs of it
+    c = _PairCase(rng, smat_d, W=LONG_W, NQ=8, NT=64, Lp=lp_a, B=256,
+                  qlen=LONG_QLEN, ulen=(1460, LONG_LB + 1), codes=2)
+    pd = torch.from_numpy(c.pidx).to(c.peq.device)
+    td = torch.from_numpy(c.tidx).to(c.peq.device)
+    for packed, tl in ((False, c.tiles_d), (True, c.packed_d)):
+        got, _ = hold_pairs_call("wide, one base", c.peq, tl, pd, td,
+                                 LONG_W, packed=packed)
+        if got[0].max() > 2:    # two substitutions at most a query
+            fail(f"K{1 if packed else 2} one base: ED {got[0].max()}")
+    log(f"[wide] W={LONG_W}: a query of one base against a run of it "
+        "(a carry through every lane): K1 and K2 exact vs plain")
+    return recs
+
+
+def wide_rescore_recs(rng, smat_d, earlier=None):
+    """K3's wide and global routes at phase 10's shapes, exact against
+    the plain version on the card and timed beside the bound (with
+    `earlier`, an earlier kernel in turns): 1,456 rows windowed (L1 = 1,536)
+    and full width (L1 = 3,072), the fused batch's W = 45 (1,440 rows,
+    levels 5, N = 2,048), the whole references' W = 9 (L1 = 1,920), a
+    16,569 bp reference rescored whole (L1 = 17,024, the row in the
+    registers of 18 warps) at 64 and 32 pairs, and past what one CTA
+    holds (240,256 columns: the global route). Returns the kernel
+    record's entries."""
+    import numpy as np
+
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.kernels import rescore_cuda
+    recs = []
+    routes0 = dict(rescore_cuda.rescore.routes)
+    lt_full = LONG_LB + engine.rescore_pad(LONG_LB, LONG_W)
+    for W, N, qlen, budget, kinds in (
+            (LONG_W, 1024, LONG_QLEN, 43, ("windowed", "full width")),
+            (45, 2048, 1440, 30, ("windowed",))):
+        peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
+            rng, smat_d, W, N, LONG_LB, lt_full, qlen, budget)
+        idx = np.arange(N)
+        for kind in kinds:
+            kw = dict(x0=x0, Lw=Lw) if kind == "windowed" else {}
+            got, rec = hold_rescore_call(f"wide, {kind}", peq, tiles, idx,
+                                         idx, ql, red, W, earlier=earlier,
+                                         **kw)
+            if (got[0] <= red).sum() < N // 2:
+                fail(f"K3 {kind} W={W}: only {(got[0] <= red).sum()} in "
+                     "budget")
+            recs.append(rec)
+        del peq, tiles
+    for label, W, N, lb, qlen, budget in (
+            ("wide, whole 1,450 bp references", 9, 512, 1600, 288, 9),
+            ("wide, a 16,569 bp reference", 10, 64, 16576, 300, 9),
+            ("wide, a 16,569 bp reference", 9, 32, 16576, 288, 9),
+            ("global, a 240,000 bp contig", 4, 2, 240000, 100, 2)):
+        peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
+            rng, smat_d, W, N, lb, lb + engine.rescore_pad(lb, W), qlen,
+            budget)
+        g0 = dict(rescore_cuda.rescore.routes)
+        got, rec = hold_rescore_call(label, peq, tiles, np.arange(N),
+                                     np.arange(N), ql, red, W,
+                                     earlier=earlier)
+        route = label.split(",")[0]
+        if rescore_cuda.rescore.routes[route] == g0[route] or \
+                (got[0] <= red).sum() < N // 2:
+            fail(f"K3 {label}: not the {route} route, or "
+                 f"{(got[0] > red).sum()} of {N} pairs out of budget")
+        recs.append(rec)
+        del peq, tiles
+    routes = {k: v - routes0[k] for k, v in
+              rescore_cuda.rescore.routes.items()}
+    if not routes["wide"] or not routes["global"]:
+        fail(f"K3: a wide route did not launch: {routes}")
+    return recs
+
+
+def phase_wide_kernels():
+    """Each kernel's wide route (W > 16, or past 511 DP rows or 1,024
+    columns) at the shapes phase 10's paths give it, exact against the
+    plain version on the card and timed beside its bound: K1/K2
+    (`wide_pair_recs`), K4 at W = 46 (16 codes, 64 x 4,096, uint8) and W
+    = 20 (256 codes, uint8 and int32) with its Myers words forced into
+    the global scratch in turns, K3 (`wide_rescore_recs`); then, held
+    once, the routes no workload here reaches (a 32-bit score, W = 920:
+    the words in a global scratch). Returns the kernel record's
+    entries."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.alphabet import score_matrix
+    from burst_tpu_torch.kernels import myers, myers_cuda
+    smat_d = torch.from_numpy(score_matrix()).to("cuda")
+    rng = np.random.default_rng(SEED + 10)
+    recs = wide_pair_recs(rng, smat_d)
+    lp_a = LONG_LB + engine.A_PAD
 
     # uint8 at 16 codes (what every path keeps), both types at 256
     for label, W, Q, T, Lp, qlen, codes, dts in (
@@ -1128,46 +1482,7 @@ def phase_wide_kernels():
                 scratch_variant("K4", peq, tiles, W,
                                 out_dtype=torch.uint8))
         del peq, tiles
-
-    lt_full = LONG_LB + engine.rescore_pad(LONG_LB, LONG_W)
-    peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
-        rng, smat_d, LONG_W, 1024, LONG_LB, lt_full, LONG_QLEN, 43)
-    idx = np.arange(1024)
-    for label, kw in (("wide, windowed", dict(x0=x0, Lw=Lw)),
-                      ("wide, full width", {})):
-        got, rec = hold_rescore_call(label, peq, tiles, idx, idx, ql, red,
-                                     LONG_W, **kw)
-        if (got[0] <= red).sum() < 512:
-            fail(f"K3 {label}: only {(got[0] <= red).sum()} in budget")
-        recs.append(rec)
-    del peq, tiles
-    lb_g = 16576
-    peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
-        rng, smat_d, 10, 64, lb_g, lb_g + engine.rescore_pad(lb_g, 10),
-        300, 9)
-    got, rec = hold_rescore_call("global, a 16,569 bp reference", peq,
-                                 tiles, np.arange(64), np.arange(64), ql,
-                                 red, 10)
-    if (got[0] <= red).sum() < 32:
-        fail(f"K3 global: only {(got[0] <= red).sum()} in budget")
-    recs.append(rec)
-    del peq, tiles
-    # past 232,448 columns, more than a CTA could stage one code a column
-    # of in shared memory (a 240 kbp contig rescored whole)
-    lb_c = 240000
-    peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
-        rng, smat_d, 4, 2, lb_c, lb_c + engine.rescore_pad(lb_c, 4), 100, 2)
-    g0 = rescore_cuda.rescore.routes["global"]
-    got, rec = hold_rescore_call("global, a 240,000 bp contig", peq, tiles,
-                                 np.arange(2), np.arange(2), ql, red, 4)
-    if rescore_cuda.rescore.routes["global"] == g0 or (got[0] > red).any():
-        fail(f"K3 past 232,448 columns: not the global route, or a pair "
-             f"out of budget: {got[0]}")
-    recs.append(rec)
-    del peq, tiles
-    routes = dict(rescore_cuda.rescore.routes)
-    if not routes["wide"] or not routes["global"]:
-        fail(f"K3: a wide route did not launch: {routes}")
+    recs += wide_rescore_recs(rng, smat_d)
 
     # held once: a score past the narrow kernel's packed keys (W = 4,
     # 32,640 columns), and W = 920 (the words in a global scratch)
@@ -2611,8 +2926,8 @@ def phase_full_length(launch_log):
     CPU run. (b) The command line without -s on two families and four
     16,569 bp references (every reference one unit): BEST and
     CAPITALIST -b over WHOLE_READS reads of 150-300 bp and 1,300-1,450
-    bp, both strands (K4 at W up to 46, K3 past 1,024 columns and on its
-    global route for the 16,569 bp units; every K3 and K4 shape of the
+    bp, both strands (K4 at W up to 46, K3 past 1,024 columns, the 16,569
+    bp units' 17,024 on its wide route; every K3 and K4 shape of the
     two runs held, each once), each against the CLI's CPU run on 32
     reads of 289-300 bp (4 of them from the 16,569 bp references) and
     up to 4 of the long reads, those of the longest one's width. The
@@ -2694,7 +3009,7 @@ def _full_length(launch_log, p, bg):
         mtax = [b"k__Bacteria;p__M"] * WHOLE_MITO
         for h, t in zip(wheads, tax[:n2] + mtax):
             f.write(h + b"\t" + t + b"\n")
-    # every 20th short read from a 16,569 bp reference (K3's global route)
+    # every 20th short read from a 16,569 bp reference (K3 at L1 = 17,024)
     sh, sr = _full_reads(rng, refs[:n2], WHOLE_READS - WHOLE_LONG_READS,
                          150, 300, n_every=0)
     for i in range(0, len(sr), 20):
@@ -2745,8 +3060,10 @@ def _full_length(launch_log, p, bg):
             f"{b6.count(NL)} rows, {_align_s(ph, wall):.3f} s in the align "
             f"phases, launches {launches}, K3 by route {routes} at L1 "
             f"{l1s}, K4 wide {k4_wide}; path {stats.get('path')}")
-        if stats.get("path") != "direct" or not routes["global"] or \
-                not routes["wide"] or not k4_wide or max(l1s) <= 1024 or \
+        # the 16,569 bp units' rows (L1 = 17,024) in registers: no
+        # global route
+        if stats.get("path") != "direct" or routes["global"] or \
+                not routes["wide"] or not k4_wide or max(l1s) < 16000 or \
                 b6.count(NL) < len(wr) // 2:
             fail(f"[full] whole {label}: the wide routes did not all "
                  f"launch, or few rows: {routes}, K4 wide {k4_wide}, L1 "
@@ -3477,12 +3794,38 @@ def main():
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
-    if sys.argv[1:2] == ["pairs"]:
-        sos = phase_build(("myers_pairs",))
-        earlier = earlier_pair_kernel(sys.argv[2]) if sys.argv[2:] else None
-        _, main_case, _, _, _ = phase_pairs(earlier)
-        phase_pairs_path(main_case, PATH_B, earlier)
-        phase_sass(sos, ("myers_pairs",))
+    if sys.argv[1:2] in (["pairs"], ["rescore"]):
+        name = "myers_pairs" if sys.argv[1] == "pairs" else "rescore"
+        sos = phase_build((name,))
+        phase_sass(sos, (name,))
+        earlier = None if not sys.argv[2:] else (
+            earlier_pair_kernel if name == "myers_pairs" else
+            earlier_rescore_kernel)(sys.argv[2])
+        if name == "myers_pairs" and (earlier is None or "K1" in earlier):
+            _, main_case, _, _, _ = phase_pairs(earlier)
+            phase_pairs_path(main_case, PATH_B, earlier)
+        else:
+            import numpy as np
+            import torch
+
+            from burst_tpu_torch.alphabet import score_matrix
+            smat_d = torch.from_numpy(score_matrix()).to("cuda")
+            rng = np.random.default_rng(SEED + 10)
+            recs = (wide_pair_recs if name == "myers_pairs" else
+                    wide_rescore_recs)(rng, smat_d, earlier)
+            for r in recs:
+                log(f"[{sys.argv[1]}] {r['name']} {r['shape']}: kernel "
+                    f"{r['ms']:.4f} ms"
+                    + (f" (earlier kernel {r['earlier_ms']:.4f} ms)"
+                       if "earlier_ms" in r else "")
+                    + f", plain {r['plain_ms']:.2f} ms, bound "
+                    f"{r['bound_ms']:.5f} ms, "
+                    f"{100 * r['bound_ms'] / r['ms']:.0f} % of the bound's "
+                    "rate; exact vs plain")
+            print(json.dumps({f"{sys.argv[1]}_wide": [
+                {k: r[k] for k in ("name", "shape", "ms", "earlier_ms",
+                                   "plain_ms", "bound_ms") if k in r}
+                for r in recs]}), flush=True)
         print(card_line(), flush=True)
         return
     if sys.argv[1:2] == ["cross"]:

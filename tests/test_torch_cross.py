@@ -16,6 +16,7 @@ from burst_tpu.alphabet import score_matrix
 from burst_tpu.kernels import myers as jmyers
 from burst_tpu_torch import engine
 from burst_tpu_torch.kernels import myers, myers_cuda
+from tests import torch_cuda_emu
 
 # several test workers share the cores: keep PyTorch from starting a
 # thread per core in each of them
@@ -263,74 +264,13 @@ def test_cross_wrapper_rejects(bad):
             myers_cuda.myers_cross(peq, tiles[:, ::2], 2)
 
 
-# The kernel's own source, compiled for the CPU: CUDA's built-ins that it
-# uses as plain C++, a CTA's threads as std::threads meeting at a
-# std::barrier for __syncthreads, cp.async as an immediate copy (its
-# wait and commit as nothing) and the launch as a loop over the grid.
-# That holds the source's index arithmetic -- staging map, two-stage
-# ring, partial chunks, edge rows and queries, epilogue -- against the
-# plain version without a card; whether the card agrees is the smoke's.
-_EMU_RUNTIME = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cstddef>
-#include <cstdint>
-#include <cstring>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __shared__ static
-#define __launch_bounds__(...)
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct uint3 { unsigned x, y, z; };
-extern thread_local uint3 threadIdx, blockIdx;
-extern dim3 blockDim, gridDim;
-extern std::barrier<>* g_bar;
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-inline int cudaGetLastError() { return 0; }
-template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
-template <class T> T __ldg(const T* p) { return *p; }
-inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
-  return (unsigned)(((((uint64_t)hi << 32) | lo) << (s & 31)) >> 32);
-}
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
-using std::min;
-"""
-
-_EMU_TAIL = r"""
-#include <thread>
-#include <vector>
-thread_local uint3 threadIdx, blockIdx;
-dim3 blockDim, gridDim;
-std::barrier<>* g_bar;
-namespace {
-template <class K, class... A>
-void run_grid(K kern, dim3 grid, int threads, A... a) {
-  blockDim = dim3(threads);
-  gridDim = grid;
-  for (unsigned y = 0; y < grid.y; ++y)
-    for (unsigned x = 0; x < grid.x; ++x) {
-      std::barrier<> bar(threads);
-      g_bar = &bar;
-      std::vector<std::thread> th;
-      for (int i = 0; i < threads; ++i)
-        th.emplace_back([=] {
-          threadIdx = {(unsigned)i, 0, 0};
-          blockIdx = {x, y, 0};
-          kern(a...);
-        });
-      for (auto& t : th) t.join();
-    }
-}
-}  // namespace
-"""
+# The kernel's own source, compiled for the CPU (tests/torch_cuda_emu.py:
+# a CTA's threads as std::threads at a std::barrier, the launch a loop
+# over the grid), cp.async as an immediate copy (its wait and commit as
+# nothing). That holds the source's index arithmetic -- staging map,
+# two-stage ring, partial chunks, edge rows and queries, epilogue --
+# against the plain version without a card; whether the card agrees is
+# the smoke's.
 
 
 class _EmulatedCross:
@@ -357,44 +297,20 @@ def emulated_cross(tmp_path_factory):
     """csrc/myers_cross.cu built for the CPU: its two launch entries,
     the narrow kernels' and the wide route's (its dynamic shared memory
     a static buffer, as the emulated CTAs run one at a time)."""
-    import ctypes
     import os
-    import subprocess
 
     from burst_tpu_torch.kernels import _build
     src = open(os.path.join(_build.CSRC, "myers_cross.cu")).read()
-    src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
     for fn, body in (
             ("cp_async4(uint32_t* dst, const void* src,\n"
              "                                          int nbytes)",
              "{\n  uint32_t v = 0u;\n  std::memcpy(&v, src, nbytes);\n"
              "  *dst = v;\n}\n"),
             ("cp_async_commit()", "{}\n"), ("cp_async_wait_all()", "{}\n")):
-        head = "__device__ __forceinline__ void " + fn + " "
-        assert head in src, fn
-        i = src.index(head) + len(head)
-        src = src[:i] + body + src[src.index("\n}\n", i) + 3:]
-    for launch, kern in (
-            ("kern<<<grid, threads, 0, stream>>>(", "kern"),
-            ("wide<<<grid, threads, smem, static_cast<cudaStream_t>"
-             "(stream)>>>(", "wide")):
-        assert src.count(launch) == 1, launch
-        src = src.replace(launch, f"run_grid({kern}, grid, threads, ")
-    dyn = "extern __shared__ uint32_t s_state[];"
-    assert src.count(dyn) == 1
-    src = src.replace(dyn, "static uint32_t s_state[1 << 20];")
-    src = src.replace("namespace {\n", "namespace {\ntemplate <class K, "
-                      "class... A> void run_grid(K, dim3, int, A...);\n", 1)
-    d = tmp_path_factory.mktemp("emu")
-    (d / "emu.h").write_text(_EMU_RUNTIME)
-    (d / "emu.cpp").write_text(src + _EMU_TAIL)
-    so = d / "libemu.so"
-    res = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-w", "-o",
-         str(so), str(d / "emu.cpp"), "-lpthread"],
-        capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr[-3000:]
-    return _EmulatedCross(ctypes.CDLL(str(so)))
+        src = torch_cuda_emu.replace_function(
+            src, "__device__ __forceinline__ void " + fn + " ", body)
+    return _EmulatedCross(torch_cuda_emu.build(
+        torch_cuda_emu.emulate(src), tmp_path_factory.mktemp("emu")))
 
 
 @pytest.mark.parametrize("W,Q,T,Lp,offset,u8,C", [

@@ -236,23 +236,58 @@ def test_rescore_plain_matches_jax_past_511_rows(W, qlen, L1, windowed):
 
 
 def test_rescore_geometry_routes():
-    """The block route up to 511 rows and 1,024 columns; the wide route
-    in shared memory up to what a CTA may hold; past that (a 16,569 bp
-    reference rescored whole) the global route, one CTA an SM and no
-    dynamic shared memory at any width: past 232,448 columns (the most a
-    CTA could stage one code a column of) as well, its CTAs fewer where
-    their scratch would pass GLOBAL_SCRATCH."""
+    """The block route up to 511 rows and 1,024 columns; past them the
+    wide route, the row in the registers of one CTA a pair (8, 16 or 32
+    columns a thread, halo lanes at least a look-back window wide where
+    the row spans warps): a 16,569 bp reference rescored whole (L1 =
+    17,024) now in 18 warps of 32 columns a thread; the global route
+    (no dynamic shared memory, one CTA an SM) only past what one CTA's
+    registers hold, at any width, its CTAs fewer where their scratch
+    would pass GLOBAL_SCRATCH."""
     g = rescore_cuda.rescore_geometry
-    assert g(100, 296, 1024, 160) == ("block", 1024, 100, 0)
+    assert g(100, 296, 1024, 160) == ("block", 1024, 100, 0, 0, 0)
     assert g(100, 512, 640, 16 * 17)[0] == "wide"
-    assert g(100, 1456, 3072, 16 * 46) == ("wide", 1024, 100, 33 * 3072)
-    assert g(100, 1456, 1536, 16 * 46) == ("wide", 768, 100, 33 * 1536)
-    assert g(100, 304, 17024, 160, sms=132) == ("global", 1024, 100, 0)
-    assert g(1000, 304, 17024, 160, sms=132)[2] == 132
-    assert g(1000, 304, 262144, 160, sms=132) == ("global", 1024, 32, 0)
+    assert g(100, 1456, 3072, 16 * 46, levels=6)[:2] == ("wide", 224)
+    assert g(100, 1456, 1536, 16 * 46, levels=6) == \
+        ("wide", 256, 100, rescore_cuda.rescore_wide_smem(8, 8, 8, 736),
+         8, 8)
+    wide = g(100, 304, 17024, 160, sms=132, levels=4)
+    assert wide[:3] == ("wide", 576, 100) and wide.cols == 32 and \
+        wide.halo == 1
+    assert g(1000, 304, 17024, 160, sms=132, levels=4).grid == 1000
+    assert g(1000, 304, 262144, 160, sms=132)[:4] == ("global", 1024, 32, 0)
     big = g(1000, 304, 5_000_064, 160, sms=132)
-    assert big == ("global", 1024, 1, 0)
-    assert g(10, 296, 1024, 256 * 32)[0] == "wide"    # 32 KB of Peq
+    assert big[:4] == ("global", 1024, 1, 0)
+    assert g(10, 296, 1024, 256 * 32, levels=4) == \
+        ("wide", 32, 10, rescore_cuda.rescore_wide_smem(1, 0, 32, 8192),
+         32, 0)                                      # 32 KB of Peq
+
+
+def test_rescore_wide_geometry_covers_every_launch():
+    """Every wide launch: the warps' own columns cover L1 and one warp
+    fewer would not, a warp's halo holds a look-back window, the key's
+    fields fit 31 bits, threads within the instance's launch bound and
+    shared memory within what a CTA may opt into; the planned state
+    (C keys and shiftR) within a thread's 255 registers."""
+    g = rescore_cuda.rescore_geometry
+    seen = set()
+    for L1 in [128 * k for k in range(1, 160)] + [17024, 32768, 65536]:
+        for levels in range(1, 10):
+            for pequ32 in (16 * 46, 256 * 20):
+                r = g(64, 1456, L1, pequ32, levels=levels)
+                if r.route != "wide":
+                    continue
+                sb, gb, db, w = rescore_cuda.rescore_key_bits(L1, levels)
+                assert sb + gb + db <= 31
+                nw, C, H = r.threads // 32, r.cols, r.halo
+                own = 32 * C if nw == 1 else (32 - H) * C
+                assert nw * own >= L1 > (nw - 1) * own
+                assert (H == 0) == (nw == 1) and (nw == 1 or H * C >= w)
+                assert H <= rescore_cuda.WIDE_MAX_HALO
+                assert r.threads <= rescore_cuda.WIDE_MAX_THREADS[C]
+                assert r.smem <= rescore_cuda.SMEM_MAX and 2 * C <= 255
+                seen.add((C, nw > 1))
+    assert seen == {(C, m) for C in (8, 16, 32) for m in (False, True)}
 
 
 # -------------------------------------------------------- slice level

@@ -424,3 +424,188 @@ def test_pair_geometry_covers_every_launch():
     assert myers_cuda.pair_geometry(16384, 4) == (512, 32, 8192)
     assert myers_cuda.pair_geometry(2**20, 4) == (8192, 128, 32768)
     assert myers_cuda.pair_geometry(2**20, 16) == (32768, 32, 32768)
+
+
+# ------------------------------------- the wide kernel's own source
+
+@pytest.fixture(scope="module")
+def emulated_pairs(tmp_path_factory):
+    """csrc/myers_pairs.cu built for the CPU (tests/torch_cuda_emu.py;
+    the narrow kernels' add.cc / addc.cc as adds through an emulated
+    carry flag): its wide entry, `myers_pairs_wide_launch`."""
+    import ctypes
+    import os
+
+    from burst_tpu_torch.kernels import _build
+    from tests import torch_cuda_emu
+    src = open(os.path.join(_build.CSRC, "myers_pairs.cu")).read()
+    for fn, cin in (("add_cc", ""), ("addc_cc", " + emu_cc")):
+        src = torch_cuda_emu.replace_function(
+            src, f"__device__ __forceinline__ uint32_t {fn}(uint32_t a, "
+            "uint32_t b) ",
+            "{\n  const uint64_t t = (uint64_t)a + b" + cin + ";\n"
+            "  emu_cc = (uint32_t)(t >> 32);\n  return (uint32_t)t;\n}\n")
+    lib = torch_cuda_emu.build(torch_cuda_emu.emulate(src),
+                               tmp_path_factory.mktemp("emu_pairs"))
+    return torch_cuda_emu.entry(lib, "myers_pairs_wide_launch",
+                                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                                + [ctypes.c_void_p])
+
+
+def _wide_pairs(seed, W, Lp, B, ripple=False):
+    """Queries of 32W - 20 codes (fewer where the tiles are shorter),
+    every other one cut from its tile with substitutions; tiles of Lp
+    columns with a pad tail. `ripple`: every
+    query one base and every tile a run of it, so that each column's sum
+    carries through every word of every lane."""
+    rng = np.random.default_rng(seed)
+    NQ, NT = 3, 4
+    qlen = min(32 * W - 20, Lp - 80)
+    qs = np.zeros((NQ, 32 * W), np.uint8)
+    tiles = np.zeros((NT, Lp), np.uint8)
+    for t in range(NT):
+        n = int(rng.integers(max(qlen + 8, Lp - 60), Lp - 4))
+        tiles[t, :n] = 1 if ripple else rng.integers(1, 5, n)
+    pidx = rng.integers(0, NQ, B).astype(np.int32)
+    tidx = rng.integers(0, NT, B).astype(np.int32)
+    for q in range(NQ):
+        if ripple:
+            qs[q, :qlen] = 1
+            continue
+        t = int(tidx[np.argmax(pidx == q)]) if (pidx == q).any() else 0
+        st = int(rng.integers(0, Lp - 70 - qlen))
+        qs[q, :qlen] = tiles[t, st:st + qlen]
+        qs[q, rng.integers(0, qlen, 4)] = rng.integers(1, 5, 4)
+        if q == NQ - 1:
+            qs[q, :qlen] = rng.integers(1, 5, qlen)
+    peq = jmyers.build_peq(qs, np.full(NQ, qlen, np.int64), W,
+                           score_matrix())
+    return peq, tiles, pidx, tidx
+
+
+def _run_wide(emulated_pairs, peq, tiles, pidx, tidx, W, G, fmt,
+              offset=0):
+    """One emulated wide launch at G lanes a pair (1: the global-scratch
+    variant) over tiles placed `offset` bytes past an aligned address."""
+    B = len(pidx)
+    store = tiles if fmt == myers_cuda.FMT_BYTES else \
+        jmyers.pack_nibbles_np(tiles)
+    mem = np.zeros(store.size + 16, np.uint8)
+    mem[offset:offset + store.size] = store.ravel()
+    out = np.zeros((3, B), np.int32)
+    scratch = np.zeros(1, np.uint32)
+    if G == 1:
+        blocks, threads, smem = 2, 32, 0
+        scratch = np.zeros(blocks * threads * 2 * W, np.uint32)
+    else:
+        K = next(k for k in myers_cuda.PAIR_WORDS if G * k >= W)
+        threads = 128
+        blocks, smem = -(-B * G // threads), threads * 64 * K
+    peq32 = np.ascontiguousarray(peq.view(np.int32))
+    ncols = store.shape[1] * (1 if fmt == myers_cuda.FMT_BYTES else 2)
+    assert emulated_pairs(
+        peq32.ctypes.data, mem.ctypes.data + offset, pidx.ctypes.data,
+        tidx.ctypes.data, out.ctypes.data,
+        scratch.ctypes.data if G == 1 else None, B, W, fmt,
+        store.shape[1], ncols, len(peq), len(tiles), G, blocks, threads,
+        smem, None) == 0
+    plain = myers.myers_pairs_plain if fmt == myers_cuda.FMT_BYTES else \
+        myers.myers_pairs_packed_plain
+    return out, plain(_t(peq32), _t(store), _t(pidx), _t(tidx), W).numpy()
+
+
+@pytest.mark.parametrize("G", [8, 16, 32])
+@pytest.mark.parametrize("W,Lp,B,offset", [
+    (17, 641, 5, 1), (33, 1131, 5, 0), (46, 1535, 5, 3), (64, 2101, 3, 2)])
+def test_wide_kernel_source_on_cpu(emulated_pairs, W, Lp, B, offset, G):
+    """K1/K2's wide route, its own source compiled for the CPU, equals
+    the plain versions exactly at each lane-group size, in both tile
+    formats, with rows of odd width at unaligned addresses, dead lanes
+    past B and a pair whose query is unrelated to its tile."""
+    peq, tiles, pidx, tidx = _wide_pairs(W * G + Lp, W, Lp, B)
+    for fmt in (myers_cuda.FMT_BYTES, myers_cuda.FMT_PACKED):
+        got, ref = _run_wide(emulated_pairs, peq, tiles, pidx, tidx, W, G,
+                             fmt, offset)
+        np.testing.assert_array_equal(got, ref)
+    assert ref[0].min() <= 6 and ref[0].max() > 100
+
+
+@pytest.mark.parametrize("W,Lp,B,G", [
+    (46, 1500, 4, 8), (46, 1500, 4, 16), (33, 1100, 2, 32),
+    (4, 32768 - 128, 2, 8), (920, 200, 3, 1)],
+    ids=["ripple-G8", "ripple-G16", "ripple-G32", "W4-32640-columns",
+         "W920-scratch"])
+def test_wide_kernel_source_edges(emulated_pairs, W, Lp, B, G):
+    """The wide route where a carry ripples through every lane of a group
+    (a query of one base against a run of it), where a score passes the
+    narrow kernel's 15-bit keys (W = 4, 32,640 columns: the geometry's
+    G = 8, one word a lane), and past 28 words a lane (W = 920, one
+    thread a pair, the words in a global scratch)."""
+    ripple = Lp == 1500 or Lp == 1100
+    peq, tiles, pidx, tidx = _wide_pairs(W + Lp, W, Lp, B, ripple=ripple)
+    g = myers_cuda.pair_wide_geometry(B, W)
+    assert myers_cuda.pair_wide(W, Lp)
+    assert (g.group == 1) == (W == 920) and (W != 4 or g.group == G)
+    fmts = (myers_cuda.FMT_BYTES,) if W == 4 else \
+        (myers_cuda.FMT_BYTES, myers_cuda.FMT_PACKED)
+    for fmt in fmts:
+        got, ref = _run_wide(emulated_pairs, peq, tiles, pidx, tidx, W, G,
+                             fmt)
+        np.testing.assert_array_equal(got, ref)
+    if ripple:
+        assert (ref[0] == 0).all()
+
+
+def test_wide_launch_rejects_other_geometry(emulated_pairs):
+    """The wide entry refuses a lane group of another size, shared memory
+    that does not match its words a lane, too few CTAs and a scratch
+    beside a lane group, before a launch: nothing is written."""
+    W, B = 46, 4
+    peq, tiles, pidx, tidx = _wide_pairs(1, W, 1500, B)
+    out = np.full((3, B), -7, np.int32)
+    peq32 = np.ascontiguousarray(peq.view(np.int32))
+    scratch = np.zeros(16, np.uint32)
+    for G, blocks, threads, smem, scr in (
+            (4, 1, 128, 128 * 64 * 12, None), (8, 1, 128, 128 * 64 * 5, None),
+            (8, 0, 128, 128 * 64 * 6, None), (16, 1, 32, 32 * 64 * 3, None),
+            (8, 1, 128, 128 * 64 * 6, scratch)):
+        assert emulated_pairs(
+            peq32.ctypes.data, tiles.ctypes.data, pidx.ctypes.data,
+            tidx.ctypes.data, out.ctypes.data,
+            None if scr is None else scr.ctypes.data, B, W,
+            myers_cuda.FMT_BYTES, tiles.shape[1], tiles.shape[1], len(peq),
+            len(tiles), G, blocks, threads, smem, None) != 0
+    assert (out == -7).all()
+
+
+def test_pair_wide_geometry_covers_every_launch():
+    """For every W in 1..1,024 and B in {1, 31, 5,824, 2^18}: every pair
+    is covered once (CTAs x threads / G lanes >= B, one CTA less would
+    not), the words a lane hold W, the idle word slots stay at most a
+    quarter where a lane group allows it, shared memory stays within
+    what a CTA may opt into, and the planned state (VP, VN, Eq and the
+    sum, K words each) within a thread's 255 registers; past 896 words
+    one thread a pair over a global scratch of at most GLOBAL_SCRATCH
+    bytes."""
+    for W in range(1, 1025):
+        for B in (1, 31, 5824, 1 << 18):
+            g = myers_cuda.pair_wide_geometry(B, W)
+            assert g.threads % 32 == 0 and 32 <= g.threads <= 1024
+            if W > 896:
+                assert g.group == 1 and g.smem == 0 and g.words == 0
+                assert g.scratch == g.blocks * g.threads * 2 * W
+                assert 4 * g.scratch <= myers_cuda.GLOBAL_SCRATCH
+                continue
+            G, K = g.group, g.words
+            assert G in (8, 16, 32) and K in myers_cuda.PAIR_WORDS
+            assert G * K >= W > G * max(
+                [k for k in myers_cuda.PAIR_WORDS if k < K] or [0])
+            per = g.threads // G
+            assert g.blocks * per >= B > (g.blocks - 1) * per
+            assert g.smem == g.threads * 64 * K <= 232448
+            assert 4 * K + 24 <= 255
+            if any(G2 * k2 >= W and (G2 * k2 - W) * 4 <= G2 * k2
+                   for G2 in (8, 16, 32) for k2 in myers_cuda.PAIR_WORDS):
+                assert (G * K - W) * 4 <= G * K
+    assert myers_cuda.pair_wide_geometry(5824, 46)[:2] == (8, 6)
+    assert myers_cuda.pair_wide_geometry(1 << 18, 46).threads == 128

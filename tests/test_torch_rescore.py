@@ -222,3 +222,139 @@ def test_xalpha_matches_jax(windowed):
         rescore_cuda.rescore(_t(np.zeros((4, 32 * W), np.int32)),
                              _t(np.zeros((4, 127), np.uint8)),
                              _t(np.zeros((4, 2), np.int32)), W, 1, 8, 128)
+
+
+# ------------------------------------------- the kernel's own source
+
+@pytest.fixture(scope="module")
+def emulated_rescore(tmp_path_factory):
+    """csrc/rescore.cu built for the CPU (tests/torch_cuda_emu.py): its
+    wide-route entry, `rescore_wide_launch`."""
+    import ctypes
+    import os
+
+    from burst_tpu_torch.kernels import _build
+    from tests import torch_cuda_emu
+    src = open(os.path.join(_build.CSRC, "rescore.cu")).read()
+    lib = torch_cuda_emu.build(torch_cuda_emu.emulate(src),
+                               tmp_path_factory.mktemp("emu_rescore"))
+    return torch_cuda_emu.entry(lib, "rescore_wide_launch",
+                                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                                + [ctypes.c_void_p])
+
+
+def _wide_case(seed, W, qlen, L1, N, codes, budget, gap=0):
+    """N queries of about qlen residues, each cut from its own tile of
+    L1 - 1 columns (a pad tail of code 0, 32 columns or more) with a few
+    substitutions and indels and, where `gap`, `gap` tile columns left
+    out of its middle (its alignment then takes a left-gap chain that
+    long in one row: found only where the look-back window is wider);
+    every other pair an unrelated query. Peq tables of 16 codes or, with
+    256, of raw bytes."""
+    rng = np.random.default_rng(seed)
+    alpha = PROTEIN if codes == 256 else np.arange(1, 5, dtype=np.uint8)
+    half = len(alpha) // 2
+    tiles = np.zeros((N, L1 - 1), np.uint8)
+    qs = np.zeros((N, 32 * W), np.uint8)
+    qlens = np.zeros(N, np.int64)
+    for i in range(N):
+        n = int(rng.integers(qlen + gap + 8, L1 - 32))
+        tiles[i, :n] = alpha[rng.integers(0, len(alpha), n)]
+        st = int(rng.integers(0, n - qlen - gap))
+        if gap:     # the query's letters around the gap, others inside
+            g0 = st + qlen // 2
+            tiles[i, st:st + qlen + gap] = alpha[rng.integers(
+                0, half, qlen + gap)]
+            tiles[i, g0:g0 + gap] = alpha[rng.integers(half, len(alpha),
+                                                       gap)]
+        q = tiles[i, st:st + qlen + gap].copy()
+        q = np.delete(q, np.arange(qlen // 2, qlen // 2 + gap))
+        if i % 2 == 1:
+            q = alpha[rng.integers(0, len(alpha), qlen)]
+        for _ in range(int(rng.integers(0, 4))):
+            p = int(rng.integers(0, len(q)))
+            op = int(rng.integers(0, 3))
+            if op == 0:
+                q[p] = alpha[rng.integers(0, len(alpha))]
+            elif op == 1:
+                q = np.delete(q, p)
+            else:
+                q = np.insert(q, p, alpha[rng.integers(0, len(alpha))])
+        q = q[:32 * W]
+        qlens[i] = len(q)
+        qs[i, :len(q)] = q
+    if codes == 256:
+        peq = jmyers.build_peq_x(qs, qlens, W)
+    else:
+        peq = jmyers.build_peq(qs, qlens, W, score_matrix())
+    qmeta = np.stack([qlens, np.full(N, budget)], 1).astype(np.int32)
+    return (np.ascontiguousarray(peq.reshape(N, codes * W).view(np.int32)),
+            tiles, qmeta, prescore.rows_for(qlens, W))
+
+
+@pytest.mark.parametrize("W,qlen,L1,levels,codes,N,budget", [
+    (17, 520, 1152, 6, 16, 2, 15),   # 520 rows, a 64-column window over
+    (17, 520, 1152, 6, 16, 2, 300),  # runs of 8 and across warps' edges
+    (2, 60, 1280, 1, 16, 3, 250),
+    (2, 60, 1280, 2, 256, 2, 250),
+    (2, 60, 1152, 3, 256, 2, 250),
+    (3, 90, 1536, 4, 16, 2, 250),
+    (3, 90, 2176, 5, 16, 2, 250),
+    (32, 296, 1024, 6, 256, 2, 250),  # one warp of 32 columns a lane
+    (12, 360, 2048, 7, 16, 1, 250),  # 16 columns a lane, 8 halo lanes
+    (20, 620, 2048, 8, 16, 1, 250)],  # 32 columns a lane across warps
+    ids=["rows520-lv6", "rows520-lv6-gap48", "lv1", "lv2-x256",
+         "lv3-x256", "lv4", "lv5", "one-warp-x256", "lv7-C16", "lv8-C32"])
+def test_wide_kernel_source_on_cpu(emulated_rescore, W, qlen, L1, levels,
+                                   codes, N, budget):
+    """K3's wide route, its own source compiled for the CPU, equals
+    `rescore_plain` exactly on the launch `rescore_geometry` plans: past
+    511 rows and 1,024 columns, look-back depths 1-8 (windows wider than
+    a thread's run of columns and crossing a warp's edge), 16 and 256
+    codes, one warp and several, 8, 16 and 32 columns a thread. Where
+    the budget allows, each near query leaves out 3/4 of a window of
+    its tile (a left-gap chain that only the full window finds: the
+    result differs from one level less)."""
+    gap = 0 if budget < 20 else 3 * (1 << levels) // 4
+    peq, tiles, qmeta, rows = _wide_case(W * L1 + levels, W, qlen, L1, N,
+                                         codes, budget, gap)
+    g = rescore_cuda.rescore_geometry(N, rows, L1, codes * W,
+                                      levels=levels)
+    assert g.route == "wide"
+    if W == 17:
+        assert rows > 511 and g.threads > 32 and g.cols < 1 << levels
+    assert (g.threads == 32) == (W == 32)
+    assert g.cols == {7: 16, 8: 32}.get(levels, 32 if W == 32 else 8)
+    out = np.zeros((4, N), np.int32)
+    assert emulated_rescore(
+        peq.ctypes.data, tiles.ctypes.data, qmeta.ctypes.data,
+        out.ctypes.data, None, N, W, codes, levels, rows, L1, g.cols,
+        g.halo, g.threads, g.grid, g.smem, None) == 0
+    ref = prescore.rescore_plain(_t(peq), _t(tiles), _t(qmeta), W, levels,
+                                 rows, L1).numpy()
+    np.testing.assert_array_equal(out, ref)
+    if gap > 1:
+        less = prescore.rescore_plain(_t(peq), _t(tiles), _t(qmeta), W,
+                                      levels - 1, rows, L1).numpy()
+        assert (less[0] > ref[0]).any() and (ref[0] <= gap + 6).any()
+    assert (ref[0] <= min(budget, gap + 6)).any()
+    if budget < 20:
+        assert (ref[0] > budget).any()
+
+
+def test_wide_launch_rejects_other_geometry(emulated_rescore):
+    """The wide entry takes only the launch `rescore_geometry` plans:
+    another halo, warp count, column count or shared-memory size is
+    refused before a launch and nothing is written."""
+    N, W, L1, levels, rows = 1, 2, 1152, 3, 60
+    peq, tiles, qmeta, _ = _wide_case(5, W, 60, L1, N, 16, 3)
+    g = rescore_cuda.rescore_geometry(N, rows, L1, 16 * W, levels=levels)
+    out = np.full((4, N), -7, np.int32)
+    for bad in (dict(halo=g.halo + 1), dict(threads=g.threads + 32),
+                dict(cols=32), dict(smem=g.smem + 4), dict(halo=0)):
+        a = dict(g._asdict(), **bad)
+        assert emulated_rescore(
+            peq.ctypes.data, tiles.ctypes.data, qmeta.ctypes.data,
+            out.ctypes.data, None, N, W, 16, levels, rows, L1, a["cols"],
+            a["halo"], a["threads"], a["grid"], a["smem"], None) != 0, bad
+    assert (out == -7).all()
