@@ -67,22 +67,36 @@
 // Any Q, T and Lp: edges are bounds-checked here, there is no padding
 // contract.
 //
-// Past W = 16 (queries over 512 residues), `myers_cross_wide_kernel`:
-// W at run time, one query a CTA (grid.y) and one tile a thread, the
-// same tile ring, scan order and epilogue (int32, or uint8 clipped in
-// the kernel). A thread's VP/VN words live in dynamic shared memory
-// laid out [word][thread] (8W bytes a thread, conflict-free; 128
-// threads at W = 46 take 47 KB, so the launcher opts in past 48 KB), the
-// query's Peq words are read through the L1 cache (one table per CTA,
-// 64 W bytes at 16 codes, 1 KB x W at 256: threads with equal codes
-// read one address). Where even 32 threads' words pass the 227 KB a CTA
-// may hold (W > 900), the words go to a global scratch the wrapper
-// allocates, one slice per CTA. The words run in order through a 64-bit
-// add's carry, as in the plain version. A simple first design; PERF.md
-// has its rate against the bound.
+// Past W = 16 (queries over 512 residues) two wide routes, W at run
+// time; `kernels/myers_cuda.py::cross_group_geometry` picks one by the
+// lanes a launch puts in flight against the card's (SMs x 4 schedulers
+// x 32 lanes).
+//  * Where the pairs alone fill the card (Q x T of some 10^5),
+//    `myers_cross_wide_kernel`: one query a CTA (grid.y) and one tile a
+//    thread, the same tile ring, scan order and epilogue (int32, or
+//    uint8 clipped in the kernel). A thread's VP/VN words live in dynamic
+//    shared memory laid out [word][thread] (8W bytes a thread,
+//    conflict-free; 128 threads at W = 46 take 47 KB, so the launcher
+//    opts in past 48 KB), the query's Peq words are read through the L1
+//    cache. Where even 32 threads' words pass the 227 KB a CTA may hold
+//    (W > 900), the words go to a global scratch the wrapper allocates,
+//    one slice per CTA. The words run in order through a 64-bit add's
+//    carry, as in the plain version: a serial chain of W words a column
+//    on one thread, which needs many pairs in flight (61 % of the bound
+//    at 64 x 4,096; PERF.md).
+//  * Below that, `myers_cross_group_kernel<K>`: a group of 8-32 lanes a
+//    pair, the words in registers, the carry across lanes by ballots (the
+//    step K1/K2's wide route takes, myers_group.cuh), and, where even
+//    that leaves most SMs idle (a few long reads against a few whole
+//    references: one query a CTA gave 4 CTAs on 132 SMs, a 16,608-column
+//    serial chain each), each pair's columns split into overlapping
+//    segments scanned at once; the notes above the kernel say why the
+//    overlap makes that exact.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "myers_group.cuh"
 
 namespace {
 
@@ -416,6 +430,163 @@ myers_cross_wide_kernel(const uint32_t* __restrict__ peq,    // [Q,C,W]
   }
 }
 
+// ---------------------------------------------------------------------
+// The lane-group route (`myers_cross_group_kernel<K>`), for wide
+// launches whose pairs leave the card idle. A group of G = 8, 16 or 32
+// lanes scans one (query, tile) pair, K Myers words a lane in registers,
+// one column a `group_column` (myers_group.cuh: the carry across lanes
+// by two ballots, the shift by one shuffle). A CTA's groups share its
+// query (grid.y), whose Eq words are staged once in shared memory
+// ([code][K][G], the query's W words the top W of the G K: one
+// conflict-free load a word); it holds P tiles x S column segments.
+// Tile codes come through the two-stage ring, 32 columns of each
+// group's row a stage, laid out [word][group] (cp.async where rows and
+// segment starts are 4-byte aligned, else bytes through registers).
+//
+// Column segments. Where even these groups leave the card idle (a few
+// queries against a few whole references, 16,608 columns each), each
+// pair's columns are split into S segments of `seg` columns. Segment s
+// scans columns a = max(0, s seg - over) .. min((s+1) seg, Lp) - 1 from
+// a fresh state (VP all ones, VN 0, score 32W: the state before column
+// 0), and the pair's result is the least of its segments' minima, taken
+// over one CTA's groups in shared memory. Exact: the query has 32W rows
+// (its wildcard tail included), so an alignment with e edits spans at
+// most 32W + e tile columns. A fresh start at column a scores each end
+// column by the alignments that start at a or later, never below the
+// true score, and equal to it wherever the best alignment ending there
+// starts at a or later: for every end column a segment owns (s seg or
+// later) that holds once over >= 32W + e - 1. The true minimum d* <= 32W
+// (the query against nothing) then comes out of the segment owning its
+// column once over >= 32W + d*: over = 64W for int32; for uint8,
+// clipped at 255, 32W + min(32W, 255), since a minimum of 255 or more
+// clips to 255 whatever the segments give (`cross_overlap`). The
+// launcher refuses a smaller overlap.
+constexpr int kGroupMaxThreads = 128;
+
+template <int K>
+__global__ void __launch_bounds__(kGroupMaxThreads)
+myers_cross_group_kernel(const uint32_t* __restrict__ peq,   // [Q,C,W]
+                         const uint8_t* __restrict__ tiles,  // [T,Lp]
+                         void* __restrict__ out,             // [Q,T]
+                         int Q, int T, int W, int Lp, int C, int G, int S,
+                         int seg, int over, int P, int aligned,
+                         int out_u8) {
+  // Eq [C][K][G], the tile ring [2][kChunkWords][ng], segment minima [ng]
+  extern __shared__ uint32_t s_grp[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ng = blockDim.x / G;
+  const int g = tid / G, lig = tid & (G - 1);
+  const int q = blockIdx.y;
+  const int t0 = blockIdx.x * P;
+  const int p = g / S, sgi = g - p * S;
+  const int t = t0 + p;
+  const bool valid = p < P && t < T;
+  const int a = max(0, sgi * seg - over);
+  const int n = valid ? max(0, min(Lp, (sgi + 1) * seg) - a) : 0;
+  const int nmax = S == 1 ? Lp : min(Lp, seg + over);
+  uint32_t* s_eq = s_grp;
+  uint32_t* ring = s_eq + C * K * G;
+  int* s_best = reinterpret_cast<int*>(ring + 2 * kChunkWords * ng);
+
+  const int pad = G * K - W;
+  const uint32_t* pq = peq + (size_t)q * C * W;
+  for (int i = tid; i < C * K * G; i += blockDim.x) {
+    const int code = i / (K * G), rem = i - code * K * G;
+    const int w = (rem % G) * K + rem / G - pad;
+    s_eq[i] = w >= 0 ? __ldg(pq + code * W + w) : 0u;
+  }
+  // lane lig < 8 of a group stages word lig of each chunk of its row
+  const bool stager = lig < kChunkWords;
+  const uint8_t* row = tiles + (size_t)(valid ? t : 0) * Lp + a;
+  const int left = valid ? Lp - a : 0;  // columns of the row from a on
+  auto stage = [&](int c, uint32_t* dst, uint32_t (&pre)[4]) {
+    const int col = c * kChunkCols + 4 * lig;
+    if (aligned) {
+      const bool in = col < left;
+      cp_async4(dst + lig * ng + g, in ? row + col : tiles, in ? 4 : 0);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        pre[b] = col + b < left ? __ldg(row + col + b) : 0u;
+    }
+  };
+  const int nchunks = (nmax + kChunkCols - 1) / kChunkCols;
+  uint32_t pre[4];
+  if (nchunks > 0 && stager) {
+    stage(0, ring, pre);
+    if (aligned)
+      cp_async_commit();
+    else
+      ring[lig * ng + g] = pre[0] | (pre[1] << 8) | (pre[2] << 16) |
+                           (pre[3] << 24);
+  }
+
+  uint32_t VP[K], VN[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    VP[i] = 0xFFFFFFFFu;
+    VN[i] = 0u;
+  }
+  int score = 32 * W, best = 32 * W;
+  const unsigned notop = group_notop(G);
+  const uint32_t mask = (uint32_t)(C - 1);
+  const uint32_t* eqg = s_eq + lig;
+  for (int c = 0; c < nchunks; ++c) {
+    // chunk c has landed, chunk c-1 is consumed (and s_eq is set)
+    cp_async_wait_all();
+    __syncthreads();
+    uint32_t* next = ring + ((c + 1) & 1) * kChunkWords * ng;
+    const bool more = c + 1 < nchunks;
+    if (more && stager) {
+      stage(c + 1, next, pre);
+      if (aligned) cp_async_commit();
+    }
+    const uint32_t* st = ring + (c & 1) * kChunkWords * ng + g;
+    const int j0 = c * kChunkCols;
+    const int ncols = min(kChunkCols, nmax - j0);  // the same in the CTA
+#pragma unroll 1
+    for (int k = 0; k < (ncols + 3) / 4; ++k) {
+      const uint32_t word = st[k * ng];
+#pragma unroll
+      for (int sub = 0; sub < 4; ++sub) {
+        if (4 * k + sub < ncols) {
+          const uint32_t code = (word >> (8 * sub)) & mask;
+          uint32_t e[K];
+#pragma unroll
+          for (int i = 0; i < K; ++i) e[i] = eqg[(code * K + i) * G];
+          score += group_column<K>(e, VP, VN, lane, lig, G, notop);
+          // past the segment's columns the group runs on for the
+          // ballots' sake, its minimum kept
+          if (j0 + 4 * k + sub < n) best = min(best, score);
+        }
+      }
+    }
+    if (more && stager && !aligned)
+      next[lig * ng + g] = pre[0] | (pre[1] << 8) | (pre[2] << 16) |
+                           (pre[3] << 24);
+  }
+
+  // a pair's result: its segments' least minimum, on the top lanes
+  auto put = [&](int tt, int m) {
+    const size_t o = (size_t)q * T + tt;
+    if (out_u8)
+      static_cast<uint8_t*>(out)[o] = (uint8_t)min(m, 255);
+    else
+      static_cast<int32_t*>(out)[o] = m;
+  };
+  if (S == 1) {
+    if (valid && lig == G - 1) put(t, best);
+    return;
+  }
+  if (lig == G - 1) s_best[g] = best;
+  __syncthreads();
+  if (tid < P && t0 + tid < T) {
+    int m = s_best[tid * S];
+    for (int i = 1; i < S; ++i) m = min(m, s_best[tid * S + i]);
+    put(t0 + tid, m);
+  }
+}
+
 template <int W, int NQ, int C>
 int launch(const void* peq, const void* tiles, void* out, int Q, int T,
            int Lp, int out_u8, int threads, dim3 grid, int aligned,
@@ -510,5 +681,67 @@ extern "C" int myers_cross_wide_launch(const void* peq, const void* tiles,
   wide<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
       out, static_cast<uint32_t*>(scratch), Q, T, W, Lp, C, aligned, out_u8);
+  return (int)cudaGetLastError();
+}
+
+// Words a lane of the lane-group route: the instances, in order
+// (myers_cuda.PAIR_WORDS)
+#define GROUP_K(X) X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(10) X(12) X(16) \
+  X(20) X(24) X(28)
+
+// The lane-group route (W > 16 where the pairs leave the card idle), the
+// launch of kernels/myers_cuda.py::cross_group_geometry: `group` = 8, 16
+// or 32 lanes a pair, K the fewest instantiated words a lane holding W
+// / group; S segments of `seg` columns (a multiple of 4, covering Lp,
+// none empty) scanned from `over` columns before their first (a
+// multiple of 4, at least 32W + 32W, or 32W + min(32W, 255) for uint8);
+// P tiles a CTA of `threads` (a multiple of 32, at most 128, at least
+// P x S groups), grid (gx, gy = Q) with gx x P >= T; `smem` = C K group
+// x 4 bytes of Eq words + 68 bytes a group. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for arguments the kernel does
+// not take).
+extern "C" int myers_cross_group_launch(const void* peq, const void* tiles,
+                                        void* out, int Q, int T, int W,
+                                        int Lp, int C, int group, int S,
+                                        int seg, int over, int P,
+                                        int threads, int gx, int gy,
+                                        int smem, int out_u8,
+                                        void* stream) {
+  const int G = group;
+  if (Q <= 0 || T <= 0 || W <= 0 || Lp < 0 || (C != 16 && C != 256) ||
+      (out_u8 != 0 && out_u8 != 1) || (G != 8 && G != 16 && G != 32) ||
+      S < 1 || P < 1 || threads <= 0 || threads % 32 ||
+      threads > kGroupMaxThreads || threads / G < P * S || seg < 0 ||
+      seg % 4 || over % 4 || (long long)S * seg < Lp ||
+      (S > 1 && (long long)(S - 1) * seg >= Lp) ||
+      over < 32 * W + (out_u8 ? min(32 * W, 255) : 32 * W) || gx <= 0 ||
+      gy != Q || gy > 65535 || (long long)gx * P < T)
+    return (int)cudaErrorInvalidValue;
+  const int need = (W + G - 1) / G;
+  int K = 0;
+#define PICK_K(k) \
+  if (!K && k >= need) K = k;
+  GROUP_K(PICK_K)
+#undef PICK_K
+  if (!K || (long long)smem != 4LL * C * K * G + 68LL * (threads / G) ||
+      smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  void (*kern)(const uint32_t*, const uint8_t*, void*, int, int, int, int,
+               int, int, int, int, int, int, int, int) = nullptr;
+#define KERN_K(k) \
+  if (K == k) kern = &myers_cross_group_kernel<k>;
+  GROUP_K(KERN_K)
+#undef KERN_K
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int aligned = (Lp % 4 == 0) &&
+                      (reinterpret_cast<uintptr_t>(tiles) % 4 == 0);
+  const dim3 grid(gx, gy);
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
+      out, Q, T, W, Lp, C, G, S, seg, over, P, aligned, out_u8);
   return (int)cudaGetLastError();
 }

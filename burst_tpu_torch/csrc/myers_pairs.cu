@@ -75,6 +75,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "myers_group.cuh"
+
 namespace {
 
 constexpr int kPacked = 0;  // two codes per byte, low nibble first
@@ -317,21 +319,12 @@ __global__ void myers_pairs_kernel(const uint32_t* __restrict__ peq_all,
 
 
 // The wide route: a group of G = 8, 16 or 32 lanes a pair
-// (`pair_wide_geometry` in kernels/myers_cuda.py picks G and K). Lane l
-// of a group owns Myers words l K .. l K + K - 1 of a G K-word column,
-// VP/VN in registers; the query's W words are its top W, the G K - W
-// below them stay VP = ~0, VN = 0, Eq = 0, which carry nothing and shift
-// nothing in. A column's sum a + VP runs through a lane's K words with
-// carry-in 0; two ballots give every lane whether it generates a carry
-// and whether a carry-in would pass through it (its sums all ones), and
-// the carry into each lane is then one add over the warp's bits; each
-// group's top lane is masked out of both, so no carry crosses to the
-// next pair. HP/HN's shift into a lane's first word is one shuffle of
-// the top bits below. The score is word W-1's, on the group's top lane.
-// The Eq words are staged once in shared memory ([code][K][G], one
-// conflict-free load a word); the tile codes come an aligned word at a
-// time, the same address across the group.
-constexpr unsigned kFull = 0xFFFFFFFFu;
+// (`pair_wide_geometry` in kernels/myers_cuda.py picks G and K), K
+// Myers words a lane in registers, one column a `group_column`
+// (myers_group.cuh: the carry across lanes by two ballots, the shift by
+// one shuffle). The Eq words are staged once in shared memory ([code][K]
+// [G], one conflict-free load a word); the tile codes come an aligned
+// word at a time, the same address across the group.
 
 template <int K>
 __global__ void myers_pairs_wide_kernel(const uint32_t* __restrict__ peq_all,
@@ -374,9 +367,7 @@ __global__ void myers_pairs_wide_kernel(const uint32_t* __restrict__ peq_all,
   uint32_t word = live ? safe_word(base + 4 * (u / upw), lo, hi) : 0u;
   uint32_t next = live ? safe_word(base + 4 * (u / upw + 1), lo, hi) : 0u;
 
-  // the group's top lane is masked from the carry ballots
-  const unsigned notop = ~(G == 32 ? 0x80000000u
-                                   : G == 16 ? 0x80008000u : 0x80808080u);
+  const unsigned notop = group_notop(G);
   uint32_t VP[K], VN[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
@@ -393,44 +384,10 @@ __global__ void myers_pairs_wide_kernel(const uint32_t* __restrict__ peq_all,
       next = live ? safe_word(base + 4 * (u / upw + 1), lo, hi) : 0u;
     }
     const uint32_t* eqc = eq_g + code * K * G + lig;
-    uint32_t e[K], s[K];
-    uint32_t c = 0u, all = 0xFFFFFFFFu;
+    uint32_t e[K];
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      e[i] = eqc[i * G];
-      const uint64_t sum = (uint64_t)(e[i] & VP[i]) + VP[i] + c;
-      s[i] = (uint32_t)sum;
-      c = (uint32_t)(sum >> 32);
-      all &= s[i];
-    }
-    const unsigned gen = __ballot_sync(kFull, c) & notop;
-    const unsigned x = (__ballot_sync(kFull, all == 0xFFFFFFFFu) & notop) | gen;
-    uint32_t cin = (((gen + x) ^ x ^ gen) >> lane) & 1u;
-    uint32_t ph[K], mh[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const uint64_t sum = (uint64_t)s[i] + cin;
-      cin = (uint32_t)(sum >> 32);
-      const uint32_t xh = ((uint32_t)sum ^ VP[i]) | e[i];
-      ph[i] = VN[i] | ~(xh | VP[i]);
-      mh[i] = VP[i] & xh;
-    }
-    // the top bits of the lane below shift into this lane's first word
-    uint32_t up = __shfl_up_sync(kFull, (ph[K - 1] >> 31) |
-                                            ((mh[K - 1] >> 31) << 1), 1, G);
-    if (lig == 0) up = 0u;
-    uint32_t php = up & 1u, mhp = up >> 1;
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const uint32_t xv = e[i] | VN[i];
-      const uint32_t phs = (ph[i] << 1) | php;
-      const uint32_t mhs = (mh[i] << 1) | mhp;
-      php = ph[i] >> 31;
-      mhp = mh[i] >> 31;
-      VP[i] = mhs | ~(xv | phs);
-      VN[i] = phs & xv;
-    }
-    score += (int)(ph[K - 1] >> 31) - (int)(mh[K - 1] >> 31);
+    for (int i = 0; i < K; ++i) e[i] = eqc[i * G];
+    score += group_column<K>(e, VP, VN, lane, lig, G, notop);
     first = score < best ? j + 1 : first;
     last = score <= best ? j + 1 : last;
     best = min(best, score);

@@ -12,185 +12,52 @@
 // the code.
 //
 // What bounds it on an H100: each DP row is a short elementwise step
-// followed by `levels` Hillis-Steele doublings, and every step needs the
-// neighbouring column's value from the step before -- so a pair costs
-// rows * (2 + 2*levels) block-wide barriers over a few hundred bytes of
-// shared memory, with almost no device-memory traffic (a pair reads
-// L1-1 tile bytes and 64W bytes of Peq once). Of the card's two limits
-// the integer ALU is the nearer one (about 23 int32 instructions per
-// cell and 6 per doubling in the machine code; the bytes are a hundredth
-// of that time), but the kernel does not reach it: barrier latency and
-// shared-memory round trips hold it to about six tenths of the ALU's
-// rate (`chip_smoke.py` prints both times).
+// (about 23 int32 instructions a cell in the machine code) followed by
+// `levels` Hillis-Steele doublings (3 a column each), and every step
+// needs the neighbouring column's value from the step before; a pair
+// reads L1-1 tile bytes and C W Peq words once, so the bytes are a
+// hundredth of the integer time. The first design (one thread a column,
+// the row state in shared memory) paid rows x (2 + 2 levels) CTA-wide
+// barriers a pair for that exchange, which held it to 43-61 % of the
+// integer rate at the block shapes and a quarter past them.
 //
-// Design (`rescore_kernel`, up to 511 rows and 1,024 columns): one CTA
-// per pair, one thread per DP column (L1 = 128 or 640 on the main path). The row state (score, gap_q,
-// shiftR) and the key/payload exchange buffers live in shared memory;
-// each thread keeps its column's tile code and reads its cost bit from
-// the pair's Peq table, staged once in shared memory (64 W bytes at
-// C = 16, 1,024 W at C = 256: with the row state at L1 = 1024 and W = 16
-// that is 36 KB, inside the 48 KB a CTA holds without opting in). Small CTAs
-// (L1 = 128 is four warps) let many pairs share an SM, so one pair's
-// barrier waits overlap another's work. The final min/max reductions
-// use shared-memory atomics, which are order-independent for min/max.
-//
-// Past 511 rows or 1,024 columns (reads over 511 bp, references rescored
-// whole), `rescore_wide_kernel`, where the 9-bit shiftR field and one
-// thread per column end. What bounds it is the same integer work; what
-// held the first design to a quarter of that rate was one CTA-wide barrier
-// per doubling and an int64 shared-memory round trip per column and
-// doubling. Here the row lives in registers: a pair is one CTA of one to
-// 32 warps, each thread owning C = 8, 16 or 32 consecutive columns
-// (their packed look-back key and shiftR); the cell step takes its left
-// neighbour from the register before it, or from the lane below by one
-// shuffle; the 2^levels look-back runs its doublings in registers
-// (inside a run) and by shuffles (across lanes), so a warp needs no
-// barrier. The tie rule's order (score, then -gap_q, then the column) is
-// packed into one 32- or 64-bit key relative to the column compared at,
-// so a selection is one compare and two selects. A pair spanning warps
-// gives each warp a halo of the previous warp's last columns, at least a
-// window wide, refreshed after every row: one barrier a row. The codes
-// and Peq table are staged once in shared memory. Launch shape, key
-// width and halo come from kernels/rescore_cuda.py::rescore_geometry;
-// past what one CTA's registers hold (a contig of 240 kbp rescored
-// whole), `rescore_scratch_kernel`, the first design's global route,
-// keeps the state in a global scratch.
+// Design (`rescore_wide_kernel<C, KB, WARP>`): the row lives in registers.
+// Each thread owns C consecutive columns (their packed look-back key and
+// shiftR); the cell step takes its left neighbour from the register
+// before it, or from the lane below by one shuffle; the 2^levels
+// look-back runs its doublings in registers (inside a run) and by
+// shuffles (across lanes), so a warp needs no barrier. The tie rule's
+// order (score, then -gap_q, then the column) is packed into one 32- or
+// 64-bit key relative to the column compared at, so a selection is one
+// compare and two selects. Up to 1,024 columns (every windowed and
+// full-width shape of reads up to 511 bp) one warp holds a pair's row,
+// C = L1 / 32 columns a lane where the look-back window fits a lane's
+// run, and a CTA holds several pairs, one a warp: no barrier at all
+// after the staging. Past that a pair is one CTA of up to 32 warps, C =
+// 8, 16 or 32, each warp with a halo of the previous warp's last
+// columns, at least a window wide, refreshed after every row: one
+// barrier a row. The codes and Peq table are staged once in shared
+// memory. Launch shape, key width and halo come from
+// kernels/rescore_cuda.py::rescore_geometry; past what one CTA's
+// registers hold (a contig of 240 kbp rescored whole),
+// `rescore_scratch_kernel`, the first wide design's global route, keeps
+// the state in a global scratch.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kDead = 511;
-constexpr int kNegInfKey = (8191 << 13) | 8191;
-
-__global__ void rescore_kernel(const uint32_t* __restrict__ peq_flat,
-                               const uint8_t* __restrict__ tiles,
-                               const int32_t* __restrict__ qmeta,
-                               int32_t* __restrict__ out, int N, int W,
-                               int C, int levels, int rows, int L1) {
-  extern __shared__ int smem[];
-  int* sc = smem;
-  int* sh = sc + L1;
-  int* shr = sh + L1;
-  int* kbuf = shr + L1;
-  int* pbuf = kbuf + L1;
-  uint32_t* s_peq = reinterpret_cast<uint32_t*>(pbuf + L1);
-  __shared__ int red[4];  // best score, best gap_q, first, last column
-
-  const int n = blockIdx.x;
-  const int x = threadIdx.x;
-  const int Lp = L1 - 1;
-  for (int i = x; i < C * W; i += blockDim.x)
-    s_peq[i] = peq_flat[(size_t)n * C * W + i];
-  const int code = x >= 1 ? tiles[(size_t)n * Lp + x - 1] : 0;
-  const bool pad = code == 0;
-  const int qlen = qmeta[2 * n];
-  const int bad = qmeta[2 * n + 1] + 1;
-  if (x == 0) {
-    red[0] = INT_MAX;
-    red[1] = -1;
-    red[2] = 1 << 30;
-    red[3] = 0;
-  }
-  __syncthreads();
-
-  auto cost = [&](int y) -> int {
-    const uint32_t bits = s_peq[code * W + ((y - 1) >> 5)];
-    if ((bits >> ((y - 1) & 31)) & 1u) return 0;
-    return pad ? kDead : 1;
-  };
-
-  // row 1, special-cased like the reference
-  const int d1 = x >= 1 ? cost(1) : 0;
-  const int s1 = x == 0 ? 1 : d1;
-  sc[x] = s1;
-  __syncthreads();
-  const int left = x >= 1 ? sc[x - 1] : 0;
-  int v_sh = (x >= 1 && d1 == 1 && left == 0) ? 1 : 0;
-  int v_shr = x == 0 ? 1 : 0;
-  int v_sc = s1 >= bad ? kDead : s1;
-  __syncthreads();
-  sc[x] = v_sc;
-  sh[x] = v_sh;
-  shr[x] = v_shr;
-  __syncthreads();
-
-  const int d_stop = min(L1, 1 << levels);
-  for (int y = 2; y <= rows; ++y) {
-    int bs, bg, br;
-    if (x >= 1) {
-      const int d = cost(y);
-      const int sO = min(sc[x - 1] + d, kDead + 1);
-      const int sU = min(sc[x] + 1, kDead + 1);
-      const int gO = sh[x - 1], gU = sh[x];
-      const bool takeU = (sU < sO) || ((sU == sO) && (gU > gO));
-      bs = takeU ? sU : sO;
-      bg = takeU ? gU : gO;
-      br = takeU ? shr[x] + 1 : shr[x - 1];
-    } else {
-      bs = y;
-      bg = 0;
-      br = y;
-    }
-    int key = ((min(bs, kDead + 1) - x + Lp) << 13) | (8191 - (bg - x + Lp));
-    int pay = (x << 9) | br;
-    for (int ds = 1; ds < d_stop; ds <<= 1) {
-      kbuf[x] = key;
-      pbuf[x] = pay;
-      __syncthreads();
-      const int ks = x >= ds ? kbuf[x - ds] : kNegInfKey;
-      const int ps = x >= ds ? pbuf[x - ds] : 0;
-      __syncthreads();
-      if ((ks < key) || ((ks == key) && (ps > pay))) {
-        key = ks;
-        pay = ps;
-      }
-    }
-    int nsc = (key >> 13) - Lp + x;
-    int nsh = (8191 - (key & 8191)) - Lp + x;
-    int nshr = pay & 511;
-    if (nsc >= bad) nsc = kDead;
-    if (x == 0) {
-      nsc = y;
-      nsh = 0;
-      nshr = y;
-    }
-    __syncthreads();  // every thread has read the previous row
-    sc[x] = nsc;
-    sh[x] = nsh;
-    shr[x] = nshr;
-    __syncthreads();
-  }
-
-  // final reduction over columns 1..Lp of the last row
-  const int s = sc[x], g = sh[x];
-  if (x >= 1) atomicMin(&red[0], s);
-  __syncthreads();
-  const bool is_min = x >= 1 && s == red[0];
-  if (is_min) atomicMax(&red[1], g);
-  __syncthreads();
-  if (is_min && g == red[1]) {
-    atomicMin(&red[2], x);
-    atomicMax(&red[3], x);
-  }
-  __syncthreads();
-  if (x == red[2]) {
-    out[n] = min(red[0], 255);
-    out[N + n] = red[1];
-    out[2 * N + n] = shr[x];
-    out[3 * N + n] = red[3] - (rows - qlen);
-  }
-}
-
 
 // dynamic shared memory a CTA may opt into beside the static `red`
 constexpr int kSmemMax = 232448 - 1024;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // ---------------------------------------------------------------------
-// The wide route: the row in registers.
+// The register route: the row in registers.
 //
 // Keys. A candidate of the look-back, projected to the column x it is
 // compared at, is (score s, gap_q g, distance back to its own column);
@@ -202,13 +69,15 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // come from the shape (`rescore_key_bits` in kernels/rescore_cuda.py):
 // s <= 512 + w - 1, g <= x + 1 <= L1, dist < w, w = min(2^levels, L1);
 // one bit above them marks a column that does not exist (ABSENT, never
-// selected, unchanged by projection). The route takes the shapes whose
-// fields fit 31 bits (every shape whose row one CTA's registers hold:
-// a window of w columns needs w / 16 columns a thread, and 32 columns a
-// thread and 16 warps reach 2^14 columns); the rest go to the global
-// route. Between rows a column's state is its key with dist 0 and its
-// shiftR in `r`.
-typedef uint32_t KeyT;
+// selected, unchanged by projection). The key is 32 bits where the
+// fields fit 31 (KB = 32), else 64 (KB = 64, an instance of 32 columns
+// a thread: one warp at L1 = 1,024 with a window of 1,024 takes 11 + 11
+// + 10 bits). Between rows a column's state is its key with dist 0 and
+// its shiftR in `r`.
+template <int KB>
+using KeyOf = typename std::conditional<KB == 64, uint64_t, uint32_t>::type;
+
+template <typename KeyT>
 struct Fields {
   int sh_g, sh_s, w;          // field shifts; the look-back window
   KeyT gimask, absent, inc;   // GMAX << SH_G; the absent key; INC
@@ -232,9 +101,10 @@ __host__ __device__ inline void key_bits(int L1, int levels, int& sb,
   db = bit_len(w - 1);
 }
 
-__device__ __forceinline__ Fields make_fields(int L1, int levels) {
+template <typename KeyT>
+__device__ __forceinline__ Fields<KeyT> make_fields(int L1, int levels) {
   int sb, gb, db;
-  Fields f;
+  Fields<KeyT> f;
   key_bits(L1, levels, sb, gb, db, f.w);
   f.sh_g = db;
   f.sh_s = db + gb;
@@ -248,9 +118,9 @@ __device__ __forceinline__ Fields make_fields(int L1, int levels) {
 // One doubling of shift DD < C inside a lane's run: column j takes the
 // projected candidate of j - DD where it is better; the first DD columns
 // take theirs from the lane below (none in a warp's lane 0).
-template <int C, int DD>
+template <int C, int DD, typename KeyT>
 __device__ __forceinline__ void lane_step(KeyT (&key)[C], int (&r)[C],
-                                          const Fields& f, int lane) {
+                                          const Fields<KeyT>& f, int lane) {
   const KeyT inc = f.inc * (KeyT)DD;
   KeyT tk[DD];
   int tr[DD];
@@ -278,9 +148,9 @@ __device__ __forceinline__ void lane_step(KeyT (&key)[C], int (&r)[C],
   }
 }
 
-template <int C, int DD>
+template <int C, int DD, typename KeyT>
 __device__ __forceinline__ void lane_steps(KeyT (&key)[C], int (&r)[C],
-                                           const Fields& f, int lane) {
+                                           const Fields<KeyT>& f, int lane) {
   if constexpr (DD < C) {
     if (DD < f.w) {
       lane_step<C, DD>(key, r, f, lane);
@@ -289,59 +159,76 @@ __device__ __forceinline__ void lane_steps(KeyT (&key)[C], int (&r)[C],
   }
 }
 
-// Per-instance thread limits (kernels/rescore_cuda.py WIDE_MAX_THREADS):
-// the register file over C columns' keys and shiftR and a doubling's
-// temporaries.
-template <int C>
+// Per-instance thread limits (kernels/rescore_cuda.py WIDE_MAX_THREADS,
+// WARP_PAIRS): one CTA a pair, the register file over C columns' keys
+// and shiftR and a doubling's temporaries; one warp a pair, four warps.
+template <int C, bool WARP>
 struct WideLimit {
-  static constexpr int threads = C == 8 ? 1024 : C == 16 ? 768 : 576;
+  static constexpr int threads =
+      WARP ? 128 : C <= 8 ? 1024 : C <= 16 ? 768 : 576;
 };
 
-// One CTA a pair. Thread (warp k, lane l) owns the C consecutive columns
-// from x0 = k U + (l - H) C, U = (32 - H) C. With more than one warp the
-// first H lanes of each warp are its halo: copies of the previous warp's
-// last H C >= w columns, refreshed from it after every row through
-// shared memory (one barrier a row), so that every look-back window of
-// a warp's own columns lies inside the warp; warp 0's halo columns are
-// negative and ABSENT. With one warp (L1 <= 32 C) there is no halo and
-// no barrier.
-template <int C>
-__global__ void __launch_bounds__(WideLimit<C>::threads)
+// Thread (warp k of its pair, lane l) owns the C consecutive columns
+// from x0 = k U + (l - H) C, U = (32 - H) C.
+//  * WARP: one warp a pair (L1 <= 32 C: the shapes up to 1,024 columns,
+//    the block route of the first design): no halo and no barrier after
+//    the staging; a CTA holds P <= 4 pairs, one a warp. C = L1 / 32
+//    where the look-back window fits a lane's run (any C that is a
+//    multiple of 4: all lanes busy), else a power of two.
+//  * Else one CTA a pair across warps (P = 1, C = 8, 16 or 32): the first H
+//    lanes of each warp are its halo, copies of the previous warp's
+//    last H C >= w columns, refreshed from it after every row through
+//    shared memory (one barrier a row), so that every look-back window
+//    of a warp's own columns lies inside the warp; warp 0's halo columns
+//    are negative and ABSENT.
+template <int C, int KB, bool WARP>
+__global__ void __launch_bounds__((WideLimit<C, WARP>::threads))
 rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
                     const uint8_t* __restrict__ tiles,
                     const int32_t* __restrict__ qmeta,
                     int32_t* __restrict__ out, int N, int W, int NC,
-                    int levels, int rows, int L1, int H) {
+                    int levels, int rows, int L1, int H, int pairs) {
+  using KeyT = KeyOf<KB>;
   extern __shared__ __align__(16) unsigned char s_raw[];
-  const int nw = blockDim.x >> 5;
-  const int tid = threadIdx.x, k = tid >> 5, lane = tid & 31;
+  const int P = WARP ? pairs : 1;
+  const int nw = WARP ? 1 : blockDim.x >> 5;  // warps a pair
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int slot = (tid >> 5) / nw;        // the CTA's pair
+  const int k = (tid >> 5) - slot * nw;    // warp of the pair
+  const int ptid = tid - 32 * nw * slot;   // thread of the pair
   const int U = (32 - H) * C;
   const int x0 = k * U + (lane - H) * C;   // first column of the lane
   const int Lp = L1 - 1;
-  const int n = blockIdx.x;
+  const int n = blockIdx.x * P + slot;
   // shared memory: exchange keys [2][nw][H C], their shiftR, the final
-  // reduction's [32] x (2 keys, shiftR), Peq [NC W], codes [32 nw C]
+  // reduction's [32] x (2 keys, shiftR); then a pair's Peq [NC W] and
+  // codes [32 nw C], P times
   KeyT* xk = reinterpret_cast<KeyT*>(s_raw);
   int* xr = reinterpret_cast<int*>(xk + 2 * nw * H * C);
   unsigned long long* rk1 =
       reinterpret_cast<unsigned long long*>(xr + 2 * nw * H * C);
   unsigned long long* rk2 = rk1 + 32;
   int* rr = reinterpret_cast<int*>(rk2 + 32);
-  uint32_t* s_peq = reinterpret_cast<uint32_t*>(rr + 32);
+  uint32_t* s_peq = reinterpret_cast<uint32_t*>(rr + 32) +
+                    (size_t)slot * (NC * W + 8 * nw * C);
   uint8_t* s_code = reinterpret_cast<uint8_t*>(s_peq + NC * W);
   // s_code[x + H C] is column x's code: 0 outside 1 .. Lp
-  const uint32_t* peq = peq_flat + (size_t)n * NC * W;
-  for (int i = tid; i < NC * W; i += blockDim.x) s_peq[i] = peq[i];
-  const uint8_t* trow = tiles + (size_t)n * Lp;
-  for (int i = tid; i < 32 * nw * C; i += blockDim.x) {
-    const int x = i - H * C;
-    s_code[i] = (x >= 1 && x < L1) ? trow[x - 1] : 0;
+  int qlen = 0, bad = 0;
+  if (n < N) {
+    const uint32_t* peq = peq_flat + (size_t)n * NC * W;
+    for (int i = ptid; i < NC * W; i += 32 * nw) s_peq[i] = peq[i];
+    const uint8_t* trow = tiles + (size_t)n * Lp;
+    for (int i = ptid; i < 32 * nw * C; i += 32 * nw) {
+      const int x = i - H * C;
+      s_code[i] = (x >= 1 && x < L1) ? trow[x - 1] : 0;
+    }
+    qlen = qmeta[2 * n];
+    bad = qmeta[2 * n + 1] + 1;
   }
-  const int qlen = qmeta[2 * n];
-  const int bad = qmeta[2 * n + 1] + 1;
   __syncthreads();
+  if (n >= N) return;  // a last CTA's spare warps: no barrier follows
 
-  const Fields f = make_fields(L1, levels);
+  const Fields<KeyT> f = make_fields<KeyT>(L1, levels);
   const uint8_t* code = s_code + x0 + H * C;
   auto cost = [&](int j, int y) -> int {
     const int c = code[j];
@@ -487,22 +374,25 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
     }
     b2 = min(b2, o2);
   }
-  if (lane == 0) {
-    rk1[k] = b1;
-    rk2[k] = b2;
-    rr[k] = b1r;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int i = 1; i < nw; ++i) {
+  if (nw > 1) {  // one CTA a pair: across its warps
+    if (lane == 0) {
+      rk1[k] = b1;
+      rk2[k] = b2;
+      rr[k] = b1r;
+    }
+    __syncthreads();
+    for (int i = 1; ptid == 0 && i < nw; ++i) {
       if (rk1[i] < b1) {
         b1 = rk1[i];
         b1r = rr[i];
       }
       b2 = min(b2, rk2[i]);
     }
+  }
+  if (ptid == 0) {
     const int s = (int)(b1 >> 44);
-    const int g = (int)((f.gimask >> f.sh_g) - ((b1 >> 22) & XM));
+    const int g = (int)((unsigned long long)(f.gimask >> f.sh_g) -
+                        ((b1 >> 22) & XM));
     out[n] = min(s, 255);
     out[N + n] = g;
     out[2 * N + n] = b1r;
@@ -672,63 +562,59 @@ __global__ void rescore_scratch_kernel(const uint32_t* __restrict__ peq_flat,
   }
 }
 
-template <int C>
+template <int C, int KB, bool WARP>
 int launch_wide(const void* peq_flat, const void* tiles, const void* qmeta,
                 void* out, int N, int W, int NC, int levels, int rows,
-                int L1, int H, int threads, int smem, cudaStream_t stream) {
-  if (threads > WideLimit<C>::threads) return (int)cudaErrorInvalidValue;
-  auto kern = &rescore_wide_kernel<C>;
+                int L1, int H, int P, int threads, int grid, int smem,
+                cudaStream_t stream) {
+  if (threads > WideLimit<C, WARP>::threads)
+    return (int)cudaErrorInvalidValue;
+  auto kern = &rescore_wide_kernel<C, KB, WARP>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<N, threads, smem, stream>>>(
+  kern<<<grid, threads, smem, stream>>>(
       static_cast<const uint32_t*>(peq_flat),
       static_cast<const uint8_t*>(tiles), static_cast<const int32_t*>(qmeta),
-      static_cast<int32_t*>(out), N, W, NC, levels, rows, L1, H);
+      static_cast<int32_t*>(out), N, W, NC, levels, rows, L1, H, P);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// peq_flat: [N, C * W] (C = 16 or 256 codes). Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for another C).
-extern "C" int rescore_launch(const void* peq_flat, const void* tiles,
-                              const void* qmeta, void* out, int N, int W,
-                              int C, int levels, int rows, int L1,
-                              void* stream) {
-  if (C != 16 && C != 256) return (int)cudaErrorInvalidValue;
-  const size_t smem = (5 * (size_t)L1 + (size_t)C * W) * sizeof(int);
-  rescore_kernel<<<N, L1, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(peq_flat),
-      static_cast<const uint8_t*>(tiles), static_cast<const int32_t*>(qmeta),
-      static_cast<int32_t*>(out), N, W, C, levels, rows, L1);
-  return (int)cudaGetLastError();
-}
+// Columns a thread of the register route: the instances (32-bit keys;
+// 32 columns also with 64-bit keys)
+#define WIDE_C(X) X(4) X(8) X(12) X(16) X(20) X(24) X(28) X(32)
 
-// The wide route (any rows, any L1 >= 2), the launch shape of
-// kernels/rescore_cuda.py::rescore_geometry. `cols` columns a thread (8,
-// 16 or 32), `threads` = 32 nw, `halo` lanes a warp (0 with one warp,
-// else ceil(w / cols) <= 16), a CTA per pair (`grid` = N), `smem`
-// dynamic bytes (rescore_wide_smem); or, with `scratch` (cols, halo and
-// smem 0), the global route: `grid` CTAs walking over the pairs,
-// `scratch` holding grid x 4 x L1 int64. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for arguments the kernel does
-// not take).
+// The register route (any rows, any L1 >= 2), the launch shape of
+// kernels/rescore_cuda.py::rescore_geometry. `cols` columns a thread (a
+// multiple of 4 up to 32; 8, 16 or 32 where a pair spans warps, else a
+// power of two unless the look-back window fits a lane's run), `threads`
+// = 32 nw x
+// `pairs`, `halo` lanes a warp (0 with one warp a pair, else ceil(w /
+// cols) <= 16), `pairs` a CTA (1 where a pair spans warps), `grid` =
+// ceil(N / pairs) CTAs, `smem` dynamic bytes (rescore_wide_smem), the
+// key 32 bits where the shape's fields fit 31, else 64 (one warp of 32
+// columns a thread only); or, with `scratch` (cols, halo and smem 0, pairs 1),
+// the global route: `grid` CTAs walking over the pairs, `scratch`
+// holding grid x 4 x L1 int64. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int rescore_wide_launch(const void* peq_flat, const void* tiles,
                                    const void* qmeta, void* out,
                                    void* scratch, int N, int W, int C,
                                    int levels, int rows, int L1, int cols,
-                                   int halo, int threads, int grid, int smem,
-                                   void* stream) {
+                                   int halo, int pairs, int threads,
+                                   int grid, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((C != 16 && C != 256) || N <= 0 || W <= 0 || L1 < 2 || rows < 1 ||
-      levels < 1 || threads <= 0 || threads % 32 || threads > 1024 ||
-      grid <= 0 || grid > N || smem < 0 || smem > kSmemMax)
+      levels < 1 || threads <= 0 || pairs <= 0 || threads % (32 * pairs) ||
+      threads > 1024 || grid <= 0 || grid > N || smem < 0 ||
+      smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   if (scratch != nullptr) {
-    if (cols || halo || smem) return (int)cudaErrorInvalidValue;
+    if (cols || halo || smem || pairs != 1) return (int)cudaErrorInvalidValue;
     rescore_scratch_kernel<<<grid, threads, 0, s>>>(
         static_cast<const uint32_t*>(peq_flat),
         static_cast<const uint8_t*>(tiles),
@@ -738,24 +624,35 @@ extern "C" int rescore_wide_launch(const void* peq_flat, const void* tiles,
   }
   int sb, gb, db, w;
   key_bits(L1, levels, sb, gb, db, w);
-  const int nw = threads / 32;
+  const int kb = sb + gb + db <= 31 ? 32 : 64;
+  const int nw = threads / 32 / pairs;
+  const bool pow2 = (cols & (cols - 1)) == 0;
   const int need_h = nw == 1 ? 0 : (w + cols - 1) / cols;
   const long long own = nw == 1 ? 32LL * cols : (32LL - halo) * cols;
   const long long want = 2LL * nw * halo * cols * 8 + 32 * 20 +
-                         4LL * C * W + 32LL * nw * cols;
-  if ((cols != 8 && cols != 16 && cols != 32) || sb + gb + db > 31 ||
-      halo != need_h || halo > 16 || nw * own < L1 ||
-      (nw - 1) * own >= L1 || grid != N || smem != want)
+                         (long long)pairs * (4LL * C * W + 32LL * nw * cols);
+  if (cols < 4 || cols > 32 || cols % 4 || sb + gb + db > 63 ||
+      (kb == 64 && (cols != 32 || nw > 1)) ||
+      (!pow2 && (nw > 1 || w > cols)) || (nw > 1 && cols < 8) ||
+      (pairs > 1 && nw > 1) || halo != need_h || halo > 16 ||
+      nw * own < L1 || (nw - 1) * own >= L1 ||
+      (long long)grid * pairs < N || (long long)(grid - 1) * pairs >= N ||
+      smem != want)
     return (int)cudaErrorInvalidValue;
-  switch (cols) {
-    case 8:
-      return launch_wide<8>(peq_flat, tiles, qmeta, out, N, W, C, levels,
-                            rows, L1, halo, threads, smem, s);
-    case 16:
-      return launch_wide<16>(peq_flat, tiles, qmeta, out, N, W, C, levels,
-                             rows, L1, halo, threads, smem, s);
-    default:
-      return launch_wide<32>(peq_flat, tiles, qmeta, out, N, W, C, levels,
-                             rows, L1, halo, threads, smem, s);
-  }
+  if (kb == 64)
+    return launch_wide<32, 64, true>(peq_flat, tiles, qmeta, out, N, W, C,
+                                     levels, rows, L1, halo, pairs, threads,
+                                     grid, smem, s);
+#define WIDE_CASE(c)                                                        \
+  if (cols == c && nw == 1)                                                 \
+    return launch_wide<c, 32, true>(peq_flat, tiles, qmeta, out, N, W, C,   \
+                                    levels, rows, L1, halo, pairs, threads, \
+                                    grid, smem, s);                         \
+  if (cols == c && nw > 1 && (c == 8 || c == 16 || c == 32))                \
+    return launch_wide<(c == 8 || c == 16 ? c : 32), 32, false>(            \
+        peq_flat, tiles, qmeta, out, N, W, C, levels, rows, L1, halo, pairs, \
+        threads, grid, smem, s);
+  WIDE_C(WIDE_CASE)
+#undef WIDE_CASE
+  return (int)cudaErrorInvalidValue;
 }

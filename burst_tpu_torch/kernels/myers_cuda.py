@@ -10,14 +10,17 @@ Each kernel has a second, wide route for W > 16 (queries over 512
 residues; for the pair kernel also where a score could pass its packed
 position keys' 15 bits), W at run time: the pair kernel's a group of
 8-32 lanes a pair, the words in registers, the carry across lanes by
-ballots (`pair_wide_geometry`); the cross kernel's the words in shared
-memory (`cross_wide_geometry`); each past what that holds with the
-words in a global scratch allocated here.
+ballots (`pair_wide_geometry`); the cross kernel's the same lane groups
+with each pair's columns split into overlapping segments where the
+launch leaves the card idle (`cross_group_geometry`), else one thread a
+pair with the words in shared memory (`cross_wide_geometry`); each past
+what that holds with the words in a global scratch allocated here.
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version from `kernels.myers`. Each wrapper
-counts its own launches in its `launches` attribute, and the wide
-routes' among them in `wide`.
+counts its own launches in its `launches` attribute, the wide routes'
+among them in `wide`, and the cross kernel's lane-group launches among
+those in `group`.
 """
 from __future__ import annotations
 
@@ -43,13 +46,19 @@ GLOBAL_SCRATCH = 256 << 20    # a global route's scratch per launch, at most
 PAIR_GROUPS = (8, 16, 32)     # K1/K2 wide: lanes a pair
 PAIR_WORDS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 28)  # words a lane
 PAIR_THREADS = 128            # K1/K2 wide: threads a CTA (32 small launches)
+# K4 wide: the one-thread-a-pair route where a launch's pairs give every
+# warp scheduler this many warps, else lane groups (and column segments
+# up to that many lanes in flight)
+CROSS_FILL_WARPS = 3
+CROSS_GROUP_THREADS = 128     # K4 lane groups: threads a CTA, at most
 FMT_PACKED, FMT_BYTES = 0, 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"myers_pairs_launch": [_P] * 5 + [_I] * 10 + [_P],
         "myers_pairs_wide_launch": [_P] * 6 + [_I] * 11 + [_P]}
 _SIG_CROSS = {"myers_cross_launch": [_P, _P, _P] + [_I] * 10 + [_P],
-              "myers_cross_wide_launch": [_P] * 4 + [_I] * 10 + [_P]}
+              "myers_cross_wide_launch": [_P] * 4 + [_I] * 10 + [_P],
+              "myers_cross_group_launch": [_P] * 3 + [_I] * 15 + [_P]}
 _CROSS_DTYPES = {torch.int32: 0, torch.uint8: 1}
 
 
@@ -76,8 +85,10 @@ def cross_geometry(Q: int, T: int, W: int
     runs at least two independent carry chains (4 at W <= 4, 2 above:
     VP/VN of NQ x W words in registers); one tile a thread, 128 tiles a
     CTA (fewer, in whole warps, when T is smaller); tile groups on grid.x
-    and query groups on grid.y. Past W = 16 the wide route's: one query
-    a CTA (`cross_wide_geometry`)."""
+    and query groups on grid.y. Past W = 16 the one-thread-a-pair wide
+    route's (`cross_wide_geometry`: one query a CTA), the tile groups
+    by which `engine.cross_blocks` sizes launches whichever wide route
+    then runs them."""
     if W > NARROW_W:
         threads, grid, _, _ = cross_wide_geometry(Q, T, W)
         return 1, threads, grid
@@ -157,6 +168,74 @@ def cross_wide_geometry(Q: int, T: int, W: int
     if threads * 8 * W + CROSS_RING_BYTES <= SMEM_OPT_IN:
         return threads, grid, threads * 8 * W, 0
     return threads, grid, 0, grid[0] * Q * threads * 2 * W
+
+
+class CrossGroupLaunch(NamedTuple):
+    """A K4 launch on the lane-group route: lanes a pair G, Myers words
+    a lane K, column segments a pair S, the columns a segment owns, the
+    columns it scans before its first, tiles a CTA P, threads a CTA,
+    grid (x, y) and dynamic shared-memory bytes."""
+    group: int
+    words: int
+    segments: int
+    seg: int
+    over: int
+    pairs: int
+    threads: int
+    grid: tuple[int, int]
+    smem: int
+
+
+def cross_overlap(W: int, u8: bool) -> int:
+    """Columns a K4 segment scans before its first, as few as keep the
+    segments' least minimum exact (csrc/myers_cross.cu): an alignment of
+    the 32W query rows with e edits spans at most 32W + e columns, and
+    the minimum is at most 32W (int32) or matters only below 255
+    (uint8); rounded up to whole 32-column chunks."""
+    return -(-(32 * W + min(32 * W, 255 if u8 else 32 * W)) // 32) * 32
+
+
+def cross_group_geometry(Q: int, T: int, W: int, Lp: int, C: int = 16,
+                         u8: bool = True, sms: int = 132,
+                         force: bool = False, group: int | None = None,
+                         segments: int | None = None
+                         ) -> CrossGroupLaunch | None:
+    """The lane-group launch of a wide K4 call (W > 16) over Q queries
+    and T tiles of Lp columns, or None where the one-thread-a-pair route
+    (`cross_wide_geometry`) runs it: where the pairs alone give each of
+    the card's warp schedulers CROSS_FILL_WARPS warps (unless `force`),
+    past 28 x 32 words, or where the query's Eq table would not fit a
+    CTA's shared memory. A group of G lanes a pair, K words a lane
+    (`pair_group`: the fewest lanes); each pair's columns in S segments
+    while the lanes in flight stay under that fill, a segment no shorter
+    than a quarter of its overlap (`cross_overlap`) and a pair's
+    segments within one CTA of at most CROSS_GROUP_THREADS threads; P
+    tiles a CTA of about that many threads, in whole warps; one query a
+    CTA (grid.y), its Eq table in shared memory beside the two-stage
+    tile ring and the segment minima. `force` takes this route whatever the
+    fill; `group` and `segments` set G and S (the segments then as near
+    S as whole 32-column chunks allow) in place of the planned ones."""
+    gk = pair_group(W)
+    fill = CROSS_FILL_WARPS * sms * 4 * 32
+    if gk is None or (not force and group is None and segments is None
+                      and Q * T >= fill):
+        return None
+    G, K = gk
+    if group is not None:
+        G, K = group, next(k for k in PAIR_WORDS if group * k >= W)
+    over = cross_overlap(W, u8)
+    S = segments or max(1, min(fill // (Q * T * G),
+                               CROSS_GROUP_THREADS // G,
+                               4 * (Lp - over) // over))
+    seg = -(-(-(-Lp // S)) // 32) * 32
+    S = max(1, -(-Lp // seg)) if seg else 1
+    P = max(1, min(T, CROSS_GROUP_THREADS // (S * G)))
+    groups = -(-P * S * G // 32) * 32 // G
+    smem = 4 * C * K * G + 68 * groups
+    if smem > SMEM_OPT_IN:
+        return None
+    return CrossGroupLaunch(G, K, S, seg, over, P, groups * G,
+                            (-(-T // P), Q), smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,9 +388,10 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
 
 
 def _cross_wide(peq, tiles, W: int, out_dtype):
-    """K4's wide route (W > 16): one launch, or where the Myers words
-    take a global scratch, one launch per group of queries that keeps
-    it under GLOBAL_SCRATCH bytes."""
+    """K4's wide routes (W > 16): one lane-group launch
+    (`cross_group_geometry`), else one launch of one thread a pair, or
+    where its Myers words take a global scratch, one launch per group of
+    queries that keeps it under GLOBAL_SCRATCH bytes."""
     Q, (T, Lp) = peq.shape[0], tiles.shape
     if Q > CROSS_MAX_QGROUPS:
         raise ValueError(f"Q={Q}: over the launch grid's "
@@ -321,6 +401,19 @@ def _cross_wide(peq, tiles, W: int, out_dtype):
         return out
     lib = _build.load("myers_cross", _SIG_CROSS)
     stream = torch.cuda.current_stream(peq.device).cuda_stream
+    u8 = _CROSS_DTYPES[out_dtype]
+    g = cross_group_geometry(Q, T, W, Lp, peq.shape[1], bool(u8),
+                             sm_count(peq.device))
+    if g is not None:
+        err = lib.myers_cross_group_launch(
+            peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
+            peq.shape[1], g.group, g.segments, g.seg, g.over, g.pairs,
+            g.threads, *g.grid, g.smem, u8, stream)
+        _build.check(err, "myers_cross_group_launch")
+        myers_cross.launches += 1
+        myers_cross.wide += 1
+        myers_cross.group += 1
+        return out
     threads, (gx, _), smem, words = cross_wide_geometry(Q, T, W)
     per = Q if not words else max(1, GLOBAL_SCRATCH // (4 * words // Q))
     for q0 in range(0, Q, per):
@@ -330,12 +423,11 @@ def _cross_wide(peq, tiles, W: int, out_dtype):
         err = lib.myers_cross_wide_launch(
             peq[q0:].data_ptr(), tiles.data_ptr(), out[q0:].data_ptr(),
             scratch.data_ptr() if words else None, nq, T, W, Lp,
-            peq.shape[1], threads, gx, nq, smem, _CROSS_DTYPES[out_dtype],
-            stream)
+            peq.shape[1], threads, gx, nq, smem, u8, stream)
         _build.check(err, "myers_cross_wide_launch")
         myers_cross.launches += 1
         myers_cross.wide += 1
     return out
 
 
-myers_cross.launches = myers_cross.wide = 0
+myers_cross.launches = myers_cross.wide = myers_cross.group = 0

@@ -26,16 +26,24 @@
                                           # the wide route's shapes in
                                           # turns
     python3 chip_smoke.py rescore [old.cu]  # K3 alone: build, recount,
-                                          # the wide and global routes'
-                                          # checks and times; with a
-                                          # source of the 15-argument wide
-                                          # entry, both timed in turns
+                                          # checks and times of every
+                                          # route at the paths' shapes;
+                                          # with an earlier source, its
+                                          # 11-argument block route and
+                                          # its 15- or 17-argument wide
+                                          # entry in turns
     python3 chip_smoke.py cross [old.cu]  # the cross kernel (K4) alone:
                                           # build, checks and times at
                                           # each path's shape, cp.async
-                                          # against register staging;
-                                          # with an
-                                          # earlier source, both timed in
+                                          # against register staging,
+                                          # the wide routes at phase 10's
+                                          # shapes, both wide routes and
+                                          # other segment counts forced
+                                          # in turns; with an earlier
+                                          # source of the 15-argument
+                                          # wide entry, its wide route in
+                                          # turns; of the 8-argument
+                                          # interface, both timed in
                                           # turns at their own blocks
 
 Phases, each fatal on failure:
@@ -46,9 +54,10 @@ Phases, each fatal on failure:
      kernels' bounds are made of: the narrow instances' hot loops, the
      K1/K2 wide route's column loop (the one with the carry ballots,
      VOTE: its count a word the slope over the words-a-lane instances),
-     the K3 wide route's row loop and the doubling loop across lanes
-     nested in it (the one that shuffles, SHFL), K4's wide route and the
-     global-scratch routes' loops by their stores;
+     K4's lane-group route's scan loop (the same slope), the K3
+     register routes' row loop and the doubling loop across lanes
+     nested in it (the one that shuffles, SHFL), K4's one-thread-a-pair
+     wide route and the global-scratch routes' loops by their stores;
   2. hold each kernel (K1, K2, K3, K4) against its plain PyTorch version
      on the card and against the package's native host twin, at the
      shapes its path gives it (exact equality: all integer arithmetic);
@@ -61,20 +70,26 @@ Phases, each fatal on failure:
      must be one launch that allocates only its result. K3 at the
      headline's W = 4 (L1 = 128 windowed, 640 full width) and at the
      amplicon's W = 10 with 296 DP rows (L1 = 384 windowed, 1024 full
-     width, the kernel's widest). K4 in both result types (int32, uint8)
+     width: the warp route, one warp a pair). K4 in both result types (int32, uint8)
      at each path's shape (`CROSS_SHAPES`), on the first block that
      `engine.cross_blocks` plans for this card: the direct block, the
      two-step and fused full-scan rows, one ragged shape, and the
      raw-byte (-x) block of phase 9's protein set at 256 codes. The
-     wide routes at phase 10's shapes (`wide_pair_recs`, K4's,
-     `wide_rescore_recs`): K1/K2 at W = 46 over 2^18 pairs and the fused
-     batch's 5,824, K2 at W = 44 and 43, every lane-group size (8, 16,
-     32) at W = 46, a query of one base against a run of it (a carry
-     through every lane), the Myers words forced into the global
-     scratch; K3 at 1,456 rows windowed and full width, the fused
-     batch's W = 45, the whole references' W = 9, L1 = 17,024 (18
-     warps, windows across the warps' halos) and 240,256 columns (the
-     global route);
+     wide routes at phase 10's shapes (`wide_pair_recs`,
+     `wide_cross_recs`, `wide_rescore_recs`): K1/K2 at W = 46 over 2^18
+     pairs and the fused batch's 5,824, K2 at W = 44 and 43, every
+     lane-group size (8, 16, 32) at W = 46, a query of one base against
+     a run of it (a carry through every lane), the Myers words forced
+     into the global scratch; K4 on lane groups over column segments at
+     the whole references' 16,569 bp bucket (W = 46, 4 x 4 tiles of
+     16,608 columns), in one segment at their 1,450 bp bucket (W = 44,
+     20 x 160), segments under int32's overlap, one thread a pair at 64
+     x 4,096 (its words forced into the scratch in turns) and at 256
+     codes; K3 at 1,456 rows windowed and full width, the fused batch's
+     W = 45, the whole references' W = 9, L1 = 17,024 (18 warps,
+     windows across the warps' halos), 240,256 columns (the global
+     route) and, held once, L1 = 1,024 at levels 10 (the warp route's
+     64-bit key);
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -165,11 +180,12 @@ Phases, each fatal on failure:
      (kernel, shape) it launched held against its plain version, the
      first 64 reads against the port's CPU run; (b) two families and four
      random 16,569 bp references unsheared through the command line
-     without -s, 1,960 reads of 150-300 bp (every 20th from a 16,569 bp
-     reference) and 40 of 1,300-1,450 bp: BEST and CAPITALIST -b (K4 at
-     W up to 46, K3 past 1,024 columns on its wide route, the 16,569 bp
-     units' L1 = 17,024 included), every shape held, 48 of the reads
-     against the CLI's CPU run.
+     without -s, 1,960 reads of 200-300 bp (every 20th from a 16,569 bp
+     reference) and 40 of 1,380-1,450 bp: BEST and CAPITALIST -b (K4 at
+     W up to 46 on lane groups, over column segments against the
+     16,569 bp units; K3 past 1,024 columns on its wide route, the
+     16,569 bp units' L1 = 17,024 included), every shape held, 48 of the
+     reads against the CLI's CPU run.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -247,16 +263,15 @@ OPS_WORD, OPS_COL = 10.59, 2
 # instructions of the row loop and of the doubling loop in the rescore
 # kernels' machine code (their compares and selects are the tie rule, so
 # ISETP and SEL count there), recounted by phase 1 as well. (H100, CUDA
-# 12.8: the block route's 6 ISETP + 5 LOP3 + 5 SEL + 3 VIADD + 2 LEA + 2
-# VIADDMNMX + 1 SHF + 1 VIMNMX per row of one column, less the loop's
-# compare and the row counter's add, 23. A doubling: 5 ISETP + 2 SEL less
-# the loop's compare in the block route, 6, but the wide
-# route's packed keys select in 1 ISETP + 2 SEL (their projection an
-# IMAD, off this pipe), 3.06 a column over a 32-column run: the least
-# the compiler has shown is 3, for every K3 route.)
+# 12.8: the first design's block route, until the warp route replaced
+# it, did 23 a cell; the register routes' packed keys select in 1 ISETP
+# + 2 SEL a doubling (their projection an IMAD, off this pipe), 3.06 a
+# column over a 32-column run, and their cell 21.78 (32 columns a
+# thread across warps) to 26 (4). 22 and 3, the least the compiler has
+# shown within the recount's 2 %, serve every K3 route.)
 CELL_OPCODES = SCAN_WORD_OPCODES + SCAN_STEP_OPCODES + (
     "ISETP", "SEL", "VIADD", "VIADDMNMX")
-OPS_CELL, OPS_LEVEL = 23, 3
+OPS_CELL, OPS_LEVEL = 22, 3
 
 
 def log(msg: str):
@@ -335,12 +350,14 @@ def _mangled_kernel(mangled: str) -> str:
 
 def _entry_name(ptxas_line: str) -> str:
     """'W=<args>' of a ptxas entry line; 'wide <args>' for a wide
-    route's instance (K1/K2: words a lane; K3: columns a thread; K4:
-    the scratch flag), 'scratch' for a global-scratch route."""
+    route's instance (K1/K2: words a lane; K3: columns a thread and key
+    bits; K4: the scratch flag), 'group <K>' for K4's lane-group route
+    (words a lane), 'scratch' for a global-scratch route."""
     name = _mangled_kernel(ptxas_line)
     if "_scratch_" in name:
         return "scratch"
-    wide = "wide " if "_wide_" in name else "W="
+    wide = "wide " if "_wide_" in name else \
+        "group " if "_group_" in name else "W="
     return wide + _template_args(ptxas_line)
 
 
@@ -420,11 +437,13 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
                 f"{depth}: " + ", ".join(f"{k} {v}"
                                          for k, v in ops.most_common()))
 
+    above = []
+
     def held(what, const, count):
         log(f"[sass] {what}: counted {count:.2f}, the bound uses {const}")
         if const > count * 1.02:
-            fail(f"{what}: the bound's constant {const} is above the "
-                 f"machine code's {count:.2f}")
+            above.append(f"{what}: the bound's constant {const} is above "
+                         f"the machine code's {count:.2f}")
 
     # The wide routes. K1/K2 (`myers_pairs_wide_kernel<K>`, K words a
     # lane): the column loop holds the two carry ballots (VOTE); its
@@ -450,17 +469,43 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
              % (lo, hi), OPS_WORD, per_word)
         held("pair scan wide other integer operations per column and lane",
              OPS_COL, ops[lo] - lo * per_word)
-    # K3 (`rescore_wide_kernel<C>`, C columns a thread): the doublings
-    # across lanes are the loop nested in the row loop that shuffles
-    # (SHFL), C selections an iteration, held against OPS_LEVEL; the row
-    # loop's own operations (C cells, each doubling inside a lane's run,
-    # log2 C of them, C selections each, at that count, the new state)
-    # over C, against OPS_CELL.
+    # K4's lane-group route (`myers_cross_group_kernel<K>`): its scan
+    # loop is the one with the most ballots (VOTE, two a column; four
+    # columns of a tile word an iteration), counted per column as K1/K2's
+    # column loop is.
+    if "myers_cross" in sources:
+        cols = {}
+        for (k, a), loops in fns.items():
+            if k == "myers_cross_group_kernel":
+                hot = max(loops, key=lambda l: l[3]["VOTE"])
+                if not hot[3]["VOTE"]:
+                    show(k, a)
+                    fail(f"myers_cross group <{a}>: no loop with the carry "
+                         "ballots")
+                cols[int(a)] = hot
+        if not cols:
+            fail("myers_cross: no lane-group instance in the machine code")
+        ops = {k: sum(h[3][o] for o in SCAN_WORD_OPCODES) / (h[3]["VOTE"] / 2)
+               for k, h in cols.items()}
+        lo, hi = min(ops), max(ops)
+        for k in (lo, hi):
+            show("myers_cross_group_kernel", str(k), [cols[k]])
+        per_word = (ops[hi] - ops[lo]) / (hi - lo)
+        held("cross scan group (K = %d..%d words a lane) operations per "
+             "word" % (lo, hi), OPS_WORD, per_word)
+        held("cross scan group other integer operations per column and "
+             "lane", OPS_COL, ops[lo] - lo * per_word)
+    # K3 (`rescore_wide_kernel<C, KB>`, C columns a thread, KB-bit
+    # keys): the doublings across lanes are the loop nested in the row
+    # loop that shuffles (SHFL), C selections an iteration, held against
+    # OPS_LEVEL; the row loop's own operations (C cells, each doubling
+    # inside a lane's run, ceil(log2 C) of them, C selections each, at
+    # that count, the new state) over C, against OPS_CELL.
     if "rescore" in sources:
         for (k, a), loops in sorted(fns.items()):
             if k != "rescore_wide_kernel":
                 continue
-            C = int(a)
+            C = int(a.split("/")[0])
             rows = [l for l in loops if l[2] == 0 and l[3]["SHFL"]]
             across = [l for l in loops if l[2] == 1 and l[3]["SHFL"]]
             if len(rows) != 1 or len(across) != 1:
@@ -473,7 +518,7 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
                  level)
             held(f"rescore wide <{a}> operations per cell", OPS_CELL,
                  sum(rows[0][3][o] for o in CELL_OPCODES) / C
-                 - math.log2(C) * level)
+                 - math.ceil(math.log2(C)) * level)
     # K4 wide (<g0>: words in shared memory, <g1>: in a global scratch),
     # and the global-scratch routes of K1/K2 and K3 (their first designs):
     # the word loop is the one with the most LOP3 among the loops that
@@ -549,21 +594,8 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
                  sum(ops[k] for k in SCAN_WORD_OPCODES) / (4 * steps))
             held(f"cross scan <{args}> operations per step", OPS_COL,
                  sum(ops[k] for k in SCAN_STEP_OPCODES) / steps)
-    if "rescore" not in sources:
-        return
-    # K3: the doubling loop is the nested one that holds the barriers, the
-    # row loop the one around it; each thread owns one DP column
-    show("rescore_kernel", "")
-    loops = fns["rescore_kernel", ""]
-    level = [l for l in loops if l[2] == 1 and l[3]["BAR"]]
-    row = [l for l in loops if l[2] == 0 and any(
-        l[0] <= m[0] and m[1] <= l[1] for m in level)]
-    if len(level) != 1 or len(row) != 1:
-        fail(f"rescore: {len(row)} row loops, {len(level)} doubling loops")
-    held("rescore operations per cell", OPS_CELL,
-         sum(row[0][3][k] for k in CELL_OPCODES) - 2)
-    held("rescore operations per doubling", OPS_LEVEL,
-         sum(level[0][3][k] for k in CELL_OPCODES) - 1)
+    if above:
+        fail("; ".join(above))
 
 
 def _k1k2_inputs(rng, W=4, NQ=4096, NT=16384, Lp=480, B=8192, qlen=100,
@@ -724,8 +756,8 @@ def _build_earlier(src, name):
     so = os.path.join(_build.BUILD, f"lib{name}_earlier.so")
     os.makedirs(_build.BUILD, exist_ok=True)
     subprocess.run([_build.nvcc_path(), *_build.ARCH, "-std=c++17", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-o", so, src],
-                   check=True)
+                    "-shared", "-Xcompiler", "-fPIC", "-I", _build.CSRC,
+                    "-o", so, src], check=True)
     return ctypes.CDLL(so)
 
 
@@ -798,38 +830,76 @@ def earlier_pair_kernel(src):
 
 
 def earlier_rescore_kernel(src):
-    """A call over an earlier rescore source (`rescore_wide_launch` of 15
-    arguments: threads striding over the columns, L1 split into at most
-    1,024; its 33 bytes a column in shared memory up to what a CTA may
-    opt into, else the global route, one CTA an SM over a scratch), with
-    `rescore_cuda.rescore`'s arguments, for the shapes past the block
-    route; for timing it beside the package's kernel in one run."""
+    """A call over an earlier rescore source with `rescore_cuda.rescore`'s
+    arguments, for timing it beside the package's kernel in one run: its
+    block route (`rescore_launch` of 11 arguments: one CTA a pair, one
+    thread a column, up to 511 rows and 1,024 columns within 48 KB of
+    shared memory) at the shapes that took it, and past them its wide
+    entry: of 15 arguments (threads striding over the columns, L1 split
+    into at most 1,024; its 33 bytes a column in shared memory up to
+    what a CTA may opt into, else the global route, one CTA an SM over a
+    scratch), or of 17 (the row in registers, one CTA of warps a pair,
+    at the launch this package's geometry plans for the wide and global
+    routes, which it kept). `run.covers(rows, L1, C, W)` says whether it
+    has a route for a shape."""
     import torch
 
     from burst_tpu_torch.kernels import _build, myers_cuda, rescore_cuda
-    fn = _build_earlier(src, "rescore").rescore_wide_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
+    lib = _build_earlier(src, "rescore")
+    with open(src) as f:
+        head = re.search(r'int rescore_wide_launch\(([^)]*)\)', f.read())
+    nargs = head.group(1).count(",") + 1 if head else 0
+    block = lib.rescore_launch
+    block.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    block.restype = ctypes.c_int
+    fn = lib.rescore_wide_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (nargs - 6) + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
+    def is_block(rows, L1, C, W):
+        return rows <= 511 and L1 <= 1024 and (5 * L1 + C * W) * 4 <= 49152
+
     def run(peq_flat, tiles, qmeta, W, levels, rows, L1):
         N, dev = peq_flat.shape[0], peq_flat.device
-        per = -(-L1 // 1024)
-        threads = -(-(-(-L1 // per)) // 32) * 32
-        grid, smem, words = N, 33 * L1, 0
-        if 33 * L1 > rescore_cuda.SMEM_MAX:
-            grid = max(1, min(N, myers_cuda.sm_count(dev),
-                              myers_cuda.GLOBAL_SCRATCH // (32 * L1)))
-            smem, words = 0, 4 * grid * L1
+        C = peq_flat.shape[1] // W
         out = torch.empty((4, N), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        if is_block(rows, L1, C, W):
+            _build.check(block(
+                peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
+                out.data_ptr(), N, W, C, levels, rows, L1, stream),
+                "earlier rescore_launch")
+            return out
+        if nargs == 17:
+            g = rescore_cuda.rescore_geometry(
+                N, rows, L1, C * W, myers_cuda.sm_count(dev), levels)
+            words = 4 * g.grid * L1 if g.route == "global" else 0
+            shape = (g.cols, g.halo, g.threads, g.grid, g.smem)
+        else:
+            per = -(-L1 // 1024)
+            threads = -(-(-(-L1 // per)) // 32) * 32
+            grid, smem, words = N, 33 * L1, 0
+            if 33 * L1 > rescore_cuda.SMEM_MAX:
+                grid = max(1, min(N, myers_cuda.sm_count(dev),
+                                  myers_cuda.GLOBAL_SCRATCH // (32 * L1)))
+                smem, words = 0, 4 * grid * L1
+            shape = (threads, grid, smem)
         scratch = torch.empty(words, dtype=torch.int64, device=dev)
         _build.check(fn(
             peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
-            out.data_ptr(), scratch.data_ptr() if words else None, N, W,
-            peq_flat.shape[1] // W, levels, rows, L1, threads, grid, smem,
-            torch.cuda.current_stream().cuda_stream),
+            out.data_ptr(), scratch.data_ptr() if words else None, N, W, C,
+            levels, rows, L1, *shape, stream),
             "earlier rescore_wide_launch")
         return out
+
+    def covers(rows, L1, C, W):
+        if is_block(rows, L1, C, W) or nargs == 15:
+            return True
+        return nargs == 17 and rescore_cuda.rescore_geometry(
+            1, rows, L1, C * W).route != "warp"
+    run.covers = covers
     return run
 
 
@@ -984,7 +1054,7 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
     err = exact(f"K3 {label} vs plain", got, ref.cpu().numpy())
     reps = 20 if N * rows * L1 <= 2e9 else 3
     turns = {}
-    if earlier is None:
+    if earlier is None or not earlier.covers(rows, L1, C, W):
         ms = time_ms(kern, reps)
     else:
         ms, was = in_turns(f"K3 {label}", kern, lambda: earlier(
@@ -1000,7 +1070,9 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
                 N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
         library_ms=None, counter="k3",
         shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N}"
-        + ("" if C == 16 else f" C={C}"))
+        + ("" if C == 16 else f" C={C}") + " ("
+        + rescore_cuda.rescore_geometry(N, rows, L1, C * W, levels=lv).route
+        + " route)")
 
 
 def hold_rescore(recs, case, host, qlen, budget, lt, N):
@@ -1183,13 +1255,15 @@ def _near_rescore_inputs(rng, smat_d, W, N, lb, lt, qlen, budget):
 
 
 def scratch_variant(kern, peq, tiles, W, pidx=None, tidx=None,
-                    out_dtype=None):
+                    out_dtype=None, shared=False):
     """A call of K2 (given pairs) or K4 on the wide route's second
     variant, its Myers words in a global scratch (which the geometry
     takes only past what the first variant holds, W past 896 for K2 and
     ~900 for K4), forced at a shape where the geometry takes the first
     variant; the launch shape otherwise the geometry's (K2: one thread a
-    pair, 32 a CTA, the scratch capped at GLOBAL_SCRATCH as there)."""
+    pair, 32 a CTA, the scratch capped at GLOBAL_SCRATCH as there). K4
+    with `shared`: its one-thread-a-pair route with the words in shared
+    memory, forced where the geometry takes lane groups."""
     import torch
 
     from burst_tpu_torch.kernels import _build, myers_cuda as mc
@@ -1215,18 +1289,19 @@ def scratch_variant(kern, peq, tiles, W, pidx=None, tidx=None,
         return run
     lib = _build.load("myers_cross", mc._SIG_CROSS)
     Q, (T, Lp) = peq.shape[0], tiles.shape
-    threads, (gx, _), _, _ = mc.cross_wide_geometry(Q, T, W)
+    threads, (gx, _), smem, _ = mc.cross_wide_geometry(Q, T, W)
     dt = out_dtype or torch.int32
     out = torch.empty((Q, T), dtype=dt, device=dev)
-    scratch = torch.empty(gx * Q * threads * 2 * W, dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty(0 if shared else gx * Q * threads * 2 * W,
+                          dtype=torch.int32, device=dev)
 
     def run():
         _build.check(lib.myers_cross_wide_launch(
             peq.data_ptr(), tiles.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), Q, T, W, Lp, peq.shape[1], threads, gx, Q,
-            0, mc._CROSS_DTYPES[dt], stream),
-            "myers_cross_wide_launch (scratch)")
+            None if shared else scratch.data_ptr(), Q, T, W, Lp,
+            peq.shape[1], threads, gx, Q, smem if shared else 0,
+            mc._CROSS_DTYPES[dt], stream),
+            "myers_cross_wide_launch (forced)")
         return out
     return run
 
@@ -1383,6 +1458,46 @@ def wide_pair_recs(rng, smat_d, earlier=None):
     return recs
 
 
+# K3 at the shapes of the first design's block route on the paths:
+# (W, N, unit bucket columns, rescore tile columns, query length,
+# budget, kinds). Phase 2's W = 4 (100 bp at 98 %: L1 = 128 windowed,
+# 640 full width) and W = 10 (292 bp at 97 %: 384 and 1,024); phase 6's
+# timed batch's W = 10 windows at levels 3 (8,192 and 4,096 pairs) and
+# its full-scan rows' W = 1 at full width (L1 = 768 and 640).
+BLOCK_RESCORE_SHAPES = (
+    (4, 4096, 448, 512, 100, 2, ("windowed", "full width")),
+    (10, 2048, 640, 960, AMPLICON_READ_LEN, 9, ("windowed", "full width")),
+    (10, 8192, 640, 960, AMPLICON_READ_LEN, 5, ("windowed",)),
+    (10, 4096, 640, 960, AMPLICON_READ_LEN, 5, ("windowed",)),
+    (1, 4096, 640, 700, 11, 0, ("full width",)),
+    (1, 1024, 512, 544, 11, 0, ("full width",)))
+
+
+def block_rescore_recs(rng, smat_d, earlier=None):
+    """K3 at the block route's shapes on the paths (BLOCK_RESCORE_SHAPES),
+    now the warp route's: exact against the plain version on the card,
+    timed beside the bound, and with `earlier`, the earlier source's
+    block route in turns. Returns the kernel record's entries."""
+    import numpy as np
+
+    from burst_tpu_torch.kernels import rescore_cuda
+    recs = []
+    for W, N, lb, lt, qlen, budget, kinds in BLOCK_RESCORE_SHAPES:
+        peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
+            rng, smat_d, W, N, lb, lt, qlen, budget)
+        idx = np.arange(N)
+        for kind in kinds:
+            kw = dict(x0=x0, Lw=Lw) if kind == "windowed" else {}
+            n0 = rescore_cuda.rescore.routes["warp"]
+            _, rec = hold_rescore_call(f"warp, {kind}", peq, tiles, idx, idx,
+                                       ql, red, W, earlier=earlier, **kw)
+            if rescore_cuda.rescore.routes["warp"] == n0:
+                fail(f"K3 {rec['shape']}: not the warp route")
+            recs.append(rec)
+        del peq, tiles
+    return recs
+
+
 def wide_rescore_recs(rng, smat_d, earlier=None):
     """K3's wide and global routes at phase 10's shapes, exact against
     the plain version on the card and timed beside the bound (with
@@ -1442,6 +1557,152 @@ def wide_rescore_recs(rng, smat_d, earlier=None):
     return recs
 
 
+# K4's wide routes at phase 10's shapes: (label, W, Q, T, Lp, query
+# length, codes, result types). The whole-reference run's 16,569 bp
+# bucket (four reads' two strands at one width against four units of
+# 16,608 columns: lane groups over column segments) and its 1,450 bp one
+# (lane groups, one segment), the 1,450 bp reads' full grid (one thread
+# a pair), raw bytes past 16 words (one thread a pair), and segments
+# under int32's overlap.
+WIDE_CROSS_SHAPES = (
+    ("wide, whole 16,569 bp references", LONG_W, 4, 4, 16608, LONG_QLEN,
+     16, ("uint8",)),
+    ("wide, whole 1,450 bp references", 44, 20, 160, LONG_LB + 32, 1380,
+     16, ("uint8",)),
+    ("wide, 1,450 bp reads", LONG_W, 64, 4096, LONG_LB + 32, LONG_QLEN, 16,
+     ("uint8",)),
+    ("wide, raw bytes", 20, 64, 2048, 1024, 620, 256, ("uint8", "int32")),
+    ("wide, segments in int32", 17, 4, 8, 6000, 520, 16, ("int32",)))
+
+
+def wide_cross_recs(rng, smat_d, earlier=None, variants=False):
+    """K4's wide routes at phase 10's shapes (WIDE_CROSS_SHAPES), exact
+    against the plain version on the card and timed beside the bound,
+    each on the route the geometry picks (the lane-group launches
+    counted); the 16,569 bp bucket's only with `variants` (its plain
+    scan takes seconds, and phase 10 holds that shape on its own
+    tensors); with `earlier`, an earlier kernel's wide route in turns.
+    At 64 x 4,096 the one-thread-a-pair route's words forced into its
+    global scratch in turns; with `variants`, the two wide routes forced
+    in turns at 64 queries against 256 to 4,096 tiles (the fill at which
+    the geometry switches), and the 16,569 bp shape at other segment
+    counts. Returns the kernel record's entries."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda
+    sms = myers_cuda.sm_count("cuda")
+    recs = []
+    for label, W, Q, T, Lp, qlen, codes, dts in WIDE_CROSS_SHAPES:
+        if Lp > 16000 and not variants:
+            continue    # phase 10 holds it on the run's own tensors
+        peq, tiles = _cross_inputs(rng, smat_d, W, Q, T, Lp, qlen, codes)
+        for ty in dts:
+            dt = getattr(torch, ty)
+            g = myers_cuda.cross_group_geometry(Q, T, W, Lp, codes,
+                                                ty == "uint8", sms)
+            n0 = myers_cuda.myers_cross.group
+            got, rec = hold_cross_call(label, peq, tiles, W, dt,
+                                       reps=3 if Q * T * Lp > 1e8 else 20)
+            if (myers_cuda.myers_cross.group - n0 > 0) != (g is not None):
+                fail(f"K4 {label}: not the planned route ({g})")
+            if got.min() > 4:
+                fail(f"K4 {label}: no near pair (min {got.min()})")
+            rec["shape"] += " lane groups" + (
+                f" G={g.group} S={g.segments}" if g else " none")
+            if earlier is not None:
+                rec["ms"], rec["earlier_ms"] = in_turns(
+                    f"K4 {label} W={W} Q={Q} T={T} Lp={Lp} {ty}",
+                    lambda: myers_cuda.myers_cross(peq, tiles, W, dt),
+                    lambda: earlier(peq, tiles, W, dt),
+                    3 if Q * T * Lp > 1e8 else 10)
+            recs.append(rec)
+        if Q * T == 64 * 4096:
+            time_scratch_variant(
+                f"K4 W={W} Q={Q} T={T} uint8",
+                lambda: myers_cuda.myers_cross(peq, tiles, W, torch.uint8),
+                scratch_variant("K4", peq, tiles, W,
+                                out_dtype=torch.uint8))
+        if variants and Lp > 16000:
+            cross_segment_variants(peq, tiles, W)
+        del peq, tiles
+    if variants:
+        peq, tiles = _cross_inputs(rng, smat_d, LONG_W, 64, 4096,
+                                   LONG_LB + 32, LONG_QLEN, 16)
+        for T in (256, 512, 768, 1024, 2048, 4096):
+            cross_route_variants(peq, tiles[:T], LONG_W, sms)
+    return recs
+
+
+def _group_call(peq, tiles, W, g, out_dtype):
+    """A call of K4's lane-group launch `g` (forced), uint8 or int32."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers_cuda as mc
+    Q, C, (T, Lp) = peq.shape[0], peq.shape[1], tiles.shape
+    out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
+    lib = _build.load("myers_cross", mc._SIG_CROSS)
+
+    def run():
+        _build.check(lib.myers_cross_group_launch(
+            peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
+            C, g.group, g.segments, g.seg, g.over, g.pairs, g.threads,
+            *g.grid, g.smem, mc._CROSS_DTYPES[out_dtype],
+            torch.cuda.current_stream().cuda_stream),
+            "myers_cross_group_launch (forced)")
+        return out
+    return run
+
+
+def cross_route_variants(peq, tiles, W, sms):
+    """K4's two wide routes forced on the same inputs, in turns (one
+    thread a pair, lane groups, lane groups, one thread a pair): the
+    same result; logs both times beside the bound and the route the
+    geometry picks."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda as mc
+    Q, (T, Lp) = peq.shape[0], tiles.shape
+    group = _group_call(peq, tiles, W, mc.cross_group_geometry(
+        Q, T, W, Lp, sms=sms, force=True), torch.uint8)
+    first = scratch_variant("K4", peq, tiles, W, out_dtype=torch.uint8,
+                            shared=True)
+    exact(f"K4 W={W} Q={Q} T={T}: lane groups vs one thread a pair",
+          group().cpu().numpy(), first().cpu().numpy())
+    t = [time_ms(first, 3), time_ms(group, 3), time_ms(group, 3),
+         time_ms(first, 3)]
+    b = cross_bound(W, Q, T, Lp, 1)["bound_ms"]
+    pick = mc.cross_group_geometry(Q, T, W, Lp, sms=sms)
+    log(f"[cross] routes at W={W} Q={Q} T={T} Lp={Lp} uint8 ({Q * T} "
+        f"pairs, {Q * T / (sms * 128):.2f} warps a scheduler on one thread "
+        f"a pair): one thread a pair {t[0]:.4f} / {t[3]:.4f} ms, lane "
+        f"groups {t[1]:.4f} / {t[2]:.4f} ms (bound {b:.5f} ms); the "
+        f"geometry picks {'lane groups' if pick else 'one thread a pair'}")
+
+
+def cross_segment_variants(peq, tiles, W):
+    """The lane-group route at other lane counts and segment counts than
+    the geometry's on the same inputs, each exact against the planned
+    launch, timed in turns with it."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda as mc
+    Q, (T, Lp) = peq.shape[0], tiles.shape
+    plan = mc.cross_group_geometry(Q, T, W, Lp)
+    planned = _group_call(peq, tiles, W, plan, torch.uint8)
+    ref = planned().cpu().numpy()
+    for G, S in ((8, 1), (8, 8), (16, 4), (16, 8), (32, 4)):
+        g = mc.cross_group_geometry(Q, T, W, Lp, group=G, segments=S)
+        other = _group_call(peq, tiles, W, g, torch.uint8)
+        exact(f"K4 W={W} Lp={Lp} at S={g.segments}", other().cpu().numpy(),
+              ref)
+        t = [time_ms(planned, 3), time_ms(other, 3), time_ms(other, 3),
+             time_ms(planned, 3)]
+        log(f"[cross] W={W} Q={Q} T={T} Lp={Lp}: S={plan.segments} "
+            f"(planned, G={plan.group}) {t[0]:.4f} / {t[3]:.4f} ms, "
+            f"S={g.segments} (G={g.group}, {g.seg + g.over} columns a "
+            f"segment) {t[1]:.4f} / {t[2]:.4f} ms")
+
+
 def phase_wide_kernels():
     """Each kernel's wide route (W > 16, or past 511 DP rows or 1,024
     columns) at the shapes phase 10's paths give it, exact against the
@@ -1461,27 +1722,7 @@ def phase_wide_kernels():
     smat_d = torch.from_numpy(score_matrix()).to("cuda")
     rng = np.random.default_rng(SEED + 10)
     recs = wide_pair_recs(rng, smat_d)
-    lp_a = LONG_LB + engine.A_PAD
-
-    # uint8 at 16 codes (what every path keeps), both types at 256
-    for label, W, Q, T, Lp, qlen, codes, dts in (
-            ("wide, 1,450 bp reads", LONG_W, 64, 4096, lp_a, LONG_QLEN,
-             16, (torch.uint8,)),
-            ("wide, raw bytes", 20, 64, 2048, 1024, 620, 256,
-             (torch.uint8, torch.int32))):
-        peq, tiles = _cross_inputs(rng, smat_d, W, Q, T, Lp, qlen, codes)
-        for dt in dts:
-            got, rec = hold_cross_call(label, peq, tiles, W, dt, reps=3)
-            if got.min() > 4:
-                fail(f"K4 {label}: no near pair (min {got.min()})")
-            recs.append(rec)
-        if codes == 16:
-            time_scratch_variant(
-                f"K4 W={W} Q={Q} T={T} uint8",
-                lambda: myers_cuda.myers_cross(peq, tiles, W, torch.uint8),
-                scratch_variant("K4", peq, tiles, W,
-                                out_dtype=torch.uint8))
-        del peq, tiles
+    recs += wide_cross_recs(rng, smat_d)
     recs += wide_rescore_recs(rng, smat_d)
 
     # held once: a score past the narrow kernel's packed keys (W = 4,
@@ -1514,6 +1755,16 @@ def phase_wide_kernels():
                   myers.myers_cross_plain(peq, tiles, W).cpu().numpy())
         log(f"[wide] W={W} Lp={Lp}: K1 and K2" + (" and K4" if Q else "")
             + " exact vs plain")
+    # and K3 at L1 = 1,024 with levels 10 (reads up to 511 bp under a
+    # budget of 511 or more: the warp route's 64-bit key)
+    peq, tiles, ql, red, _, _ = _near_rescore_inputs(
+        rng, smat_d, 16, 64, 960, 1000, 480, 600)
+    _, rec = hold_rescore_call("warp, a 64-bit key", peq, tiles,
+                               np.arange(64), np.arange(64), ql, red, 16)
+    if "levels=10 L1=1024 N=64 (warp" not in rec["shape"]:
+        fail(f"K3 64-bit key: another shape {rec['shape']}")
+    recs.append(rec)
+    del peq, tiles
     for r in recs:
         log(f"[wide] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
@@ -1528,7 +1779,7 @@ def phase_kernels(earlier=None):
     # against 448-column bucket tiles padded to 512; and those of the 292
     # bp amplicon pairs, budget 9 (97 %), against the 640-column bucket
     # padded by rescore_pad(640, 10) = 320: 296 DP rows, a 384-column
-    # window and the kernel's widest full width, L1 = 1024
+    # window and the warp route's widest full width, L1 = 1024
     hold_rescore(recs, main, host, 100, 2, 512, 4096)
     hold_rescore(recs, amp, amp_host, AMPLICON_READ_LEN, 9, 960, 2048)
 
@@ -1652,17 +1903,39 @@ def phase_cross(earlier=None, variants=False):
 
 
 def earlier_cross_kernel(src):
-    """The parent's K4 (`myers_cross_launch(peq, tiles, out, Q, T, W, Lp,
-    stream)`, int32) built from `src`: a call over one block."""
+    """An earlier K4 built from `src`: with its wide entry
+    (`myers_cross_wide_launch` of 15 arguments: one thread a pair, the
+    words in shared memory, one query a CTA; the launch
+    `cross_wide_geometry` plans), {"K4 wide": call(peq, tiles, W,
+    out_dtype)} at any W past 16; else the parent's of the 8-argument
+    interface (`myers_cross_launch(peq, tiles, out, Q, T, W, Lp,
+    stream)`, int32): a call over one block."""
     import torch
 
-    from burst_tpu_torch.kernels import _build
-    so = os.path.join(_build.BUILD, "libmyers_cross_earlier.so")
-    os.makedirs(_build.BUILD, exist_ok=True)
-    subprocess.run([_build.nvcc_path(), *_build.ARCH, "-std=c++17", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-o", so, src],
-                   check=True)
-    fn = ctypes.CDLL(so).myers_cross_launch
+    from burst_tpu_torch.kernels import _build, myers_cuda
+    lib = _build_earlier(src, "myers_cross")
+    if hasattr(lib, "myers_cross_wide_launch"):
+        wide = lib.myers_cross_wide_launch
+        wide.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
+        wide.restype = ctypes.c_int
+
+        def k4_wide(peq, tiles, W, out_dtype=torch.uint8):
+            Q, C, (T, Lp) = peq.shape[0], peq.shape[1], tiles.shape
+            threads, (gx, _), smem, words = myers_cuda.cross_wide_geometry(
+                Q, T, W)
+            out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
+            scratch = torch.empty(words, dtype=torch.int32,
+                                  device=peq.device)
+            _build.check(wide(
+                peq.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+                scratch.data_ptr() if words else None, Q, T, W, Lp, C,
+                threads, gx, Q, smem, myers_cuda._CROSS_DTYPES[out_dtype],
+                torch.cuda.current_stream().cuda_stream),
+                "earlier myers_cross_wide_launch")
+            return out
+        return {"K4 wide": k4_wide}
+    fn = lib.myers_cross_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -2751,6 +3024,11 @@ FULL_READS, FULL_CAP_READS, FULL_CHECK_READS = 5000, 1100, 64
 FULL_MAX_LEN_Q = 1500
 WHOLE_FAMILIES, WHOLE_MITO, WHOLE_MITO_LEN = 2, 4, 16569
 WHOLE_READS, WHOLE_LONG_READS = 2000, 40
+# the reads' shortest lengths: W = 7-10 and 44-46. Each Myers width is a
+# K4 launch against the 16,569 bp bucket held against the plain scan,
+# 8-16 s over its 16,608 columns; from 150 and 1,300 bp (twelve widths)
+# phase 10 took 190-320 s on one H100 machine
+WHOLE_SHORT_LO, WHOLE_LONG_LO = 200, 1380
 
 
 def _full_reads(rng, refs, n, lo, hi, n_every=199):
@@ -2925,12 +3203,13 @@ def phase_full_length(launch_log):
     among them, and every width of the timed batch) against the port's
     CPU run. (b) The command line without -s on two families and four
     16,569 bp references (every reference one unit): BEST and
-    CAPITALIST -b over WHOLE_READS reads of 150-300 bp and 1,300-1,450
-    bp, both strands (K4 at W up to 46, K3 past 1,024 columns, the 16,569
-    bp units' 17,024 on its wide route; every K3 and K4 shape of the
-    two runs held, each once), each against the CLI's CPU run on 32
-    reads of 289-300 bp (4 of them from the 16,569 bp references) and
-    up to 4 of the long reads, those of the longest one's width. The
+    CAPITALIST -b over WHOLE_READS reads of 200-300 bp and 1,380-1,450
+    bp, both strands (K4 at W up to 46 on lane groups, K3 past 1,024
+    columns, the 16,569 bp units' 17,024 on its wide route; every K3 and
+    K4 shape of the two runs held, each once), each against the CLI's
+    CPU run on 32 reads of 289-300 bp (4 of them from the 16,569 bp
+    references) and up to 4 of the long reads, those of the longest
+    one's width. The
     CPU runs go in processes of their own beside the card's work
     (`full_cpu_checks`, the CLI with BURST_TPU_TORCH_DEVICE=cpu)."""
     import shutil
@@ -3011,10 +3290,11 @@ def _full_length(launch_log, p, bg):
             f.write(h + b"\t" + t + b"\n")
     # every 20th short read from a 16,569 bp reference (K3 at L1 = 17,024)
     sh, sr = _full_reads(rng, refs[:n2], WHOLE_READS - WHOLE_LONG_READS,
-                         150, 300, n_every=0)
+                         WHOLE_SHORT_LO, 300, n_every=0)
     for i in range(0, len(sr), 20):
-        sr[i] = _full_reads(rng, mito, 1, 150, 300, n_every=0)[1][0]
-    lh, lr = _full_reads(rng, refs[:n2], WHOLE_LONG_READS, 1300,
+        sr[i] = _full_reads(rng, mito, 1, WHOLE_SHORT_LO, 300,
+                            n_every=0)[1][0]
+    lh, lr = _full_reads(rng, refs[:n2], WHOLE_LONG_READS, WHOLE_LONG_LO,
                          AMPLICON_LEN, n_every=0)
     wq = [b"w" + h for h in sh] + [b"l" + h for h in lh]
     wr = sr + lr
@@ -3029,6 +3309,10 @@ def _full_length(launch_log, p, bg):
            if len(lr[i]) > 32 * (wl - 1)][:4]
     if len(ck) < 33 or ck[-1] < len(sr):
         fail(f"[full] whole references: {len(ck)} check reads")
+    log(f"[full] whole references: {len(sr)} reads of {WHOLE_SHORT_LO}-300 "
+        f"bp and {len(lr)} of {WHOLE_LONG_LO}-{AMPLICON_LEN} bp (cut from "
+        "150-300 and 1,300-1,450 bp: fewer Myers widths, each a K4 shape "
+        "the plain scan holds over 16,608 columns)")
     _write_fasta(p("reads.fa"), wq, wr)
     _write_fasta(p("check.fa"), [wq[i] for i in ck], [wr[i] for i in ck])
     runs = (("BEST", ["-m", "BEST"]),
@@ -3044,6 +3328,7 @@ def _full_length(launch_log, p, bg):
     for i, (label, extra) in enumerate(runs):
         routes0 = dict(rescore_cuda.rescore.routes)
         wide0 = _counters()["k4"].wide
+        group0 = _counters()["k4"].group
         calls, undo = _capture_kernel_calls(("K3", "K4"))
         try:
             b6, ph, launches, stats, wall = cli_run(
@@ -3055,19 +3340,22 @@ def _full_length(launch_log, p, bg):
         routes = {r: c - routes0[r]
                   for r, c in rescore_cuda.rescore.routes.items()}
         k4_wide = _counters()["k4"].wide - wide0
+        k4_group = _counters()["k4"].group - group0
         l1s = sorted({sh_[3] for sh_ in calls["K3"]})
         log(f"[full] whole references, {label}: {len(wr)} reads, "
             f"{b6.count(NL)} rows, {_align_s(ph, wall):.3f} s in the align "
             f"phases, launches {launches}, K3 by route {routes} at L1 "
-            f"{l1s}, K4 wide {k4_wide}; path {stats.get('path')}")
+            f"{l1s}, K4 wide {k4_wide} (lane groups {k4_group}); path "
+            f"{stats.get('path')}")
         # the 16,569 bp units' rows (L1 = 17,024) in registers: no
-        # global route
+        # global route; the long reads' K4 against the few whole
+        # references on lane groups
         if stats.get("path") != "direct" or routes["global"] or \
-                not routes["wide"] or not k4_wide or max(l1s) < 16000 or \
-                b6.count(NL) < len(wr) // 2:
+                not routes["wide"] or not k4_group \
+                or max(l1s) < 16000 or b6.count(NL) < len(wr) // 2:
             fail(f"[full] whole {label}: the wide routes did not all "
-                 f"launch, or few rows: {routes}, K4 wide {k4_wide}, L1 "
-                 f"{l1s}, {b6.count(NL)} rows")
+                 f"launch, or few rows: {routes}, K4 wide {k4_wide} (lane "
+                 f"groups {k4_group}), L1 {l1s}, {b6.count(NL)} rows")
         launch_log[f"whole {label}"] = launches
         # every K3 and K4 shape the run launched, on its own tensors (the
         # 16,569 bp bucket's K4 at every read width, Lp = 16,608),
@@ -3794,16 +4082,29 @@ def main():
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
-    if sys.argv[1:2] in (["pairs"], ["rescore"]):
-        name = "myers_pairs" if sys.argv[1] == "pairs" else "rescore"
+    if sys.argv[1:2] in (["pairs"], ["rescore"], ["cross"]):
+        name = {"pairs": "myers_pairs", "rescore": "rescore",
+                "cross": "myers_cross"}[sys.argv[1]]
         sos = phase_build((name,))
         phase_sass(sos, (name,))
-        earlier = None if not sys.argv[2:] else (
-            earlier_pair_kernel if name == "myers_pairs" else
-            earlier_rescore_kernel)(sys.argv[2])
+        earlier = None if not sys.argv[2:] else {
+            "myers_pairs": earlier_pair_kernel,
+            "rescore": earlier_rescore_kernel,
+            "myers_cross": earlier_cross_kernel}[name](sys.argv[2])
         if name == "myers_pairs" and (earlier is None or "K1" in earlier):
             _, main_case, _, _, _ = phase_pairs(earlier)
             phase_pairs_path(main_case, PATH_B, earlier)
+        elif name == "myers_cross" and earlier is not None and \
+                not isinstance(earlier, dict):   # the 8-argument parent
+            recs, turns = phase_cross(earlier, variants=True)
+            for r in recs:
+                log(f"[cross] {r['shape']} ({r['name']}): kernel "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, bound "
+                    f"{r['bound_ms']:.5f} ms, "
+                    f"{100 * r['bound_ms'] / r['ms']:.0f} % of the bound's "
+                    "rate; exact vs plain and host twin")
+            if turns:
+                print(json.dumps({"cross_in_turns": turns}), flush=True)
         else:
             import numpy as np
             import torch
@@ -3811,8 +4112,15 @@ def main():
             from burst_tpu_torch.alphabet import score_matrix
             smat_d = torch.from_numpy(score_matrix()).to("cuda")
             rng = np.random.default_rng(SEED + 10)
-            recs = (wide_pair_recs if name == "myers_pairs" else
-                    wide_rescore_recs)(rng, smat_d, earlier)
+            if name == "myers_pairs":
+                recs = wide_pair_recs(rng, smat_d, earlier)
+            elif name == "rescore":
+                recs = block_rescore_recs(rng, smat_d, earlier) + \
+                    wide_rescore_recs(rng, smat_d, earlier)
+            else:       # K4: the narrow shapes, then the wide routes
+                phase_cross(None, variants=True)
+                recs = wide_cross_recs(rng, smat_d, earlier and
+                                       earlier["K4 wide"], variants=True)
             for r in recs:
                 log(f"[{sys.argv[1]}] {r['name']} {r['shape']}: kernel "
                     f"{r['ms']:.4f} ms"
@@ -3826,20 +4134,6 @@ def main():
                 {k: r[k] for k in ("name", "shape", "ms", "earlier_ms",
                                    "plain_ms", "bound_ms") if k in r}
                 for r in recs]}), flush=True)
-        print(card_line(), flush=True)
-        return
-    if sys.argv[1:2] == ["cross"]:
-        sos = phase_build(("myers_cross",))
-        phase_sass(sos, ("myers_cross",))
-        earlier = earlier_cross_kernel(sys.argv[2]) if sys.argv[2:] else None
-        recs, turns = phase_cross(earlier, variants=True)
-        for r in recs:
-            log(f"[cross] {r['shape']} ({r['name']}): kernel {r['ms']:.4f} "
-                f"ms, plain {r['plain_ms']:.2f} ms, bound "
-                f"{r['bound_ms']:.5f} ms, {100 * r['bound_ms'] / r['ms']:.0f}"
-                " % of the bound's rate; exact vs plain and host twin")
-        if turns:
-            print(json.dumps({"cross_in_turns": turns}), flush=True)
         print(card_line(), flush=True)
         return
     if sys.argv[1:] == ["long"]:

@@ -199,8 +199,9 @@ def _plan_cover(nq, nt, W, sms, cap):
 @pytest.mark.parametrize("sms,cap", [(132, 16 << 20), (132, 2 << 20),
                                      (1, 1 << 20), (4, 64 << 10)])
 def test_cross_blocks_cover_once_under_cap(sms, cap):
-    for W in (1, 2, 4, 10, 16):
+    for W in (1, 2, 4, 10, 16, 46):
         for nq, nt in ((42, 287999), (42, 95977), (40000, 30943),
+                       (4, 4), (20, 160), (64, 4096),
                        (2049, 511), (3, 5), (1, 1), (77, 301),
                        (4100, 129), (5000, 100000)):
             blocks = _plan_cover(nq, nt, W, sms, cap)
@@ -275,7 +276,9 @@ def test_cross_wrapper_rejects(bad):
 
 class _EmulatedCross:
     """The launch entries of the emulated library: a call is
-    `myers_cross_launch`, `.wide` is `myers_cross_wide_launch`."""
+    `myers_cross_launch`, `.wide` is `myers_cross_wide_launch` (one
+    thread a pair), `.group` `myers_cross_group_launch` (lane groups,
+    column segments)."""
 
     def __init__(self, lib):
         import ctypes
@@ -285,7 +288,10 @@ class _EmulatedCross:
         self.wide = lib.myers_cross_wide_launch
         self.wide.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
-        for f in (self.narrow, self.wide):
+        self.group = lib.myers_cross_group_launch
+        self.group.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 \
+            + [ctypes.c_void_p]
+        for f in (self.narrow, self.wide, self.group):
             f.restype = ctypes.c_int
 
     def __call__(self, *args):
@@ -294,9 +300,9 @@ class _EmulatedCross:
 
 @pytest.fixture(scope="module")
 def emulated_cross(tmp_path_factory):
-    """csrc/myers_cross.cu built for the CPU: its two launch entries,
-    the narrow kernels' and the wide route's (its dynamic shared memory
-    a static buffer, as the emulated CTAs run one at a time)."""
+    """csrc/myers_cross.cu built for the CPU: its three launch entries,
+    the narrow kernels' and the two wide routes' (their dynamic shared
+    memory a static buffer, as the emulated CTAs run one at a time)."""
     import os
 
     from burst_tpu_torch.kernels import _build
@@ -310,7 +316,8 @@ def emulated_cross(tmp_path_factory):
         src = torch_cuda_emu.replace_function(
             src, "__device__ __forceinline__ void " + fn + " ", body)
     return _EmulatedCross(torch_cuda_emu.build(
-        torch_cuda_emu.emulate(src), tmp_path_factory.mktemp("emu")))
+        torch_cuda_emu.emulate(src, _build.CSRC),
+        tmp_path_factory.mktemp("emu")))
 
 
 @pytest.mark.parametrize("W,Q,T,Lp,offset,u8,C", [
@@ -393,3 +400,185 @@ def test_cross_launch_rejects_other_geometry(emulated_cross, W, NQ, threads,
                           out.ctypes.data, Q, T, W, Lp, 32, nq, th, x, y, 0,
                           None) == 1
     assert (out == 7).all()
+
+
+# ---------------------------------------- the lane-group wide route
+
+def _group_case(seed, W, Q, T, Lp, codes, end=None):
+    """Q queries of 32W - 20 symbols against T tiles of Lp columns with
+    a pad tail; query q cut from tile q % T with two substitutions, its
+    32W rows (the wildcard tail's 20 included) ending at tile column
+    `end` (0-based, where given), else at a random place; the last query
+    unrelated to every tile. Peq tables of 16 codes or of 256 (raw
+    protein bytes)."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(PROTEIN, np.uint8) if codes == 256 else \
+        np.arange(1, 5, dtype=np.uint8)
+    qlen = 32 * W - 20
+    qs = np.zeros((Q, 32 * W), np.uint8)
+    tiles = np.zeros((T, Lp), np.uint8)
+    for t in range(T):
+        tiles[t, :Lp - 13] = alpha[rng.integers(0, len(alpha), Lp - 13)]
+    for q in range(Q):
+        t = q % T
+        st = end + 1 - 32 * W if end is not None else int(
+            rng.integers(0, Lp - 14 - 32 * W))
+        cut = tiles[t, st:st + qlen].copy()
+        cut[rng.integers(0, qlen, 2)] = alpha[rng.integers(0, len(alpha),
+                                                           2)]
+        qs[q, :qlen] = cut if q < Q - 1 or Q == 1 else \
+            alpha[rng.integers(0, len(alpha), qlen)]
+    ql = np.full(Q, qlen, np.int64)
+    peq = jmyers.build_peq_x(qs, ql, W) if codes == 256 else \
+        jmyers.build_peq(qs, ql, W, score_matrix())
+    return np.ascontiguousarray(peq.view(np.int32)), tiles
+
+
+def _run_group(emulated_cross, peq32, tiles, W, u8, g, offset=0):
+    """One emulated lane-group launch `g` over tiles placed `offset`
+    bytes past an aligned address; returns its [Q, T] result."""
+    Q, C = peq32.shape[:2]
+    T, Lp = tiles.shape
+    buf = np.zeros(T * Lp + offset + 4, np.uint8)
+    buf[offset:offset + T * Lp] = tiles.ravel()
+    out = np.zeros((Q, T), np.uint8 if u8 else np.int32)
+    assert emulated_cross.group(
+        peq32.ctypes.data, buf.ctypes.data + offset, out.ctypes.data, Q, T,
+        W, Lp, C, g.group, g.segments, g.seg, g.over, g.pairs, g.threads,
+        *g.grid, g.smem, u8, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("W,Q,T,Lp,offset,u8,C,G,S", [
+    (17, 2, 5, 700, 0, 0, 16, 8, 1),      # cp.async, 2 queries a grid.y
+    (17, 2, 5, 701, 1, 1, 16, 16, 1),     # bytes through registers
+    (46, 1, 3, 1500, 3, 0, 16, 32, 1),    # two words a lane
+    (20, 2, 3, 680, 0, 1, 256, 8, 1),     # raw bytes, 256 codes
+    (17, 2, 3, 3600, 0, 0, 16, 8, 4),     # segments, int32's overlap
+    (17, 1, 3, 3001, 2, 1, 16, 16, 5),    # segments, uint8's, unaligned
+    (17, 2, 2, 2500, 0, 1, 256, 32, 4),   # segments over raw bytes
+    (20, 1, 2, 6000, 0, 1, 16, None, None)],  # the geometry's own plan
+    ids=["G8", "G16-off1-u8", "G32-off3", "x256", "S4-int32",
+         "S5-u8-off2", "S4-x256-G32", "planned"])
+def test_cross_group_source_on_cpu(emulated_cross, W, Q, T, Lp, offset,
+                                   u8, C, G, S):
+    """K4's lane-group route, its own source compiled for the CPU, equals
+    the plain version exactly at every lane-group size, with one column
+    segment a pair and several, in both result types, over 16 and 256
+    codes, rows of odd width at unaligned addresses, tiles past the last
+    CTA's and an unrelated query. Where the columns are split, each
+    query's alignment (its 32W rows) straddles the boundary of segment 2
+    and, where the segments are longer than half the alignment, ends
+    inside segment 3's overlap, past segment 3's first column: there the
+    minimum is a column that two segments scan and only the owning one
+    sees whole."""
+    g = myers_cuda.cross_group_geometry(Q, T, W, Lp, C, bool(u8),
+                                        group=G, segments=S)
+    end = None
+    if g.segments > 1:
+        assert S is None or g.segments == S
+        end = 3 * g.seg - g.over + 16 * W
+        if S is not None:       # inside segment 3's overlap
+            assert 3 * g.seg - g.over + 32 * W > end >= 3 * g.seg - g.over
+            assert end < 3 * g.seg < Lp - 13
+        else:                   # segments shorter than an alignment
+            end = 2 * g.seg + g.seg // 2
+        assert end - 32 * W + 1 < 2 * g.seg <= end < 3 * g.seg
+    peq32, tiles = _group_case(W * Lp + C + (G or 0), W, Q, T, Lp, C, end)
+    got = _run_group(emulated_cross, peq32, tiles, W, u8, g, offset)
+    ref = myers.myers_cross_plain(torch.from_numpy(peq32),
+                                  torch.from_numpy(tiles), W,
+                                  torch.uint8 if u8 else torch.int32)
+    np.testing.assert_array_equal(got, ref.numpy())
+    assert ref.numpy().min() <= 2
+    if Q > 1:
+        assert ref.numpy()[-1].min() > 30      # the unrelated query
+    if end is not None:
+        # the best column of a planted pair is the alignment's end
+        pairs = myers.myers_pairs_plain(
+            torch.from_numpy(peq32), torch.from_numpy(tiles),
+            torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), W)
+        assert int(pairs[0, 0]) <= 2 and \
+            abs(int(pairs[2, 0]) - 1 - end) <= 2
+
+
+@pytest.mark.parametrize("W", [17, 20, 33, 46, 64, 250, 460, 896, 897])
+def test_cross_group_geometry(W):
+    """Every lane-group launch: each pair's columns split into segments
+    that each own a part (S seg >= Lp > (S - 1) seg, seg a multiple of
+    4 for aligned segment starts), each scanning from an overlap of at
+    least 32W + the largest minimum that matters (32W in int32, 255 in
+    uint8); the lanes in flight under CROSS_FILL_WARPS warps a scheduler
+    wherever segments were added; a pair's segments in one CTA of whole
+    warps, at most 128 threads; the grid covering every tile and query;
+    shared memory as the launcher checks it. The one-thread-a-pair
+    route takes the launches whose pairs alone fill the card, and W
+    past 896."""
+    sms = 132
+    fill = myers_cuda.CROSS_FILL_WARPS * sms * 128
+    seen = set()
+    for Q, T, Lp in ((4, 4, 16608), (20, 160, 1504), (64, 4096, 1504),
+                     (64, 512, 1504), (1, 1, 100000), (2, 3, 0),
+                     (300, 300, 3000), (1, 7, 40000)):
+        for C in (16, 256):
+            for u8 in (True, False):
+                g = myers_cuda.cross_group_geometry(Q, T, W, Lp, C, u8, sms)
+                if W > 896 or Q * T >= fill:
+                    assert g is None
+                    continue
+                if g is None:       # the Eq table past shared memory
+                    assert C == 256 and 4 * C * W > 200_000
+                    continue
+                G, K, S = g.group, g.words, g.segments
+                assert (G, K) == myers_cuda.pair_group(W)
+                assert g.over >= 32 * W + min(32 * W, 255 if u8 else
+                                              32 * W)
+                assert g.over % 4 == 0 and g.seg % 4 == 0
+                assert S * g.seg >= Lp and (S == 1 or (S - 1) * g.seg < Lp)
+                assert S == 1 or Q * T * G * S <= fill
+                assert S == 1 or g.seg * 4 >= g.over - 32
+                groups = g.threads // G
+                assert g.threads % 32 == 0 and g.threads <= 128
+                assert groups >= g.pairs * S
+                gx, gy = g.grid
+                assert gy == Q and gx * g.pairs >= T > (gx - 1) * g.pairs
+                assert g.smem == 4 * C * K * G + 68 * groups <= 232448
+                seen.add(S > 1)
+    assert W > 896 or seen == {False, True}
+    g = myers_cuda.cross_group_geometry(4, 4, 46, 16608)
+    assert g.segments > 8 and g.seg + g.over < 16608 // 4
+
+
+@pytest.mark.parametrize("bad", ["overlap", "segments", "seg4", "group",
+                                 "threads", "smem", "grid"])
+def test_cross_group_launch_rejects_other_geometry(emulated_cross, bad):
+    """The lane-group entry takes only launches whose segments stay
+    exact and cover the columns: an overlap short of 32W + 255 (uint8),
+    segments that miss columns or leave one empty, a segment start off
+    4-byte alignment, another lane-group size, a CTA over 128 threads or
+    holding fewer groups than its tiles' segments, shared memory that
+    does not match, a grid that misses tiles; each refused before a
+    launch, nothing written."""
+    W, Q, T, Lp = 17, 1, 3, 2400
+    peq32, tiles = _group_case(3, W, Q, T, Lp, 16)
+    g = myers_cuda.cross_group_geometry(Q, T, W, Lp, segments=4)
+    bad_g = {"overlap": dict(over=g.over - 32),
+             "segments": dict(seg=g.seg - 32),
+             "seg4": dict(seg=g.seg + 2),
+             "group": dict(group=4),
+             "threads": dict(threads=256, smem=g.smem + 68 * (256 - g.threads)
+                             // g.group),
+             "smem": dict(smem=g.smem + 4),
+             "grid": dict(grid=(g.grid[0] - 1, Q))}[bad]
+    out = np.full((Q, T), 7, np.uint8)
+    a = dict(g._asdict(), **bad_g)
+    assert emulated_cross.group(
+        peq32.ctypes.data, tiles.ctypes.data, out.ctypes.data, Q, T, W, Lp,
+        16, a["group"], a["segments"], a["seg"], a["over"], a["pairs"],
+        a["threads"], *a["grid"], a["smem"], 1, None) == 1
+    assert (out == 7).all()
+    assert emulated_cross.group(
+        peq32.ctypes.data, tiles.ctypes.data, out.ctypes.data, Q, T, W, Lp,
+        16, g.group, g.segments, g.seg, g.over, g.pairs, g.threads,
+        *g.grid, g.smem, 1, None) == 0

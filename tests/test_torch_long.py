@@ -193,8 +193,8 @@ def test_rescore_plain_matches_jax_past_511_rows(W, qlen, L1, windowed):
     """K3 on the CPU (through `rescore_cuda`, as the engine calls it)
     equals burst_tpu's jnp rescore (`make_rescore_gather`: its wide int32
     planes at these shapes): at 600 and 1,456 DP rows, full width at
-    L1 = 2,048 and 3,008 and windowed; the card's route is the wide
-    one."""
+    L1 = 2,048 and 3,008 and windowed; the card's route keeps the row in
+    registers (one warp a pair in the 640-column window of 600 rows)."""
     budget = int(qlen * (1 - THRES))
     peq, tiles, qlens, max_ed = _rescore_case(W + L1, W, qlen, 4, L1 - 1,
                                               budget)
@@ -219,7 +219,7 @@ def test_rescore_plain_matches_jax_past_511_rows(W, qlen, L1, windowed):
             _t(peq.view(np.int32)), _t(tiles), idx, idx, qlens, max_ed, W,
             x0=x0, Lw=Lw)
         assert rescore_cuda.rescore_geometry(P, rows, Lw, 16 * W)[0] == \
-            "wide"
+            ("warp" if Lw <= 1024 else "wide")
     else:
         ref = np.asarray(fn(
             jnp.asarray(peq), jnp.asarray(tiles), jnp.asarray(idx),
@@ -236,21 +236,34 @@ def test_rescore_plain_matches_jax_past_511_rows(W, qlen, L1, windowed):
 
 
 def test_rescore_geometry_routes():
-    """The block route up to 511 rows and 1,024 columns; past them the
-    wide route, the row in the registers of one CTA a pair (8, 16 or 32
-    columns a thread, halo lanes at least a look-back window wide where
-    the row spans warps): a 16,569 bp reference rescored whole (L1 =
-    17,024) now in 18 warps of 32 columns a thread; the global route
-    (no dynamic shared memory, one CTA an SM) only past what one CTA's
-    registers hold, at any width, its CTAs fewer where their scratch
-    would pass GLOBAL_SCRATCH."""
+    """Up to 1,024 columns (the shapes of the first design's block
+    route, up to 511 rows, and past 511 rows) the warp route: one warp a
+    pair, L1 / 32 columns a lane where the look-back window fits a
+    lane's run, else a power of two, four pairs a CTA (fewer where their
+    Peq tables pass 48 KB), a 64-bit key where the fields pass 31 bits
+    (L1 = 1,024 at levels 10); past 1,024 columns the wide route, the
+    row in the registers of one CTA a pair (8, 16 or 32 columns a
+    thread, halo lanes at least a look-back window wide): a 16,569 bp
+    reference rescored whole (L1 = 17,024) in 18 warps of 32 columns a
+    thread; the global route (no dynamic shared memory, one CTA an SM)
+    only past what one CTA's registers hold, at any width, its CTAs
+    fewer where their scratch would pass GLOBAL_SCRATCH."""
     g = rescore_cuda.rescore_geometry
-    assert g(100, 296, 1024, 160) == ("block", 1024, 100, 0, 0, 0)
-    assert g(100, 512, 640, 16 * 17)[0] == "wide"
+    smem = rescore_cuda.rescore_wide_smem
+    assert g(100, 296, 1024, 160) == \
+        ("warp", 128, 25, smem(1, 0, 32, 160, 4), 32, 0, 4)
+    assert g(8192, 296, 384, 160, levels=3) == \
+        ("warp", 128, 2048, smem(1, 0, 12, 160, 4), 12, 0, 4)
+    assert g(8192, 296, 384, 160, levels=4)[4] == 16     # window 16 > 12
+    assert g(4096, 104, 128, 64, levels=2)[4] == 4
+    assert g(4096, 104, 640, 64, levels=2)[4] == 20
+    assert g(3, 500, 1024, 256, levels=10)[:5] == ("warp", 96, 1,
+                                                    smem(1, 0, 32, 256, 3),
+                                                    32)
+    assert g(100, 512, 640, 16 * 17)[0] == "warp"
     assert g(100, 1456, 3072, 16 * 46, levels=6)[:2] == ("wide", 224)
     assert g(100, 1456, 1536, 16 * 46, levels=6) == \
-        ("wide", 256, 100, rescore_cuda.rescore_wide_smem(8, 8, 8, 736),
-         8, 8)
+        ("wide", 256, 100, smem(8, 8, 8, 736), 8, 8, 1)
     wide = g(100, 304, 17024, 160, sms=132, levels=4)
     assert wide[:3] == ("wide", 576, 100) and wide.cols == 32 and \
         wide.halo == 1
@@ -259,35 +272,51 @@ def test_rescore_geometry_routes():
     big = g(1000, 304, 5_000_064, 160, sms=132)
     assert big[:4] == ("global", 1024, 1, 0)
     assert g(10, 296, 1024, 256 * 32, levels=4) == \
-        ("wide", 32, 10, rescore_cuda.rescore_wide_smem(1, 0, 32, 8192),
-         32, 0)                                      # 32 KB of Peq
+        ("warp", 32, 10, smem(1, 0, 32, 8192), 32, 0, 1)  # 32 KB of Peq
 
 
 def test_rescore_wide_geometry_covers_every_launch():
-    """Every wide launch: the warps' own columns cover L1 and one warp
-    fewer would not, a warp's halo holds a look-back window, the key's
-    fields fit 31 bits, threads within the instance's launch bound and
-    shared memory within what a CTA may opt into; the planned state
-    (C keys and shiftR) within a thread's 255 registers."""
+    """Every register-route launch: the warps' own columns cover L1 and
+    one warp fewer would not, a warp's halo holds a look-back window, a
+    run of columns that is no power of two only in one warp holding the
+    window, the key's fields within its 32 or 64 bits, several pairs a
+    CTA only one warp each and the grid covering every pair, threads
+    within the instance's launch bound and shared memory within what a
+    CTA may opt into; the planned state (C keys and shiftR) within a
+    thread's 255 registers. Every instance is planned somewhere, and
+    every shape up to 1,024 columns takes the warp route."""
     g = rescore_cuda.rescore_geometry
     seen = set()
     for L1 in [128 * k for k in range(1, 160)] + [17024, 32768, 65536]:
-        for levels in range(1, 10):
+        for levels in range(1, 11):
             for pequ32 in (16 * 46, 256 * 20):
-                r = g(64, 1456, L1, pequ32, levels=levels)
-                if r.route != "wide":
+                N = 64
+                r = g(N, 1456, L1, pequ32, levels=levels)
+                if r.route == "global":
+                    assert L1 > 1024
                     continue
                 sb, gb, db, w = rescore_cuda.rescore_key_bits(L1, levels)
-                assert sb + gb + db <= 31
-                nw, C, H = r.threads // 32, r.cols, r.halo
+                kb = 32 if sb + gb + db <= 31 else 64
+                assert sb + gb + db <= 63 and (kb == 32 or r.cols == 32)
+                C, H, P = r.cols, r.halo, r.pairs
+                nw = r.threads // 32 // P
+                assert (r.route == "warp") == (nw == 1) == (L1 <= 1024)
                 own = 32 * C if nw == 1 else (32 - H) * C
                 assert nw * own >= L1 > (nw - 1) * own
                 assert (H == 0) == (nw == 1) and (nw == 1 or H * C >= w)
+                assert C & (C - 1) == 0 or (nw == 1 and w <= C)
+                assert P == 1 or nw == 1
+                assert r.grid * P >= N > (r.grid - 1) * P
                 assert H <= rescore_cuda.WIDE_MAX_HALO
-                assert r.threads <= rescore_cuda.WIDE_MAX_THREADS[C]
-                assert r.smem <= rescore_cuda.SMEM_MAX and 2 * C <= 255
-                seen.add((C, nw > 1))
-    assert seen == {(C, m) for C in (8, 16, 32) for m in (False, True)}
+                assert r.threads <= (32 * rescore_cuda.WARP_PAIRS
+                                     if nw == 1 else
+                                     rescore_cuda.WIDE_MAX_THREADS[C])
+                assert r.smem == rescore_cuda.rescore_wide_smem(
+                    nw, H, C, pequ32, P) <= rescore_cuda.SMEM_MAX
+                assert (kb // 32 + 1) * C <= 255
+                seen.add((C, nw > 1, kb))
+    assert seen == {(C, False, 32) for C in range(4, 33, 4)} | \
+        {(C, True, 32) for C in (8, 16, 32)} | {(32, False, 64)}
 
 
 # -------------------------------------------------------- slice level

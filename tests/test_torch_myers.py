@@ -445,7 +445,7 @@ def emulated_pairs(tmp_path_factory):
             "uint32_t b) ",
             "{\n  const uint64_t t = (uint64_t)a + b" + cin + ";\n"
             "  emu_cc = (uint32_t)(t >> 32);\n  return (uint32_t)t;\n}\n")
-    lib = torch_cuda_emu.build(torch_cuda_emu.emulate(src),
+    lib = torch_cuda_emu.build(torch_cuda_emu.emulate(src, _build.CSRC),
                                tmp_path_factory.mktemp("emu_pairs"))
     return torch_cuda_emu.entry(lib, "myers_pairs_wide_launch",
                                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11

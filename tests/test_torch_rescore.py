@@ -159,7 +159,7 @@ def test_wrapper_rejects_bad_shapes():
         rescore_cuda.rescore(z((4, 64), dtype=torch.int32),
                              z((4, 100), dtype=torch.uint8),
                              z((4, 2), dtype=torch.int32), 4, 2, 8, 128)
-    # L1 = 2048 (past the block route's 1,024 columns) runs and equals
+    # L1 = 2048 (past the warp route's 1,024 columns) runs and equals
     # burst_tpu's jnp rescore at that width; rows past 32W are refused
     smat, peq, tiles, pidx, tidx, qlens, max_ed = _case(
         31, W=2, NT=4, lb=1900, P=5, qlen_lo=50)
@@ -229,7 +229,8 @@ def test_xalpha_matches_jax(windowed):
 @pytest.fixture(scope="module")
 def emulated_rescore(tmp_path_factory):
     """csrc/rescore.cu built for the CPU (tests/torch_cuda_emu.py): its
-    wide-route entry, `rescore_wide_launch`."""
+    entry, `rescore_wide_launch` (the register routes and the global
+    route)."""
     import ctypes
     import os
 
@@ -239,7 +240,7 @@ def emulated_rescore(tmp_path_factory):
     lib = torch_cuda_emu.build(torch_cuda_emu.emulate(src),
                                tmp_path_factory.mktemp("emu_rescore"))
     return torch_cuda_emu.entry(lib, "rescore_wide_launch",
-                                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                                 + [ctypes.c_void_p])
 
 
@@ -320,16 +321,13 @@ def test_wide_kernel_source_on_cpu(emulated_rescore, W, qlen, L1, levels,
                                          codes, budget, gap)
     g = rescore_cuda.rescore_geometry(N, rows, L1, codes * W,
                                       levels=levels)
-    assert g.route == "wide"
+    assert g.route == ("warp" if W == 32 else "wide")
     if W == 17:
         assert rows > 511 and g.threads > 32 and g.cols < 1 << levels
     assert (g.threads == 32) == (W == 32)
     assert g.cols == {7: 16, 8: 32}.get(levels, 32 if W == 32 else 8)
-    out = np.zeros((4, N), np.int32)
-    assert emulated_rescore(
-        peq.ctypes.data, tiles.ctypes.data, qmeta.ctypes.data,
-        out.ctypes.data, None, N, W, codes, levels, rows, L1, g.cols,
-        g.halo, g.threads, g.grid, g.smem, None) == 0
+    out = _run_register_route(emulated_rescore, peq, tiles, qmeta, W,
+                              codes, levels, rows, L1, g)
     ref = prescore.rescore_plain(_t(peq), _t(tiles), _t(qmeta), W, levels,
                                  rows, L1).numpy()
     np.testing.assert_array_equal(out, ref)
@@ -342,19 +340,96 @@ def test_wide_kernel_source_on_cpu(emulated_rescore, W, qlen, L1, levels,
         assert (ref[0] > budget).any()
 
 
+def _run_register_route(emulated_rescore, peq, tiles, qmeta, W, codes,
+                        levels, rows, L1, g):
+    """One emulated launch `g` of the register routes; its [4, N]."""
+    N = len(qmeta)
+    out = np.zeros((4, N), np.int32)
+    assert emulated_rescore(
+        peq.ctypes.data, tiles.ctypes.data, qmeta.ctypes.data,
+        out.ctypes.data, None, N, W, codes, levels, rows, L1, g.cols,
+        g.halo, g.pairs, g.threads, g.grid, g.smem, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("W,qlen,L1,levels,codes,N,budget,gap", [
+    (4, 80, 128, 2, 16, 6, 3, 0),        # 4 columns a lane, 2 CTAs
+    (10, 292, 384, 3, 16, 5, 9, 6),      # 12 a lane: the window in a run
+    (10, 292, 384, 4, 16, 3, 30, 12),    # 16 a lane: the window is not
+    (4, 100, 640, 2, 16, 3, 3, 0),       # 20 a lane
+    (1, 30, 768, 1, 16, 3, 2, 0),        # 24 a lane, W = 1
+    (2, 60, 896, 3, 256, 2, 250, 6),     # 28 a lane, raw bytes
+    (3, 90, 256, 5, 16, 2, 250, 24),     # 8 a lane, doublings across lanes
+    (10, 296, 1024, 4, 16, 2, 250, 12),  # 32 a lane
+    (16, 500, 1024, 9, 256, 2, 300, 0),  # 500 rows, levels 9, raw bytes
+    (16, 500, 1024, 10, 16, 2, 600, 0)],  # the 64-bit key
+    ids=["L128-C4", "L384-C12", "L384-C16", "L640-C20", "L768-C24-W1",
+         "L896-C28-x256", "L256-C8-lv5", "L1024-C32", "rows500-lv9-x256",
+         "lv10-key64"])
+def test_warp_route_source_on_cpu(emulated_rescore, W, qlen, L1, levels,
+                                  codes, N, budget, gap):
+    """K3's warp route (the shapes up to 511 rows and 1,024 columns that
+    the first design's block route took), its own source compiled for
+    the CPU, equals `rescore_plain` exactly on the launch
+    `rescore_geometry` plans: one warp a pair and several pairs a CTA
+    (the last CTA's spare warps idle), L1 / 32 columns a lane where the
+    look-back window fits a lane's run (4 to 28: no idle lane), a power
+    of two where it does not (doublings across lanes), look-back depths
+    1-10, 16 and 256 codes; at L1 = 1,024 and levels 10 the fields take
+    32 bits and the key 64. Where a gap is planted each near query
+    leaves out 3/4 of a window of its tile, found only at the full
+    depth."""
+    peq, tiles, qmeta, rows = _wide_case(W * L1 + levels + codes, W, qlen,
+                                         L1, N, codes, budget, gap)
+    g = rescore_cuda.rescore_geometry(N, rows, L1, codes * W,
+                                      levels=levels)
+    sb, gb, db, w = rescore_cuda.rescore_key_bits(L1, levels)
+    assert g.route == "warp" and g.halo == 0 and rows <= 511
+    assert g.pairs == min(4, N) and g.grid == -(-N // g.pairs)
+    assert g.cols == (L1 // 32 if w <= L1 // 32 else
+                      1 << (L1 // 32 - 1).bit_length())
+    assert (sb + gb + db > 31) == (levels == 10)
+    out = _run_register_route(emulated_rescore, peq, tiles, qmeta, W,
+                              codes, levels, rows, L1, g)
+    ref = prescore.rescore_plain(_t(peq), _t(tiles), _t(qmeta), W, levels,
+                                 rows, L1).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert (ref[0] <= min(budget, gap + 6)).any()
+    if gap > 1:
+        less = prescore.rescore_plain(_t(peq), _t(tiles), _t(qmeta), W,
+                                      levels - 1, rows, L1).numpy()
+        assert (less[0] > ref[0]).any()
+
+
 def test_wide_launch_rejects_other_geometry(emulated_rescore):
-    """The wide entry takes only the launch `rescore_geometry` plans:
-    another halo, warp count, column count or shared-memory size is
-    refused before a launch and nothing is written."""
+    """The register routes' entry takes only the launch
+    `rescore_geometry` plans: another halo, warp count, column count,
+    pairs a CTA or shared-memory size is refused before a launch, and so
+    are a run of 12 columns a lane shorter than the look-back window, a
+    grid that misses pairs and a 32-bit key where the fields need 64;
+    nothing is written."""
     N, W, L1, levels, rows = 1, 2, 1152, 3, 60
     peq, tiles, qmeta, _ = _wide_case(5, W, 60, L1, N, 16, 3)
     g = rescore_cuda.rescore_geometry(N, rows, L1, 16 * W, levels=levels)
     out = np.full((4, N), -7, np.int32)
     for bad in (dict(halo=g.halo + 1), dict(threads=g.threads + 32),
-                dict(cols=32), dict(smem=g.smem + 4), dict(halo=0)):
+                dict(cols=32), dict(smem=g.smem + 4), dict(halo=0),
+                dict(pairs=2, threads=2 * g.threads, grid=1)):
         a = dict(g._asdict(), **bad)
         assert emulated_rescore(
             peq.ctypes.data, tiles.ctypes.data, qmeta.ctypes.data,
             out.ctypes.data, None, N, W, 16, levels, rows, L1, a["cols"],
-            a["halo"], a["threads"], a["grid"], a["smem"], None) != 0, bad
+            a["halo"], a["pairs"], a["threads"], a["grid"], a["smem"],
+            None) != 0, bad
+    # the warp route: a window wider than a lane's run of 12 columns, a
+    # grid short of the pairs
+    for L1, lv, cols, n, grid in ((384, 4, 12, 4, 1), (384, 3, 12, 5, 1)):
+        g = rescore_cuda.rescore_geometry(n, 60, L1, 16 * W, levels=lv)
+        a = dict(g._asdict(), cols=cols, grid=grid)
+        a["smem"] = rescore_cuda.rescore_wide_smem(
+            1, 0, cols, 16 * W, a["pairs"])
+        assert emulated_rescore(
+            peq.ctypes.data, tiles.ctypes.data, qmeta.ctypes.data,
+            out.ctypes.data, None, n, W, 16, lv, 60, L1, a["cols"], 0,
+            a["pairs"], a["threads"], a["grid"], a["smem"], None) != 0, a
     assert (out == -7).all()

@@ -8,12 +8,14 @@ are std::threads meeting at a std::barrier for __syncthreads; a warp's
 writing its value into the warp's slot array and reading its source
 lane's; dynamic shared memory is a static buffer (the emulated CTAs run
 one at a time) and a launch `kern<<<grid, threads, ...>>>(...)` a loop
-over the grid. A test replaces what else a source needs (inline PTX,
+over the grid; a header the source includes from its own directory is
+pasted in. A test replaces what else a source needs (inline PTX,
 cp.async) before `build`. That holds a kernel's own index, carry and
 exchange arithmetic against its plain version without a card; whether
 the card agrees is `chip_smoke.py`'s.
 """
 import ctypes
+import os
 import re
 import subprocess
 
@@ -176,9 +178,18 @@ def replace_function(src: str, head: str, body: str) -> str:
     return src[:i] + body + src[src.index("\n}\n", i) + 3:]
 
 
-def emulate(src: str) -> str:
+_LOCAL_INCLUDE = re.compile(r'^#include "([\w.]+)"\n', re.M)
+
+
+def emulate(src: str, include_dir=None) -> str:
     """A CUDA source rewritten for the emulated runtime: its launches a
-    loop over the grid, its dynamic shared memory a static buffer."""
+    loop over the grid, its dynamic shared memory a static buffer; each
+    `#include "name"` of a header in `include_dir` (the sources'
+    directory) replaced by the header's text."""
+    if include_dir is not None:
+        src = _LOCAL_INCLUDE.sub(
+            lambda m: open(os.path.join(include_dir, m.group(1))).read()
+            .replace("#pragma once\n", "") + "\n", src)
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
     src, n = _LAUNCH.subn(r"run_grid(\1, dim3(\2), \3, ", src)
     assert n, "no kernel launch in the source"
