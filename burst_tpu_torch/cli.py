@@ -22,8 +22,14 @@ Left out of burst_tpu's CLI, each for its reason:
     once by nvcc, `kernels/_build.py`).
   * the rerun on `devtime.DeviceStall`: the port has no device watchdog
     by design, so a run that fails on the card fails.
-  * `--shards`/`--qshards` above 1 and BURST_TPU_MULTIHOST (a database
-    over several cards or hosts) raise NotImplementedError: ROADMAP M12.
+  * BURST_TPU_MULTIHOST (a database over several hosts) raises
+    NotImplementedError: ROADMAP M12 part 2.
+
+`--shards N` (with `--qshards Q`) shards the database over a Q x N grid
+of devices in one process (`parallel.mesh`, burst_tpu's flow): on the
+card the cards in turn (every shard on `cuda:0` on a one-card machine),
+on the CPU the CPU repeated; `--qshards` without `--shards` above 1
+shards nothing, as in burst_tpu. Prepass (-p) ignores both.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import sys
 import numpy as np
 import torch
 
-from . import engine, modes
+from . import devtime, engine, modes
 from .alphabet import score_matrix
 from .io.fasta import parse_fasta, parse_fasta_fast
 from .io.taxonomy import Taxonomy
@@ -42,7 +48,9 @@ from .serving import align_queries
 
 DEVICE_ENV = "BURST_TPU_TORCH_DEVICE"
 # the last alignment's path and branch counts (`run`): "path" is "fused"
-# or "two-step" with an accelerator, "direct" without one
+# or "two-step" with an accelerator, "direct" without one; a sharded run
+# adds its grid ([q shards, db shards]), its distinct devices and the
+# mesh's stats (`serving.align_queries`)
 last_stats: dict = {}
 
 
@@ -242,7 +250,7 @@ class _Phases:
 
     def mark(self, name: str):
         if self.sync:
-            torch.cuda.synchronize()
+            devtime.synchronize_cards()
         now = self.t()
         if not self.quiet:
             print(f"{name}: {now - self.last:.3f}s")
@@ -264,15 +272,14 @@ def run(a: dict, device) -> int:
     from .db import edx
     from .state import load_db
 
-    sharded = NotImplementedError(
-        "a database sharded over several cards or hosts (--shards, "
-        "--qshards, BURST_TPU_MULTIHOST) comes with ROADMAP M12")
     if os.environ.get("BURST_TPU_MULTIHOST"):
         if a["makedb"]:
             print("ERROR: build the database once, without "
                   "BURST_TPU_MULTIHOST")
             return 1
-        raise sharded
+        raise NotImplementedError(
+            "a database sharded over several hosts (BURST_TPU_MULTIHOST) "
+            "comes with ROADMAP M12 part 2")
     device = torch.device(device)
     last_stats.clear()
     ph = _Phases(a["quiet"], device)
@@ -281,8 +288,6 @@ def run(a: dict, device) -> int:
         make_db(a)
         ph.done()
         return 0
-    if a["shards"] > 1 or a["qshards"] > 1:
-        raise sharded
 
     smat = score_matrix(a["z"])
     qh, qs = parse_fasta_fast(a["query"])
@@ -338,7 +343,9 @@ def run(a: dict, device) -> int:
             fuse=True, z=a["z"], heur=a["heur"],
             skip_ambig=a["skipambig"], taxonomy=taxonomy,
             taxacut=a["taxacut"], taxasuppress=a["taxasuppress"],
-            strict=a["strict"], mark=ph.mark)
+            strict=a["strict"], mark=ph.mark,
+            shards=a["shards"] if a["shards"] > 1 else None,
+            qshards=a["qshards"])
     last_stats.update(stats, path=path)
     ph.done()
     return 0

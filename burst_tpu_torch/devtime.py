@@ -38,22 +38,32 @@ def _to_host(tree):
     return tree
 
 
-def _any_cuda(tree) -> bool:
+def _cuda_devices(tree, out: set) -> set:
+    """The CUDA devices of the tensors of `tree`, added to `out`."""
     if isinstance(tree, torch.Tensor):
-        return tree.is_cuda
-    if isinstance(tree, (list, tuple)):
-        return any(_any_cuda(x) for x in tree)
-    if isinstance(tree, dict):
-        return any(_any_cuda(v) for v in tree.values())
-    return False
+        if tree.is_cuda:
+            out.add(tree.device)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _cuda_devices(x, out)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _cuda_devices(v, out)
+    return out
+
+
+def synchronize_cards():
+    """Wait for the work of every visible card."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def fetch(tree):
-    """Synchronize the device, then copy every tensor of `tree` (a
-    tensor, or nested lists/tuples/dicts of them) to numpy."""
+    """Synchronize every card that holds a tensor of `tree` (a tensor,
+    or nested lists/tuples/dicts of them), then copy each to numpy."""
     t0 = time.perf_counter()
-    if _any_cuda(tree):
-        torch.cuda.synchronize()
+    for dev in _cuda_devices(tree, set()):
+        torch.cuda.synchronize(dev)
     out = _to_host(tree)
     if _acc is not None:
         _acc["s"] += time.perf_counter() - t0

@@ -341,14 +341,16 @@ def _pairs_min_ed(qd: QueryData, db, pj: np.ndarray, pp: np.ndarray):
                                         int(W), int(lb), peq_dev)
             else:
                 pos2row, tiles_dev = got
-                pending += _pair_launches(db, peq_dev, tiles_dev, sel,
+                pending += _pair_launches(peq_dev, tiles_dev, sel,
                                           prows, pos2row[pp[sel]], int(W))
     return pending
 
 
-def _pair_launches(db, peq_dev, tiles_dev, sel, prows, trows, W: int):
+def _pair_launches(peq_dev, tiles_dev, sel, prows, trows, W: int):
     """K2 over the pairs `sel` (Peq rows `prows`, tile rows `trows` of
-    `tiles_dev`) in launches of up to PAIR_CHUNK; [(part, result)]."""
+    `tiles_dev`) in launches of up to PAIR_CHUNK, on the tiles' device
+    (the database's, or a mesh shard's); [(part, result)]."""
+    dev = tiles_dev.device
     out = []
     for s0 in range(0, len(sel), PAIR_CHUNK):
         part = sel[s0:s0 + PAIR_CHUNK]
@@ -358,8 +360,8 @@ def _pair_launches(db, peq_dev, tiles_dev, sel, prows, trows, W: int):
         pidx[: len(part)] = prows[s0:s0 + pchunk]
         tidx[: len(part)] = trows[s0:s0 + pchunk]
         out.append((part, myers_pairs(
-            peq_dev, tiles_dev, torch.from_numpy(pidx).to(db.device),
-            torch.from_numpy(tidx).to(db.device), W)))
+            peq_dev, tiles_dev, torch.from_numpy(pidx).to(dev),
+            torch.from_numpy(tidx).to(dev), W)))
     return out
 
 
@@ -383,7 +385,7 @@ def _pairs_slabs(qd: QueryData, db, sel, prows, units, W: int, lb: int,
     for sid, g0, g1 in zip(sids.tolist(), starts.tolist(), ends.tolist()):
         lo = sid * rows
         with db.ring.staged(tmat[lo:lo + rows], stats) as slab:
-            out += _pair_launches(db, peq_dev, slab, sel[g0:g1],
+            out += _pair_launches(peq_dev, slab, sel[g0:g1],
                                   prows[g0:g1], trows[g0:g1] - lo, W)
         stats["slabs"] += 1
     return out
@@ -905,7 +907,8 @@ def _bunch_words_padded(qd: QueryData, r0: int, b1: int, qbunch: int,
 def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
                      do_heur: bool = False, threads: int = 1,
                      qbunch: int | None = None,
-                     skip_ambig: bool = False) -> Visits:
+                     skip_ambig: bool = False,
+                     dev_scour: bool | None = None) -> Visits:
     """Per-unibin candidate visit lists, from the device scour.
 
     The reference scans QBUNCH unibins per task (burst.c:4018-4021,
@@ -920,7 +923,11 @@ def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
     The heuristic cut (`do_heur`, -hr) raises the bunch floor and turns
     the unit index off, as in burst_tpu: the batch is scoured by the
     native scour at clump level, and the visits carry no per-unit
-    prefilter (every lane of a visited clump is a pair)."""
+    prefilter (every lane of a visited clump is a pair).
+
+    `dev_scour=False` sends this batch to the native scour as well
+    (`Aligner.align_batch`'s per-batch choice); True or None follows the
+    plan. Where the native scour ran, `stats["scour"]` says so."""
     rd, acc = db.rd, db.acc
     db.check_alphabet(qd)
     k = acc.k
@@ -949,10 +956,12 @@ def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
         offs[1: b1 + 1] = np.arange(1, b1 + 1) * nb
         offs[b1 + 1:] = b1 * nb
         return Visits(flat=np.tile(bad_arr, b1), offs=offs, full=full)
-    if db.tabs is None or do_heur:
+    native = db.tabs is None or do_heur or dev_scour is False
+    if native:
         # the whole batch through the native scour, as burst_tpu's
         # `_accel_candidates_native` does: where the residency plan holds
-        # no device tables, and under -hr, which has no unit index
+        # no device tables, under -hr, which has no unit index, and where
+        # the caller asks for the host scour
         res = _native_scour(qmat, qlens_all, b0, b1, qbunch, k, aq_off,
                             aqw, aqm, acc.csr, n_clumps, mm_bunch,
                             mm_inner,
@@ -968,6 +977,8 @@ def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
                            n_clumps, do_unit=not do_heur)
     vis.stats = {key: info.get(key, 0)
                  for key in ("bunch_ov_rows", "member_ov_rows")}
+    if native:
+        vis.stats["scour"] = "native"
     return vis
 
 
@@ -1262,7 +1273,8 @@ def _scour_device_bunches(qd, db, b0, b1, qbunch, k, mm_bunch, mm_inner,
 
 
 def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray, qbunch: int,
-                     skip_ambig: bool = False):
+                     skip_ambig: bool = False,
+                     dev_scour: bool | None = None):
     """Fused accelerator scan (QBUNCH=1): device scour + K1 over the
     clear rows in one dispatch chain; ambiguous rows, BadList units and
     rows the device overflowed go through K2; full-scan rows (reads the
@@ -1274,13 +1286,14 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray, qbunch: int,
     caller's QBUNCH (`qbunch`, burst.c:4019-4021) is 1; on a raw-byte
     database (`-x`); for a batch without a clear row of length >= k,
     which has nothing to fuse; and where the residency plan holds no
-    packed store or no device tables. `skip_ambig` (-sa at align time)
-    drops the BadList pass and the full-scan rows, as the two-step path
-    does."""
+    packed store or no device tables (which includes unit postings that
+    are not clump-grouped); and where the caller asks for the host scour
+    (`dev_scour=False`). `skip_ambig` (-sa at align time) drops the
+    BadList pass and the full-scan rows, as the two-step path does."""
     rd, acc = db.rd, db.acc
     n = len(qd.seqs)
     db.check_alphabet(qd)
-    if qbunch != 1 or db.xalpha:
+    if qbunch != 1 or db.xalpha or dev_scour is False:
         return None
     if db.tiles_packed is None or db.tabs is None:
         return None

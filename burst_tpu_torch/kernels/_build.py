@@ -3,7 +3,8 @@ with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface (pointers and the
 stream as `void*`, sizes as `int`, returning `cudaGetLastError()`), so
-it compiles in seconds without PyTorch's headers. The shared library
+it compiles in seconds without PyTorch's headers; every call of an
+entry goes through `launch`, on its tensors' device. The shared library
 goes to `build/burst_tpu_torch/lib<name>.so` under the repository root
 (gitignored) and is rebuilt whenever a source under `csrc/` is newer.
 Any nvcc failure raises with the compiler's output.
@@ -86,3 +87,16 @@ def check(err: int, what: str):
     """Raise if a launch entry reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch error {err}")
+
+
+def launch(device, entry, *args, what: str | None = None):
+    """Call the launch entry `entry` with `args` on `device`, the card
+    its tensors live on. An entry sets its kernel's shared-memory
+    attribute and launches on the current device, so `device` is made
+    current around the call (on a grid of several cards it is not the
+    current one). Raises where the entry reports a CUDA error (`what`,
+    by default the entry's name)."""
+    import torch
+    with torch.cuda.device(device):
+        err = entry(*args)
+    check(err, what or entry.__name__)

@@ -286,20 +286,19 @@ def _launch(peq_all, tiles, pidx, tidx, W: int, fmt: int, ncols: int):
         g = pair_wide_geometry(B, W, sms)
         scratch = torch.empty(g.scratch, dtype=torch.int32,
                               device=pidx.device)
-        err = lib.myers_pairs_wide_launch(
-            peq_all.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
-            tidx.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if g.scratch else None, B, W, fmt,
-            tiles.shape[1], ncols, peq_all.shape[0], tiles.shape[0],
-            g.group, g.blocks, g.threads, g.smem, stream)
-        _build.check(err, "myers_pairs_wide_launch")
+        _build.launch(
+            pidx.device, lib.myers_pairs_wide_launch, peq_all.data_ptr(),
+            tiles.data_ptr(), pidx.data_ptr(), tidx.data_ptr(),
+            out.data_ptr(), scratch.data_ptr() if g.scratch else None, B,
+            W, fmt, tiles.shape[1], ncols, peq_all.shape[0],
+            tiles.shape[0], g.group, g.blocks, g.threads, g.smem, stream)
         return out, wide
     blocks, threads, smem = pair_geometry(B, W, sms)
-    err = lib.myers_pairs_launch(
-        peq_all.data_ptr(), tiles.data_ptr(), pidx.data_ptr(),
-        tidx.data_ptr(), out.data_ptr(), B, W, fmt, tiles.shape[1], ncols,
-        peq_all.shape[0], tiles.shape[0], blocks, threads, smem, stream)
-    _build.check(err, "myers_pairs_launch")
+    _build.launch(
+        pidx.device, lib.myers_pairs_launch, peq_all.data_ptr(),
+        tiles.data_ptr(), pidx.data_ptr(), tidx.data_ptr(), out.data_ptr(),
+        B, W, fmt, tiles.shape[1], ncols, peq_all.shape[0], tiles.shape[0],
+        blocks, threads, smem, stream)
     return out, wide
 
 
@@ -378,11 +377,11 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
     out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
     if Q == 0 or T == 0:
         return out
-    err = _build.load("myers_cross", _SIG_CROSS).myers_cross_launch(
+    _build.launch(
+        peq.device, _build.load("myers_cross", _SIG_CROSS).myers_cross_launch,
         peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
         peq.shape[1], NQ, threads, gx, gy, _CROSS_DTYPES[out_dtype],
         torch.cuda.current_stream(peq.device).cuda_stream)
-    _build.check(err, "myers_cross_launch")
     myers_cross.launches += 1
     return out
 
@@ -405,11 +404,11 @@ def _cross_wide(peq, tiles, W: int, out_dtype):
     g = cross_group_geometry(Q, T, W, Lp, peq.shape[1], bool(u8),
                              sm_count(peq.device))
     if g is not None:
-        err = lib.myers_cross_group_launch(
-            peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
-            peq.shape[1], g.group, g.segments, g.seg, g.over, g.pairs,
-            g.threads, *g.grid, g.smem, u8, stream)
-        _build.check(err, "myers_cross_group_launch")
+        _build.launch(
+            peq.device, lib.myers_cross_group_launch, peq.data_ptr(),
+            tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp, peq.shape[1],
+            g.group, g.segments, g.seg, g.over, g.pairs, g.threads,
+            *g.grid, g.smem, u8, stream)
         myers_cross.launches += 1
         myers_cross.wide += 1
         myers_cross.group += 1
@@ -420,11 +419,11 @@ def _cross_wide(peq, tiles, W: int, out_dtype):
         nq = min(per, Q - q0)
         scratch = torch.empty(words // Q * nq, dtype=torch.int32,
                               device=peq.device)
-        err = lib.myers_cross_wide_launch(
-            peq[q0:].data_ptr(), tiles.data_ptr(), out[q0:].data_ptr(),
+        _build.launch(
+            peq.device, lib.myers_cross_wide_launch, peq[q0:].data_ptr(),
+            tiles.data_ptr(), out[q0:].data_ptr(),
             scratch.data_ptr() if words else None, nq, T, W, Lp,
             peq.shape[1], threads, gx, nq, smem, u8, stream)
-        _build.check(err, "myers_cross_wide_launch")
         myers_cross.launches += 1
         myers_cross.wide += 1
     return out

@@ -176,12 +176,13 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
     g = rescore_geometry(N, rows, L1, C * W, sm_count(dev), levels)
     scratch = torch.empty(4 * g.grid * L1 if g.route == "global" else 0,
                           dtype=torch.int64, device=dev)
-    err = _build.load("rescore", _SIG).rescore_wide_launch(
+    _build.launch(
+        dev, _build.load("rescore", _SIG).rescore_wide_launch,
         peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
         out.data_ptr(), scratch.data_ptr() if scratch.numel() else None, N,
         W, C, levels, rows, L1, g.cols, g.halo, g.pairs, g.threads, g.grid,
-        g.smem, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, f"rescore_wide_launch ({g.route})")
+        g.smem, torch.cuda.current_stream(dev).cuda_stream,
+        what=f"rescore_wide_launch ({g.route})")
     rescore.launches += 1
     rescore.routes[g.route] += 1
     return out

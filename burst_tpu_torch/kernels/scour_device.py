@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import devtime
+from ..native import _unit_ids_clump_grouped
 from .myers import build_peq_dev
 from .myers_cuda import myers_pairs_packed
 
@@ -160,10 +161,14 @@ class ScourTables:
 
 def has_device_form(acc) -> bool:
     """Whether the accelerator's unit postings have device tables: k <=
-    15, a unit index, and ids that int32 holds (under 2^31 postings).
-    The residency plan sends the others to the native host scour."""
+    15, a unit index whose postings are clump-grouped (every word's
+    ascending, as burst_tpu's device scour requires), and ids that int32
+    holds (under 2^31 postings). The residency plan sends the others to
+    the native host scour, which walks postings that are not
+    clump-grouped the slow way, as burst_tpu's does."""
     return acc.k <= 15 and acc.u_csr is not None and \
-        len(acc.u_csr.ids) < 2**31
+        len(acc.u_csr.ids) < 2**31 and \
+        _unit_ids_clump_grouped(acc.u_csr, VECSZ)
 
 
 def table_bytes(u_csr, k: int) -> int:

@@ -22,6 +22,7 @@ import torch
 from . import engine, modes
 from .alphabet import score_matrix
 from .io.taxonomy import Taxonomy
+from .parallel import mesh
 from .process import RefData, bin_queries_for_accel, process_queries
 from .state import load_db
 
@@ -57,7 +58,10 @@ class Aligner:
     also holds the scour route (`scour`, with an accelerator), the
     streamed buckets (`streamed`, (length bucket, pad) pairs), the K2
     slabs, K4 blocks and K3 winner pieces uploaded (`slabs`, `blocks`,
-    `pieces`) and the bytes copied host to device (`h2d_bytes`)."""
+    `pieces`) and the bytes copied host to device (`h2d_bytes`). A
+    batch the native host scour served says so in `scour` ("native"):
+    where the plan holds no device tables, under -hr, and where the
+    caller asks for it (`align_batch(..., dev_scour=False)`)."""
 
     def __init__(self, rd: RefData, acc=None, thres: float = 0.97,
                  mode: str = "BEST", do_rc: bool = False,
@@ -120,7 +124,8 @@ class Aligner:
         heads = [f"w{i}".encode() for i in range(n)]
         self.align_batch(heads, seqs)
 
-    def align_stream(self, batches, depth: int = 2):
+    def align_stream(self, batches, depth: int = 2,
+                     alternate: bool = False):
         """Align an iterable of (headers, seqs) batches, yielding each
         batch's blast6 bytes in order, with up to `depth` batches in
         flight on worker threads so one batch's host work overlaps
@@ -128,23 +133,35 @@ class Aligner:
         repeated align_batch calls; they share the database's staging
         ring under its lock, and a batch of reads longer than the plan
         had room for regrows it only once no other batch is in flight
-        (`DeviceDB.batch`)."""
+        (`DeviceDB.batch`).
+
+        `alternate` sends every other batch (the second, fourth, ...)
+        through the native host scour (`dev_scour=False`), the others
+        through the device scour, so that host and device scans of
+        different batches can run at the same time. The bytes are the
+        same either way."""
         import collections
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=max(1, depth)) as ex:
             live = collections.deque()
-            for batch in batches:
-                live.append(ex.submit(self.align_batch, *batch))
+            for i, batch in enumerate(batches):
+                dev = (i % 2 == 0) if alternate else None
+                live.append(ex.submit(self.align_batch, *batch,
+                                      dev_scour=dev))
                 while len(live) > depth:
                     yield live.popleft().result()
             while live:
                 yield live.popleft().result()
 
     def align_batch(self, headers: list[bytes],
-                    seqs: list[np.ndarray]) -> bytes:
+                    seqs: list[np.ndarray],
+                    dev_scour: bool | None = None) -> bytes:
         """Align one batch of raw (ASCII) or translated reads; returns
-        blast6 bytes."""
+        blast6 bytes. `dev_scour=False` scours this batch on the host
+        (the native scour, no fused scan); True or None follows the
+        residency plan (the device scour where it holds the tables). The
+        bytes are the same either way."""
         qd = process_queries(headers, seqs, self.thres, self.do_rc)
         buf = io.StringIO()
         # BEST's reporter does not depend on the pod order, so the
@@ -156,7 +173,7 @@ class Aligner:
             qbunch=1 if best else engine.default_qbunch(len(qd.seqs), 1),
             fuse=best, z=self.z, taxonomy=self.taxonomy,
             taxacut=self.taxacut, taxasuppress=self.taxasuppress,
-            strict=self.strict)
+            strict=self.strict, dev_scour=dev_scour)
         return buf.getvalue().encode("latin-1")
 
 
@@ -164,29 +181,59 @@ def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
                   z: int = 1, heur: bool = False, skip_ambig: bool = False,
                   taxonomy: Taxonomy | None = None, taxacut: int = 10,
                   taxasuppress: bool = False, strict: bool = False,
-                  mark=lambda name: None) -> tuple[str, dict]:
+                  mark=lambda name: None, dev_scour: bool | None = None,
+                  shards: int | None = None,
+                  qshards: int = 1) -> tuple[str, dict]:
     """Align the batch `qd` on `db` in `mode`, its b6 rows through
     `writer`: the flow of `Aligner.align_batch` and of the CLI. With an
-    accelerator, the fused scan where `fuse` is set, -hr (`heur`) is off
-    and QBUNCH (`qbunch`) is 1, else the two-step path at `qbunch`; ANY
-    prints in the visit order of that QBUNCH. Without one, the direct
-    path. `skip_ambig` is -sa at align time; `mark(name)` ends each of
-    the CLI's phases. Returns (path, stats): path "fused", "two-step" or
-    "direct"; stats the accelerated branch's counts (`Aligner`), and
-    where the residency plan streams or scours on the host the batch's
-    streaming counts; `regrow` where the batch's reads were longer than
-    any the plan had room for (`DeviceDB.fit_words`: their Myers words
-    and the ring's new slot bytes)."""
+    accelerator, the fused scan where `fuse` is set, -hr (`heur`) is off,
+    QBUNCH (`qbunch`) is 1 and the batch is not sharded, else the
+    two-step path at `qbunch`; ANY prints in the visit order of that
+    QBUNCH. Without one, the direct path. `skip_ambig` is -sa at align
+    time; `dev_scour=False` scours on the host (no fused scan);
+    `mark(name)` ends each of the CLI's phases.
+
+    `shards` (not None) runs burst_tpu's sharded flow on a
+    (qshards x shards) grid, 1 x 1 included (`parallel.mesh`; the cards
+    in turn, or the database's device repeated off the card): with an
+    accelerator phase A through `compute_ed_matrix_accel_sharded` and
+    phase B through `rescore_winners_sharded` (ANY reports unsharded
+    from the sharded phase A); without one `compute_ed_matrix_sharded`
+    in every mode, then the unsharded rescore. The CLI passes `shards`
+    only for --shards above 1, so its --qshards alone shards nothing,
+    as in burst_tpu.
+
+    Returns (path, stats): path "fused", "two-step" or "direct"; stats
+    the accelerated branch's counts (`Aligner`), and where the residency
+    plan streams or scours on the host the batch's streaming counts;
+    `regrow` where the batch's reads were longer than any the plan had
+    room for (`DeviceDB.fit_words`: their Myers words and the ring's new
+    slot bytes); on a grid `grid` ([q shards, db shards]), `devices`
+    (distinct devices) and the mesh's route_s, scan_s, merge_s,
+    pairs_per_shard, win_pairs and full_pairs, and `slab_bytes` (the
+    device bytes of every slab the database's grids hold: one copy of
+    the database for each grid and pad, phase B's pad a Myers width's)."""
     rd, acc = db.rd, db.acc
     visits = ed = sel = None
     stats: dict = {}
+    sharded = shards is not None
+    mstats: dict | None = None
+    devs = None
+    if sharded:
+        devs = mesh.grid_devices(db.device, shards * qshards)
+        grid = mesh.make_mesh2(shards, qshards, devs)
+        mstats = {"grid": [qshards, shards],
+                  "devices": len({str(d) for d in grid.ravel()})}
     W = int(engine._query_matrix(qd)[2].max()) if len(qd.seqs) else 1
     # the plan holds still while the batch runs (`DeviceDB.batch`)
     with db.batch(W) as grew:
         regrow = {"words": W, "slot": db.plan.slot} if grew else None
         if acc is None:
             path = "direct"
-            if mode == "ANY":
+            if sharded:
+                ed = mesh.compute_ed_matrix_sharded(
+                    qd, db, shards, q_shards=qshards, devices=devs)
+            elif mode == "ANY":
                 ed = engine.compute_ed_matrix(qd, db)
             else:
                 # streamed running-min selection, never the dense
@@ -195,8 +242,8 @@ def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
         else:
             qbins = bin_queries_for_accel(qd, acc.k, z, heur)
             fused = engine.accel_scan_fused(qd, db, qbins, qbunch,
-                                            skip_ambig) \
-                if fuse and not heur else None
+                                            skip_ambig, dev_scour) \
+                if fuse and not heur and not sharded else None
             if fused is not None:
                 path = "fused"
                 visits, ed, stats = fused
@@ -205,9 +252,15 @@ def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
                 path = "two-step"
                 visits = engine.accel_candidates(qd, db, qbins, heur,
                                                  qbunch=qbunch,
-                                                 skip_ambig=skip_ambig)
+                                                 skip_ambig=skip_ambig,
+                                                 dev_scour=dev_scour)
                 mark("Accelerator scour")
-                ed = engine.compute_ed_matrix_accel(qd, db, visits)
+                if sharded:
+                    ed = mesh.compute_ed_matrix_accel_sharded(
+                        qd, db, visits, shards, qshards, stats=mstats,
+                        devices=devs)
+                else:
+                    ed = engine.compute_ed_matrix_accel(qd, db, visits)
                 stats = dict(visits.stats or {}, qbunch=visits.qbunch,
                              pairs=len(ed.pj), full_rows=len(ed.full_rows))
         mark("Alignment phase A")
@@ -218,16 +271,23 @@ def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
             else:
                 modes.report_any(ed, qd, db, writer)
             mark("Reporting")
-            return path, _batch_stats(stats, qd, db, regrow)
+            return path, _batch_stats(stats, qd, db, regrow, mstats)
         pod_order = win_cols = None
         if visits is not None:
             juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
             pod_order = engine.accel_pod_order(qd, rd, visits, juni, refpos)
             win_cols = ed.lookup_cols(juni, refpos, rd.tot_units)
+        elif sel is None:                   # the sharded dense matrix
+            juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
         else:
             juni, refpos, eds = sel
-        pods = engine.rescore_winners(qd, db, juni, refpos, eds, mode,
-                                      pod_order, win_cols=win_cols)
+        if sharded and visits is not None:
+            pods = mesh.rescore_winners_sharded(
+                qd, db, juni, refpos, eds, mode, shards, pod_order, qshards,
+                stats=mstats, win_cols=win_cols, devices=devs)
+        else:
+            pods = engine.rescore_winners(qd, db, juni, refpos, eds, mode,
+                                          pod_order, win_cols=win_cols)
         if mode in ("ALLPATHS", "FORAGE"):
             modes.report_allpaths_or_forage(pods, qd, rd, writer, taxonomy,
                                             forage=(mode == "FORAGE"))
@@ -238,13 +298,18 @@ def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
             modes.report_capitalist(pods, qd, rd, writer, taxonomy, taxacut,
                                     taxasuppress, strict)
         mark("Rescore + reporting")
-        return path, _batch_stats(stats, qd, db, regrow)
+        return path, _batch_stats(stats, qd, db, regrow, mstats)
 
 
-def _batch_stats(stats: dict, qd, db, regrow) -> dict:
-    got = dict(stats, **_stream_counts(qd, db))
+def _batch_stats(stats: dict, qd, db, regrow, mstats=None) -> dict:
+    # the batch's own scour route ahead of the plan's
+    got = dict(_stream_counts(qd, db), **stats)
     if regrow is not None:
         got["regrow"] = regrow
+    if mstats is not None:
+        got.update(mstats)
+        if "pairs_per_shard" in got:
+            got["pairs_per_shard"] = got["pairs_per_shard"].tolist()
     return got
 
 

@@ -30,7 +30,7 @@ from . import devtime, engine
 from .accel import Accelerator, SparseCSR, build_unit_index
 from .kernels import scour_device
 from .kernels.myers import xalpha_smat
-from .native import _unit_ids_clump_grouped, load_host
+from .native import load_host
 from .process import RefData
 
 SLAB_MIN_ROWS = 8           # rows of the smallest slab, block or piece
@@ -185,7 +185,8 @@ def _scour_route(plan: Residency, accel: bool) -> Residency:
     if accel:
         plan.scour = "device" if plan.holds(("tables",)) else "native"
         if ("tables",) not in plan.pieces:
-            plan.why = "no device form: k > 15, or 2^31 unit postings"
+            plan.why = ("no device form: k > 15, 2^31 unit postings, or "
+                        "unit postings that are not clump-grouped")
         elif plan.scour == "native":
             plan.why = "the tables give way to the budget"
     return plan
@@ -437,8 +438,8 @@ def load_db(rd, acc, smat: np.ndarray, device,
     database of raw bytes (`xalpha`, -x), whose queries the accelerator
     never indexes. `tile_budget` bounds the database's device bytes
     (None: `default_budget`); what does not fit streams or takes the
-    host scour (`plan_residency`). Raises NotImplementedError for
-    accelerators without a unit-granular clump-grouped index, and
+    host scour (`plan_residency`), as do unit postings that are not
+    clump-grouped (they have no device form: `has_device_form`). Raises
     ValueError for a budget under the least the database needs."""
     device = torch.device(device)
     if load_host() is None:
@@ -446,12 +447,6 @@ def load_db(rd, acc, smat: np.ndarray, device,
                            "burst_tpu_torch/native) is required")
     if acc is not None and not xalpha:
         build_unit_index(rd, acc)
-        if acc.u_csr is None or not _unit_ids_clump_grouped(acc.u_csr,
-                                                            engine.VECSZ):
-            raise NotImplementedError(
-                "accelerators without clump-grouped unit postings have no "
-                "device scour; the host scour pass that serves them comes "
-                "with ROADMAP M12")
     budget = default_budget(device) if tile_budget is None else tile_budget
     return DeviceDB(rd, acc, smat, device, budget, xalpha)
 

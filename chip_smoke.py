@@ -14,6 +14,10 @@
                                           # (no result line)
     python3 chip_smoke.py long            # build, then phase 10 alone
                                           # (no result line)
+    python3 chip_smoke.py mesh            # build, then phase 11 alone
+                                          # (the databases and unsharded
+                                          # batches of phases 4, 6 and 9
+                                          # first; no result line)
     python3 chip_smoke.py wide            # build, the machine-code
                                           # recount, then each kernel's
                                           # wide route held and timed
@@ -128,8 +132,9 @@ Phases, each fatal on failure:
      width, K4's full-scan blocks) is then run again on the first such
      call's own tensors and must equal its plain version on the card (the
      plain pair scan in slices of 2^16 pairs); K4 logged as in phase 3.
-     Then 512 reads of it: the
-     card's b6 bytes must equal the port's CPU run (default QBUNCH 8);
+     Then 512 reads of it: the card's b6 bytes must equal the port's CPU
+     run (default QBUNCH 8), which runs in a process of its own beside
+     the card's work from the start of phase 6 and is read after phase 9;
   7. databases larger than the budget, on the databases of phases 3, 4
      and 6 (no new host build), each batch's bytes against its resident
      batch's: the two-step cell with its tables resident and both unit
@@ -186,6 +191,22 @@ Phases, each fatal on failure:
      16,569 bp units; K3 past 1,024 columns on its wide route, the
      16,569 bp units' L1 = 17,024 included), every shape held, 48 of the
      reads against the CLI's CPU run.
+ 11. several devices in one process (`parallel.mesh`; the grids take
+     the cards in turn, so on one card every grid sits on it: parity and
+     the cost of sharding, not scaling), right after phase 6 on its
+     Aligner ((a), (b)) and inside phase 9 ((c)): (a) the amplicon
+     cell's 20,000 reads through `serving.align_queries` on grids
+     1 x 1, db=4 and q=2 x db=4, each b6 byte-equal to phase 6's timed
+     batch, each grid's seconds against it, the mesh's route/scan/merge
+     seconds, pairs per shard, load balance, slab bytes and peak device
+     memory logged; (b) the direct cell's 20,000 reads on 2 x 4
+     (`compute_ed_matrix_sharded`, then selection and rescore) against
+     phase 4's bytes, K4 logged against its summed bound; every K2, K3
+     and K4 shape of (a) and (b) held against its plain version on a
+     sample of the call's own tensors (`hold_sampled`); (c) the command
+     line on phase 9's database with --shards 4 --qshards 2, BEST and
+     CAPITALIST -b at -t 1, each byte-equal to the same command without
+     shards, `cli.last_stats` showing the grid.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -198,12 +219,14 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import ctypes
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -745,8 +768,8 @@ def pair_recs(case, fns, errs, times, B):
         max_abs_err=errs[kern], plain_ms=time_ms(fns[kern][1], 1),
         library_ms=None, counter=kern.lower(),
         shape=case.shape(kern, B), **times[kern])
-        for kern, fn, line in (("K1", "myers_pairs_packed", 207),
-                               ("K2", "myers_pairs", 221))]
+        for kern, fn, line in (("K1", "myers_pairs_packed", 208),
+                               ("K2", "myers_pairs", 222))]
 
 
 def _build_earlier(src, name):
@@ -1063,7 +1086,7 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
     return got, dict(
         name=f"K3 rescore ({label})", route="cuda",
         source="burst_tpu_torch/csrc/rescore.cu",
-        replaces="burst_tpu/kernels/rescore_pallas.py:155",
+        replaces="burst_tpu/kernels/rescore_pallas.py:156",
         max_abs_err=err, ms=ms, **turns,
         plain_ms=e0.elapsed_time(e1),
         **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
@@ -1153,7 +1176,7 @@ def hold_cross_call(label, peq, tiles, W, out_dtype=None, host=None,
     return got, dict(
         name=f"K4 myers_cross ({label})", route="cuda",
         source="burst_tpu_torch/csrc/myers_cross.cu",
-        replaces="burst_tpu/kernels/myers_pallas.py:98",
+        replaces="burst_tpu/kernels/myers_pallas.py:99",
         max_abs_err=err, ms=time_ms(k4, reps), plain_ms=e0.elapsed_time(e1),
         **cross_bound(W, Q, T, Lp, got.itemsize, C),
         library_ms=None, counter="k4",
@@ -1201,7 +1224,7 @@ def hold_pairs_call(label, peq, tiles, pidx, tidx, W, packed=False):
         name=f"{name} myers_pairs{'_packed' if packed else ''} ({label})",
         route="cuda", source="burst_tpu_torch/csrc/myers_pairs.cu",
         replaces="burst_tpu/kernels/myers_pallas.py:"
-        + ("207" if packed else "221"),
+        + ("208" if packed else "222"),
         max_abs_err=err, ms=time_ms(kern, 5), plain_ms=e0.elapsed_time(e1),
         **bound(nbytes, scan_ops(B, Lp, W)), library_ms=None,
         counter=name.lower(),
@@ -1369,8 +1392,8 @@ def wide_pair_recs(rng, smat_d, earlier=None):
                      B=WIDE_PAIR_B, qlen=LONG_QLEN, ulen=(1300, LONG_LB + 1))
     fns = case.fns(case.pidx, case.tidx)
     times = time_pairs(case, fns, WIDE_PAIR_B, reps=3)
-    for kern, fn, line in (("K1", "myers_pairs_packed", 207),
-                           ("K2", "myers_pairs", 221)):
+    for kern, fn, line in (("K1", "myers_pairs_packed", 208),
+                           ("K2", "myers_pairs", 222)):
         # the plain version once (9 s at this shape), timed by events
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -2137,9 +2160,10 @@ def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False,
                 return fn(*a, **kw)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(*a, **kw)
-            e1.record()
+            with torch.cuda.device(a[0].device):    # the launch's card
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
             entry[2].append((e0, e1))
             return out
         setattr(mod, name, capturing)
@@ -2766,7 +2790,9 @@ def phase_twostep(launch_log, profile=False):
     torch.profiler: the device's busy share and its time by kernel.
     Returns the database, reads, the timed batch's bytes and seconds,
     and the card's bytes of the first AMPLICON_CHECK_READS and
-    NATIVE_READS reads (phase 7 reuses them)."""
+    NATIVE_READS reads (phase 7 reuses them), the Aligner (`al`;
+    phase 11 (a) runs on it, then lets it go) and the CPU check still
+    running (`cpu_check`, for `twostep_cpu_joined`)."""
     import numpy as np
     import torch
 
@@ -2774,6 +2800,12 @@ def phase_twostep(launch_log, profile=False):
     from burst_tpu_torch.kernels import scour_device
     from burst_tpu_torch.serving import Aligner
 
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke_twostep_cpu")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bg = _background(["chip_smoke.py", "twostep-cpu", work],
+                     os.path.join(work, "twostep_cpu.log"))
     t0 = time.perf_counter()
     n_fam = AMPLICON_FAMILIES
     refs, qheads, reads, rd, acc, tmap = twostep_workload()
@@ -2921,27 +2953,66 @@ def phase_twostep(launch_log, profile=False):
     if profile:
         _profiled_batch(al, qheads, reads)
 
-    # 512 reads on the same database: the card against the port's CPU run
+    # 512 reads on the same database: the card's bytes, for the port's
+    # CPU run on them (`twostep_cpu_joined`) and phase 7
     n = AMPLICON_CHECK_READS
     gpu = al.align_batch(qheads[:n], reads[:n])
     gst = al.last_stats
-    t0 = time.perf_counter()
-    cal = Aligner(rd, acc, device=torch.device("cpu"), **kw)
-    cpu = cal.align_batch(qheads[:n], reads[:n])
-    log(f"[twostep] CPU reference on {n} reads: "
-        f"{time.perf_counter() - t0:.1f} s, {cpu.count(NL)} rows, "
-        f"{cal.last_stats}")
-    if gst != cal.last_stats or gst["qbunch"] != 8:
-        fail(f"two-step check batch: card {gst} against CPU "
-             f"{cal.last_stats}; QBUNCH 8 expected")
-    _same_bytes("two-step CAPITALIST", gpu, cpu)
-    log(f"[twostep] first {n} reads (QBUNCH {gst['qbunch']}): b6 bytes "
-        "identical to the CPU path")
     native = al.align_batch(qheads[:NATIVE_READS], reads[:NATIVE_READS])
-    del al
-    torch.cuda.empty_cache()
     return dict(rd=rd, acc=acc, tmap=tmap, qheads=qheads, reads=reads,
-                b6=b6, seconds=dt, peak=peak, head=gpu, native=native)
+                b6=b6, seconds=dt, peak=peak, head=gpu, native=native,
+                al=al, cpu_check=(bg, work, gpu, gst))
+
+
+def twostep_cpu_check(out_dir):
+    """`python3 chip_smoke.py twostep-cpu DIR`, which phase 6 starts: its
+    CPU check in a process of its own, so that it overlaps the card's
+    work. The same database and reads, from the seed; the port's CPU path
+    over the first AMPLICON_CHECK_READS reads, the bytes to
+    DIR/twostep.b6 and the batch's stats to DIR/twostep.json (each
+    written whole, then renamed)."""
+    import torch
+
+    from burst_tpu_torch.serving import Aligner
+    torch.set_num_threads(3)
+    _, qheads, reads, rd, acc, tmap = twostep_workload()
+    n = AMPLICON_CHECK_READS
+    t0 = time.perf_counter()
+    cal = Aligner(rd, acc, device=torch.device("cpu"), **twostep_kw(tmap))
+    b6 = cal.align_batch(qheads[:n], reads[:n])
+    for name, data in (("twostep.b6", b6), ("twostep.json", json.dumps(
+            dict(stats=cal.last_stats, seconds=time.perf_counter() - t0),
+            default=int).encode())):
+        path = os.path.join(out_dir, name)
+        with open(path + ".part", "wb") as f:
+            f.write(data)
+        os.replace(path + ".part", path)
+
+
+def twostep_cpu_joined(pending):
+    """Phase 6's CPU check, read: waits for `twostep_cpu_check`, then
+    holds the card's bytes and stats of the first AMPLICON_CHECK_READS
+    reads to it (QBUNCH 8)."""
+    bg, work, gpu, gst = pending
+    t0 = time.perf_counter()
+    _joined("[twostep] CPU check", bg)
+    waited = time.perf_counter() - t0
+    with open(os.path.join(work, "twostep.b6"), "rb") as f:
+        cpu = f.read()
+    with open(os.path.join(work, "twostep.json")) as f:
+        got = json.load(f)
+    gst = json.loads(json.dumps(gst, default=int))
+    n = AMPLICON_CHECK_READS
+    log(f"[twostep] CPU reference on {n} reads: {got['seconds']:.1f} s in "
+        f"a process beside the card's work (3 threads; waited "
+        f"{waited:.1f} s for it), {cpu.count(NL)} rows, {got['stats']}")
+    if gst != got["stats"] or gst["qbunch"] != 8:
+        fail(f"two-step check batch: card {gst} against CPU "
+             f"{got['stats']}; QBUNCH 8 expected")
+    _same_bytes("two-step CAPITALIST", gpu, cpu)
+    log(f"[twostep] first {n} reads (QBUNCH 8): b6 bytes identical to the "
+        "CPU path")
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def phase_long_reads():
@@ -3125,14 +3196,28 @@ def full_cpu_checks(out_dir):
             "card's work)")
 
 
+_STARTED = []
+
+
+def _stop_started():
+    for proc in _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def _background(args, log_path, **env):
     """`python3 args` started from the checkout's root, its output to
-    log_path: (process, log_path)."""
+    log_path: (process, log_path). Whatever still runs when the script
+    exits, a failure included, is stopped then."""
     root = os.path.dirname(os.path.abspath(__file__))
     with open(log_path, "wb") as f:
         proc = subprocess.Popen([sys.executable] + args, cwd=root,
                                 stdout=f, stderr=subprocess.STDOUT,
                                 env=dict(os.environ, **env))
+    if not _STARTED:
+        atexit.register(_stop_started)
+    _STARTED.append(proc)
     return proc, log_path
 
 
@@ -3212,8 +3297,6 @@ def phase_full_length(launch_log):
     one's width. The
     CPU runs go in processes of their own beside the card's work
     (`full_cpu_checks`, the CLI with BURST_TPU_TORCH_DEVICE=cpu)."""
-    import shutil
-
     import torch
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "smoke_whole")
@@ -3891,8 +3974,6 @@ def phase_cli(launch_log):
     fused run once more as a `python -m burst_tpu_torch.cli`
     subprocess. Logs each run's phases and its align phases' reads/s
     beside the Aligner's seconds for the same batch."""
-    import shutil
-
     import torch
 
     from burst_tpu_torch.accel import read_acx
@@ -3931,6 +4012,7 @@ def phase_cli(launch_log):
             str(THRES)]
     accel = base + ["-a", p("db.acx")]
     aligned = {}
+    unsharded = {}
 
     def aligner_bytes(key, acc_, **kw):
         """Aligner's bytes over the same reads and the seconds of its
@@ -3988,8 +4070,11 @@ def phase_cli(launch_log):
             f"the CLI's align phases {a_s:.3f} s)")
         if path == "two-step" and key == "best":
             launch_log["cli"] = launches
+        unsharded[label] = (b6, a_s)
     del aligned
     torch.cuda.empty_cache()
+    # phase 11 (c): the same database and reads on a grid
+    mesh_cli(p, accel, unsharded, launch_log)
 
     # -hr and -p: the 20,000 reads timed, the first 512 against the CPU
     for label, argv, need, rc in (
@@ -4061,6 +4146,334 @@ def phase_cli(launch_log):
     torch.cuda.empty_cache()
 
 
+# Phase 11: several devices in one process (`parallel.mesh`), on the
+# cells the smoke already builds. The grids take the cards in turn: run
+# as the smoke is run, on one card, every shard sits on it (parity and
+# the cost of sharding, not scaling); `python3 chip_smoke.py mesh` on a
+# machine of several cards spreads them.
+MESH_GRIDS = ((1, 1), (1, 4), (2, 4))     # (q shards, db shards)
+MESH_CLI_GRID = ["--shards", "4", "--qshards", "2"]
+# a captured call's sample held against the plain version: pairs of a K2
+# call (the plain scan takes 40 s for 2^20 pairs at 672 columns), query
+# rows and tiles of a K4 call; K3's calls are held whole
+MESH_HOLD_PAIRS = 1 << 15
+MESH_HOLD_ROWS, MESH_HOLD_TILES = 256, 2048
+
+
+def mesh_cards(n: int) -> int:
+    """The distinct cards a grid of n shards takes (the cards in turn)."""
+    import torch
+    return min(n, torch.cuda.device_count())
+
+
+def _drain_and_reset_peaks():
+    """Wait for every card, then restart their peak memory counts."""
+    import torch
+
+    from burst_tpu_torch import devtime
+    devtime.synchronize_cards()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def _peak_bytes() -> int:
+    """The highest peak of allocated memory on any card."""
+    import torch
+    return max(torch.cuda.max_memory_allocated(i)
+               for i in range(torch.cuda.device_count()))
+
+
+def hold_sampled(path: str, calls):
+    """`hold_captured` with the plain scans cut to a sample: every
+    (kernel, shape) that mesh runs launched, run again on the first such
+    call's own tensors -- K2 on its first MESH_HOLD_PAIRS pairs, K4 on its
+    first MESH_HOLD_ROWS query rows and MESH_HOLD_TILES tiles, K3 whole --
+    exact against the plain version on the card. Returns [(kernel,
+    record entry)] with the shape's launch count."""
+    import torch
+    out = []
+    for kern, hold in (("K2", hold_pairs_call), ("K3", hold_rescore_call),
+                       ("K4", hold_cross_call)):
+        for shape, (count, (a, kw), _) in sorted(calls.get(kern,
+                                                         {}).items()):
+            a = list(a)
+            what = "the call's own tensors"
+            if kern == "K2":
+                what = (f"the first {min(MESH_HOLD_PAIRS, len(a[2]))} of "
+                        f"its {len(a[2])} pairs")
+                a[2], a[3] = a[2][:MESH_HOLD_PAIRS], a[3][:MESH_HOLD_PAIRS]
+            elif kern == "K4":
+                what = (f"its first {min(MESH_HOLD_ROWS, a[0].shape[0])} "
+                        f"of {a[0].shape[0]} query rows and "
+                        f"{min(MESH_HOLD_TILES, a[1].shape[0])} of "
+                        f"{a[1].shape[0]} tiles")
+                a[0], a[1] = a[0][:MESH_HOLD_ROWS], a[1][:MESH_HOLD_TILES]
+            with torch.cuda.device(a[0].device):    # its events there
+                _, rec = hold(f"{path} {shape}", *a, **kw)
+            rec["launches"] = count
+            rec["sample"] = what
+            log(f"[{path}] {kern} {shape} x {count}: held on {what}, "
+                f"exact vs plain; kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.5f} ms "
+                f"({rec['bound_by']})")
+            out.append((kern, rec))
+    return out
+
+
+def _mesh_counts(launches) -> str:
+    return " ".join(f"{k.upper()}={v}" for k, v in launches.items())
+
+
+def mesh_twostep(tw, launch_log):
+    """Phase 11 (a): the amplicon cell's 20,000 reads through
+    `serving.align_queries` on each grid of MESH_GRIDS (`shards`,
+    `qshards`: the two-step scour at the batch's QBUNCH, then the
+    sharded phases A and B), on phase 6's Aligner (`tw["al"]`, let go at
+    the end), every grid's bytes against phase 6's unsharded timed batch
+    (`tw["b6"]`). Logs each grid's seconds against the
+    unsharded batch's, the mesh's stats, the load balance, the slabs'
+    bytes and the peak device memory; every K2, K3 and K4 shape of the
+    grids' runs is held on a sample of its own tensors. The launches of
+    the 2 x 4 grid are the path's."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch import devtime, engine, modes
+    from burst_tpu_torch.parallel import mesh
+    from burst_tpu_torch.serving import align_queries, process_queries
+    al = tw.pop("al")
+    slab_s = [0.0]
+    build = mesh._sharded_tiles
+
+    def timed_slabs(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return build(*a, **kw)
+        finally:
+            slab_s[0] += time.perf_counter() - t
+    mesh._sharded_tiles = timed_slabs
+    calls, uncapture = _capture_kernel_calls()
+    counters = _counters()
+    try:
+        for Q, S in MESH_GRIDS:
+            slab_s[0] = 0.0
+            for c in counters.values():
+                c.launches = 0
+            _drain_and_reset_peaks()
+            t = time.perf_counter()
+            qd = process_queries(tw["qheads"], tw["reads"], al.thres,
+                                 al.do_rc)
+            buf = io.StringIO()
+            path, stats = align_queries(
+                qd, al.db, al.mode, modes.B6Writer(buf),
+                qbunch=engine.default_qbunch(len(qd.seqs), 1), fuse=False,
+                z=al.z, taxonomy=al.taxonomy, taxacut=al.taxacut,
+                taxasuppress=al.taxasuppress, strict=al.strict, shards=S,
+                qshards=Q)
+            b6 = buf.getvalue().encode("latin-1")
+            devtime.synchronize_cards()
+            dt = time.perf_counter() - t
+            launches = {k: c.launches for k, c in counters.items()}
+            peak = _peak_bytes()
+            _same_bytes(f"mesh: the amplicon cell on {Q} x {S}", b6,
+                        tw["b6"])
+            for k in ("k2", "k3", "k4"):
+                if launches[k] <= 0:
+                    fail(f"mesh {Q} x {S}: kernel {k} never launched: "
+                         f"{launches}")
+            if launches["k1"] or path != "two-step" or \
+                    stats["grid"] != [Q, S]:
+                fail(f"mesh {Q} x {S}: not the sharded two-step path: "
+                     f"{path}, {stats}, {launches}")
+            pps = np.asarray(stats["pairs_per_shard"])
+            cache = al.db._shardtiles
+            slabs = sum(sl.tiles.device_bytes
+                        for (n, _), sl in cache.items() if n == S)
+            log(f"[mesh] amplicon cell, q={Q} x db={S} on "
+                f"{stats['devices']} card(s): "
+                f"{dt:.3f} s ({len(tw['reads']) / dt:.1f} reads/s) against "
+                f"the unsharded timed batch's {tw['seconds']:.3f} s "
+                f"({100 * (dt - tw['seconds']) / tw['seconds']:+.1f} %), "
+                f"{slab_s[0]:.3f} s of it building the slabs; route_s "
+                f"{stats['route_s']:.3f}, scan_s {stats['scan_s']:.3f}, "
+                f"merge_s {stats['merge_s']:.3f}; windowed pairs "
+                f"{stats.get('win_pairs', 0):.0f}, full width "
+                f"{stats.get('full_pairs', 0):.0f}; pairs_per_shard "
+                f"{pps.tolist()}, load balance "
+                f"{float(pps.mean() / pps.max()):.3f}; this grid's slabs "
+                f"{slabs / 2**20:.1f} MiB ("
+                + ", ".join(f"pad {pad}: {sl.width} columns"
+                            for (n, pad), sl in sorted(cache.items())
+                            if n == S)
+                + f"), every grid's so far (slab_bytes) "
+                f"{stats['slab_bytes'] / 2**20:.1f} MiB; peak device "
+                f"memory {peak / 2**30:.3f} GiB; "
+                f"launches {_mesh_counts(launches)}; {len(b6.split(NL)) - 1}"
+                " b6 rows, identical to the unsharded batch")
+            if (Q, S) == MESH_GRIDS[-1]:
+                launch_log["mesh"] = launches
+    finally:
+        uncapture()
+        mesh._sharded_tiles = build
+    t = time.perf_counter()
+    launch_log["held"] += hold_sampled("mesh", calls)
+    log(f"[mesh] the grids' K2/K3/K4 shapes held in "
+        f"{time.perf_counter() - t:.1f} s")
+    del al, calls
+    torch.cuda.empty_cache()
+
+
+def mesh_direct(dr, launch_log):
+    """Phase 11 (b): the direct cell's 20,000 reads (BEST, both strands)
+    through `compute_ed_matrix_sharded` on q=2 x db=4, then selection and
+    the unsharded rescore (`serving.align_queries` with shards), against
+    phase 4's timed batch; K4's launches and device time against their
+    summed bound, every K4 shape held on a sample of its own tensors."""
+    import io
+
+    import torch
+
+    from burst_tpu_torch import devtime, modes
+    from burst_tpu_torch.serving import Aligner, align_queries, \
+        process_queries
+    al = Aligner(dr["rd"], None, thres=THRES, mode="BEST", do_rc=True,
+                 device=torch.device("cuda"))
+    Q, S = MESH_GRIDS[-1]
+    counters = _counters()
+    calls, uncapture = _capture_kernel_calls(("K4",), events=True)
+    try:
+        for c in counters.values():
+            c.launches = 0
+        _drain_and_reset_peaks()
+        t = time.perf_counter()
+        qd = process_queries(dr["qheads"], dr["reads"], THRES, True)
+        buf = io.StringIO()
+        path, st = align_queries(qd, al.db, "BEST", modes.B6Writer(buf),
+                                 qbunch=1, fuse=False, shards=S, qshards=Q)
+        devtime.synchronize_cards()
+        dt = time.perf_counter() - t
+    finally:
+        uncapture()
+    launches = {k: c.launches for k, c in counters.items()}
+    b6 = buf.getvalue().encode("latin-1")
+    _same_bytes(f"mesh: the direct cell on {Q} x {S}", b6, dr["b6"])
+    if path != "direct" or st["grid"] != [Q, S] or launches["k4"] <= 0:
+        fail(f"mesh direct: {path}, {st}, {launches}")
+    launch_log["mesh direct"] = launches
+    k4 = launch_log["k4_batches"]["mesh direct"] = k4_report(
+        "mesh direct", calls["K4"])
+    log(f"[mesh] direct cell, q={Q} x db={S}: {dt:.3f} s "
+        f"({len(dr['reads']) / dt:.1f} reads/s) against the unsharded "
+        f"timed batch's {dr['seconds']:.3f} s; {k4['launches']} K4 "
+        f"launches ({launches['k4']} counted), {k4['ms']:.1f} ms on the "
+        f"device against a summed bound of {k4['bound_ms']:.1f} ms; peak "
+        f"device memory {_peak_bytes() / 2**30:.3f} GiB; "
+        f"{st['devices']} card(s); launches {_mesh_counts(launches)}; b6 "
+        "identical")
+    launch_log["held"] += hold_sampled("mesh direct", calls)
+    del al, calls
+    torch.cuda.empty_cache()
+
+
+def mesh_cli(p, accel, expected, launch_log):
+    """Phase 11 (c): the command line on phase 9's database with
+    --shards 4 --qshards 2, BEST -a -t 1 and CAPITALIST -a -b -t 1, each
+    b6 against the same command without shards (`expected`: label ->
+    (bytes, align seconds)); `cli.last_stats` must show the grid."""
+    import torch
+    cuda = torch.device("cuda")
+    for label, argv in (
+            ("-a -t 1 BEST -fr", accel + ["-m", "BEST", "-t", "1"]),
+            ("-a -t 1 CAPITALIST -b -fr", accel + [
+                "-m", "CAPITALIST", "-b", p("tax.tsv"), "-t", "1"])):
+        b6, ph, launches, st, wall = cli_run(
+            f"{label} {' '.join(MESH_CLI_GRID)}",
+            argv + MESH_CLI_GRID + ["-o", p("mesh.b6")], cuda,
+            ("k2", "k3", "k4"))
+        ref, ref_s = expected[label]
+        _same_bytes(f"[cli] {label} {' '.join(MESH_CLI_GRID)}", b6, ref)
+        if st.get("path") != "two-step" or st.get("grid") != [2, 4] or \
+                st.get("devices") != mesh_cards(8):
+            fail(f"[cli] {label} on a grid: {st}")
+        a_s = _align_s(ph, wall)
+        log(f"[mesh] cli {label} {' '.join(MESH_CLI_GRID)}: align phases "
+            f"{a_s:.3f} s against {ref_s:.3f} s unsharded; grid "
+            f"{st['grid']} on {st['devices']} card(s); route_s "
+            f"{st['route_s']:.3f}, scan_s {st['scan_s']:.3f}, merge_s "
+            f"{st['merge_s']:.3f}; pairs_per_shard {st['pairs_per_shard']}"
+            f"; launches {_mesh_counts(launches)}; {b6.count(NL)} rows "
+            "identical to the unsharded run")
+        launch_log.setdefault("mesh cli", launches)
+
+
+def mesh_cli_alone(launch_log):
+    """(c) without phase 9: its inputs and database, the two unsharded
+    commands, then `mesh_cli`."""
+    import torch
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    p = lambda name: os.path.join(work, name)
+    cli_workload(work)
+    cli_run("makedb", ["-r", p("refs.fa"), "-o", p("db.edx"), "-a",
+                       p("db.acx")] + CLI_DB, "cpu")
+    accel = ["-r", p("db.edx"), "-q", p("reads.fa"), "-fr", "-i",
+             str(THRES), "-a", p("db.acx")]
+    expected = {}
+    for label, argv in (
+            ("-a -t 1 BEST -fr", accel + ["-m", "BEST", "-t", "1"]),
+            ("-a -t 1 CAPITALIST -b -fr", accel + [
+                "-m", "CAPITALIST", "-b", p("tax.tsv"), "-t", "1"])):
+        b6, ph, _, _, wall = cli_run(label, argv + ["-o", p("one.b6")],
+                                     torch.device("cuda"))
+        expected[label] = (b6, _align_s(ph, wall))
+    mesh_cli(p, accel, expected, launch_log)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_mesh(cells, launch_log):
+    """Phase 11, (a) and (b), after phase 6 (on its Aligner); (c) runs
+    inside phase 9 (`mesh_cli`)."""
+    mesh_twostep(cells["twostep"], launch_log)
+    mesh_direct(cells["direct"], launch_log)
+
+
+def mesh_inputs():
+    """`python3 chip_smoke.py mesh` alone: phase 6's and phase 4's
+    databases and reads, each cell's unsharded timed batch (after a warm
+    one) as the bytes to hold the grids to."""
+    import torch
+
+    from burst_tpu_torch.serving import Aligner
+    refs, qheads, reads, rd, acc, tmap = twostep_workload()
+    _, _, dq, dreads, drd, _ = _build_db(40, DIRECT_READS, False)
+    cells = {}
+    for key, al, heads, rs in (
+            ("twostep", Aligner(rd, acc, device=torch.device("cuda"),
+                                **twostep_kw(tmap)), qheads, reads),
+            ("direct", Aligner(drd, None, thres=THRES, mode="BEST",
+                               do_rc=True, device=torch.device("cuda")),
+             dq, dreads)):
+        al.align_batch(heads, rs)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        b6 = al.align_batch(heads, rs)
+        torch.cuda.synchronize()
+        cells[key] = dict(qheads=heads, reads=rs, b6=b6, al=al,
+                          seconds=time.perf_counter() - t)
+        log(f"[mesh] {key} cell: unsharded timed batch "
+            f"{cells[key]['seconds']:.3f} s")
+        del al
+    cells["twostep"].update(rd=rd, acc=acc, tmap=tmap)
+    cells["direct"]["rd"] = drd
+    del cells["direct"]["al"]
+    torch.cuda.empty_cache()
+    return cells
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4078,6 +4491,9 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
     if sys.argv[1:2] == ["full-cpu"]:      # phase 10's own CPU runs
         full_cpu_checks(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["twostep-cpu"]:   # phase 6's own CPU run
+        twostep_cpu_check(sys.argv[2])
         return
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -4150,7 +4566,9 @@ def main():
         return
     if sys.argv[1:] == ["twostep"]:
         phase_build()
-        phase_twostep({"k4_batches": {}, "held": []}, profile=True)
+        tw = phase_twostep({"k4_batches": {}, "held": []}, profile=True)
+        del tw["al"]
+        twostep_cpu_joined(tw["cpu_check"])
         print(card_line(), flush=True)
         return
     if sys.argv[1:] == ["slab"]:
@@ -4161,6 +4579,14 @@ def main():
     if sys.argv[1:] == ["cli"]:
         phase_build()
         phase_cli({"held": []})
+        print(card_line(), flush=True)
+        return
+    if sys.argv[1:] == ["mesh"]:
+        phase_build()
+        launch_log = {"held": [], "k4_batches": {}}
+        phase_mesh(mesh_inputs(), launch_log)
+        mesh_cli_alone(launch_log)
+        log(f"[smoke] mesh done at {time.perf_counter() - t_all:.0f} s")
         print(card_line(), flush=True)
         return
     phase_sass(phase_build())
@@ -4189,7 +4615,10 @@ def main():
     cells["modes"] = phase_modes_accel()
     done("phase 5")
     cells["twostep"] = phase_twostep(launch_log)
+    twostep_cpu = cells["twostep"].pop("cpu_check")
     done("phase 6")
+    phase_mesh(cells, launch_log)
+    done("phase 11 (a, b)")
     phase_slab(cells, launch_log)
     done("phase 7")
     phase_prepass(cells, launch_log)
@@ -4197,6 +4626,8 @@ def main():
     del cells
     phase_cli(launch_log)
     done("phase 9")
+    twostep_cpu_joined(twostep_cpu)
+    done("phase 6's CPU check")
     phase_full_length(launch_log)
     held = launch_log.pop("held")
     k4_batches = launch_log.pop("k4_batches")

@@ -12,8 +12,10 @@ homologous families with N reads, short reads and both strands
       ALLPATHS, FORAGE -i 0.9, CAPITALIST -b and ANY, each with and
       without -fr;
   (c) error paths: a missing FASTA (exit 2), -m MATRIX and an unknown
-      flag (exit 1), --shards (NotImplementedError naming ROADMAP M12),
-      no card without a request for the CPU (exit 1);
+      flag (exit 1), BURST_TPU_MULTIHOST (NotImplementedError naming
+      ROADMAP M12 part 2), no card without a request for the CPU (exit
+      1); --shards 2 and --qshards 2 on the direct path (the reference's
+      bytes);
   (d) one run as a `python -m burst_tpu_torch.cli` subprocess with
       BURST_TPU_TORCH_DEVICE=cpu."""
 import os
@@ -131,16 +133,28 @@ def test_cli_rejected_flags(cli_data, capsys, name, msg):
 @pytest.mark.parametrize("flag", [["--shards", "2"], ["--qshards", "2"],
                                   "BURST_TPU_MULTIHOST"])
 def test_cli_shards_name_m12(cli_data, flag, monkeypatch):
-    """A database over several cards or hosts raises naming ROADMAP M12;
-    a multi-host makedb exits 1, as burst_tpu's does."""
-    d, cases, _ = cli_data
-    extra = flag
+    """`--shards 2` runs the direct path on a grid of two CPU devices and
+    `--qshards 2` alone the unsharded flow, both with the reference's
+    bytes; a database over several hosts raises naming ROADMAP M12 part
+    2, and a multi-host makedb exits 1, as burst_tpu's does."""
+    from burst_tpu_torch import cli
+    d, cases, rcs = cli_data
     if flag == "BURST_TPU_MULTIHOST":
         monkeypatch.setenv(flag, "1")
-        extra = []
         assert cli_parity.ours(d, cases["makedb-dna320"]) == 1
-    with pytest.raises(NotImplementedError, match="M12"):
-        cli_parity.ours(d, cases["direct-BEST"] + extra)
+        with pytest.raises(NotImplementedError, match="M12 part 2"):
+            cli_parity.ours(d, cases["direct-BEST"])
+        return
+    argv = [a.replace("/BEST.b6", "/BEST-grid.b6")
+            for a in cases["direct-BEST"]] + flag
+    assert rcs["direct-BEST"] == 0 and cli_parity.ours(d, argv) == 0
+    assert (d / "port" / "BEST-grid.b6").read_bytes() == \
+        (d / "ref" / "BEST.b6").read_bytes()
+    if flag[0] == "--shards":
+        assert cli.last_stats == {"path": "direct", "grid": [1, 2],
+                                  "devices": 1}
+    else:
+        assert cli.last_stats == {"path": "direct"}
 
 
 def test_cli_needs_a_card_unless_asked(cli_data, monkeypatch, capsys):

@@ -210,8 +210,9 @@ def test_outside_slice_raises(bench_db):
 
 
 def test_import_without_jax():
-    """Every module of burst_tpu_torch imports, and a tiny CPU batch runs
-    on both paths, with `jax` and `burst_tpu` made unimportable."""
+    """Every module of burst_tpu_torch imports (the mesh and the scaling
+    probe among them), and a tiny CPU batch runs on both paths and on a
+    grid of CPU devices, with `jax` and `burst_tpu` made unimportable."""
     code = textwrap.dedent("""
         import glob, importlib, os, sys
 
@@ -230,6 +231,8 @@ def test_import_without_jax():
         names = [n[:-9] if n.endswith(".__init__") else n for n in names]
         assert len(names) >= 25 and "burst_tpu_torch.prepass" in names, \
             names
+        assert "burst_tpu_torch.parallel.mesh" in names and \
+            "burst_tpu_torch.tools.scaling_probe" in names, names
         for name in names:
             importlib.import_module(name)
         from burst_tpu_torch.accel import build_accelerator
@@ -258,6 +261,17 @@ def test_import_without_jax():
         out = cap.align_batch(heads, reads)
         assert out.count(b"\\n") == 40 and b"k__K;p__P1" in out, out
         assert cap.last_stats["pairs"] > 0, cap.last_stats
+        # the same batch on a 2 x 2 grid of CPU devices
+        import io
+        from burst_tpu_torch import modes, serving
+        from burst_tpu_torch.process import process_queries
+        buf = io.StringIO()
+        _, st = serving.align_queries(
+            process_queries(heads, reads, 0.98, True), cap.db,
+            "CAPITALIST", modes.B6Writer(buf), qbunch=1, fuse=False,
+            taxonomy=tax, shards=2, qshards=2)
+        assert st["grid"] == [2, 2] and sum(st["pairs_per_shard"]), st
+        assert buf.getvalue().encode("latin-1") == out
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "burst_tpu")]
         assert not loaded, loaded
