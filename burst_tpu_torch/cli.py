@@ -22,14 +22,19 @@ Left out of burst_tpu's CLI, each for its reason:
     once by nvcc, `kernels/_build.py`).
   * the rerun on `devtime.DeviceStall`: the port has no device watchdog
     by design, so a run that fails on the card fails.
-  * BURST_TPU_MULTIHOST (a database over several hosts) raises
-    NotImplementedError: ROADMAP M12 part 2.
 
 `--shards N` (with `--qshards Q`) shards the database over a Q x N grid
 of devices in one process (`parallel.mesh`, burst_tpu's flow): on the
 card the cards in turn (every shard on `cuda:0` on a one-card machine),
 on the CPU the CPU repeated; `--qshards` without `--shards` above 1
 shards nothing, as in burst_tpu. Prepass (-p) ignores both.
+
+BURST_TPU_MULTIHOST="<rank>/<ranks>@<host:port>" shards the database over
+a world of processes (`parallel.multihost`, burst_tpu's flow): each rank
+runs the same command line on its own device (a bare "cuda" becomes
+card `rank % cards`), rank 0 writes the b6.
+`python -m burst_tpu_torch.tools.launch_multihost -n N -- <args>` starts
+such a world on one machine.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ DEVICE_ENV = "BURST_TPU_TORCH_DEVICE"
 # the last alignment's path and branch counts (`run`): "path" is "fused"
 # or "two-step" with an accelerator, "direct" without one; a sharded run
 # adds its grid ([q shards, db shards]), its distinct devices and the
-# mesh's stats (`serving.align_queries`)
+# mesh's stats (`serving.align_queries`); a multi-host rank holds its
+# path, the world's size, its rank and its `[mh]` record
 last_stats: dict = {}
 
 
@@ -277,9 +283,11 @@ def run(a: dict, device) -> int:
             print("ERROR: build the database once, without "
                   "BURST_TPU_MULTIHOST")
             return 1
-        raise NotImplementedError(
-            "a database sharded over several hosts (BURST_TPU_MULTIHOST) "
-            "comes with ROADMAP M12 part 2")
+        # DB-sharded multi-process run (parallel/multihost.py); every
+        # process executes the same CLI line, process 0 writes the b6
+        from .parallel.multihost import align_multihost
+        last_stats.clear()
+        return align_multihost(a, device, last_stats)
     device = torch.device(device)
     last_stats.clear()
     ph = _Phases(a["quiet"], device)

@@ -195,12 +195,20 @@ def _query_matrix(qd: QueryData):
 
 
 def _unit_lb(rd: RefData, granularity: int = 64):
-    """[tot_units] padded length bucket per sorted position (cached)."""
+    """[tot_units] padded length bucket per sorted position (cached).
+
+    Where rd.unit_range is set (a rank of a multi-host world), the units
+    outside it get bucket 0, which holds no tile: another rank owns
+    them, so no plan counts their bytes and no bucket uploads them."""
     lbs = getattr(rd, "_unit_lb", None)
     if lbs is None:
         ulen = rd.lens[rd.ix_srt[: rd.tot_units]]
         lbs = (-(-np.maximum(ulen, 1) // granularity) * granularity
                ).astype(np.int64)
+        ur = getattr(rd, "unit_range", None)
+        if ur is not None:
+            lbs[: ur[0]] = 0
+            lbs[ur[1]:] = 0
         rd._unit_lb = lbs
     return lbs
 
@@ -902,6 +910,144 @@ def _bunch_words_padded(qd: QueryData, r0: int, b1: int, qbunch: int,
     wmat[gb, col] = gw.astype(np.int32)
     wgt[gb, col] = np.minimum(bmax, 0x7FFFFFFF).astype(np.int32)
     return wmat, wgt, nwords
+
+
+# The numpy scour pass: burst_tpu's host scour in three steps, the
+# multi-host merge's building block (`parallel.multihost`). It touches no
+# device; on one card the native or device scour runs instead.
+
+def bunch_word_multiset(qd: QueryData, acc, b0: int, b1: int,
+                        qbunch: int, k: int):
+    """Per-(bunch, word) k-mer multiset of the accelerator-eligible
+    unibins (burst.c:4096-4119): returns (bwords, bb, bmax, uq, uw,
+    mult) -- the deduped bunch word list with MAX-multiplicity weights,
+    plus the per-(unibin, word) multiset behind it -- or None when no
+    unibin yields a word. Depends only on the (replicated) queries, so
+    every DB-shard host computes the identical list."""
+    qidx_parts, word_parts = [], []
+    # ambiguous unibins: per-query expansion (few)
+    for j in range(b0):
+        words = query_words(qd.seqs[j], k, acc.z, ambiguous=True)
+        if words.size:
+            qidx_parts.append(np.full(words.size, j, dtype=np.int64))
+            word_parts.append(words)
+    # clear unibins: vectorized rolling k-mers, grouped by length
+    _clear_row_words(qd, b0, b1, k, qidx_parts, word_parts)
+    if not qidx_parts:
+        return None
+    qidx = np.concatenate(qidx_parts)
+    words = np.concatenate(word_parts)
+    span = np.int64(1) << np.int64(2 * k)
+    ukey, mult = np.unique(qidx * span + words, return_counts=True)
+    uq = ukey // span
+    uw = ukey % span
+    # per (bunch, word): weight = MAX multiplicity over bunch members
+    if qbunch == 1:
+        bwords, bb, bmax = uw, uq, mult.astype(np.int64)
+    else:
+        ub = uq // qbunch
+        bkey = ub * span + uw
+        bso = np.argsort(bkey, kind="stable")
+        bks = bkey[bso]
+        bhead = np.empty(len(bks), dtype=bool)
+        bhead[0] = True
+        np.not_equal(bks[1:], bks[:-1], out=bhead[1:])
+        bgid = np.cumsum(bhead) - 1
+        bmax = np.zeros(int(bgid[-1]) + 1, dtype=np.int64)
+        np.maximum.at(bmax, bgid, mult[bso])
+        bwords = (bks[bhead] % span).astype(np.int64)
+        bb = (bks[bhead] // span).astype(np.int64)
+    return bwords, bb, bmax, uq, uw, mult
+
+
+def scour_raw(acc, bwords, bb, bmax, n_clumps: int):
+    """Scour acc's postings for the bunch word list: per-candidate
+    (bunch, clump, hits, first-word) tuples, or None when no posting
+    matches. `acc` may be a per-host shard (postings filtered to a
+    clump range): candidates for a clump are computed entirely on the
+    host owning it, so concatenating per-host results reproduces the
+    single-process candidate set exactly."""
+    starts, seg = acc.csr.lookup(bwords)
+    total = int(seg.sum())
+    if total == 0:
+        return None
+    base = np.repeat(starts - np.concatenate(
+        ([0], np.cumsum(seg)[:-1])), seg)
+    flat = base + np.arange(total)
+    cl = acc.ids[flat].astype(np.int64)
+    brep = np.repeat(bb, seg)
+    wgt = np.repeat(bmax, seg)
+    wrd = np.repeat(bwords, seg)
+    pkey = brep * n_clumps + cl
+    # group-by via one stable argsort (first occurrence = group head)
+    so = np.argsort(pkey, kind="stable")
+    ps = pkey[so]
+    head = np.empty(len(ps), dtype=bool)
+    head[0] = True
+    np.not_equal(ps[1:], ps[:-1], out=head[1:])
+    u2 = ps[head]
+    gid = np.cumsum(head) - 1
+    hits = np.bincount(gid, weights=wgt[so].astype(np.float64)
+                       ).astype(np.int64)
+    first = so[np.nonzero(head)[0]]
+    np.minimum(hits, 0xFFFF, out=hits)
+    pb = (u2 // n_clumps).astype(np.int64)   # bunch id per candidate
+    pc = (u2 % n_clumps).astype(np.int64)
+    # first-occurrence k-mer of each candidate: the scour stream walks
+    # words ascending per bunch with clump-ascending postings, so
+    # ordering by (fw, clump) equals ordering by stream position -- and
+    # unlike the position it is comparable across per-host shards
+    fw = wrd[first]
+    return pb, pc, hits, fw
+
+
+def assemble_accel_visits(n: int, b0: int, b1: int, qbunch: int,
+                          n_bunches: int, bad_arr, full,
+                          pb, pc, hits, fw, mm_bunch,
+                          mm_inner) -> Visits:
+    """Candidate tuples -> Visits: pigeonhole filter, reference visit
+    order (hits desc, first-occurrence asc; burst.c:4120-4130), member
+    expansion with the per-member inner skip, BadList append. Pure
+    host-side assembly shared by the single-process path and the
+    multi-host merge (which concatenates per-host scour_raw results
+    first)."""
+    nb = len(bad_arr)
+    keep = hits > mm_bunch[pb]
+    kb = pb[keep]
+    srt = np.lexsort((pc[keep], fw[keep], -hits[keep], kb))
+    kb = kb[srt]
+    kc = pc[keep][srt]
+    kh = hits[keep][srt]
+    # expand bunch candidate lists to members, applying the per-member
+    # inner skip (bunch hits vs the member's threshold)
+    cands_per_b = np.bincount(kb, minlength=n_bunches)
+    bstart = np.concatenate(([0], np.cumsum(cands_per_b)))
+    memb = np.arange(b1)
+    mb = memb // qbunch
+    reps = cands_per_b[mb]
+    mrep = np.repeat(memb, reps)                 # member per expanded cand
+    total_e = int(reps.sum())
+    csr = np.concatenate(([0], np.cumsum(reps)))[:-1]
+    src = (np.arange(total_e) - np.repeat(csr, reps)
+           + np.repeat(bstart[mb], reps))
+    kc_m = kc[src]
+    ok = kh[src] > mm_inner[mrep]
+    mrep, kc_m = mrep[ok], kc_m[ok]
+    cands_per_q = np.bincount(mrep, minlength=b1)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    offs[1: b1 + 1] = np.cumsum(cands_per_q + nb)
+    offs[b1 + 1:] = offs[b1]
+    out = np.empty(int(offs[b1]), dtype=np.int64)
+    csum = np.concatenate(([0], np.cumsum(cands_per_q)))
+    out[offs[mrep] + (np.arange(len(mrep)) - csum[mrep])] = kc_m
+    if nb:
+        dst = (offs[:b1, None] + cands_per_q[:, None] +
+               np.arange(nb)[None, :]).ravel()
+        out[dst] = np.tile(bad_arr, b1)
+    boffs = np.zeros(n_bunches + 1, dtype=np.int64)
+    boffs[1:] = np.cumsum(cands_per_b)
+    return Visits(flat=out, offs=offs, full=full, bflat=kc, boffs=boffs,
+                  qbunch=qbunch, bad_list=bad_arr)
 
 
 def accel_candidates(qd: QueryData, db, qbins: np.ndarray,

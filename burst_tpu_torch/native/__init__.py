@@ -36,6 +36,26 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F32P = ctypes.POINTER(ctypes.c_float)
 
 
+def _stale(so: str, src: str) -> bool:
+    return not os.path.exists(so) or \
+        os.path.getmtime(so) < os.path.getmtime(src)
+
+
+def _compile(so: str, cmd: list, src: str):
+    """Compile `src` with `cmd` to a name of this process's own, then
+    rename it onto `so`: where several processes start at once (the
+    ranks of a multi-host world), none loads a library that another is
+    still writing, and the rename is atomic."""
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(cmd + ["-o", tmp, src], check=True,
+                       capture_output=True)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _load():
     global _LIB, _TRIED
     if _TRIED:
@@ -45,11 +65,8 @@ def _load():
     src = os.path.join(here, "fastdiv.c")
     so = os.path.join(here, "fastdiv.so")
     try:
-        if not os.path.exists(so) or \
-                os.path.getmtime(so) < os.path.getmtime(src):
-            subprocess.run(
-                ["cc", "-O2", "-msse", "-shared", "-fPIC", "-o", so, src],
-                check=True, capture_output=True)
+        if _stale(so, src):
+            _compile(so, ["cc", "-O2", "-msse", "-shared", "-fPIC"], src)
         lib = ctypes.CDLL(so)
         lib.score_rcp_nr.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
@@ -73,18 +90,13 @@ def load_host():
     src = os.path.join(here, "burst_host.cpp")
     so = os.path.join(here, "burst_host.so")
     try:
-        if not os.path.exists(so) or \
-                os.path.getmtime(so) < os.path.getmtime(src):
+        if _stale(so, src):
             try:
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-fopenmp",
-                     "-shared", "-fPIC", "-o", so, src],
-                    check=True, capture_output=True)
+                _compile(so, ["g++", "-O3", "-march=native", "-fopenmp",
+                              "-shared", "-fPIC"], src)
             except subprocess.CalledProcessError:
-                subprocess.run(
-                    ["g++", "-O2", "-fopenmp", "-shared", "-fPIC",
-                     "-o", so, src],
-                    check=True, capture_output=True)
+                _compile(so, ["g++", "-O2", "-fopenmp", "-shared",
+                              "-fPIC"], src)
         lib = ctypes.CDLL(so)
         lib.hash_build.argtypes = [
             _I64P, _I64P, _U32P, ctypes.c_long,

@@ -176,8 +176,7 @@ def run_prepass(qd: QueryData, db, acc, a: dict, out_fh,
         qk.__dict__.pop(attr, None)
 
     # per-query-strand top lists and visited prefixes; a multi-host run
-    # injects a shard-merging variant (burst_tpu's
-    # parallel/multihost.py; the port's comes with ROADMAP M12)
+    # injects a shard-merging variant (parallel/multihost.py)
     top_lists = a.get("_top_lists_fn", _local_top_lists)
     FM, FI, RM, RI = top_lists(qd, qk, acc, k, iters, nu, do_rc,
                                n_clumps)

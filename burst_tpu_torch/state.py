@@ -214,6 +214,7 @@ def database_pieces(rd, acc, rescore_ws=()) -> dict:
     """(key -> device bytes) of every piece of (rd, acc), in keep order
     (see plan_residency)."""
     lbs, counts = np.unique(engine._unit_lb(rd), return_counts=True)
+    lbs, counts = lbs[lbs > 0], counts[lbs > 0]     # 0: another rank's
     out = {}
     if acc is not None and scour_device.has_device_form(acc):
         out[("tables",)] = scour_device.table_bytes(acc.u_csr, acc.k)

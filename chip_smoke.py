@@ -18,6 +18,10 @@
                                           # (the databases and unsharded
                                           # batches of phases 4, 6 and 9
                                           # first; no result line)
+    python3 chip_smoke.py multihost       # build, then phase 12 alone
+                                          # (phase 9's database and its
+                                          # single-process runs first;
+                                          # no result line)
     python3 chip_smoke.py wide            # build, the machine-code
                                           # recount, then each kernel's
                                           # wide route held and timed
@@ -164,7 +168,9 @@ Phases, each fatal on failure:
      strands): the direct path BEST, -a at -t 1 (two-step, QBUNCH 16) and
      -t 160 (fused), CAPITALIST -b, each byte-equal to
      `Aligner.align_batch` on the card; -hr -i 0.84 and -p, whose first
-     512 reads must equal the CLI's CPU run; raw-byte queries (-x) on
+     512 reads must equal the CLI's CPU run (each a `python -m
+     burst_tpu_torch.cli` of its own, started after makedb beside the
+     card's work); raw-byte queries (-x) on
      3,000 protein references, without and with an accelerator (every
      row to K4 at 256 codes, no pair kernel), the first 200 reads
      against the CPU run and each K3/K4 shape of the batch held against
@@ -186,7 +192,7 @@ Phases, each fatal on failure:
      first 64 reads against the port's CPU run; (b) two families and four
      random 16,569 bp references unsheared through the command line
      without -s, 1,960 reads of 200-300 bp (every 20th from a 16,569 bp
-     reference) and 40 of 1,380-1,450 bp: BEST and CAPITALIST -b (K4 at
+     reference) and 40 of 1,441-1,450 bp: BEST and CAPITALIST -b (K4 at
      W up to 46 on lane groups, over column segments against the
      16,569 bp units; K3 past 1,024 columns on its wide route, the
      16,569 bp units' L1 = 17,024 included), every shape held, 48 of the
@@ -207,6 +213,24 @@ Phases, each fatal on failure:
      line on phase 9's database with --shards 4 --qshards 2, BEST and
      CAPITALIST -b at -t 1, each byte-equal to the same command without
      shards, `cli.last_stats` showing the grid.
+ 12. several processes (`parallel.multihost`), inside phase 9 on its
+     database and reads: worlds of ranks, every rank on the card (on
+     one card all of them: parity and the cost of a world, not
+     scaling): (a) 2 ranks BEST -a -t 1 on the 20,000 reads and (b) 2
+     ranks CAPITALIST -b -a -t 1, each against phase 9's bytes for the
+     same command; on the first MH_READS reads, each against a single
+     process's CLI run on the card: (c) 3 ranks direct BEST, (d) 2
+     ranks ANY -a, (e) 3 ranks -p CAPITALIST -b (exit 101). (b), (d)
+     and (e) run through `python -m
+     burst_tpu_torch.tools.launch_multihost`; in (a) and (c) rank 0
+     runs in this process and the others in `python3 chip_smoke.py
+     mh-rank` processes, each capturing its K2/K3/K4 calls, and every
+     shape a rank launched is held against the plain version on a
+     sample of that rank's own tensors (`hold_sampled`). Each world
+     byte-equal, each rank's `[mh]` line on a CUDA device with its
+     kernels launched (K2 and K3 with -a, K4 and K3 direct; K2 under
+     -p); its wall seconds against the single process's, each rank's
+     gather seconds and peak device memory logged.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -220,6 +244,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import collections
 import ctypes
 import json
@@ -3095,11 +3120,12 @@ FULL_READS, FULL_CAP_READS, FULL_CHECK_READS = 5000, 1100, 64
 FULL_MAX_LEN_Q = 1500
 WHOLE_FAMILIES, WHOLE_MITO, WHOLE_MITO_LEN = 2, 4, 16569
 WHOLE_READS, WHOLE_LONG_READS = 2000, 40
-# the reads' shortest lengths: W = 7-10 and 44-46. Each Myers width is a
+# the reads' shortest lengths: W = 7-10 and 46. Each Myers width is a
 # K4 launch against the 16,569 bp bucket held against the plain scan,
 # 8-16 s over its 16,608 columns; from 150 and 1,300 bp (twelve widths)
-# phase 10 took 190-320 s on one H100 machine
-WHOLE_SHORT_LO, WHOLE_LONG_LO = 200, 1380
+# phase 10 took 190-320 s on one H100 machine, from 200 and 1,380 bp
+# (seven) 192 s
+WHOLE_SHORT_LO, WHOLE_LONG_LO = 200, 1441
 
 
 def _full_reads(rng, refs, n, lo, hi, n_every=199):
@@ -3221,20 +3247,20 @@ def _background(args, log_path, **env):
     return proc, log_path
 
 
-def _joined(label, bg, timeout=900) -> str:
+def _joined(label, bg, timeout=900, rc=0) -> str:
     """Waits for a `_background` process; fails on another exit code
-    than 0. Returns its output."""
+    than `rc`. Returns its output."""
     proc, log_path = bg
     try:
-        rc = proc.wait(timeout=timeout)
+        got = proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
-        rc = "killed at its time limit"
+        got = "killed at its time limit"
     with open(log_path, "rb") as f:
         out = f.read().decode(errors="replace")
-    if rc != 0:
-        fail(f"{label}: exit {rc}:\n{out[-3000:]}")
+    if got != rc:
+        fail(f"{label}: exit {got}:\n{out[-3000:]}")
     return out
 
 
@@ -3288,7 +3314,7 @@ def phase_full_length(launch_log):
     among them, and every width of the timed batch) against the port's
     CPU run. (b) The command line without -s on two families and four
     16,569 bp references (every reference one unit): BEST and
-    CAPITALIST -b over WHOLE_READS reads of 200-300 bp and 1,380-1,450
+    CAPITALIST -b over WHOLE_READS reads of 200-300 bp and 1,441-1,450
     bp, both strands (K4 at W up to 46 on lane groups, K3 past 1,024
     columns, the 16,569 bp units' 17,024 on its wide route; every K3 and
     K4 shape of the two runs held, each once), each against the CLI's
@@ -3394,7 +3420,7 @@ def _full_length(launch_log, p, bg):
         fail(f"[full] whole references: {len(ck)} check reads")
     log(f"[full] whole references: {len(sr)} reads of {WHOLE_SHORT_LO}-300 "
         f"bp and {len(lr)} of {WHOLE_LONG_LO}-{AMPLICON_LEN} bp (cut from "
-        "150-300 and 1,300-1,450 bp: fewer Myers widths, each a K4 shape "
+        "150-300 and 1,300-1,450 bp: five Myers widths, each a K4 shape "
         "the plain scan holds over 16,608 columns)")
     _write_fasta(p("reads.fa"), wq, wr)
     _write_fasta(p("check.fa"), [wq[i] for i in ck], [wr[i] for i in ck])
@@ -4013,6 +4039,20 @@ def phase_cli(launch_log):
     accel = base + ["-a", p("db.acx")]
     aligned = {}
     unsharded = {}
+    singles = {}
+    # -hr and -p: their first 512 reads' CPU runs start now, each a
+    # `python -m burst_tpu_torch.cli` of its own beside the card's work
+    hr_p = (("-a -hr -i 0.84 BEST -fr", accel + [
+                "-i", "0.84", "-m", "BEST", "-hr"], ("k2", "k3", "k4"), 0),
+            ("-a -p BEST -fr", accel + ["-m", "BEST", "-p"], ("k2",), 101))
+
+    def few512(argv):
+        return [p("reads512.fa") if a == p("reads.fa") else a for a in argv]
+    hr_p_cpu = [_background(["-m", "burst_tpu_torch.cli"] + few512(argv)
+                            + ["-o", p(f"cpu{i}.b6")],
+                            p(f"cpu{i}.log"), BURST_TPU_TORCH_DEVICE="cpu",
+                            OMP_NUM_THREADS="2")
+                for i, (_, argv, _, _) in enumerate(hr_p)]
 
     def aligner_bytes(key, acc_, **kw):
         """Aligner's bytes over the same reads and the seconds of its
@@ -4071,28 +4111,32 @@ def phase_cli(launch_log):
         if path == "two-step" and key == "best":
             launch_log["cli"] = launches
         unsharded[label] = (b6, a_s)
+        singles[label] = (b6, wall)
     del aligned
     torch.cuda.empty_cache()
     # phase 11 (c): the same database and reads on a grid
     mesh_cli(p, accel, unsharded, launch_log)
+    # phase 12: the same database and reads over worlds of processes
+    phase_multihost(p, base, accel, singles, qheads, reads, work,
+                    launch_log)
 
     # -hr and -p: the 20,000 reads timed, the first 512 against the CPU
-    for label, argv, need, rc in (
-            ("-a -hr -i 0.84 BEST -fr", accel + [
-                "-i", "0.84", "-m", "BEST", "-hr"], ("k2", "k3", "k4"), 0),
-            ("-a -p BEST -fr", accel + ["-m", "BEST", "-p"], ("k2",), 101)):
+    for i, (label, argv, need, rc) in enumerate(hr_p):
         b6, ph, launches, stats, wall = cli_run(
             label, argv + ["-o", p("big.b6")], cuda, need, rc)
         report(label, ph, launches, stats, len(reads), wall)
-        argv = [p("reads512.fa") if a == p("reads.fa") else a for a in argv]
-        gpu = cli_run(label, argv + ["-o", p("gpu.b6")], cuda, need, rc)[0]
+        gpu = cli_run(label, few512(argv) + ["-o", p("gpu.b6")], cuda,
+                      need, rc)[0]
         t = time.perf_counter()
-        cpu = cli_run(label, argv + ["-o", p("cpu.b6")], "cpu", (), rc)[0]
+        _joined(f"[cli] {label}: the CLI's CPU run", hr_p_cpu[i], rc=rc)
+        with open(p(f"cpu{i}.b6"), "rb") as f:
+            cpu = f.read()
         _same_bytes(f"[cli] {label}, first {CLI_CHECK_READS} reads", gpu,
                     cpu)
         log(f"[cli] {label}: {b6.count(NL)} rows; the first "
             f"{CLI_CHECK_READS} reads' {gpu.count(NL)} rows identical to "
-            f"the CPU run ({time.perf_counter() - t:.1f} s)")
+            f"the CPU run (in a process of its own since phase 9's start; "
+            f"{time.perf_counter() - t:.1f} s waited for it)")
 
     # raw-byte queries (-x): K4 and K3 at 256 codes
     xbase = ["-r", p("prot.fa"), "-q", p("pread.fa"), "-x", "-m", "BEST",
@@ -4408,29 +4452,289 @@ def mesh_cli(p, accel, expected, launch_log):
         launch_log.setdefault("mesh cli", launches)
 
 
-def mesh_cli_alone(launch_log):
-    """(c) without phase 9: its inputs and database, the two unsharded
-    commands, then `mesh_cli`."""
+def cli_alone(name):
+    """Phase 9's inputs and database under build/<name> without phase 9,
+    and its two single-process commands at -t 1, BEST and CAPITALIST -b,
+    on the card. Returns (work, p, base, accel, qheads, reads, runs):
+    `runs` maps each command's label to (bytes, align seconds, wall
+    seconds)."""
     import torch
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_mesh")
+                        name)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     p = lambda name: os.path.join(work, name)
-    cli_workload(work)
+    qheads, reads = cli_workload(work)
     cli_run("makedb", ["-r", p("refs.fa"), "-o", p("db.edx"), "-a",
                        p("db.acx")] + CLI_DB, "cpu")
-    accel = ["-r", p("db.edx"), "-q", p("reads.fa"), "-fr", "-i",
-             str(THRES), "-a", p("db.acx")]
-    expected = {}
+    base = ["-r", p("db.edx"), "-q", p("reads.fa"), "-fr", "-i",
+            str(THRES)]
+    accel = base + ["-a", p("db.acx")]
+    runs = {}
     for label, argv in (
             ("-a -t 1 BEST -fr", accel + ["-m", "BEST", "-t", "1"]),
             ("-a -t 1 CAPITALIST -b -fr", accel + [
                 "-m", "CAPITALIST", "-b", p("tax.tsv"), "-t", "1"])):
         b6, ph, _, _, wall = cli_run(label, argv + ["-o", p("one.b6")],
-                                     torch.device("cuda"))
-        expected[label] = (b6, _align_s(ph, wall))
-    mesh_cli(p, accel, expected, launch_log)
+                                     torch.device("cuda"), ("k2", "k3"))
+        runs[label] = (b6, _align_s(ph, wall), wall)
+    return work, p, base, accel, qheads, reads, runs
+
+
+def mesh_cli_alone(launch_log):
+    """(c) without phase 9 (`cli_alone`), then `mesh_cli`."""
+    work, p, _, accel, _, _, runs = cli_alone("chip_smoke_mesh")
+    mesh_cli(p, accel, {k: (b6, a_s) for k, (b6, a_s, _) in runs.items()},
+             launch_log)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+# Phase 12: several processes (`parallel.multihost`) on phase 9's
+# database. A world's ranks take the cards in turn, so run as the smoke is
+# run, on one card, every rank shares it; `python3 chip_smoke.py
+# multihost` on a machine of several cards spreads them.
+MH_READS = 2000             # the reads of worlds (c)-(e)
+MH_TIMEOUT = 600            # seconds a world may take
+MH_LINE = re.compile(r"^\[mh\] rank (\d+)/(\d+) device (\S+) (\{.*\})$",
+                     re.M)
+
+
+def mh_world(label, n, argv, rc, need, expected, single_s, work):
+    """One world of n ranks through the port's launcher, every rank on
+    the card (no BURST_TPU_TORCH_DEVICE). Fails on another exit code
+    than `rc`, on other bytes than `expected`, or where a rank's `[mh]`
+    line is missing, names no CUDA device or shows a kernel of `need`
+    never launched. Logs its wall seconds against the single process's
+    (`single_s`), and each rank's spans, gathers and peak device memory.
+    Returns the ranks' summed launches by counter (k1-k4)."""
+    import signal
+    out = os.path.join(work, "mh.b6")
+    err_path = os.path.join(work, "mh.err")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BURST_TPU_TORCH_DEVICE", "BURST_TPU_MULTIHOST")}
+    t = time.perf_counter()
+    with open(err_path, "w") as err:
+        # a session of its own: the launcher and its ranks are stopped
+        # together if the world outlives its time limit
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "burst_tpu_torch.tools.launch_multihost",
+             "-n", str(n), "--"] + argv + ["-o", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.DEVNULL, stderr=err, start_new_session=True)
+        try:
+            got = proc.wait(timeout=MH_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            got = "killed at its time limit"
+        finally:
+            if proc.poll() is None or got != rc:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall = time.perf_counter() - t
+    with open(err_path) as f:
+        err = f.read()
+    if got != rc:
+        fail(f"[mh] {label}: exit {got}, expected {rc}:\n{err[-3000:]}")
+    with open(out, "rb") as f:
+        b6 = f.read()
+    _same_bytes(f"[mh] {label}", b6, expected)
+    recs = {int(m.group(1)): (m.group(3), json.loads(m.group(4)))
+            for m in MH_LINE.finditer(err)}
+    if sorted(recs) != list(range(n)):
+        fail(f"[mh] {label}: records of ranks {sorted(recs)}, expected "
+             f"{n}:\n{err[-3000:]}")
+    total = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    for r in range(n):
+        dev, rec = recs[r]
+        mh_log_rank(label, r, n, dev, rec, need)
+        for k in ("K2", "K3", "K4"):
+            total[k.lower()] += rec["launches"][k]
+    log(f"[mh] {label}: {n} ranks, {b6.count(NL)} rows identical to the "
+        f"single process; world wall {wall:.3f} s (rank 0 from its "
+        f"group's start {recs[0][1]['seconds']['total']:.3f} s) against "
+        f"the single process's {single_s:.3f} s")
+    return total
+
+
+def mh_log_rank(label, r, n, dev, rec, need):
+    """Checks one rank's `[mh]` record (a CUDA device, every kernel of
+    `need` launched) and logs it."""
+    launches = rec["launches"]
+    if not dev.startswith("cuda:"):
+        fail(f"[mh] {label}: rank {r} on {dev}, not a card")
+    for k in need:
+        if launches[k] <= 0:
+            fail(f"[mh] {label}: rank {r} never launched {k}: {rec}")
+    sec = rec["seconds"]
+    log(f"[mh] {label}: rank {r}/{n} on {dev}, clumps {rec['clumps']}, "
+        f"{rec.get('local_pairs', 0)} local pairs of "
+        f"{rec.get('pairs', 0)}, launches {launches}, work "
+        f"{rec['work']}, {rec['gathers']} gathers of "
+        f"{rec['gather_bytes']} bytes in {sec.get('gathers', 0.0)} s, "
+        f"spans {sec}, database {rec['db_bytes']} bytes on the "
+        f"device, peak {rec['peak_bytes'] / 2**30:.3f} GiB")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mh_rank(out_path, argv):
+    """`python3 chip_smoke.py mh-rank OUT <cli args>`: one rank of a
+    held world (`mh_world_held`; BURST_TPU_MULTIHOST in the
+    environment), the CLI on the card with every K2/K3/K4 call
+    captured (the first call of each shape kept as a copy). Saves its
+    exit code, its `[mh]` record and those calls, moved to the host, to
+    OUT; exits with the CLI's code."""
+    import io
+
+    import torch
+
+    from burst_tpu_torch import cli
+    calls, undo = _capture_kernel_calls(clone=True)
+    for c in _counters().values():
+        c.launches = 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["burst_tpu_torch"] + argv,
+                          device=torch.device("cuda"))
+    finally:
+        undo()
+    host = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.save({"rc": rc, "record": cli.last_stats.get("record"),
+                "device": str(dev),
+                "calls": {kern: {shape: [count, (tuple(map(host, a)),
+                                                 {k: host(v) for k, v
+                                                  in kw.items()}), []]
+                                 for shape, (count, (a, kw), _)
+                                 in shapes.items()}
+                          for kern, shapes in calls.items()}}, out_path)
+    sys.exit(rc)
+
+
+def mh_world_held(label, n, argv, rc, need, expected, single_s, work,
+                  launch_log):
+    """One world of n ranks on the card with its kernel calls held: rank
+    0 in this process (`cli_run` with BURST_TPU_MULTIHOST set, every
+    launch count set to 0 just before and read just after), ranks
+    1..n-1 in `mh_rank` processes of the same world. Fails as
+    `mh_world` does; then holds every (kernel, shape) the world
+    launched against its plain version on a sample of the tensors of
+    the first rank that launched it (`hold_sampled`; the other ranks'
+    calls come back through files). Returns the ranks' summed launches
+    by counter (k1-k4)."""
+    import torch
+    port = _free_port()
+    out = os.path.join(work, "mh.b6")
+    spec = lambda r: f"{r}/{n}@127.0.0.1:{port}"
+    ranks = {r: (_background(
+        [os.path.abspath(__file__), "mh-rank",
+         os.path.join(work, f"mh{r}.pt")] + argv + ["-o", out],
+        os.path.join(work, f"mh{r}.log"), BURST_TPU_MULTIHOST=spec(r),
+        BURST_TPU_TORCH_DEVICE="cuda")) for r in range(1, n)}
+    os.environ["BURST_TPU_MULTIHOST"] = spec(0)
+    calls, undo = _capture_kernel_calls(clone=True)
+    try:
+        b6, _, launches, stats, wall = cli_run(
+            f"{label} rank 0", argv + ["-o", out], torch.device("cuda"),
+            [k.lower() for k in need], rc)
+    finally:
+        undo()
+        del os.environ["BURST_TPU_MULTIHOST"]
+    _same_bytes(f"[mh] {label}", b6, expected)
+    rec0 = stats["record"]
+    if rec0["launches"] != {k: launches[k.lower()] for k in rec0["launches"]}:
+        fail(f"[mh] {label}: rank 0's record {rec0['launches']} is not "
+             f"its counters' {launches}")
+    recs = {0: (str(torch.device("cuda", torch.cuda.current_device())),
+                rec0, calls)}
+    for r, bg in ranks.items():
+        _joined(f"[mh] {label}: rank {r}", bg, timeout=MH_TIMEOUT, rc=rc)
+        got = torch.load(os.path.join(work, f"mh{r}.pt"),
+                         map_location="cuda", weights_only=False)
+        recs[r] = (got["device"], got["record"], got["calls"])
+    total = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    for r in range(n):
+        dev, rec, _ = recs[r]
+        mh_log_rank(label, r, n, dev, rec, need)
+        for k in ("K2", "K3", "K4"):
+            total[k.lower()] += rec["launches"][k]
+    log(f"[mh] {label}: {n} ranks, {b6.count(NL)} rows identical to the "
+        f"single process; world wall {wall:.3f} s (rank 0's run in this "
+        f"process, its peers' start-up included; from its group's start "
+        f"{rec0['seconds']['total']:.3f} s) against the single process's "
+        f"{single_s:.3f} s")
+    held = set()
+    for r in range(n):
+        mine = {kern: {sh: v for sh, v in shapes.items()
+                       if (kern, sh) not in held}
+                for kern, shapes in recs[r][2].items()}
+        held |= {(kern, sh) for kern, shapes in mine.items()
+                 for sh in shapes}
+        launch_log["held"] += hold_sampled(f"mh {label} rank {r}", mine)
+    return total
+
+
+def phase_multihost(p, base, accel, singles, qheads, reads, work,
+                    launch_log):
+    """Phase 12 (inside phase 9, or alone): worlds (a) and (b) against
+    phase 9's single-process bytes for the same commands (`singles`:
+    label -> (bytes, wall seconds)), then (c)-(e) on the first MH_READS
+    reads, each against a single-process CLI run on the card."""
+    import torch
+    t0 = time.perf_counter()
+    total = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    b6, wall = singles["-a -t 1 BEST -fr"]
+    add(mh_world_held("(a) -n 2 BEST -a -t 1 -fr", 2,
+                      accel + ["-m", "BEST", "-t", "1"], 0, ("K2", "K3"),
+                      b6, wall, work, launch_log))
+    b6, wall = singles["-a -t 1 CAPITALIST -b -fr"]
+    add(mh_world("(b) -n 2 CAPITALIST -b -a -t 1 -fr", 2, accel + [
+        "-m", "CAPITALIST", "-b", p("tax.tsv"), "-t", "1"], 0,
+        ("K2", "K3"), b6, wall, work))
+    _write_fasta(p("mhreads.fa"), qheads[:MH_READS], reads[:MH_READS])
+    log(f"[mh] worlds (c)-(e) on the first {MH_READS} of the "
+        f"{len(reads)} reads (the phase's time)")
+
+    def few(argv):
+        return [p("mhreads.fa") if a == p("reads.fa") else a for a in argv]
+    cuda = torch.device("cuda")
+    for label, n, argv, rc, need, cli_need in (
+            ("(c) -n 3 direct BEST -fr", 3, few(base + ["-m", "BEST"]), 0,
+             ("K4", "K3"), ("k3", "k4")),
+            ("(d) -n 2 ANY -a -fr", 2, few(accel + ["-m", "ANY"]), 0,
+             ("K2",), ("k2",)),
+            ("(e) -n 3 -p CAPITALIST -b -fr", 3, few(accel + [
+                "-m", "CAPITALIST", "-b", p("tax.tsv"), "-p"]), 101,
+             ("K2",), ("k2",))):
+        b6, _, _, _, wall = cli_run(f"{label} single process",
+                                    argv + ["-o", p("mh1.b6")], cuda,
+                                    cli_need, rc)
+        if label.startswith("(c)"):
+            add(mh_world_held(label, n, argv, rc, need, b6, wall, work,
+                              launch_log))
+        else:
+            add(mh_world(label, n, argv, rc, need, b6, wall, work))
+    launch_log["multihost"] = total
+    log(f"[mh] phase 12: five worlds in {time.perf_counter() - t0:.1f} s, "
+        f"launches {total}")
+
+
+def multihost_alone(launch_log):
+    """Phase 12 without phase 9 (`cli_alone`), then `phase_multihost`."""
+    work, p, base, accel, qheads, reads, runs = cli_alone("chip_smoke_mh")
+    singles = {k: (b6, wall) for k, (b6, _, wall) in runs.items()}
+    phase_multihost(p, base, accel, singles, qheads, reads, work,
+                    launch_log)
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -4495,6 +4799,8 @@ def main():
     if sys.argv[1:2] == ["twostep-cpu"]:   # phase 6's own CPU run
         twostep_cpu_check(sys.argv[2])
         return
+    if sys.argv[1:2] == ["mh-rank"]:       # a rank of phase 12's worlds
+        mh_rank(sys.argv[2], sys.argv[3:])
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
@@ -4579,6 +4885,12 @@ def main():
     if sys.argv[1:] == ["cli"]:
         phase_build()
         phase_cli({"held": []})
+        print(card_line(), flush=True)
+        return
+    if sys.argv[1:] == ["multihost"]:
+        phase_build()
+        multihost_alone({"held": []})
+        log(f"[smoke] multihost done at {time.perf_counter() - t_all:.0f} s")
         print(card_line(), flush=True)
         return
     if sys.argv[1:] == ["mesh"]:

@@ -12,10 +12,10 @@ homologous families with N reads, short reads and both strands
       ALLPATHS, FORAGE -i 0.9, CAPITALIST -b and ANY, each with and
       without -fr;
   (c) error paths: a missing FASTA (exit 2), -m MATRIX and an unknown
-      flag (exit 1), BURST_TPU_MULTIHOST (NotImplementedError naming
-      ROADMAP M12 part 2), no card without a request for the CPU (exit
-      1); --shards 2 and --qshards 2 on the direct path (the reference's
-      bytes);
+      flag (exit 1), a bad BURST_TPU_MULTIHOST spec (the reference's
+      ValueError; a multi-host makedb exits 1), no card without a request
+      for the CPU (exit 1); --shards 2 and --qshards 2 on the direct
+      path (the reference's bytes);
   (d) one run as a `python -m burst_tpu_torch.cli` subprocess with
       BURST_TPU_TORCH_DEVICE=cpu."""
 import os
@@ -135,15 +135,20 @@ def test_cli_rejected_flags(cli_data, capsys, name, msg):
 def test_cli_shards_name_m12(cli_data, flag, monkeypatch):
     """`--shards 2` runs the direct path on a grid of two CPU devices and
     `--qshards 2` alone the unsharded flow, both with the reference's
-    bytes; a database over several hosts raises naming ROADMAP M12 part
-    2, and a multi-host makedb exits 1, as burst_tpu's does."""
+    bytes; a BURST_TPU_MULTIHOST spec that names no world raises the
+    reference's ValueError, and a multi-host makedb exits 1, as
+    burst_tpu's does (tests/test_torch_multihost.py runs the worlds)."""
+    from burst_tpu.parallel.multihost import parse_spec
     from burst_tpu_torch import cli
     d, cases, rcs = cli_data
     if flag == "BURST_TPU_MULTIHOST":
         monkeypatch.setenv(flag, "1")
         assert cli_parity.ours(d, cases["makedb-dna320"]) == 1
-        with pytest.raises(NotImplementedError, match="M12 part 2"):
+        with pytest.raises(ValueError) as ref:
+            parse_spec("1")
+        with pytest.raises(ValueError) as got:
             cli_parity.ours(d, cases["direct-BEST"])
+        assert str(got.value) == str(ref.value)
         return
     argv = [a.replace("/BEST.b6", "/BEST-grid.b6")
             for a in cases["direct-BEST"]] + flag

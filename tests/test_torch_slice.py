@@ -210,9 +210,11 @@ def test_outside_slice_raises(bench_db):
 
 
 def test_import_without_jax():
-    """Every module of burst_tpu_torch imports (the mesh and the scaling
-    probe among them), and a tiny CPU batch runs on both paths and on a
-    grid of CPU devices, with `jax` and `burst_tpu` made unimportable."""
+    """Every module of burst_tpu_torch imports (the mesh, the multi-host
+    world and its launcher, the DP oracle and the scaling probe among
+    them), and a tiny CPU batch runs on both paths and on a grid of CPU
+    devices, and a world of one rank gathers, with `jax` and `burst_tpu`
+    made unimportable."""
     code = textwrap.dedent("""
         import glob, importlib, os, sys
 
@@ -233,6 +235,9 @@ def test_import_without_jax():
             names
         assert "burst_tpu_torch.parallel.mesh" in names and \
             "burst_tpu_torch.tools.scaling_probe" in names, names
+        assert {"burst_tpu_torch.parallel.multihost",
+                "burst_tpu_torch.tools.launch_multihost",
+                "burst_tpu_torch.kernels.refdp"} <= set(names), names
         for name in names:
             importlib.import_module(name)
         from burst_tpu_torch.accel import build_accelerator
@@ -272,6 +277,23 @@ def test_import_without_jax():
             taxonomy=tax, shards=2, qshards=2)
         assert st["grid"] == [2, 2] and sum(st["pairs_per_shard"]), st
         assert buf.getvalue().encode("latin-1") == out
+        # a world of one rank: the merges' gathers over gloo
+        import torch.distributed as dist
+        from burst_tpu_torch.parallel import multihost
+        from burst_tpu_torch.tools.launch_multihost import free_port
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1)
+        try:
+            rec = multihost._Record()
+            parts = multihost._gather_concat(
+                [np.arange(3), np.zeros(0, np.uint8)], rec)
+            assert [len(p[0]) for p in parts] == [3, 0], parts
+            assert multihost._gather_min(np.full((2, 2), 7, np.uint8), rec
+                                         ).tolist() == [[7, 7], [7, 7]]
+            assert rec.gathers == 4, rec.gathers
+        finally:
+            dist.destroy_process_group()
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "burst_tpu")]
         assert not loaded, loaded
