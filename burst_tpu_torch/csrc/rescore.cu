@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas kernel burst_tpu/kernels/rescore_pallas.py
 // (`rescore_pallas`, `_make_kernel`; K3), reached from
-// burst_tpu/kernels/rescore.py::_pallas_gather(_win). The integer
-// semantics are those of burst_tpu_torch/kernels/rescore.py::
+// burst_tpu/kernels/rescore.py::_pallas_gather(_win), and past that
+// kernel's 511 rows and 7,679 columns the jnp scan of the same file. The
+// integer semantics are those of burst_tpu_torch/kernels/rescore.py::
 // rescore_plain, bit for bit: the key and payload packing, the tie rule
 // (ks < key) | ((ks == key) & (ps > pay)), a left-chain look-back of
 // exactly 2^levels columns, and the final reductions. A pair's Peq table
@@ -38,10 +39,44 @@
 // columns, at least a window wide, refreshed after every row: one
 // barrier a row. The codes and Peq table are staged once in shared
 // memory. Launch shape, key width and halo come from
-// kernels/rescore_cuda.py::rescore_geometry; past what one CTA's
-// registers hold (a contig of 240 kbp rescored whole),
-// `rescore_scratch_kernel`, the first wide design's global route, keeps
-// the state in a global scratch.
+// kernels/rescore_cuda.py::rescore_geometry.
+//
+// Column segments, past what one CTA's registers hold (a whole genome of
+// tens or hundreds of kbp rescored at full width): the same kernel runs
+// each pair's row as S overlapping windows of Lw columns, one window an
+// item of the grid (pairs x segments), and `rescore_merge_kernel` joins
+// each pair's S partial results. Segment k owns the columns k U + 1 ..
+// (k + 1) U (U = `own`) and its window starts at column a = max(0, k U -
+// M): local column j is column a + j, local column 0 the DP's fake
+// column 0.
+//
+// Why a margin of M >= 1 + (rows - 1) 2^levels columns is exact, on
+// every pair (out of budget and dead ones included): rescore_plain's row
+// y at column x >= 1 reads row y - 1 at columns x - 1 and x (the cell
+// step), then selects over the cell step's columns x - (D - 1) .. x,
+// D = 2^levels (the doublings 1, 2, .., D / 2 while Lw >= D; the
+// window's Lw and the whole row's L1 give the same doublings), and
+// leaves column 0 as (y, 0, y); the DEAD clip, the clamp at DEAD + 1 and
+// the relative key packing (a constant shift of every key and payload of
+// a row) depend on no column. So a window's state differs from the whole
+// row's (shifted by a) at most in the columns its own fake column 0 and
+// row-1 special case reach: on row 1 columns 0 and 1 (column 1's left
+// neighbour is the fake column 0), and on row y the columns up to c(y) =
+// c(y - 1) + 1 + (D - 1), c(1) = 1: c(rows) = 1 + (rows - 1) D <= M.
+// Every owned local column (> M, or all columns where a = 0) therefore
+// holds the whole row's state bit for bit, and columns right of the
+// window never reach left. Each segment reduces its owned columns of the
+// last row to (least score, greatest gap_q at it, its first column and
+// that column's shiftR, its last column) in absolute columns; that
+// reduction is rescore_plain's final one over disjoint column ranges, so
+// the merge (least (s, -g, first), greatest last among equals) is exact.
+// Each window's key fields are sized by its own Lw (a 32-bit key).
+// Windows read their tile bytes straight from the bucket rows by tile
+// index (`tidx`), so no full-width copy is made. Past what a window
+// whose owned columns are a quarter of it can hold (a margin over three
+// quarters of the widest register window, e.g. 1,456 rows at a
+// look-back of 64), `rescore_scratch_kernel`, the first wide design's
+// global route, keeps the state in a global scratch.
 
 #include <climits>
 #include <cstdint>
@@ -162,6 +197,18 @@ __device__ __forceinline__ void lane_steps(KeyT (&key)[C], int (&r)[C],
 // Per-instance thread limits (kernels/rescore_cuda.py WIDE_MAX_THREADS,
 // WARP_PAIRS): one CTA a pair, the register file over C columns' keys
 // and shiftR and a doubling's temporaries; one warp a pair, four warps.
+// Where an item's tile row lies and which of its columns it owns: the
+// tile of pair n is row tidx[n] (row n without tidx) of `tstride` bytes,
+// of which the first Lt are columns 1 .. Lt (the rest code 0, a pad);
+// with S > 1 segments a pair (`own` columns each after a margin of M,
+// the whole row L1a columns) item i is pair i / S's segment i % S and
+// writes its partial result, else item n is pair n, the whole row.
+struct Seg {
+  const int64_t* tidx;
+  long long tstride;
+  int Lt, S, own, M, L1a;
+};
+
 template <int C, bool WARP>
 struct WideLimit {
   static constexpr int threads =
@@ -187,7 +234,8 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
                     const uint8_t* __restrict__ tiles,
                     const int32_t* __restrict__ qmeta,
                     int32_t* __restrict__ out, int N, int W, int NC,
-                    int levels, int rows, int L1, int H, int pairs) {
+                    int levels, int rows, int L1, int H, int pairs,
+                    const Seg sg) {
   using KeyT = KeyOf<KB>;
   extern __shared__ __align__(16) unsigned char s_raw[];
   const int P = WARP ? pairs : 1;
@@ -198,8 +246,13 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
   const int ptid = tid - 32 * nw * slot;   // thread of the pair
   const int U = (32 - H) * C;
   const int x0 = k * U + (lane - H) * C;   // first column of the lane
-  const int Lp = L1 - 1;
-  const int n = blockIdx.x * P + slot;
+  const int NI = N * sg.S;                   // items: pairs x segments
+  const int item = blockIdx.x * P + slot;
+  const int n = item / sg.S, seg = item - n * sg.S;
+  // the window's first column, and its owned local columns lo .. hi
+  const int a = max(0, seg * sg.own - sg.M);
+  const int lo = seg * sg.own + 1 - a;
+  const int hi = min(lo + sg.own, sg.L1a - a) - 1;
   // shared memory: exchange keys [2][nw][H C], their shiftR, the final
   // reduction's [32] x (2 keys, shiftR); then a pair's Peq [NC W] and
   // codes [32 nw C], P times
@@ -214,19 +267,20 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
   uint8_t* s_code = reinterpret_cast<uint8_t*>(s_peq + NC * W);
   // s_code[x + H C] is column x's code: 0 outside 1 .. Lp
   int qlen = 0, bad = 0;
-  if (n < N) {
+  if (item < NI) {
     const uint32_t* peq = peq_flat + (size_t)n * NC * W;
     for (int i = ptid; i < NC * W; i += 32 * nw) s_peq[i] = peq[i];
-    const uint8_t* trow = tiles + (size_t)n * Lp;
+    const uint8_t* trow =
+        tiles + (size_t)(sg.tidx ? sg.tidx[n] : n) * sg.tstride;
     for (int i = ptid; i < 32 * nw * C; i += 32 * nw) {
-      const int x = i - H * C;
-      s_code[i] = (x >= 1 && x < L1) ? trow[x - 1] : 0;
+      const int x = i - H * C, xa = a + x;
+      s_code[i] = (x >= 1 && x < L1 && xa <= sg.Lt) ? trow[xa - 1] : 0;
     }
     qlen = qmeta[2 * n];
     bad = qmeta[2 * n + 1] + 1;
   }
   __syncthreads();
-  if (n >= N) return;  // a last CTA's spare warps: no barrier follows
+  if (item >= NI) return;  // a last CTA's spare warps: no barrier follows
 
   const Fields<KeyT> f = make_fields<KeyT>(L1, levels);
   const uint8_t* code = s_code + x0 + H * C;
@@ -338,9 +392,9 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
     }
   }
 
-  // final reduction over the owned columns 1 .. Lp of the last row:
-  // least (s, -g, x) for the first best column and its shiftR, least
-  // (s, -g, -x) for the last
+  // final reduction over the owned columns lo .. hi of the last row
+  // (1 .. L1 - 1 for a whole row): least (s, -g, x) for the first best
+  // column and its shiftR, least (s, -g, -x) for the last
   const unsigned long long XM = (1ull << 22) - 1;
   unsigned long long b1 = ~0ull, b2 = ~0ull;
   int b1r = 0;
@@ -348,7 +402,7 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const int x = x0 + j;
-      if (x >= 1 && x < L1) {
+      if (x >= lo && x <= hi) {
         const unsigned long long s = (unsigned long long)(key[j] >> f.sh_s);
         const unsigned long long gi =
             (unsigned long long)((key[j] & f.gimask) >> f.sh_g);
@@ -393,10 +447,68 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
     const int s = (int)(b1 >> 44);
     const int g = (int)((unsigned long long)(f.gimask >> f.sh_g) -
                         ((b1 >> 22) & XM));
-    out[n] = min(s, 255);
-    out[N + n] = g;
+    const int last = (int)(XM - (b2 & XM));
+    if (sg.S == 1) {
+      out[n] = min(s, 255);
+      out[N + n] = g;
+      out[2 * N + n] = b1r;
+      out[3 * N + n] = last - (rows - qlen);
+    } else {  // the segment's partial result, in absolute columns
+      out[item] = s;
+      out[NI + item] = g;
+      out[2 * NI + item] = (int)(b1 & XM) + a;
+      out[3 * NI + item] = b1r;
+      out[4 * NI + item] = last + a;
+    }
+  }
+}
+
+// The segments' merge: one warp a pair over its S partial results
+// part[5][N S] (score, gap_q, first column, its shiftR, last column),
+// the least (s, -g, first) and the greatest last column among the
+// segments at that (s, g): rescore_plain's final reduction.
+constexpr unsigned long long kM24 = (1ull << 24) - 1;
+
+__global__ void __launch_bounds__(128)
+rescore_merge_kernel(const int32_t* __restrict__ part,
+                     const int32_t* __restrict__ qmeta,
+                     int32_t* __restrict__ out, int N, int S, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (n >= N) return;  // the whole warp
+  const size_t NI = (size_t)N * S;
+  unsigned long long b1 = ~0ull, b2 = ~0ull;
+  int b1r = 0;
+  for (int k = lane; k < S; k += 32) {
+    const size_t i = (size_t)n * S + k;
+    const unsigned long long base =
+        ((unsigned long long)part[i] << 48) |
+        ((kM24 - (unsigned long long)part[NI + i]) << 24);
+    const unsigned long long k1 = base | (unsigned long long)part[2 * NI + i];
+    const unsigned long long k2 =
+        base | (kM24 - (unsigned long long)part[4 * NI + i]);
+    if (k1 < b1) {
+      b1 = k1;
+      b1r = part[3 * NI + i];
+    }
+    b2 = min(b2, k2);
+  }
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    const unsigned long long o1 = __shfl_xor_sync(kFull, b1, o);
+    const int o1r = __shfl_xor_sync(kFull, b1r, o);
+    const unsigned long long o2 = __shfl_xor_sync(kFull, b2, o);
+    if (o1 < b1) {
+      b1 = o1;
+      b1r = o1r;
+    }
+    b2 = min(b2, o2);
+  }
+  if (lane == 0) {
+    out[n] = min((int)(b1 >> 48), 255);
+    out[N + n] = (int)(kM24 - ((b1 >> 24) & kM24));
     out[2 * N + n] = b1r;
-    out[3 * N + n] = (int)(XM - (b2 & XM)) - (rows - qlen);
+    out[3 * N + n] = (int)(kM24 - (b2 & kM24)) - (rows - qmeta[2 * n]);
   }
 }
 
@@ -566,7 +678,7 @@ template <int C, int KB, bool WARP>
 int launch_wide(const void* peq_flat, const void* tiles, const void* qmeta,
                 void* out, int N, int W, int NC, int levels, int rows,
                 int L1, int H, int P, int threads, int grid, int smem,
-                cudaStream_t stream) {
+                const Seg& sg, cudaStream_t stream) {
   if (threads > WideLimit<C, WARP>::threads)
     return (int)cudaErrorInvalidValue;
   auto kern = &rescore_wide_kernel<C, KB, WARP>;
@@ -578,50 +690,23 @@ int launch_wide(const void* peq_flat, const void* tiles, const void* qmeta,
   kern<<<grid, threads, smem, stream>>>(
       static_cast<const uint32_t*>(peq_flat),
       static_cast<const uint8_t*>(tiles), static_cast<const int32_t*>(qmeta),
-      static_cast<int32_t*>(out), N, W, NC, levels, rows, L1, H, P);
+      static_cast<int32_t*>(out), N, W, NC, levels, rows, L1, H, P, sg);
   return (int)cudaGetLastError();
 }
-
-}  // namespace
 
 // Columns a thread of the register route: the instances (32-bit keys;
 // 32 columns also with 64-bit keys)
 #define WIDE_C(X) X(4) X(8) X(12) X(16) X(20) X(24) X(28) X(32)
 
-// The register route (any rows, any L1 >= 2), the launch shape of
-// kernels/rescore_cuda.py::rescore_geometry. `cols` columns a thread (a
-// multiple of 4 up to 32; 8, 16 or 32 where a pair spans warps, else a
-// power of two unless the look-back window fits a lane's run), `threads`
-// = 32 nw x
-// `pairs`, `halo` lanes a warp (0 with one warp a pair, else ceil(w /
-// cols) <= 16), `pairs` a CTA (1 where a pair spans warps), `grid` =
-// ceil(N / pairs) CTAs, `smem` dynamic bytes (rescore_wide_smem), the
-// key 32 bits where the shape's fields fit 31, else 64 (one warp of 32
-// columns a thread only); or, with `scratch` (cols, halo and smem 0, pairs 1),
-// the global route: `grid` CTAs walking over the pairs, `scratch`
-// holding grid x 4 x L1 int64. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for arguments the kernel does not take).
-extern "C" int rescore_wide_launch(const void* peq_flat, const void* tiles,
-                                   const void* qmeta, void* out,
-                                   void* scratch, int N, int W, int C,
-                                   int levels, int rows, int L1, int cols,
-                                   int halo, int pairs, int threads,
-                                   int grid, int smem, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((C != 16 && C != 256) || N <= 0 || W <= 0 || L1 < 2 || rows < 1 ||
-      levels < 1 || threads <= 0 || pairs <= 0 || threads % (32 * pairs) ||
-      threads > 1024 || grid <= 0 || grid > N || smem < 0 ||
-      smem > kSmemMax)
-    return (int)cudaErrorInvalidValue;
-  if (scratch != nullptr) {
-    if (cols || halo || smem || pairs != 1) return (int)cudaErrorInvalidValue;
-    rescore_scratch_kernel<<<grid, threads, 0, s>>>(
-        static_cast<const uint32_t*>(peq_flat),
-        static_cast<const uint8_t*>(tiles),
-        static_cast<const int32_t*>(qmeta), static_cast<int32_t*>(out),
-        static_cast<long long*>(scratch), N, W, C, levels, rows, L1);
-    return (int)cudaGetLastError();
-  }
+// A register-route launch of `items` rows of L1 columns (pairs, or
+// pairs x segments) at the shape rescore_geometry plans, else
+// cudaErrorInvalidValue before any launch.
+int launch_register(const void* peq_flat, const void* tiles,
+                    const void* qmeta, void* out, int N, int W, int C,
+                    int levels, int rows, int L1, int cols, int halo,
+                    int pairs, int threads, int grid, int smem,
+                    const Seg& sg, cudaStream_t s) {
+  const long long items = (long long)N * sg.S;
   int sb, gb, db, w;
   key_bits(L1, levels, sb, gb, db, w);
   const int kb = sb + gb + db <= 31 ? 32 : 64;
@@ -636,23 +721,116 @@ extern "C" int rescore_wide_launch(const void* peq_flat, const void* tiles,
       (!pow2 && (nw > 1 || w > cols)) || (nw > 1 && cols < 8) ||
       (pairs > 1 && nw > 1) || halo != need_h || halo > 16 ||
       nw * own < L1 || (nw - 1) * own >= L1 ||
-      (long long)grid * pairs < N || (long long)(grid - 1) * pairs >= N ||
-      smem != want)
+      (long long)grid * pairs < items ||
+      (long long)(grid - 1) * pairs >= items || smem != want)
     return (int)cudaErrorInvalidValue;
   if (kb == 64)
     return launch_wide<32, 64, true>(peq_flat, tiles, qmeta, out, N, W, C,
                                      levels, rows, L1, halo, pairs, threads,
-                                     grid, smem, s);
+                                     grid, smem, sg, s);
 #define WIDE_CASE(c)                                                        \
   if (cols == c && nw == 1)                                                 \
     return launch_wide<c, 32, true>(peq_flat, tiles, qmeta, out, N, W, C,   \
                                     levels, rows, L1, halo, pairs, threads, \
-                                    grid, smem, s);                         \
+                                    grid, smem, sg, s);                     \
   if (cols == c && nw > 1 && (c == 8 || c == 16 || c == 32))                \
     return launch_wide<(c == 8 || c == 16 ? c : 32), 32, false>(            \
         peq_flat, tiles, qmeta, out, N, W, C, levels, rows, L1, halo, pairs, \
-        threads, grid, smem, s);
+        threads, grid, smem, sg, s);
   WIDE_C(WIDE_CASE)
 #undef WIDE_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+bool bad_common(int N, int W, int C, int levels, int rows, int threads,
+                int pairs, int grid, int smem) {
+  return (C != 16 && C != 256) || N <= 0 || W <= 0 || rows < 1 ||
+         levels < 1 || threads <= 0 || pairs <= 0 ||
+         threads % (32 * pairs) || threads > 1024 || grid <= 0 ||
+         smem < 0 || smem > kSmemMax;
+}
+
+}  // namespace
+
+// The register route (any rows, any L1 >= 2), the launch shape of
+// kernels/rescore_cuda.py::rescore_geometry. `cols` columns a thread (a
+// multiple of 4 up to 32; 8, 16 or 32 where a pair spans warps, else a
+// power of two unless the look-back window fits a lane's run), `threads`
+// = 32 nw x
+// `pairs`, `halo` lanes a warp (0 with one warp a pair, else ceil(w /
+// cols) <= 16), `pairs` a CTA (1 where a pair spans warps), `grid` =
+// ceil(N / pairs) CTAs, `smem` dynamic bytes (rescore_wide_smem), the
+// key 32 bits where the shape's fields fit 31, else 64 (one warp of 32
+// columns a thread only); or, with `scratch` (cols, halo and smem 0, pairs 1),
+// the global route: `grid` CTAs walking over the pairs, `scratch`
+// holding grid x 4 x L1 int64. Tiles are [N, L1 - 1]. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernel does not take).
+extern "C" int rescore_wide_launch(const void* peq_flat, const void* tiles,
+                                   const void* qmeta, void* out,
+                                   void* scratch, int N, int W, int C,
+                                   int levels, int rows, int L1, int cols,
+                                   int halo, int pairs, int threads,
+                                   int grid, int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_common(N, W, C, levels, rows, threads, pairs, grid, smem) ||
+      L1 < 2 || grid > N)
+    return (int)cudaErrorInvalidValue;
+  if (scratch != nullptr) {
+    if (cols || halo || smem || pairs != 1) return (int)cudaErrorInvalidValue;
+    rescore_scratch_kernel<<<grid, threads, 0, s>>>(
+        static_cast<const uint32_t*>(peq_flat),
+        static_cast<const uint8_t*>(tiles),
+        static_cast<const int32_t*>(qmeta), static_cast<int32_t*>(out),
+        static_cast<long long*>(scratch), N, W, C, levels, rows, L1);
+    return (int)cudaGetLastError();
+  }
+  const Seg whole{nullptr, L1 - 1, L1 - 1, 1, L1 - 1, 0, L1};
+  return launch_register(peq_flat, tiles, qmeta, out, N, W, C, levels, rows,
+                         L1, cols, halo, pairs, threads, grid, smem, whole,
+                         s);
+}
+
+// Column segments (kernels/rescore_cuda.py::rescore_segments): each of
+// the N pairs' rows of L1 columns as `segs` windows of Lw columns, a
+// register-route launch over N x segs items at the window's shape
+// (`cols` .. `smem` as above, for Lw), writing part[5][N segs]. Pair n's
+// tile is row tidx[n] (int64; row n where tidx is null) of `tstride`
+// bytes, its first Lt bytes columns 1 .. Lt (Lt <= L1 - 1). Takes only
+// a margin of 1 + (rows - 1) 2^levels columns or more (the proof above),
+// own + margin <= Lw - 1, segs = ceil((L1 - 1) / own) >= 2, and L1 under
+// 2^24 (the merge's fields).
+extern "C" int rescore_seg_launch(const void* peq_flat, const void* tiles,
+                                  const void* tidx, const void* qmeta,
+                                  void* part, int N, int W, int C,
+                                  int levels, int rows, int L1, int Lt,
+                                  int tstride, int Lw, int own, int margin,
+                                  int segs, int cols, int halo, int pairs,
+                                  int threads, int grid, int smem,
+                                  void* stream) {
+  if (bad_common(N, W, C, levels, rows, threads, pairs, grid, smem) ||
+      levels > 24 || L1 < 2 || L1 >= (1 << 24) || Lt < 0 || Lt > L1 - 1 ||
+      Lt > tstride || Lw < (1 << levels) || Lw >= L1 || own < 1 ||
+      (long long)margin < 1 + (long long)(rows - 1) * (1LL << levels) ||
+      own + (long long)margin > Lw - 1 || segs < 2 ||
+      segs != (L1 - 2) / own + 1 || (long long)N * segs > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const Seg sg{static_cast<const int64_t*>(tidx), tstride, Lt, segs, own,
+               margin, L1};
+  return launch_register(peq_flat, tiles, qmeta, part, N, W, C, levels,
+                         rows, Lw, cols, halo, pairs, threads, grid, smem,
+                         sg, static_cast<cudaStream_t>(stream));
+}
+
+// The segments' merge: part[5][N segs] -> out[4][N], four pairs (warps)
+// a CTA.
+extern "C" int rescore_merge_launch(const void* part, const void* qmeta,
+                                    void* out, int N, int segs, int rows,
+                                    void* stream) {
+  if (N <= 0 || segs < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  rescore_merge_kernel<<<(N + 3) / 4, 128, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(part), static_cast<const int32_t*>(qmeta),
+      static_cast<int32_t*>(out), N, segs, rows);
+  return (int)cudaGetLastError();
 }

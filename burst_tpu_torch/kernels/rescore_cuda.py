@@ -3,22 +3,27 @@ per-chunk gather that feeds it.
 
 `rescore` launches the kernel for CUDA tensors (or raises) and runs
 `rescore_plain` for CPU tensors; it counts its launches in its
-`launches` attribute, and by route in `routes`, both routes of the row
-in registers with packed look-back keys: "warp" (up to 1,024 columns:
+`launches` attribute, and by route in `routes`: the routes of the row
+in registers with packed look-back keys, "warp" (up to 1,024 columns:
 one warp a pair, L1 / 32 columns a lane where the look-back window fits
 a lane's run, several pairs a CTA), "wide" (one CTA of up to 32 warps a
-pair, 8, 16 or 32 columns a thread, a halo between warps) and "global"
-(threads striding over the columns, int64 keys, the row state in a
-global scratch, past what one CTA's registers hold).
-`rescore_geometry` picks the route and its launch shape in plain
-Python. `rescore_pairs_gather` is the counterpart of
+pair, 8, 16 or 32 columns a thread, a halo between warps) and
+"segments" (past what one CTA's registers hold: each pair's row as
+overlapping column windows on the warp or wide route, one an item of
+the grid, their partial results joined by `rescore_merge`, which counts
+its own launches); and "global" (threads striding over the columns,
+int64 keys, the row state in a global scratch) where even a window
+would be mostly margin. `rescore_geometry` and `rescore_segments` pick
+the route and its launch shape in plain Python.
+`rescore_pairs_gather` is the counterpart of
 `burst_tpu.kernels.rescore.rescore_pairs_gather_async`: it gathers each
-pair's Peq row and tile (or tile window) in PyTorch, then calls
-`rescore`.
+pair's Peq row (and tile window) in PyTorch, then calls `rescore`,
+which at full width reads the bucket rows by tile index.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -45,14 +50,24 @@ WARP_SMEM = 48 * 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 RESCORE_CODES = (16, 256)   # Peq codes, nucleotide or raw byte
-_SIG = {"rescore_wide_launch": [_P] * 5 + [_I] * 12 + [_P]}
+# the segment route: a segment owns at least SEG_OWN_SHARE x its margin
+# where one CTA's registers allow, else at least a quarter of its window
+# (past that the global route); windows of about SEG_WINDOW columns, fewer
+# where that leaves under SEG_FILL windows an SM
+SEG_OWN_SHARE = 4
+SEG_WINDOW = 4096
+SEG_FILL = 4
+_SIG = {"rescore_wide_launch": [_P] * 5 + [_I] * 12 + [_P],
+        "rescore_seg_launch": [_P] * 5 + [_I] * 18 + [_P],
+        "rescore_merge_launch": [_P] * 3 + [_I] * 3 + [_P]}
 
 
 class RescoreLaunch(NamedTuple):
-    """A K3 launch: its route ("warp", "wide" or "global"), threads per
-    CTA, CTAs, dynamic shared-memory bytes (0 on the global route), on
-    the register routes the columns a thread and the halo lanes a warp,
-    and the pairs a CTA."""
+    """A K3 launch: its route ("warp", "wide", "segments" or "global"),
+    threads per CTA, CTAs, dynamic shared-memory bytes (0 on the global
+    route), on the register routes the columns a thread and the halo
+    lanes a warp, and the pairs a CTA (on the segment route: the
+    window's launch over pairs x segments items)."""
     route: str
     threads: int
     grid: int
@@ -60,6 +75,16 @@ class RescoreLaunch(NamedTuple):
     cols: int = 0
     halo: int = 0
     pairs: int = 1
+
+
+class RescoreSegments(NamedTuple):
+    """The segment route's split of a row of L1 columns: windows of
+    `window` columns (their DP's L1), each owning `own` columns after a
+    margin of `margin`, `segs` of them a pair."""
+    window: int
+    own: int
+    margin: int
+    segs: int
 
 
 def rescore_key_bits(L1: int, levels: int) -> tuple[int, int, int, int]:
@@ -86,26 +111,10 @@ def rescore_wide_smem(nw: int, halo: int, cols: int, pequ32: int,
         pairs * (4 * pequ32 + 32 * nw * cols)
 
 
-def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
-                     sms: int = 132, levels: int = 1) -> RescoreLaunch:
-    """The K3 launch over N pairs of `pequ32` (C x W) Peq words with a
-    2^levels look-back, the row in registers wherever one CTA's hold it:
-    C columns a thread (a multiple of 4 up to 32; a power of two unless
-    one warp holds the row and the window fits a lane's run), one warp a
-    pair where 32 C columns hold the row ("warp": WARP_PAIRS pairs a CTA,
-    fewer where their tables pass WARP_SMEM), else warps of 32 - H own
-    lanes after H halo lanes (H C >= the window), as few warps as cover
-    L1 ("wide", one CTA a pair), within the instance's thread limit and
-    the shared memory a CTA may opt into; of those one warp a pair where
-    it can, then the fewest column slots, then the fewest columns a
-    thread. The key is 32 bits where the shape's fields fit 31, else 64
-    (one warp of 32 columns a thread: L1 = 1,024 at levels 10); a pair
-    across warps takes 8, 16 or 32 columns a thread and a 32-bit key,
-    as before the warp route. Past them
-    the global route at any L1 (no shared memory but the reduction's:
-    the row state in a scratch of 32 bytes a column a CTA, the codes
-    read from the tiles; one CTA per SM, fewer where the scratch would
-    pass GLOBAL_SCRATCH bytes, walking over the pairs)."""
+def register_geometry(N: int, L1: int, pequ32: int = 0,
+                      levels: int = 1) -> RescoreLaunch | None:
+    """The register routes' launch over N rows of L1 columns, or None
+    past what one CTA's registers hold (see `rescore_geometry`)."""
     sb, gb, db, w = rescore_key_bits(L1, levels)
     kb = 32 if sb + gb + db <= 31 else 64
     best = None
@@ -133,8 +142,93 @@ def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
             best = rank, RescoreLaunch("warp" if nw == 1 else "wide",
                                        32 * nw * pairs, -(-N // pairs),
                                        smem, cols, halo, pairs)
-    if best is not None:
-        return best[1]
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def register_reach(pequ32: int, levels: int) -> int:
+    """The widest row (a multiple of 32 columns) the register routes
+    hold at this Peq size and look-back."""
+    lo, hi = 1, 1024            # multiples of 32: 32 .. 32,768
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if register_geometry(1, 32 * mid, pequ32, levels) is None:
+            hi = mid - 1
+        else:
+            lo = mid
+    return 32 * lo
+
+
+def segment_margin(rows: int, levels: int) -> int:
+    """Columns before a segment's first owned one that make its window
+    exact on every pair: 1 + (rows - 1) 2^levels (the dependency cone of
+    the last row, csrc/rescore.cu's header), rounded up to 32."""
+    return -(-(1 + (rows - 1) * (1 << levels)) // 32) * 32
+
+
+def rescore_segments(N: int, rows: int, L1: int, pequ32: int = 0,
+                     sms: int = 132, levels: int = 1
+                     ) -> RescoreSegments | None:
+    """The segment route's windows for N pairs whose rows of L1 columns
+    no CTA's registers hold, or None where a window would be mostly
+    margin. The margin M is `segment_margin`; a window owns own = Lw - 1
+    - M columns, Lw a multiple of 32 of at least 2^levels within
+    `register_reach`. Where that reach allows own >= SEG_OWN_SHARE x M,
+    Lw is about SEG_WINDOW but not under that share, and smaller where
+    the pairs would give under SEG_FILL windows an SM; else the widest
+    window, where it still owns a quarter of its columns. So the global
+    route keeps only the shapes whose margin passes three quarters of
+    the widest register window, about 13,400 columns at a look-back up
+    to 32 (rows x 2^levels past about 13,400: e.g. 1,456 rows at a
+    look-back of 16 or more, 512 rows at 32)."""
+    if levels >= 24:
+        return None
+    M = segment_margin(rows, levels)
+    reach = register_reach(pequ32, levels)
+    lo = max(-(-((SEG_OWN_SHARE + 1) * M + 1) // 32) * 32, 1 << levels)
+    if lo <= reach:
+        fill = -(-(L1 - 1) * N // (SEG_FILL * sms))
+        Lw = min(reach, max(lo, min(SEG_WINDOW,
+                                    -(-(M + 1 + fill) // 32) * 32)))
+    elif 4 * (reach - 1 - M) >= reach and reach >= 1 << levels:
+        Lw = reach
+    else:
+        return None
+    own = Lw - 1 - M
+    if Lw >= L1 or L1 >= 1 << 24:
+        return None
+    return RescoreSegments(Lw, own, M, -(-(L1 - 1) // own))
+
+
+def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
+                     sms: int = 132, levels: int = 1) -> RescoreLaunch:
+    """The K3 launch over N pairs of `pequ32` (C x W) Peq words with a
+    2^levels look-back, the row in registers wherever one CTA's hold it:
+    C columns a thread (a multiple of 4 up to 32; a power of two unless
+    one warp holds the row and the window fits a lane's run), one warp a
+    pair where 32 C columns hold the row ("warp": WARP_PAIRS pairs a CTA,
+    fewer where their tables pass WARP_SMEM), else warps of 32 - H own
+    lanes after H halo lanes (H C >= the window), as few warps as cover
+    L1 ("wide", one CTA a pair), within the instance's thread limit and
+    the shared memory a CTA may opt into; of those one warp a pair where
+    it can, then the fewest column slots, then the fewest columns a
+    thread. The key is 32 bits where the shape's fields fit 31, else 64
+    (one warp of 32 columns a thread: L1 = 1,024 at levels 10); a pair
+    across warps takes 8, 16 or 32 columns a thread and a 32-bit key,
+    as before the warp route. Past them the segment route
+    (`rescore_segments`: overlapping windows on those routes, N x segs
+    items, then the merge), and where even that fails the global route
+    at any L1 (no shared memory but the reduction's: the row state in a
+    scratch of 32 bytes a column a CTA, the codes read from the tiles;
+    one CTA per SM, fewer where the scratch would pass GLOBAL_SCRATCH
+    bytes, walking over the pairs)."""
+    reg = register_geometry(N, L1, pequ32, levels)
+    if reg is not None:
+        return reg
+    sg = rescore_segments(N, rows, L1, pequ32, sms, levels)
+    if sg is not None:
+        return register_geometry(N * sg.segs, sg.window, pequ32,
+                                 levels)._replace(route="segments")
     cap = GLOBAL_SCRATCH // (4 * 8 * L1)
     return RescoreLaunch("global", GLOBAL_THREADS,
                          max(1, min(N, sms, cap)), 0)
@@ -142,22 +236,37 @@ def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
 
 def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
             qmeta: torch.Tensor, W: int, levels: int, rows: int,
-            L1: int) -> torch.Tensor:
+            L1: int, tidx: torch.Tensor | None = None) -> torch.Tensor:
     """K3: [4, N] int32 (ed, gap_q, gap_r, final_pos). peq_flat
     [N, C*W] int32 bits (C = 16 codes, or 256 for raw-byte queries),
-    tiles [N, L1-1] uint8, qmeta [N, 2] int32 (qlen, max_ed)."""
+    tiles [N, L1-1] uint8, qmeta [N, 2] int32 (qlen, max_ed). With
+    `tidx` ([N] int64, each under NT) tiles are bucket rows [NT, Lt]
+    (Lt <= L1 - 1, unit column stride) and pair n's tile is row tidx[n]
+    padded with code 0: the segment route reads them in place, the
+    others from a gathered copy."""
     N = peq_flat.shape[0]
     dev = peq_flat.device
     C = peq_flat.shape[1] // W if peq_flat.dim() == 2 else 0
     if C not in RESCORE_CODES:
         raise ValueError(f"peq_flat: expected [N, C*{W}] with C in "
                          f"{RESCORE_CODES}, got {tuple(peq_flat.shape)}")
+    tshape = (N, L1 - 1)
+    if tidx is not None:
+        tshape = (tiles.shape[0], min(tiles.shape[1], L1 - 1)) \
+            if tiles.dim() == 2 else ()
+        if tidx.device != dev or tidx.dtype != torch.int64 or \
+                tuple(tidx.shape) != (N,):
+            raise ValueError(f"tidx: expected int64 ({N},) on {dev}, got "
+                             f"{tidx.dtype} {tuple(tidx.shape)} on "
+                             f"{tidx.device}")
     for name, t, dt, shape in (
             ("peq_flat", peq_flat, torch.int32, (N, C * W)),
-            ("tiles", tiles, torch.uint8, (N, L1 - 1)),
+            ("tiles", tiles, torch.uint8, tshape),
             ("qmeta", qmeta, torch.int32, (N, 2))):
+        dense = t.is_contiguous() or (t is tiles and tidx is not None
+                                      and t.stride(-1) == 1)
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
+                or not dense:
             raise ValueError(
                 f"{name}: expected contiguous {dt} {shape} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -168,12 +277,22 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
                          "columns")
     if levels < 1:
         raise ValueError("levels must be >= 1")
+    gathered = lambda: torch.nn.functional.pad(
+        tiles[tidx], (0, L1 - 1 - tiles.shape[1])).contiguous()
     if not peq_flat.is_cuda:
-        return rescore_plain(peq_flat, tiles, qmeta, W, levels, rows, L1)
+        return rescore_plain(peq_flat, tiles if tidx is None else
+                             gathered(), qmeta, W, levels, rows, L1)
     out = torch.empty((4, N), dtype=torch.int32, device=dev)
     if N == 0:
         return out
-    g = rescore_geometry(N, rows, L1, C * W, sm_count(dev), levels)
+    sms = sm_count(dev)
+    g = rescore_geometry(N, rows, L1, C * W, sms, levels)
+    if tidx is not None and g.route != "segments":
+        tiles, tidx = gathered(), None
+    if g.route == "segments":
+        return rescore_merge(_segment_parts(peq_flat, tiles, qmeta, W,
+                                            levels, rows, L1, tidx, g),
+                             qmeta, rows)
     scratch = torch.empty(4 * g.grid * L1 if g.route == "global" else 0,
                           dtype=torch.int64, device=dev)
     _build.launch(
@@ -189,7 +308,94 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
 
 
 rescore.launches = 0
-rescore.routes = {"warp": 0, "wide": 0, "global": 0}
+rescore.routes = {"warp": 0, "wide": 0, "segments": 0, "global": 0}
+
+
+def _segment_parts(peq_flat, tiles, qmeta, W, levels, rows, L1, tidx, g):
+    """The segment kernel's launch `g` (`rescore`'s checked CUDA
+    arguments): the [5, N*S] partial results, one column a (pair,
+    segment) item."""
+    N, dev = peq_flat.shape[0], peq_flat.device
+    C = peq_flat.shape[1] // W
+    sg = rescore_segments(N, rows, L1, C * W, sm_count(dev), levels)
+    part = torch.empty((5, N * sg.segs), dtype=torch.int32, device=dev)
+    _build.launch(
+        dev, _build.load("rescore", _SIG).rescore_seg_launch,
+        peq_flat.data_ptr(), tiles.data_ptr(),
+        None if tidx is None else tidx.data_ptr(), qmeta.data_ptr(),
+        part.data_ptr(), N, W, C, levels, rows, L1, tiles.shape[1],
+        tiles.stride(0), sg.window, sg.own, sg.margin, sg.segs, g.cols,
+        g.halo, g.pairs, g.threads, g.grid, g.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
+        what="rescore_seg_launch")
+    rescore.launches += 1
+    rescore.routes["segments"] += 1
+    return part
+
+
+def rescore_segment_parts(peq_flat: torch.Tensor, tiles: torch.Tensor,
+                          qmeta: torch.Tensor, W: int, levels: int,
+                          rows: int, L1: int) -> torch.Tensor:
+    """The segment route's first launch alone, on CUDA tensors of a
+    shape `rescore_geometry` sends there (`rescore`'s arguments without
+    tile indices): the [5, N*S] partial results that `rescore_merge`
+    joins (counted as `rescore`'s launch)."""
+    N, C = peq_flat.shape[0], peq_flat.shape[1] // W
+    g = rescore_geometry(N, rows, L1, C * W, sm_count(peq_flat.device),
+                         levels)
+    if not peq_flat.is_cuda or g.route != "segments":
+        raise ValueError(f"not a segment-route launch on a card: {g}")
+    return _segment_parts(peq_flat, tiles, qmeta, W, levels, rows, L1,
+                          None, g)
+
+
+def rescore_merge_plain(part: torch.Tensor, qmeta: torch.Tensor,
+                        rows: int) -> torch.Tensor:
+    """The segments' merge in PyTorch: part [5, N*S] int32 (per segment
+    its least score, greatest gap_q at it, first column, that column's
+    shiftR, last column) -> [4, N] as rescore_plain's final reduction."""
+    N = qmeta.shape[0]
+    s, g, first, r, last = part.long().reshape(5, N, -1)
+    best_s = s.min(dim=1).values
+    is_min = s == best_s[:, None]
+    best_g = torch.where(is_min, g, -1).max(dim=1).values
+    is_best = is_min & (g == best_g[:, None])
+    first_col = torch.where(is_best, first, 1 << 30).min(dim=1).values
+    last_col = torch.where(is_best, last, -1).max(dim=1).values
+    best_r = torch.where(is_best & (first == first_col[:, None]), r,
+                         -(1 << 30)).max(dim=1).values
+    return torch.stack([best_s.clamp(max=255), best_g, best_r,
+                        last_col - (rows - qmeta[:, 0].long())]
+                       ).to(torch.int32)
+
+
+def rescore_merge(part: torch.Tensor, qmeta: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """K3's segment merge (`rescore_merge_kernel`, one warp a pair):
+    [4, N] from the segment kernel's part [5, N*S]; launches it for CUDA
+    tensors (counted in `launches`), `rescore_merge_plain` for CPU
+    ones."""
+    N = qmeta.shape[0]
+    if part.dim() != 2 or part.shape[0] != 5 or N == 0 or \
+            part.shape[1] % N or part.dtype != torch.int32 or \
+            not part.is_contiguous() or part.device != qmeta.device:
+        raise ValueError(f"part: expected contiguous int32 [5, N*S] with "
+                         f"N = {N} on {qmeta.device}, got {part.dtype} "
+                         f"{tuple(part.shape)} on {part.device}")
+    if not part.is_cuda:
+        return rescore_merge_plain(part, qmeta, rows)
+    out = torch.empty((4, N), dtype=torch.int32, device=part.device)
+    _build.launch(
+        part.device, _build.load("rescore", _SIG).rescore_merge_launch,
+        part.data_ptr(), qmeta.data_ptr(), out.data_ptr(), N,
+        part.shape[1] // N, rows,
+        torch.cuda.current_stream(part.device).cuda_stream,
+        what="rescore_merge_launch")
+    rescore_merge.launches += 1
+    return out
+
+
+rescore_merge.launches = 0
 
 
 def rescore_pairs_gather(peq_all: torch.Tensor, tiles_all: torch.Tensor,
@@ -202,22 +408,25 @@ def rescore_pairs_gather(peq_all: torch.Tensor, tiles_all: torch.Tensor,
 
     With x0/Lw the DP runs on per-pair [Lw-1]-column windows starting
     at column x0 (final_pos is window-local: the caller adds x0 back);
-    otherwise on the whole tile, padded to the kernel's L1-1 columns."""
+    otherwise on the whole tile, padded to the kernel's L1-1 columns
+    (`rescore` with the tile indices: no full-width copy on the segment
+    route)."""
     dev = peq_all.device
     rows = rows_for(qlens, W)
     L1 = l1_for(tiles_all.shape[1] if Lw is None else Lw - 1)
+    tidx = np.asarray(tidx, dtype=np.int64)
+    if len(tidx) and not 0 <= tidx.min() <= tidx.max() < len(tiles_all):
+        raise ValueError(f"tidx: rows outside 0 .. {len(tiles_all) - 1}")
     pi = torch.from_numpy(np.asarray(pidx, dtype=np.int64)).to(dev)
-    ti = torch.from_numpy(np.asarray(tidx, dtype=np.int64)).to(dev)
+    ti = torch.from_numpy(tidx).to(dev)
     peq = peq_all[pi].reshape(len(pidx), peq_all.shape[1] * W)
-    tiles = tiles_all[ti]
-    if x0 is not None:
-        x0_d = torch.from_numpy(np.asarray(x0, dtype=np.int64)).to(dev)
-        tiles = window_tiles(tiles, x0_d, L1)
-    elif tiles.shape[1] < L1 - 1:
-        tiles = torch.nn.functional.pad(tiles,
-                                        (0, L1 - 1 - tiles.shape[1]))
     qmeta = torch.from_numpy(np.stack(
         [qlens.astype(np.int32), max_ed.astype(np.int32)], axis=1)
     ).to(dev)
-    return rescore(peq.contiguous(), tiles.contiguous(), qmeta, W,
-                   levels_for(max_ed), rows, L1)
+    if x0 is None:      # the bucket rows by tile index
+        return rescore(peq.contiguous(), tiles_all, qmeta, W,
+                       levels_for(max_ed), rows, L1, tidx=ti)
+    x0_d = torch.from_numpy(np.asarray(x0, dtype=np.int64)).to(dev)
+    return rescore(peq.contiguous(),
+                   window_tiles(tiles_all[ti], x0_d, L1).contiguous(),
+                   qmeta, W, levels_for(max_ed), rows, L1)

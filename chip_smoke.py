@@ -14,6 +14,9 @@
                                           # (no result line)
     python3 chip_smoke.py long            # build, then phase 10 alone
                                           # (no result line)
+    python3 chip_smoke.py genomes         # build, then phase 13 alone
+                                          # (its CPU checks started
+                                          # first; no result line)
     python3 chip_smoke.py mesh            # build, then phase 11 alone
                                           # (the databases and unsharded
                                           # batches of phases 4, 6 and 9
@@ -35,7 +38,9 @@
                                           # turns
     python3 chip_smoke.py rescore [old.cu]  # K3 alone: build, recount,
                                           # checks and times of every
-                                          # route at the paths' shapes;
+                                          # route at the paths' shapes
+                                          # (the segment route in turns
+                                          # with the global one);
                                           # with an earlier source, its
                                           # 11-argument block route and
                                           # its 15- or 17-argument wide
@@ -95,9 +100,12 @@ Phases, each fatal on failure:
      x 4,096 (its words forced into the scratch in turns) and at 256
      codes; K3 at 1,456 rows windowed and full width, the fused batch's
      W = 45, the whole references' W = 9, L1 = 17,024 (18 warps,
-     windows across the warps' halos), 240,256 columns (the global
-     route) and, held once, L1 = 1,024 at levels 10 (the warp route's
-     64-bit key);
+     windows across the warps' halos), 240,256 columns (the segment
+     route, timed in turns with the global route forced at that shape,
+     and its merge kernel alone on the segments' partial results),
+     1,450 bp reads at a look-back of 64 on a 20 kbp reference (the
+     global route, where it stays) and, held once, L1 = 1,024 at levels
+     10 (the warp route's 64-bit key);
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -116,9 +124,10 @@ Phases, each fatal on failure:
   4. direct path (no accelerator) at full width: 40 families (10 Mbp,
      about 31,000 units), 20,000 reads, BEST, both strands, every
      (query, unit) pair through K4: one warm batch, one timed, one more
-     with its stages timed apart, K4 logged and its shapes held as in
-     phase 3; K4's output for 8 sampled blocks must equal the host
-     twin's;
+     with its stages timed apart, K4 logged and its shapes held on a
+     sample of their own tensors (`hold_sampled`: 256 query rows x
+     2,048 tiles; the whole block is held in phase 2); K4's output for
+     8 sampled blocks must equal the host twin's;
   5. the five reporting modes on a 2-family database: without an
      accelerator 64 reads; with one, ALLPATHS, FORAGE, CAPITALIST and ANY
      on 320 reads (some with an N, some under k; the two-step path at the
@@ -133,9 +142,10 @@ Phases, each fatal on failure:
      997th 11 bp long (full-scan rows, K4): one warm batch, one timed,
      one more with its stages timed apart. Every (kernel, shape) the
      timed batch launched (K2 at its 2^19-2^20 pairs, K3 windowed and at full
-     width, K4's full-scan blocks) is then run again on the first such
-     call's own tensors and must equal its plain version on the card (the
-     plain pair scan in slices of 2^16 pairs); K4 logged as in phase 3.
+     width, K4's full-scan blocks) is then run again on a sample of the
+     first such call's own tensors (`hold_sampled`: K2 on its first
+     32,768 pairs, K3 whole, K4 on 256 rows x 2,048 tiles) and must equal
+     its plain version on the card; K4 logged as in phase 3.
      Then 512 reads of it: the card's b6 bytes must equal the port's CPU
      run (default QBUNCH 8), which runs in a process of its own beside
      the card's work from the start of phase 6 and is read after phase 9;
@@ -150,7 +160,8 @@ Phases, each fatal on failure:
      through 4 MiB slots, warm and timed 20,000 reads; the fused cell's
      first 500 reads under a budget without its packed store (BEST on
      the two-step path at QBUNCH 1). Every (kernel, shape) the streamed
-     warm batches launched is held against its plain version; each timed
+     warm batches launched is held against its plain version on a sample
+     of its own tensors (`hold_sampled`); each timed
      batch logs its plan, uploads, copy-stream time and rate against a
      plain pinned 1 GiB copy, the share of copy time hidden under
      kernels, its seconds against the resident batch's, and its peak
@@ -159,7 +170,8 @@ Phases, each fatal on failure:
      ALLPATHS ITER 32) the card's bytes must equal the port's CPU run;
      one timed prepass batch of 20,000 reads on phase 3's database logs
      its rows, K2 launches and seconds, and each K2 shape it launched is
-     held against its plain version on the batch's own tensors;
+     held against its plain version on a sample of the batch's own
+     tensors (its first 32,768 pairs);
   9. the command line (`burst_tpu_torch.cli.main` in process, so that
      the launch counters can be read): makedb of phase 4's generator
      (40 families, 10 Mbp; phase 4's shear, -d QUICK 100 -s 320) with an
@@ -183,15 +195,15 @@ Phases, each fatal on failure:
      them, a score past the narrow pair kernel's 15-bit keys and W =
      920): (a) the amplicon generator's 1,200 families sheared to one
      unit a reference (max_len_q 1,500, -i 0.97: a 1,546 bp shear) with a
-     k=12 accelerator, 20,000 reads of 1,300-1,450 bp on both strands,
-     every 199th with an N: BEST fused at QBUNCH 1 (K1 at W = 41-46, K2
+     k=12 accelerator, 20,000 reads of 1,380-1,450 bp on both strands,
+     every 199th with an N: BEST fused at QBUNCH 1 (K1 at W = 44-46, K2
      on the N rows, K3 at up to 1,456 rows), then CAPITALIST with the
      7-level LCA over 2,000 of them at QBUNCH 16 (two-step: K2, K3);
      each a warm and a timed batch (reads/s, peak memory, launches), every
      (kernel, shape) it launched held against its plain version, the
      first 64 reads against the port's CPU run; (b) two families and four
      random 16,569 bp references unsheared through the command line
-     without -s, 1,960 reads of 200-300 bp (every 20th from a 16,569 bp
+     without -s, 1,000 reads of 257-300 bp (every 20th from a 16,569 bp
      reference) and 40 of 1,441-1,450 bp: BEST and CAPITALIST -b (K4 at
      W up to 46 on lane groups, over column segments against the
      16,569 bp units; K3 past 1,024 columns on its wide route, the
@@ -231,6 +243,22 @@ Phases, each fatal on failure:
      kernels launched (K2 and K3 with -a, K4 and K3 direct; K2 under
      -p); its wall seconds against the single process's, each rank's
      gather seconds and peak device memory logged.
+ 13. whole genomes past one CTA's registers (`phase_genomes`): BURST
+     without an accelerator on 12 unsheared genomes (6 of 18-30 kbp, 4
+     of 40-60, 2 of 140-160; 0.64-0.70 Mbp; each reference its own
+     unit and length bucket) through the command line without -s,
+     20,000 reads of 150 bp from phase 10's generator (both strands,
+     every 199th with an N), -i 0.97: BEST, CAPITALIST -b and ANY, each
+     with every count set to 0 just before; K4 on its narrow route at
+     one tile a bucket, K3 at full width over 18-160 kbp: at least one
+     segment launch a mode, no global launch, every K3 call past 17,856
+     columns planned on segments. Every K3 shape launched again on its
+     own arguments and held on 8 of its pairs against the plain
+     version, the merge on its own partial results, K4 at the shortest
+     genome on 256 of its rows; 64 check reads a mode against the CLI's
+     CPU run (three processes started after the build, beside the
+     card's work); one JSON line of each mode's seconds, K3/K4 launches,
+     device ms against their summed bound and peak device memory.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -951,15 +979,15 @@ def earlier_rescore_kernel(src):
     return run
 
 
-def in_turns(label, new, old, reps):
+def in_turns(label, new, old, reps, old_name="earlier kernel"):
     """`old` then `new` timed in turns (old, new, new, old), the same
-    result exactly; logs both and returns (new ms, earlier ms)."""
-    exact(f"{label}: earlier kernel vs this one", old().cpu().numpy(),
+    result exactly; logs both and returns (new ms, old ms)."""
+    exact(f"{label}: {old_name} vs this one", old().cpu().numpy(),
           new().cpu().numpy())
     t = [time_ms(old, reps), time_ms(new, reps), time_ms(new, reps),
          time_ms(old, reps)]
     ms, was = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    log(f"[turns] {label}: earlier kernel {t[0]:.4f} and {t[3]:.4f} ms, "
+    log(f"[turns] {label}: {old_name} {t[0]:.4f} and {t[3]:.4f} ms, "
         f"this one {t[1]:.4f} and {t[2]:.4f} ms ({was / ms:.2f}x)")
     return ms, was
 
@@ -1072,24 +1100,14 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
     same block gathered here and against the plain version on the card;
     given an earlier kernel's call (`earlier_rescore_kernel`), both timed
     in turns. Returns (result on the host, the kernel record's entry)."""
-    import numpy as np
     import torch
 
     from burst_tpu_torch.kernels import rescore, rescore_cuda
-    dev, N, C = peq.device, len(rp), peq.shape[1]
-    rows, lv = rescore.rows_for(rq, W), rescore.levels_for(red)
-    L1 = rescore.l1_for(bt_d.shape[1] if Lw is None else Lw - 1)
+    N, C = len(rp), peq.shape[1]
     run = lambda: rescore_cuda.rescore_pairs_gather(
         peq, bt_d, rp, rt, rq, red, W, x0=x0, Lw=Lw)
-    to_dev = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
-    peq_f = peq[to_dev(rp)].reshape(N, C * W).contiguous()
-    tl = bt_d[to_dev(rt)]
-    if x0 is not None:
-        tl = rescore.window_tiles(tl, to_dev(x0), L1)
-    else:
-        tl = torch.nn.functional.pad(tl, (0, L1 - 1 - tl.shape[1]))
-    tl = tl.contiguous()
-    qmeta = torch.from_numpy(np.stack([rq, red], 1).astype(np.int32)).to(dev)
+    peq_f, tl, qmeta, rows, lv, L1 = _rescore_block(peq, bt_d, rp, rt, rq,
+                                                    red, W, x0, Lw)
     kern = lambda: rescore_cuda.rescore(peq_f, tl, qmeta, W, lv, rows, L1)
     got = run().cpu().numpy()
     exact(f"K3 {label} gather vs block", kern().cpu().numpy(), got)
@@ -1105,9 +1123,10 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
     if earlier is None or not earlier.covers(rows, L1, C, W):
         ms = time_ms(kern, reps)
     else:
+        name = getattr(earlier, "label", "earlier kernel")
         ms, was = in_turns(f"K3 {label}", kern, lambda: earlier(
-            peq_f, tl, qmeta, W, lv, rows, L1), reps)
-        turns = dict(earlier_ms=was)
+            peq_f, tl, qmeta, W, lv, rows, L1), reps, name)
+        turns = {getattr(earlier, "key", "earlier_ms"): was}
     return got, dict(
         name=f"K3 rescore ({label})", route="cuda",
         source="burst_tpu_torch/csrc/rescore.cu",
@@ -1121,6 +1140,90 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
         + ("" if C == 16 else f" C={C}") + " ("
         + rescore_cuda.rescore_geometry(N, rows, L1, C * W, levels=lv).route
         + " route)")
+
+
+def _rescore_block(peq, bt_d, rp, rt, rq, red, W, x0=None, Lw=None):
+    """A K3 call's block as `rescore_cuda.rescore` takes it, gathered
+    here from the call's Peq planes, bucket tiles and host vectors:
+    (peq [N, C W], tiles [N, L1 - 1], qmeta, rows, levels, L1)."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.kernels import rescore
+    dev, N, C = peq.device, len(rp), peq.shape[1]
+    rows, lv = rescore.rows_for(rq, W), rescore.levels_for(red)
+    L1 = rescore.l1_for(bt_d.shape[1] if Lw is None else Lw - 1)
+    to_dev = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+    peq_f = peq[to_dev(rp)].reshape(N, C * W).contiguous()
+    tl = bt_d[to_dev(rt)]
+    if x0 is not None:
+        tl = rescore.window_tiles(tl, to_dev(x0), L1)
+    else:
+        tl = torch.nn.functional.pad(tl, (0, L1 - 1 - tl.shape[1]))
+    qmeta = torch.from_numpy(np.stack([rq, red], 1).astype(np.int32)).to(dev)
+    return peq_f, tl.contiguous(), qmeta, rows, lv, L1
+
+
+def forced_global_rescore(peq_flat, tiles, qmeta, W, levels, rows, L1):
+    """K3's global route (`rescore_scratch_kernel`) forced at any shape,
+    at the launch `rescore_geometry` plans for it, for timing it in
+    turns with the route the shape takes (not counted as a launch)."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers_cuda, rescore_cuda
+    N, dev = peq_flat.shape[0], peq_flat.device
+    grid = max(1, min(N, myers_cuda.sm_count(dev),
+                      myers_cuda.GLOBAL_SCRATCH // (32 * L1)))
+    out = torch.empty((4, N), dtype=torch.int32, device=dev)
+    scratch = torch.empty(4 * grid * L1, dtype=torch.int64, device=dev)
+    _build.launch(
+        dev, _build.load("rescore", rescore_cuda._SIG).rescore_wide_launch,
+        peq_flat.data_ptr(), tiles.data_ptr(), qmeta.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), N, W, peq_flat.shape[1] // W,
+        levels, rows, L1, 0, 0, 1, rescore_cuda.GLOBAL_THREADS, grid, 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+        what="rescore_wide_launch (global, forced)")
+    return out
+
+
+forced_global_rescore.covers = lambda rows, L1, C, W: True
+forced_global_rescore.label = "the global route"
+forced_global_rescore.key = "global_ms"
+
+
+def hold_merge(label, peq, bt_d, rp, rt, rq, red, W):
+    """K3's segment merge (`rescore_merge_kernel`) on the segment
+    kernel's own partial results for one K3 call on the segment route:
+    exact against `rescore_merge_plain` on the card, both timed. Returns
+    the kernel record's entry (its launches are phase 13's)."""
+    import torch
+
+    from burst_tpu_torch.kernels import rescore_cuda
+    peq_f, tl, qmeta, rows, lv, L1 = _rescore_block(peq, bt_d, rp, rt, rq,
+                                                    red, W)
+    part = rescore_cuda.rescore_segment_parts(peq_f, tl, qmeta, W, lv,
+                                              rows, L1)
+    N, S = len(rp), part.shape[1] // len(rp)
+    got = rescore_cuda.rescore_merge(part, qmeta, rows)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = rescore_cuda.rescore_merge_plain(part, qmeta, rows)
+    e1.record()
+    err = exact(f"K3 merge {label} vs plain", got.cpu().numpy(),
+                ref.cpu().numpy())
+    ms = time_ms(lambda: rescore_cuda.rescore_merge(part, qmeta, rows), 20)
+    return dict(
+        name=f"K3-merge rescore_merge ({label})", route="cuda",
+        source="burst_tpu_torch/csrc/rescore.cu",
+        replaces="burst_tpu/kernels/rescore_pallas.py:156",
+        max_abs_err=err, ms=ms, plain_ms=e0.elapsed_time(e1),
+        # each partial result read once, qmeta read, the result written;
+        # some 12 integer operations a partial result
+        **bound(N * S * 5 * 4 + N * 8 + N * 16, N * S * 12),
+        library_ms=None, counter="k3m",
+        shape=f"N={N} S={S} rows={rows} (the segments of W={W} "
+              f"levels={lv} L1={L1})")
 
 
 def hold_rescore(recs, case, host, qlen, budget, lt, N):
@@ -1547,15 +1650,19 @@ def block_rescore_recs(rng, smat_d, earlier=None):
 
 
 def wide_rescore_recs(rng, smat_d, earlier=None):
-    """K3's wide and global routes at phase 10's shapes, exact against
-    the plain version on the card and timed beside the bound (with
-    `earlier`, an earlier kernel in turns): 1,456 rows windowed (L1 = 1,536)
-    and full width (L1 = 3,072), the fused batch's W = 45 (1,440 rows,
-    levels 5, N = 2,048), the whole references' W = 9 (L1 = 1,920), a
-    16,569 bp reference rescored whole (L1 = 17,024, the row in the
-    registers of 18 warps) at 64 and 32 pairs, and past what one CTA
-    holds (240,256 columns: the global route). Returns the kernel
-    record's entries."""
+    """K3's wide, segment and global routes at phase 10's and 13's
+    shapes, exact against the plain version on the card and timed beside
+    the bound (with `earlier`, an earlier kernel in turns): 1,456 rows
+    windowed (L1 = 1,536) and full width (L1 = 3,072), the fused batch's
+    W = 45 (1,440 rows, levels 5, N = 2,048), the whole references' W =
+    9 (L1 = 1,920), a 16,569 bp reference rescored whole (L1 = 17,024,
+    the row in the registers of 18 warps) at 64 and 32 pairs; past what
+    one CTA holds a 240 kbp contig (240,256 columns: the segment route,
+    in turns with the global route forced at the same shape; then the
+    segments' merge alone on its own partial results; phase 13 holds the
+    route at its own shapes); the global route where it stays, 1,450 bp
+    reads at a look-back of 64 against a 20 kbp reference. Returns the
+    kernel record's entries (the merge's last)."""
     import numpy as np
 
     from burst_tpu_torch import engine
@@ -1579,30 +1686,39 @@ def wide_rescore_recs(rng, smat_d, earlier=None):
                      "budget")
             recs.append(rec)
         del peq, tiles
+    merge = None
     for label, W, N, lb, qlen, budget in (
             ("wide, whole 1,450 bp references", 9, 512, 1600, 288, 9),
             ("wide, a 16,569 bp reference", 10, 64, 16576, 300, 9),
             ("wide, a 16,569 bp reference", 9, 32, 16576, 288, 9),
-            ("global, a 240,000 bp contig", 4, 2, 240000, 100, 2)):
+            ("segments, a 240,000 bp contig", 4, 2, 240000, 100, 2),
+            ("global, 1,450 bp reads at a 64 look-back", LONG_W, 4, 20000,
+             LONG_QLEN, 43)):
         peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
             rng, smat_d, W, N, lb, lb + engine.rescore_pad(lb, W), qlen,
             budget)
         g0 = dict(rescore_cuda.rescore.routes)
-        got, rec = hold_rescore_call(label, peq, tiles, np.arange(N),
-                                     np.arange(N), ql, red, W,
-                                     earlier=earlier)
         route = label.split(",")[0]
+        turns = earlier
+        if "contig" in label:   # the route it replaces, at this shape
+            turns = forced_global_rescore
+        idx = np.arange(N)
+        got, rec = hold_rescore_call(label, peq, tiles, idx, idx, ql, red,
+                                     W, earlier=turns)
         if rescore_cuda.rescore.routes[route] == g0[route] or \
                 (got[0] <= red).sum() < N // 2:
             fail(f"K3 {label}: not the {route} route, or "
                  f"{(got[0] > red).sum()} of {N} pairs out of budget")
         recs.append(rec)
+        if "contig" in label:
+            merge = hold_merge("the 240,000 bp contig's segments", peq,
+                               tiles, idx, idx, ql, red, W)
         del peq, tiles
     routes = {k: v - routes0[k] for k, v in
               rescore_cuda.rescore.routes.items()}
-    if not routes["wide"] or not routes["global"]:
+    if not routes["wide"] or not routes["segments"] or not routes["global"]:
         fail(f"K3: a wide route did not launch: {routes}")
-    return recs
+    return recs + [merge]
 
 
 # K4's wide routes at phase 10's shapes: (label, W, Q, T, Lp, query
@@ -1841,14 +1957,23 @@ def phase_kernels(earlier=None):
     return recs, main, wide
 
 
+def kernel_of(rec) -> str:
+    """A record entry's kernel: the first word of its name ("K1" ..
+    "K4", "K3-merge")."""
+    return rec["name"].split()[0]
+
+
 def after_own_kernel(recs, more):
     """`recs` with each entry of `more` placed after the last entry of
-    its kernel: the record merges a kernel's shapes under its first
-    entry, from the entries that follow it."""
+    its kernel (a kernel not in `recs` last): the record merges a
+    kernel's shapes under its first entry, from the entries that follow
+    it."""
     recs = list(recs)
     for r in more:
-        order = [x["name"][:2] for x in recs]
-        recs.insert(len(order) - order[::-1].index(r["name"][:2]), r)
+        order = [kernel_of(x) for x in recs]
+        at = len(order) - order[::-1].index(kernel_of(r)) \
+            if kernel_of(r) in order else len(order)
+        recs.insert(at, r)
     return recs
 
 
@@ -2103,7 +2228,8 @@ def make_workload(n_fam: int, n_reads: int, n_mem: int = 10,
 def _counters():
     from burst_tpu_torch.kernels import myers_cuda, rescore_cuda
     return dict(k1=myers_cuda.myers_pairs_packed, k2=myers_cuda.myers_pairs,
-                k3=rescore_cuda.rescore, k4=myers_cuda.myers_cross)
+                k3=rescore_cuda.rescore, k4=myers_cuda.myers_cross,
+                k3m=rescore_cuda.rescore_merge)
 
 
 def _record_pair_launches():
@@ -2530,7 +2656,7 @@ def phase_direct(launch_log):
         fail(f"direct path: the engine's call site saw {k4['launches']} "
              f"K4 launches, the kernel's counter {launches['k4']}")
     launch_log["k4_batches"]["direct"] = k4
-    launch_log["held"] += hold_captured("direct", calls)
+    launch_log["held"] += hold_sampled("direct", calls)
     del calls
 
     # the same batch once more with its stages timed apart
@@ -2811,7 +2937,7 @@ def phase_twostep(launch_log, profile=False):
     """Phase 6: the amplicon workload through the two-step accelerated
     path (CAPITALIST with an LCA taxonomy) on the card; then every
     (kernel, shape) the batch launched, held against its plain version on
-    the batch's own tensors. With `profile`, one more batch under
+    a sample of the batch's own tensors. With `profile`, one more batch under
     torch.profiler: the device's busy share and its time by kernel.
     Returns the database, reads, the timed batch's bytes and seconds,
     and the card's bytes of the first AMPLICON_CHECK_READS and
@@ -2907,7 +3033,7 @@ def phase_twostep(launch_log, profile=False):
         f"against a bound of {b['bound_ms']:.1f} ms ({b['bound_by']}: "
         f"{ops:.3e} int32 operations), "
         f"{100 * b['bound_ms'] / k2_ms:.0f} % of the bound's rate")
-    launch_log["held"] += hold_captured("twostep", calls)
+    launch_log["held"] += hold_sampled("twostep", calls)
     del calls
 
     # the same batch once more with its stages timed apart: the device
@@ -3114,18 +3240,23 @@ def phase_long_reads():
 # Cut so that the script stays inside its time limit (each cut logged):
 # 300 of the 1,200 families, 5,000 of the 20,000 fused reads, 1,100 of
 # the 2,000 two-step reads (as many as QBUNCH 16 needs: 2,048 unique
-# rows). The CPU checks take 64 reads, the batch's N reads among them.
+# rows), reads of 1,380-1,450 bp, not 1,300 (three Myers widths, each a
+# K2 and a K3 shape a mode held against a plain scan of 1,504 columns or
+# 1,456 rows, 1.5-3 s each). The CPU checks take 64 reads, the batch's N
+# reads among them.
 FULL_FAMILIES = 300
 FULL_READS, FULL_CAP_READS, FULL_CHECK_READS = 5000, 1100, 64
+FULL_READ_LO = 1380
 FULL_MAX_LEN_Q = 1500
 WHOLE_FAMILIES, WHOLE_MITO, WHOLE_MITO_LEN = 2, 4, 16569
-WHOLE_READS, WHOLE_LONG_READS = 2000, 40
-# the reads' shortest lengths: W = 7-10 and 46. Each Myers width is a
+WHOLE_READS, WHOLE_LONG_READS = 1040, 40
+# the reads' shortest lengths: W = 9-10 and 46. Each Myers width is a
 # K4 launch against the 16,569 bp bucket held against the plain scan,
-# 8-16 s over its 16,608 columns; from 150 and 1,300 bp (twelve widths)
-# phase 10 took 190-320 s on one H100 machine, from 200 and 1,380 bp
-# (seven) 192 s
-WHOLE_SHORT_LO, WHOLE_LONG_LO = 200, 1441
+# 8-16 s over its 16,608 columns (57 s past 2^16 Myers words a launch:
+# 2,048 rows at W = 9); from 150 and 1,300 bp (twelve widths) phase 10
+# took 190-320 s on one H100 machine, from 200 and 1,380 bp (seven) 192
+# s, 2,000 reads from 200 and 1,441 bp (five) 156-203 s
+WHOLE_SHORT_LO, WHOLE_LONG_LO = 257, 1441
 
 
 def _full_reads(rng, refs, n, lo, hi, n_every=199):
@@ -3183,7 +3314,8 @@ def _full_inputs():
     from burst_tpu_torch.process import process_references
     rheads, refs, tax, _, _ = make_amplicon_workload(FULL_FAMILIES, 0)
     rng = np.random.default_rng(SEED + 20)
-    qheads, reads = _full_reads(rng, refs, FULL_READS, 1300, AMPLICON_LEN)
+    qheads, reads = _full_reads(rng, refs, FULL_READS, FULL_READ_LO,
+                                AMPLICON_LEN)
     rd = process_references(rheads, [r.copy() for r in refs],
                             max_len_q=FULL_MAX_LEN_Q, thres=AMPLICON_THRES,
                             rebase=True, rebase_amt=320, curate=2)
@@ -3306,7 +3438,7 @@ def _full_run(label, al, qheads, reads, need, launch_log):
 
 def phase_full_length(launch_log):
     """Phase 10. (a) BEST fused at QBUNCH 1 over FULL_READS reads of
-    1,300-1,450 bp (K1 at W = 41-46 over the clear rows, K2 over the N
+    1,380-1,450 bp (K1 at W = 44-46 over the clear rows, K2 over the N
     rows' side pairs, K3 at up to 1,456 rows), then CAPITALIST with the
     7-level LCA on the two-step path at QBUNCH 16 (K2, K3) over
     FULL_CAP_READS of them; each a warm and a timed batch, every shape
@@ -3314,7 +3446,7 @@ def phase_full_length(launch_log):
     among them, and every width of the timed batch) against the port's
     CPU run. (b) The command line without -s on two families and four
     16,569 bp references (every reference one unit): BEST and
-    CAPITALIST -b over WHOLE_READS reads of 200-300 bp and 1,441-1,450
+    CAPITALIST -b over WHOLE_READS reads of 257-300 bp and 1,441-1,450
     bp, both strands (K4 at W up to 46 on lane groups, K3 past 1,024
     columns, the 16,569 bp units' 17,024 on its wide route; every K3 and
     K4 shape of the two runs held, each once), each against the CLI's
@@ -3356,7 +3488,8 @@ def _full_length(launch_log, p, bg):
         f"{AMPLICON_MEMBERS} x {AMPLICON_LEN} bp = "
         f"{len(refs) * AMPLICON_LEN / 1e6:.1f} Mbp, shear {rd.shear}, "
         f"{rd.tot_units} units (one a reference), {FULL_READS} reads of "
-        f"1,300-{AMPLICON_LEN} bp (the cell asks for 20000), "
+        f"{FULL_READ_LO}-{AMPLICON_LEN} bp (the cell asks for 20000 of "
+        f"1,300-{AMPLICON_LEN} bp), "
         f"{FULL_CAP_READS} of them two-step (2000)")
     cuda = torch.device("cuda")
     gpu_checks = {}
@@ -3420,7 +3553,7 @@ def _full_length(launch_log, p, bg):
         fail(f"[full] whole references: {len(ck)} check reads")
     log(f"[full] whole references: {len(sr)} reads of {WHOLE_SHORT_LO}-300 "
         f"bp and {len(lr)} of {WHOLE_LONG_LO}-{AMPLICON_LEN} bp (cut from "
-        "150-300 and 1,300-1,450 bp: five Myers widths, each a K4 shape "
+        "150-300 and 1,300-1,450 bp: three Myers widths, each a K4 shape "
         "the plain scan holds over 16,608 columns)")
     _write_fasta(p("reads.fa"), wq, wr)
     _write_fasta(p("check.fa"), [wq[i] for i in ck], [wr[i] for i in ck])
@@ -3507,6 +3640,265 @@ def _full_length(launch_log, p, bg):
             f"{max(-(-len(x) // 32) for x in reads[:n])}): {gpu.count(NL)} "
             f"rows identical to the CPU run (waited "
             f"{time.perf_counter() - t0:.1f} s for it)")
+
+
+# Phase 13: whole genomes past one CTA's registers. BURST without an
+# accelerator on a small curated panel of unsheared genomes (`-r refs.fa`
+# without -s): 12 references of 0.64-0.70 Mbp in all, one unit and one
+# length bucket each (6 virus-sized of 18-30 kbp, 4 phage-sized of 40-60
+# kbp, 2 chloroplast-sized of 140-160 kbp), 20,000 reads of 150 bp cut
+# from them by phase 10's generator (its substitution rate, both strands,
+# every 199th with one N), -i 0.97, BEST, CAPITALIST -b and ANY. Every
+# winner is rescored at full width over 18-160 kbp: K3's segment route,
+# never the global one. The CPU check (64 reads, `_check_reads`) runs the
+# three modes in processes of their own from the script's start: the
+# plain cross scan costs some 0.25 ms a column on the host, 170 s a mode
+# over the panel.
+GENOME_LENS = ((6, 18000, 30000), (4, 40000, 60000), (2, 140000, 160000))
+GENOME_READS, GENOME_READ_LEN, GENOME_CHECK_READS = 20000, 150, 64
+GENOME_MODES = (("BEST", ["-m", "BEST"]),
+                ("CAPITALIST", ["-m", "CAPITALIST", "-b", "{tax}"]),
+                ("ANY", ["-m", "ANY"]))
+GENOME_HOLD_PAIRS = 8    # K3 held on this many of each shape's pairs
+
+
+def _genome_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke_genomes")
+
+
+def genome_data():
+    """Phase 13's genomes and reads, from the seed: (heads, genomes,
+    read heads, reads, the check reads' indices (`_check_reads`))."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 13)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    refs = [rng.choice(bases, int(rng.integers(lo, hi + 1)))
+            for n, lo, hi in GENOME_LENS for _ in range(n)]
+    heads = [b"genome%02d" % i for i in range(len(refs))]
+    qh, reads = _full_reads(rng, refs, GENOME_READS, GENOME_READ_LEN,
+                            GENOME_READ_LEN)
+    return heads, refs, qh, reads, _check_reads(reads, GENOME_CHECK_READS)
+
+
+def write_genome_inputs(work):
+    """Phase 13's inputs under `work`: refs.fa, tax.tsv (a lineage a
+    genome), reads.fa and check.fa."""
+    heads, refs, qh, reads, ck = genome_data()
+    _write_fasta(os.path.join(work, "refs.fa"), heads, refs)
+    with open(os.path.join(work, "tax.tsv"), "wb") as f:
+        for i, h in enumerate(heads):
+            f.write(h + b"\tk__V;p__P%d;c__C%d;o__O%d;f__F%d;g__G%d;s__S%d\n"
+                    % (i % 2, i % 3, i % 4, i, i, i))
+    _write_fasta(os.path.join(work, "reads.fa"), qh, reads)
+    _write_fasta(os.path.join(work, "check.fa"), [qh[i] for i in ck],
+                 [reads[i] for i in ck])
+
+
+def _genome_argv(work, extra):
+    return ["-r", os.path.join(work, "refs.fa"), "-i", str(AMPLICON_THRES),
+            "-fr"] + [a.replace("{tax}", os.path.join(work, "tax.tsv"))
+                      for a in extra]
+
+
+def start_genome_cpu_checks():
+    """Writes phase 13's inputs and starts its CPU checks: the CLI on
+    the check reads with BURST_TPU_TORCH_DEVICE=cpu, one process a mode
+    (a thread each, some 250-350 s: three cores, not six, beside the
+    script's host-bound phases 2-5), beside the card's work. Returns
+    {mode: (process, its log)}."""
+    work = _genome_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    write_genome_inputs(work)
+    p = lambda name: os.path.join(work, name)
+    return {mode: _background(
+        ["-m", "burst_tpu_torch.cli"] + _genome_argv(work, extra)
+        + ["-q", p("check.fa"), "-o", p(f"cpu_{mode}.b6")],
+        p(f"cpu_{mode}.log"), BURST_TPU_TORCH_DEVICE="cpu",
+        OMP_NUM_THREADS="1") for mode, extra in GENOME_MODES}
+
+
+def _k3_report(k3) -> dict:
+    """K3's calls over a run (calls["K3"] of a capture with events):
+    launches, device ms of the gather, segment kernel and merge, and the
+    summed bound of the segment kernels' work."""
+    import torch
+    torch.cuda.synchronize()
+    n = sum(count for count, _, _ in k3.values())
+    ms = sum(e0.elapsed_time(e1) for _, _, ev in k3.values()
+             for e0, e1 in ev)
+    b = sum(count * bound(N * (4 * C * W + L1 - 1 + 24),
+                          N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)
+                          )["bound_ms"]
+            for (W, rows, lv, L1, N, _, C), (count, _, _) in k3.items())
+    return dict(launches=n, ms=ms, bound_ms=b)
+
+
+def hold_rescore_sampled(label, peq, bt_d, rp, rt, rq, red, W):
+    """One full-width K3 call of a run, launched again on its own
+    arguments (the run's launch exactly), its result held on
+    GENOME_HOLD_PAIRS of its pairs against the plain version on the card:
+    its first ones, the one of the longest query and the one of the
+    largest budget (so the sample's rows and levels are the call's).
+    Returns the kernel record's entry (plain ms: the sample's)."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.kernels import rescore, rescore_cuda
+    rp, rt, rq, red = (np.asarray(v) for v in (rp, rt, rq, red))
+    N, C = len(rp), peq.shape[1]
+    run = lambda: rescore_cuda.rescore_pairs_gather(peq, bt_d, rp, rt, rq,
+                                                    red, W)
+    got = run().cpu().numpy()
+    keep = np.unique(np.concatenate([
+        np.arange(min(GENOME_HOLD_PAIRS - 2, N)),
+        [int(np.argmax(rq)), int(np.argmax(red))]]))
+    peq_f, tl, qmeta, rows, lv, L1 = _rescore_block(
+        peq, bt_d, rp[keep], rt[keep], rq[keep], red[keep], W)
+    if (rows, lv) != (rescore.rows_for(rq, W), rescore.levels_for(red)):
+        fail(f"K3 {label}: the sample changed the call's shape")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = rescore.rescore_plain(peq_f, tl, qmeta, W, lv, rows, L1)
+    e1.record()
+    err = exact(f"K3 {label} vs plain on {len(keep)} pairs", got[:, keep],
+                ref.cpu().numpy())
+    return dict(
+        name=f"K3 rescore ({label})", route="cuda",
+        source="burst_tpu_torch/csrc/rescore.cu",
+        replaces="burst_tpu/kernels/rescore_pallas.py:156",
+        max_abs_err=err, ms=time_ms(run, 3), plain_ms=e0.elapsed_time(e1),
+        **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
+                N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
+        library_ms=None, counter="k3",
+        sample=f"{len(keep)} of its {N} pairs against the plain version",
+        shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N} ("
+        + rescore_cuda.rescore_geometry(N, rows, L1, C * W,
+                                        levels=lv).route + " route)")
+
+
+def phase_genomes(launch_log, cpu):
+    """Phase 13 on the card, `cpu` the CPU checks that
+    `start_genome_cpu_checks` started: each mode through
+    `burst_tpu_torch.cli.main` in process on the 20,000 reads (every
+    count set to 0 just before and read just after; K3 and K4 calls
+    captured with events), then on the check reads against the CPU run.
+    Fails unless each mode launched K3's segment route and never its
+    global route, every K3 call past 17,856 columns planned on segments.
+    Every K3 shape is held on GENOME_HOLD_PAIRS of its own pairs (its
+    merge too, on its own partial results), K4 at its shortest tile on
+    256 of its query rows, each once over the modes. Logs one JSON line
+    of the modes' seconds, launches, device ms against the bound, peak
+    device memory."""
+    import torch
+
+    from burst_tpu_torch.kernels import rescore_cuda
+    work = _genome_dir()
+    p = lambda name: os.path.join(work, name)
+    _, refs, _, _, ck = genome_data()   # the files' contents, again
+    lens = [len(r) for r in refs]
+    del refs
+    log(f"[genomes] {len(lens)} genomes of {min(lens)}-{max(lens)} bp, "
+        f"{sum(lens)} bp in all; {GENOME_READS} reads of "
+        f"{GENOME_READ_LEN} bp, {len(ck)} check reads")
+    cuda = torch.device("cuda")
+    held = {"K3": set(), "K4": set()}
+    out = {}
+    for mode, extra in GENOME_MODES:
+        argv = _genome_argv(work, extra)
+        routes0 = dict(rescore_cuda.rescore.routes)
+        calls, undo = _capture_kernel_calls(("K3", "K4"), events=True)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            b6, ph, launches, stats, wall = cli_run(
+                f"genomes {mode}", argv + ["-q", p("reads.fa"), "-o",
+                                           p("gpu.b6")], cuda,
+                ("k3", "k3m", "k4"))
+        finally:
+            undo()
+        peak = torch.cuda.max_memory_allocated()
+        routes = {r: c - routes0[r]
+                  for r, c in rescore_cuda.rescore.routes.items()}
+        k3 = _k3_report(calls["K3"])
+        k4 = k4_report(f"genomes {mode}", calls["K4"])
+        past = {shape: rescore_cuda.rescore_geometry(
+            shape[4], shape[1], shape[3], shape[6] * shape[0],
+            levels=shape[2]).route for shape in calls["K3"]
+            if shape[3] > 17856}
+        log(f"[genomes] {mode}: {GENOME_READS} reads, {b6.count(NL)} rows, "
+            f"wall {wall:.3f} s, align phases {_align_s(ph, wall):.3f} s; "
+            f"launches {launches}; K3 by route {routes} over "
+            f"{len(calls['K3'])} shapes at L1 "
+            f"{sorted({sh[3] for sh in calls['K3']})}; K3 (gather, segment "
+            f"kernel, merge) {k3['ms']:.3f} ms on the device against a "
+            f"summed bound of {k3['bound_ms']:.3f} ms "
+            f"({100 * k3['bound_ms'] / max(k3['ms'], 1e-9):.0f} %); peak "
+            f"device memory {peak / 2**30:.3f} GiB; path "
+            f"{stats.get('path')}")
+        if stats.get("path") != "direct" or routes["global"] or \
+                not routes["segments"] or set(past.values()) != \
+                {"segments"} or b6.count(NL) < GENOME_READS // 2:
+            fail(f"[genomes] {mode}: not the segment route on every whole "
+                 f"genome, or few rows: {routes}, {past}, "
+                 f"{b6.count(NL)} rows")
+        launch_log[f"genomes {mode}"] = launches
+        out[mode] = dict(
+            reads=GENOME_READS, rows=b6.count(NL), wall_s=wall,
+            align_s=_align_s(ph, wall), peak_gib=peak / 2**30,
+            k3=dict(k3, merges=launches["k3m"], routes=routes),
+            k4=k4, phases=ph)
+        # each K3 shape on a sample of its pairs, with its merge; K4's
+        # shortest tile on 256 rows; each shape once over the modes
+        for kern in held:
+            calls[kern] = {k: v for k, v in calls[kern].items()
+                           if k not in held[kern]}
+        if calls["K4"] and not held["K4"]:
+            shape = min(calls["K4"], key=lambda sh: sh[3])
+            count, (a, kw), _ = calls["K4"][shape]
+            a = (a[0][:MESH_HOLD_ROWS],) + tuple(a[1:])
+            _, rec = hold_cross_call(f"genomes {shape}", *a, **kw)
+            rec.update(launches=count, sample=f"{MESH_HOLD_ROWS} rows")
+            launch_log["held"].append(("K4", rec))
+            held["K4"].add(shape)
+            log(f"[genomes] K4 {rec['shape']} (the shortest whole genome, "
+                f"{MESH_HOLD_ROWS} of its {shape[1]} rows): exact vs plain; "
+                f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.2f} "
+                f"ms, bound {rec['bound_ms']:.5f} ms")
+        for shape, (count, (a, kw), _) in sorted(calls["K3"].items()):
+            rec = hold_rescore_sampled(f"genomes {shape}", *a)
+            rec.pop("counter")
+            rec["launches"] = count
+            launch_log["held"].append(("K3", rec))
+            if not held["K3"]:      # the merge, on the call's own parts
+                m = hold_merge(f"genomes {shape}", *a)
+                m.pop("counter")
+                m["launches"] = launches["k3m"]
+                launch_log["held"].append(("K3-merge", m))
+                log(f"[genomes] K3 merge {m['shape']}: exact vs plain on "
+                    f"every pair; kernel {m['ms']:.4f} ms, plain "
+                    f"{m['plain_ms']:.2f} ms, bound {m['bound_ms']:.5f} ms")
+            held["K3"].add(shape)
+            log(f"[genomes] K3 {rec['shape']} x {count}: {rec['sample']}, "
+                f"exact; kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.5f} ms "
+                f"({100 * rec['bound_ms'] / rec['ms']:.0f} %)")
+        del calls
+        gpu = cli_run(f"genomes {mode} check", argv + [
+            "-q", p("check.fa"), "-o", p("gpu_check.b6")], cuda)[0]
+        t0 = time.perf_counter()
+        _joined(f"[genomes] {mode}: the CLI's CPU run", cpu[mode],
+                timeout=1200)
+        with open(p(f"cpu_{mode}.b6"), "rb") as f:
+            _same_bytes(f"[genomes] {mode}, {len(ck)} check reads", gpu,
+                        f.read())
+        log(f"[genomes] {mode}: {len(ck)} check reads' {gpu.count(NL)} rows "
+            f"identical to the CLI's CPU run (its process beside the "
+            f"card's work; waited {time.perf_counter() - t0:.1f} s for it)")
+    print(json.dumps({"genomes": out}), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def pinned_copy_gbs() -> float:
@@ -3670,7 +4062,7 @@ def phase_slab(cells, launch_log):
     log("[slab] twostep: 20,000 reads streamed, b6 bytes identical to the "
         "resident batch")
     _staged_streamed(al, ts)
-    launch_log["held"] += hold_captured("twostep streamed", calls)
+    launch_log["held"] += hold_sampled("twostep streamed", calls)
     del calls
 
     # two budgets, the same bytes (the slab rotation), on 512 reads, each
@@ -3734,7 +4126,7 @@ def phase_slab(cells, launch_log):
         fail(f"direct streamed: {al.last_stats}")
     log("[slab] direct: 20,000 reads with the 448 bucket streamed, b6 "
         "bytes identical to the resident batch")
-    launch_log["held"] += hold_captured("direct streamed", calls)
+    launch_log["held"] += hold_sampled("direct streamed", calls)
     del calls, al
 
     # the fused cell: a budget under the packed store
@@ -3806,7 +4198,8 @@ def phase_prepass(cells, launch_log):
     bytes must equal the port's CPU run (BEST -fr at ITER 16, ALLPATHS at
     32); then one timed prepass batch of PREPASS_READS reads on phase 3's
     database: its rows, K2 launches and seconds, and every K2 shape it
-    launched held against the plain version on its own tensors."""
+    launched held against the plain version on a sample of its own
+    tensors."""
     import io
 
     import torch
@@ -3863,7 +4256,7 @@ def phase_prepass(cells, launch_log):
     log(f"[prepass] BEST -fr ITER 16 on phase 3's database: "
         f"{PREPASS_READS} reads in {dt:.3f} s = {PREPASS_READS / dt:.1f} "
         f"reads/s, {rows} rows, launches {launches}")
-    launch_log["held"] += hold_captured("prepass", calls)
+    launch_log["held"] += hold_sampled("prepass", calls)
     del calls, db
     torch.cuda.empty_cache()
 
@@ -4854,7 +5247,8 @@ def main():
                     "rate; exact vs plain")
             print(json.dumps({f"{sys.argv[1]}_wide": [
                 {k: r[k] for k in ("name", "shape", "ms", "earlier_ms",
-                                   "plain_ms", "bound_ms") if k in r}
+                                   "global_ms", "plain_ms", "bound_ms")
+                 if k in r}
                 for r in recs]}), flush=True)
         print(card_line(), flush=True)
         return
@@ -4862,6 +5256,12 @@ def main():
         phase_build()
         launch_log = {"held": []}
         phase_full_length(launch_log)
+        print(card_line(), flush=True)
+        return
+    if sys.argv[1:] == ["genomes"]:
+        phase_build()
+        phase_genomes({"held": []}, start_genome_cpu_checks())
+        log(f"[smoke] genomes done at {time.perf_counter() - t_all:.0f} s")
         print(card_line(), flush=True)
         return
     if sys.argv[1:] == ["wide"]:
@@ -4902,6 +5302,8 @@ def main():
         print(card_line(), flush=True)
         return
     phase_sass(phase_build())
+    if sys.argv[1:] != ["kernels"]:
+        genome_cpu = start_genome_cpu_checks()    # phase 13's, from here
     recs, main_case, wide = phase_kernels()
     if sys.argv[1:] == ["kernels"]:
         phase_pairs_path(main_case, PATH_B)
@@ -4941,6 +5343,9 @@ def main():
     twostep_cpu_joined(twostep_cpu)
     done("phase 6's CPU check")
     phase_full_length(launch_log)
+    done("phase 10")
+    phase_genomes(launch_log, genome_cpu)
+    done("phase 13")
     held = launch_log.pop("held")
     k4_batches = launch_log.pop("k4_batches")
     # one entry per kernel, at the shape of the path that counts its
@@ -4949,19 +5354,21 @@ def main():
     kernels = []
     for r in recs:
         c = r.pop("counter")
-        r["launches"] = launch_log["direct" if c == "k4" else "accel"][c]
-        r["launches_by_path"] = {p: n[c] for p, n in launch_log.items()}
-        if kernels and kernels[-1]["name"][:2] == r["name"][:2]:
+        r["launches"] = launch_log[{"k4": "direct", "k3m": "genomes BEST"}
+                                   .get(c, "accel")][c]
+        r["launches_by_path"] = {p: n.get(c, 0)
+                                 for p, n in launch_log.items()}
+        if kernels and kernel_of(kernels[-1]) == kernel_of(r):
             kernels[-1].setdefault("also", []).append({k: r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "max_abs_err")})
         else:
             kernels.append(r)
     # K4 over each timed batch: launches, device ms, summed bound
-    next(r for r in kernels if r["name"][:2] == "K4")["batches"] = k4_batches
+    next(r for r in kernels if kernel_of(r) == "K4")["batches"] = k4_batches
     # the batches' own launches, each shape held on its tensors
     for kern, rec in held:
-        next(r for r in kernels if r["name"][:2] == kern).setdefault(
+        next(r for r in kernels if kernel_of(r) == kern).setdefault(
             "also", []).append({k: rec[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "max_abs_err", "launches")})

@@ -245,8 +245,11 @@ def test_rescore_geometry_routes():
     row in the registers of one CTA a pair (8, 16 or 32 columns a
     thread, halo lanes at least a look-back window wide): a 16,569 bp
     reference rescored whole (L1 = 17,024) in 18 warps of 32 columns a
-    thread; the global route (no dynamic shared memory, one CTA an SM)
-    only past what one CTA's registers hold, at any width, its CTAs
+    thread; past what one CTA's registers hold the segment route (a
+    contig of 262 kbp, a row of 5 Mbp: overlapping windows on the wide
+    route, pairs x segments CTAs); the global route (no dynamic shared
+    memory, one CTA an SM) only where a window would be mostly margin
+    (1,456 rows at a look-back of 64 or 16), at any width, its CTAs
     fewer where their scratch would pass GLOBAL_SCRATCH."""
     g = rescore_cuda.rescore_geometry
     smem = rescore_cuda.rescore_wide_smem
@@ -268,9 +271,16 @@ def test_rescore_geometry_routes():
     assert wide[:3] == ("wide", 576, 100) and wide.cols == 32 and \
         wide.halo == 1
     assert g(1000, 304, 17024, 160, sms=132, levels=4).grid == 1000
-    assert g(1000, 304, 262144, 160, sms=132)[:4] == ("global", 1024, 32, 0)
+    sg = rescore_cuda.rescore_segments(1000, 304, 262144, 160, sms=132)
+    assert sg == (4096, 3487, 608, 76)
+    assert g(1000, 304, 262144, 160, sms=132) == \
+        ("segments", 544, 1000 * 76, smem(17, 1, 8, 160), 8, 1, 1)
     big = g(1000, 304, 5_000_064, 160, sms=132)
-    assert big[:4] == ("global", 1024, 1, 0)
+    assert big[:4] == ("segments", 544, 1000 * 1434, smem(17, 1, 8, 160))
+    assert g(1000, 1456, 262144, 16 * 46, sms=132, levels=6)[:4] == \
+        ("global", 1024, 32, 0)
+    assert g(1000, 1456, 5_000_064, 16 * 46, sms=132, levels=4)[:4] == \
+        ("global", 1024, 1, 0)
     assert g(10, 296, 1024, 256 * 32, levels=4) == \
         ("warp", 32, 10, smem(1, 0, 32, 8192), 32, 0, 1)  # 32 KB of Peq
 
@@ -283,26 +293,35 @@ def test_rescore_wide_geometry_covers_every_launch():
     CTA only one warp each and the grid covering every pair, threads
     within the instance's launch bound and shared memory within what a
     CTA may opt into; the planned state (C keys and shiftR) within a
-    thread's 255 registers. Every instance is planned somewhere, and
-    every shape up to 1,024 columns takes the warp route."""
+    thread's 255 registers; on the segment route the same of its
+    window's launch over pairs x segments. Every instance is planned
+    somewhere, and every shape up to 1,024 columns takes the warp
+    route."""
     g = rescore_cuda.rescore_geometry
-    seen = set()
+    seen, segs = set(), 0
     for L1 in [128 * k for k in range(1, 160)] + [17024, 32768, 65536]:
         for levels in range(1, 11):
             for pequ32 in (16 * 46, 256 * 20):
-                N = 64
-                r = g(N, 1456, L1, pequ32, levels=levels)
+                r = g(64, 1456, L1, pequ32, levels=levels)
+                sg = rescore_cuda.rescore_segments(64, 1456, L1, pequ32,
+                                                   levels=levels)
                 if r.route == "global":
-                    assert L1 > 1024
+                    assert L1 > 1024 and sg is None
                     continue
-                sb, gb, db, w = rescore_cuda.rescore_key_bits(L1, levels)
+                L, N = L1, 64     # the row, or the segments' window
+                if r.route == "segments":
+                    assert sg.window < L1 and rescore_cuda.register_geometry(
+                        N, L1, pequ32, levels) is None
+                    L, N = sg.window, N * sg.segs
+                    segs += 1
+                sb, gb, db, w = rescore_cuda.rescore_key_bits(L, levels)
                 kb = 32 if sb + gb + db <= 31 else 64
                 assert sb + gb + db <= 63 and (kb == 32 or r.cols == 32)
                 C, H, P = r.cols, r.halo, r.pairs
                 nw = r.threads // 32 // P
-                assert (r.route == "warp") == (nw == 1) == (L1 <= 1024)
+                assert (r.route == "warp") <= (nw == 1) == (L <= 1024)
                 own = 32 * C if nw == 1 else (32 - H) * C
-                assert nw * own >= L1 > (nw - 1) * own
+                assert nw * own >= L > (nw - 1) * own
                 assert (H == 0) == (nw == 1) and (nw == 1 or H * C >= w)
                 assert C & (C - 1) == 0 or (nw == 1 and w <= C)
                 assert P == 1 or nw == 1
@@ -315,6 +334,7 @@ def test_rescore_wide_geometry_covers_every_launch():
                     nw, H, C, pequ32, P) <= rescore_cuda.SMEM_MAX
                 assert (kb // 32 + 1) * C <= 255
                 seen.add((C, nw > 1, kb))
+    assert segs > 0
     assert seen == {(C, False, 32) for C in range(4, 33, 4)} | \
         {(C, True, 32) for C in (8, 16, 32)} | {(32, False, 64)}
 

@@ -446,4 +446,4 @@ def test_launches_on_the_tensors_card(monkeypatch):
                     isinstance(fn.value, ast.Name) and \
                     fn.value.id == "_build":
                 routed += 1
-    assert routed == 6
+    assert routed == 8   # K1/K2 2, K4 3; K3 3 (whole rows, segments, merge)
