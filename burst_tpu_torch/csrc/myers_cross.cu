@@ -92,6 +92,14 @@
 //    serial chain each), each pair's columns split into overlapping
 //    segments scanned at once; the notes above the kernel say why the
 //    overlap makes that exact.
+//
+// Up to W = 16, where a launch's pairs leave the card idle (a few tiles
+// of whole references or genomes against up to 2,048 queries: at T = 1
+// one tile a thread is one live lane in 32 and a serial chain of 10^5
+// columns), the thin route `myers_cross_thin_kernel<W, NQ, C>`
+// (`kernels/myers_cuda.py::cross_thin_geometry`): lanes across queries,
+// each tile's columns split into the same overlapping segments; the notes
+// above the kernel give its design.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -587,6 +595,228 @@ myers_cross_group_kernel(const uint32_t* __restrict__ peq,   // [Q,C,W]
   }
 }
 
+// ---------------------------------------------------------------------
+// The thin route (`myers_cross_thin_kernel<W, NQ, C>`), for narrow
+// launches (W <= 16) whose pairs leave the card idle: a few tiles of
+// whole references or genomes (16,608 to 150,000 columns) against up to
+// 2,048 queries.
+//  * Lanes across queries. A CTA owns one tile, `warps` consecutive
+//    column segments of it (one a warp) and a block of 32 NQ queries:
+//    lane l carries queries q0 + 32 j + l, j < NQ, their NQ x W VP/VN
+//    words in registers as in the narrow kernel. Every lane of a warp
+//    scans the same columns, so the warp never diverges and a tile code
+//    is the same for all its lanes.
+//  * Tile codes: each warp reads its segment 128 columns at a time, one
+//    aligned 4-byte word a lane (one coalesced 128-byte load; bytes one
+//    by one where rows are not 4-byte aligned), the next 128 columns'
+//    load issued before the current ones are scanned; a column's word
+//    comes to every lane by one shuffle per 4 columns. No shared-memory
+//    ring and no barrier in the scan.
+//  * Eq words, C = 16: the CTA's 32 NQ queries' tables staged once in
+//    shared memory as [code][word][j][lane], so that at a column the 32
+//    lanes read 32 neighbouring words: conflict-free whatever the code
+//    (4 C W NQ 32 bytes: 20 KB at W = 5, 64 KB at W = 16, which opts in
+//    past 48 KB). C = 256 (raw bytes) would take 16 times that; those
+//    tables are read through the L1 cache from the [Q, C, W] layout, a
+//    lane a row.
+//  * Segments as the lane-group route's (the notes above
+//    `myers_cross_group_kernel`): segment s scans columns max(0, s seg -
+//    over) .. min((s + 1) seg, Lp) - 1 from a fresh state, exact once
+//    over >= 32W + min(32W, 255) for uint8 (64W for int32); the launcher
+//    refuses less. The least of the segments' minima is taken over the
+//    CTA's warps in shared memory; where a tile's segments span several
+//    CTAs (`parts` > 1), each CTA writes its least to an int32 scratch
+//    [parts][Q][T] and `myers_cross_thin_merge_kernel`, one thread a
+//    pair, takes the least over the parts and writes the result (int32,
+//    or uint8 clipped at 255): no atomics, no initialised buffer, the
+//    same result in every run.
+//  * Grid: (tile, part) on grid.x, query blocks on grid.y.
+// What bounds it: the scan's integer issue, as for the narrow kernel,
+// times the work the segments add (seg + over columns for seg owned).
+constexpr int kThinMaxWarps = 8;     // segments (warps) a CTA at most
+constexpr int kThinCols = 128;       // columns a warp loads at once
+
+template <int W, int NQ, int C>
+__device__ __forceinline__ void thin_step(
+    uint32_t code, const uint32_t* __restrict__ tab,
+    const uint32_t* const (&rows)[NQ], uint32_t (&VP)[NQ][W],
+    uint32_t (&VN)[NQ][W], int (&score)[NQ], int (&best)[NQ]) {
+  uint32_t carry[NQ], ph_prev[NQ], mh_prev[NQ], ph[NQ], mh[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) carry[q] = ph_prev[q] = mh_prev[q] = 0u;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const uint32_t eq = C == 16 ? tab[((code * W + w) * NQ + q) * 32]
+                                  : __ldg(rows[q] + code * W + w);
+      const uint32_t vp = VP[q][w];
+      const uint32_t vn = VN[q][w];
+      const uint64_t s =
+          (uint64_t)(eq & vp) + (uint64_t)vp + (uint64_t)carry[q];
+      carry[q] = (uint32_t)(s >> 32);
+      const uint32_t xh = ((uint32_t)s ^ vp) | eq;
+      ph[q] = vn | ~(xh | vp);
+      mh[q] = vp & xh;
+      const uint32_t xv = eq | vn;
+      const uint32_t phs = __funnelshift_l(ph_prev[q], ph[q], 1);
+      const uint32_t mhs = __funnelshift_l(mh_prev[q], mh[q], 1);
+      ph_prev[q] = ph[q];
+      mh_prev[q] = mh[q];
+      VP[q][w] = mhs | ~(xv | phs);
+      VN[q][w] = phs & xv;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    score[q] += (int)(ph[q] >> 31) - (int)(mh[q] >> 31);
+    best[q] = min(best[q], score[q]);
+  }
+}
+
+template <int W, int NQ, int C>
+__global__ void __launch_bounds__(32 * kThinMaxWarps)
+myers_cross_thin_kernel(const uint32_t* __restrict__ peq,   // [Q,C,W]
+                        const uint8_t* __restrict__ tiles,  // [T,Lp]
+                        void* __restrict__ out,             // [Q,T]
+                        int* __restrict__ part,  // [parts][Q][T] or null
+                        int Q, int T, int Lp, int S, int seg, int over,
+                        int parts, int aligned, int out_u8) {
+  // Eq [C][W][NQ][32] (C = 16), then the warps' minima [warps][NQ][32]
+  extern __shared__ uint32_t s_thin[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const int t = blockIdx.x / parts, pi = blockIdx.x - t * parts;
+  const int q0 = blockIdx.y * 32 * NQ;
+  const int s = pi * warps + warp;
+  const int a = max(0, s * seg - over);
+  const int n = s < S ? max(0, min(Lp, (s + 1) * seg) - a) : 0;
+  constexpr int kTab = C == 16 ? C * W * NQ * 32 : 0;
+  int* s_best = reinterpret_cast<int*>(s_thin + kTab);
+
+  if (C == 16) {
+    for (int i = tid; i < kTab; i += blockDim.x) {
+      const int ql = i % (NQ * 32), q = q0 + ql;
+      s_thin[i] = q < Q ? __ldg(peq + (size_t)q * C * W + i / (NQ * 32))
+                        : 0u;
+    }
+    __syncthreads();
+  }
+  const uint32_t* rows[NQ];   // C = 256: each chain's row of Eq words
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+    rows[j] = peq + (size_t)min(q0 + 32 * j + lane, Q - 1) * C * W;
+  const uint32_t* tab = s_thin + lane;
+
+  uint32_t VP[NQ][W], VN[NQ][W];
+  int score[NQ], best[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      VP[q][w] = 0xFFFFFFFFu;
+      VN[q][w] = 0u;
+    }
+    score[q] = 32 * W;
+    best[q] = 32 * W;
+  }
+
+  // lane l's word of the 128 columns from c0 of the segment: bytes
+  // c0 + 4l .. c0 + 4l + 3 (a segment of aligned rows holds whole words)
+  const uint8_t* row = tiles + (size_t)t * Lp + a;
+  auto load = [&](int c0) -> uint32_t {
+    const int col = c0 + 4 * lane;
+    if (aligned)
+      return col < n ? __ldg(reinterpret_cast<const uint32_t*>(row + col))
+                     : 0u;
+    uint32_t v = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (col + b < n) v |= (uint32_t)__ldg(row + col + b) << (8 * b);
+    return v;
+  };
+  uint32_t cur = n > 0 ? load(0) : 0u;
+  for (int c0 = 0; c0 < n; c0 += kThinCols) {
+    const uint32_t next = c0 + kThinCols < n ? load(c0 + kThinCols) : 0u;
+    const int left = n - c0;
+    if (left >= kThinCols) {
+#pragma unroll 1
+      for (int k = 0; k < 32; ++k) {
+        const uint32_t word = __shfl_sync(0xFFFFFFFFu, cur, k);
+#pragma unroll
+        for (int sub = 0; sub < 4; ++sub)
+          thin_step<W, NQ, C>((word >> (8 * sub)) & (uint32_t)(C - 1), tab,
+                              rows, VP, VN, score, best);
+      }
+    } else {
+#pragma unroll 1
+      for (int k = 0; k < (left + 3) / 4; ++k) {
+        const uint32_t word = __shfl_sync(0xFFFFFFFFu, cur, k);
+#pragma unroll
+        for (int sub = 0; sub < 4; ++sub)
+          if (4 * k + sub < left)
+            thin_step<W, NQ, C>((word >> (8 * sub)) & (uint32_t)(C - 1),
+                                tab, rows, VP, VN, score, best);
+      }
+    }
+    cur = next;
+  }
+
+  // the least over the CTA's segments, a pair a thread; a warp without
+  // a segment holds 32W, never below the result
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) s_best[(warp * NQ + j) * 32 + lane] = best[j];
+  __syncthreads();
+  for (int i = tid; i < NQ * 32; i += blockDim.x) {
+    int m = s_best[i];
+    for (int w = 1; w < warps; ++w) m = min(m, s_best[w * NQ * 32 + i]);
+    const int q = q0 + i;   // j = i / 32, lane = i % 32
+    if (q < Q) {
+      const size_t o = (size_t)q * T + t;
+      if (parts > 1)
+        part[(size_t)pi * Q * T + o] = m;
+      else if (out_u8)
+        static_cast<uint8_t*>(out)[o] = (uint8_t)min(m, 255);
+      else
+        static_cast<int32_t*>(out)[o] = m;
+    }
+  }
+}
+
+// The least of each pair's `parts` partial minima, one thread a pair.
+__global__ void myers_cross_thin_merge_kernel(const int* __restrict__ part,
+                                              void* __restrict__ out,
+                                              long long n, int parts,
+                                              int out_u8) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int m = part[i];
+  for (int p = 1; p < parts; ++p) m = min(m, part[(size_t)p * n + i]);
+  if (out_u8)
+    static_cast<uint8_t*>(out)[i] = (uint8_t)min(m, 255);
+  else
+    static_cast<int32_t*>(out)[i] = m;
+}
+
+template <int W, int C>
+int launch_thin(const void* peq, const void* tiles, void* out, void* part,
+                int Q, int T, int Lp, int S, int seg, int over, int parts,
+                int warps, dim3 grid, int smem, int aligned, int out_u8,
+                cudaStream_t stream) {
+  constexpr int kNQ = W <= 4 ? 4 : 2;
+  auto kern = &myers_cross_thin_kernel<W, kNQ, C>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
+      out, static_cast<int*>(part), Q, T, Lp, S, seg, over, parts, aligned,
+      out_u8);
+  return (int)cudaGetLastError();
+}
+
 template <int W, int NQ, int C>
 int launch(const void* peq, const void* tiles, void* out, int Q, int T,
            int Lp, int out_u8, int threads, dim3 grid, int aligned,
@@ -681,6 +911,65 @@ extern "C" int myers_cross_wide_launch(const void* peq, const void* tiles,
   wide<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(peq), static_cast<const uint8_t*>(tiles),
       out, static_cast<uint32_t*>(scratch), Q, T, W, Lp, C, aligned, out_u8);
+  return (int)cudaGetLastError();
+}
+
+#define THIN_CASE(w)                                                     \
+  case w:                                                                \
+    err = C == 16 ? launch_thin<w, 16>(peq, tiles, out, part, Q, T, Lp,   \
+                                       S, seg, over, parts, warps, grid,  \
+                                       smem, aligned, out_u8, s)          \
+                  : launch_thin<w, 256>(peq, tiles, out, part, Q, T, Lp,  \
+                                        S, seg, over, parts, warps, grid, \
+                                        smem, aligned, out_u8, s);        \
+    break;
+
+// The thin route (W <= 16 where the pairs leave the card idle), the
+// launch of kernels/myers_cuda.py::cross_thin_geometry: NQ queries a lane
+// (4 at W <= 4, else 2), 32 NQ a CTA, query blocks on grid.y (gy =
+// ceil(Q / 32 NQ)); S segments of `seg` columns (a multiple of 4,
+// covering Lp, none empty) scanned from `over` columns before their
+// first (a multiple of 4, at least 32W + 32W, or 32W + min(32W, 255) for
+// uint8); `warps` segments a CTA (1-8), `parts` = ceil(S / warps) CTAs a
+// tile, gx = T x parts; `part` an int32 scratch of parts x Q x T words
+// where parts > 1, else null; `smem` = 4 x 32 NQ (16 W + warps) bytes at
+// C = 16, 4 x 32 NQ warps at 256. Returns cudaGetLastError() after the
+// launches (cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int myers_cross_thin_launch(const void* peq, const void* tiles,
+                                       void* out, void* part, int Q, int T,
+                                       int W, int Lp, int C, int NQ, int S,
+                                       int seg, int over, int warps, int gx,
+                                       int gy, int smem, int out_u8,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int parts = warps > 0 ? (S + warps - 1) / warps : 0;
+  if (Q <= 0 || T <= 0 || W < 1 || W > 16 || Lp < 0 ||
+      (C != 16 && C != 256) || (out_u8 != 0 && out_u8 != 1) ||
+      NQ != (W <= 4 ? 4 : 2) || S < 1 || seg < 0 || seg % 4 ||
+      over % 4 || (long long)S * seg < Lp ||
+      (S > 1 && (long long)(S - 1) * seg >= Lp) ||
+      over < 32 * W + (out_u8 ? min(32 * W, 255) : 32 * W) || warps < 1 ||
+      warps > kThinMaxWarps || (long long)gx != (long long)T * parts ||
+      gy != (Q + 32 * NQ - 1) / (32 * NQ) || gy > 65535 ||
+      (part == nullptr) != (parts == 1) ||
+      (long long)smem !=
+          4LL * 32 * NQ * ((C == 16 ? 16LL * W : 0) + warps) ||
+      smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  const int aligned = (Lp % 4 == 0) &&
+                      (reinterpret_cast<uintptr_t>(tiles) % 4 == 0);
+  const dim3 grid(gx, gy);
+  int err = (int)cudaErrorInvalidValue;
+  switch (W) {
+    THIN_CASE(1) THIN_CASE(2) THIN_CASE(3) THIN_CASE(4)
+    THIN_CASE(5) THIN_CASE(6) THIN_CASE(7) THIN_CASE(8)
+    THIN_CASE(9) THIN_CASE(10) THIN_CASE(11) THIN_CASE(12)
+    THIN_CASE(13) THIN_CASE(14) THIN_CASE(15) THIN_CASE(16)
+  }
+  if (err != cudaSuccess || parts == 1) return err;
+  const long long n = (long long)Q * T;
+  myers_cross_thin_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const int*>(part), out, n, parts, out_u8);
   return (int)cudaGetLastError();
 }
 

@@ -55,8 +55,11 @@ def build(name: str) -> str:
         return so
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+    # --split-compile=0: the device optimizer's passes over a source's
+    # many template instances on all cores
+    cmd = [nvcc_path(), *ARCH, "-std=c++17", "-O3", "--split-compile=0",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+           src]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}"

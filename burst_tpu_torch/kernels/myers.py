@@ -33,6 +33,11 @@ M32 = 0xFFFFFFFF
 # at any W past 1: there every operation is a small launch, and the
 # per-word step makes W times more of them
 SMALL_STATE = 1 << 16
+# On a CUDA device, a scan whose state holds at most GRAPH_STATE words is
+# bound by launching its few dozen small operations a column from
+# Python: its column loop replays GRAPH_COLS columns from a CUDA graph
+GRAPH_STATE = 1 << 22
+GRAPH_COLS = 32
 
 
 def words_for(qlen: int) -> int:
@@ -212,6 +217,70 @@ def _step(eq, VP, VN, W: int):
     return VP, VN, delta
 
 
+def _replayed(columns, Lp: int, dev) -> int:
+    """Runs `columns()` -- GRAPH_COLS columns of a scan, on tensors that
+    it updates in place, the column index a device counter it advances
+    -- over the first Lp // GRAPH_COLS * GRAPH_COLS columns: the first
+    call as it is, on a side stream (the warm-up a capture needs), then
+    captured once in a CUDA graph and replayed for the rest, so the
+    device launches the same operations in the same order. Returns the
+    columns done; the caller scans the rest."""
+    n = Lp // GRAPH_COLS
+    if n == 0:
+        return 0
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        columns()
+    cur.wait_stream(side)
+    if n > 1:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            columns()
+        for _ in range(n - 1):
+            graph.replay()
+    return n * GRAPH_COLS
+
+
+def _graphed(dev, state_words: int, Lp: int) -> bool:
+    """Whether a scan's column loop replays from a CUDA graph."""
+    return dev.type == "cuda" and state_words <= GRAPH_STATE and \
+        Lp >= 2 * GRAPH_COLS
+
+
+def _keep(dst, src):
+    """Copies a scan state `src` (as `_start` gives it) into `dst`."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    else:
+        for d, x in zip(dst, src):
+            d.copy_(x)
+
+
+def _scan(column, VP, VN, Lp: int, dev, state_words: int):
+    """`VP, VN = column(j, VP, VN)` for j = 0 .. Lp - 1 on the state of
+    `_start`, the rest of a scan's state updated in place by `column`.
+    Where `_graphed`, the first columns replay from a CUDA graph
+    (`_replayed`, j a one-element device counter), the rest run column
+    by column (j an int)."""
+    done = 0
+    if _graphed(dev, state_words, Lp):
+        j = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def columns():
+            vp, vn = (VP, VN) if isinstance(VP, torch.Tensor) else \
+                (list(VP), list(VN))
+            for _ in range(GRAPH_COLS):
+                vp, vn = column(j, vp, vn)
+                j.add_(1)
+            _keep(VP, vp)
+            _keep(VN, vn)
+        done = _replayed(columns, Lp, dev)
+    for j in range(done, Lp):
+        VP, VN = column(j, VP, VN)
+
+
 def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
               ) -> torch.Tensor:
     """[3, B] int32 (min ED, first and last 1-based column reaching it)
@@ -225,16 +294,22 @@ def _pos_scan(peq: torch.Tensor, tiles: torch.Tensor, W: int
     best = score.clone()
     first = torch.zeros(B, dtype=torch.int64, device=dev)
     last = torch.zeros(B, dtype=torch.int64, device=dev)
-    for j in range(Lp):
-        eq_b = peq64.gather(
-            1, cols[:, j].view(B, 1, 1).expand(B, 1, W)).squeeze(1)
+
+    def column(j, VP, VN):
+        # j: the column, an int or (replayed) a one-element device tensor
+        code = cols[:, j] if isinstance(j, int) else \
+            cols.index_select(1, j).view(B)
+        eq_b = peq64.gather(1, code.view(B, 1, 1).expand(B, 1, W)).squeeze(1)
         VP, VN, delta = _step(eq_b, VP, VN, W)
-        score = score + delta
+        score.add_(delta)
         strict = score < best
         upd = score <= best
-        best = torch.where(upd, score, best)
-        first = torch.where(strict, j + 1, first)
-        last = torch.where(upd, j + 1, last)
+        torch.where(upd, score, best, out=best)
+        first.copy_(torch.where(strict, j + 1, first))
+        last.copy_(torch.where(upd, j + 1, last))
+        return VP, VN
+
+    _scan(column, VP, VN, Lp, dev, B * W)
     return torch.stack([best, first, last]).to(torch.int32)
 
 
@@ -254,10 +329,17 @@ def myers_cross_plain(peq: torch.Tensor, tiles: torch.Tensor, W: int,
     VP, VN = _start((Q, T), W, dev)
     score = torch.full((Q, T), WORD * W, dtype=torch.int64, device=dev)
     best = score.clone()
-    for j in range(Lp):
-        VP, VN, delta = _step(peq64[:, cols[:, j], :], VP, VN, W)
-        score = score + delta
-        best = torch.minimum(best, score)
+
+    def column(j, VP, VN):
+        # j: the column, an int or (replayed) a one-element device tensor
+        code = cols[:, j] if isinstance(j, int) else \
+            cols.index_select(1, j).view(T)
+        VP, VN, delta = _step(peq64[:, code, :], VP, VN, W)
+        score.add_(delta)
+        torch.minimum(best, score, out=best)
+        return VP, VN
+
+    _scan(column, VP, VN, Lp, dev, Q * T * W)
     if out_dtype == torch.uint8:
         return best.clamp_(max=255).to(torch.uint8)
     return best.to(torch.int32)

@@ -14,13 +14,16 @@ ballots (`pair_wide_geometry`); the cross kernel's the same lane groups
 with each pair's columns split into overlapping segments where the
 launch leaves the card idle (`cross_group_geometry`), else one thread a
 pair with the words in shared memory (`cross_wide_geometry`); each past
-what that holds with the words in a global scratch allocated here.
+what that holds with the words in a global scratch allocated here. The
+cross kernel's narrow launches (W <= 16) that leave the card idle take
+its thin route (`cross_thin_geometry`): lanes across queries, each
+tile's columns in the same overlapping segments.
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version from `kernels.myers`. Each wrapper
 counts its own launches in its `launches` attribute, the wide routes'
-among them in `wide`, and the cross kernel's lane-group launches among
-those in `group`.
+among them in `wide`, the cross kernel's lane-group launches among
+those in `group` and its thin launches in `thin`.
 """
 from __future__ import annotations
 
@@ -51,6 +54,16 @@ PAIR_THREADS = 128            # K1/K2 wide: threads a CTA (32 small launches)
 # up to that many lanes in flight)
 CROSS_FILL_WARPS = 3
 CROSS_GROUP_THREADS = 128     # K4 lane groups: threads a CTA, at most
+# K4 thin: segments (warps) a CTA, at most: small CTAs, so that a launch
+# of a few hundred of them spreads evenly over the SMs
+CROSS_THIN_WARPS = 4
+# K4 thin: warps a scheduler that keep the scan's int32 pipe busy (on an
+# H100 two such warps ran at 0.82-0.93 of the SM's int32 rate; PERF.md)
+CROSS_THIN_ISSUE_WARPS = 2
+# K4 thin: the route takes a launch only where its estimate is under the
+# narrow kernel's over this (at 42 rows against 397 tiles of 416 columns
+# an estimate of 0.69 of it ran 0.87x in turns on an H100; PERF.md)
+CROSS_THIN_GAIN = 2
 FMT_PACKED, FMT_BYTES = 0, 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,7 +71,8 @@ _SIG = {"myers_pairs_launch": [_P] * 5 + [_I] * 10 + [_P],
         "myers_pairs_wide_launch": [_P] * 6 + [_I] * 11 + [_P]}
 _SIG_CROSS = {"myers_cross_launch": [_P, _P, _P] + [_I] * 10 + [_P],
               "myers_cross_wide_launch": [_P] * 4 + [_I] * 10 + [_P],
-              "myers_cross_group_launch": [_P] * 3 + [_I] * 15 + [_P]}
+              "myers_cross_group_launch": [_P] * 3 + [_I] * 15 + [_P],
+              "myers_cross_thin_launch": [_P] * 4 + [_I] * 14 + [_P]}
 _CROSS_DTYPES = {torch.int32: 0, torch.uint8: 1}
 
 
@@ -238,6 +252,97 @@ def cross_group_geometry(Q: int, T: int, W: int, Lp: int, C: int = 16,
                             (-(-T // P), Q), smem)
 
 
+class CrossThinLaunch(NamedTuple):
+    """A K4 launch on the thin route: queries a lane NQ, column segments
+    a tile S, the columns a segment owns, the columns it scans before
+    its first, segments (warps) a CTA, CTAs a tile (the partial minima
+    merged by a second kernel where more than one), grid (x, y) and
+    dynamic shared-memory bytes."""
+    nq: int
+    segments: int
+    seg: int
+    over: int
+    warps: int
+    parts: int
+    grid: tuple[int, int]
+    smem: int
+
+
+def _busiest(ctas: int, warps: int, sms: int) -> float:
+    """Warps a scheduler of the busiest SM holds: a launch's CTAs of
+    `warps` warps spread over `sms` SMs of four schedulers."""
+    return -(-ctas // sms) * warps / 4
+
+
+def _thin_plan(Lp: int, S: int, warps: int) -> tuple[int, int, int, int]:
+    """(segments, columns a segment owns, CTAs a tile, segments a CTA)
+    for about S segments of whole 32-column chunks, at most `warps` a
+    CTA, a tile's segments over its CTAs as even as that allows."""
+    seg = -(-(-(-Lp // S)) // 32) * 32
+    S = max(1, -(-Lp // seg)) if seg else 1
+    parts = -(-S // warps)
+    return S, seg, parts, -(-S // parts)
+
+
+@functools.lru_cache(maxsize=4096)
+def cross_thin_geometry(Q: int, T: int, W: int, Lp: int, C: int = 16,
+                        u8: bool = True, sms: int = 132,
+                        force: bool = False, segments: int | None = None,
+                        warps: int | None = None
+                        ) -> CrossThinLaunch | None:
+    """The thin launch of a narrow K4 call (W <= 16) over Q queries and
+    T tiles of Lp columns, or None where `cross_geometry`'s (one tile a
+    thread) runs it: where the pairs, NQ a thread, give each of the
+    card's warp schedulers CROSS_FILL_WARPS warps, where it would plan
+    one segment a tile (nothing to split: the narrow kernel keeps the
+    launch), or where it would not take under 1 / CROSS_THIN_GAIN of
+    that one's time (`force` takes it whatever the shape). Lanes across queries, 32 NQ
+    a CTA (query blocks on grid.y); each tile's columns in S segments,
+    at most CROSS_THIN_WARPS a CTA (`warps` in its place, up to 8), a
+    tile's segments over `parts` CTAs as even as that allows; the Eq
+    tables (C = 16) in shared memory beside the warps' minima. S is the
+    count that
+    takes least time by the columns a warp scans (seg + over) times the
+    warps a scheduler of the busiest SM holds, counted as no fewer than
+    CROSS_THIN_ISSUE_WARPS (below that the pipe idles as long); S runs
+    up to twice the CROSS_FILL_WARPS fill and keeps a segment no shorter
+    than a quarter of its overlap (`cross_overlap`). `segments` sets S
+    (then as near as whole 32-column chunks allow). The narrow launch is
+    timed by the same measure: Lp columns a warp."""
+    if W > NARROW_W:
+        return None
+    nq = 4 if W <= 4 else 2
+    fill = CROSS_FILL_WARPS * sms * 4          # warps
+    if not force and segments is None and -(-Q // nq) * T >= fill * 32:
+        return None
+    qblocks = -(-Q // (32 * nq))
+    over = cross_overlap(W, u8)
+    cap = warps or CROSS_THIN_WARPS
+
+    def cost(plan):
+        S, seg, parts, w = plan
+        cols = seg + over if S > 1 else Lp
+        return cols * max(CROSS_THIN_ISSUE_WARPS,
+                          _busiest(qblocks * T * parts, w, sms))
+    if segments:
+        plan = _thin_plan(Lp, segments, cap)
+    else:
+        top = max(1, min(4 * (Lp - over) // over,
+                         2 * fill // (qblocks * T)))
+        plan = min((_thin_plan(Lp, S, cap) for S in range(1, top + 1)),
+                   key=cost)
+    if not force and segments is None:
+        _, threads, (gx, gy) = cross_geometry(Q, T, W)
+        narrow = Lp * max(CROSS_THIN_ISSUE_WARPS,
+                          _busiest(gx * gy, threads // 32, sms))
+        if plan[0] == 1 or CROSS_THIN_GAIN * cost(plan) >= narrow:
+            return None
+    S, seg, parts, w = plan
+    smem = 4 * 32 * nq * ((16 * W if C == 16 else 0) + w)
+    return CrossThinLaunch(nq, S, seg, over, w, parts, (T * parts, qblocks),
+                           smem)
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
     """Streaming multiprocessors of a CUDA device (cached)."""
@@ -377,11 +482,27 @@ def myers_cross(peq: torch.Tensor, tiles: torch.Tensor, W: int,
     out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
     if Q == 0 or T == 0:
         return out
+    lib = _build.load("myers_cross", _SIG_CROSS)
+    stream = torch.cuda.current_stream(peq.device).cuda_stream
+    u8 = _CROSS_DTYPES[out_dtype]
+    g = cross_thin_geometry(Q, T, W, Lp, peq.shape[1], bool(u8),
+                            sm_count(peq.device))
+    if g is not None:
+        part = torch.empty(g.parts * Q * T if g.parts > 1 else 0,
+                           dtype=torch.int32, device=peq.device)
+        _build.launch(
+            peq.device, lib.myers_cross_thin_launch, peq.data_ptr(),
+            tiles.data_ptr(), out.data_ptr(),
+            part.data_ptr() if g.parts > 1 else None, Q, T, W, Lp,
+            peq.shape[1], g.nq, g.segments, g.seg, g.over, g.warps,
+            *g.grid, g.smem, u8, stream)
+        myers_cross.launches += 1
+        myers_cross.thin += 1
+        return out
     _build.launch(
-        peq.device, _build.load("myers_cross", _SIG_CROSS).myers_cross_launch,
-        peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
-        peq.shape[1], NQ, threads, gx, gy, _CROSS_DTYPES[out_dtype],
-        torch.cuda.current_stream(peq.device).cuda_stream)
+        peq.device, lib.myers_cross_launch, peq.data_ptr(),
+        tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp, peq.shape[1], NQ,
+        threads, gx, gy, u8, stream)
     myers_cross.launches += 1
     return out
 
@@ -429,4 +550,5 @@ def _cross_wide(peq, tiles, W: int, out_dtype):
     return out
 
 
-myers_cross.launches = myers_cross.wide = myers_cross.group = 0
+myers_cross.launches = myers_cross.wide = myers_cross.group = \
+    myers_cross.thin = 0

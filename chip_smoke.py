@@ -1,6 +1,6 @@
 """Smoke run of burst_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # needs one card; about 17 min
+    python3 chip_smoke.py                 # needs one card; about 14 min
     python3 chip_smoke.py kernels         # phases 1-2 only (a first check
                                           # of a new kernel; no result line)
     python3 chip_smoke.py twostep         # build, then phase 6 alone and
@@ -57,7 +57,15 @@
                                           # wide entry, its wide route in
                                           # turns; of the 8-argument
                                           # interface, both timed in
-                                          # turns at their own blocks
+                                          # turns at their own blocks; the
+                                          # thin route's shapes and plans
+    python3 chip_smoke.py thin [old.cu]   # K4's thin route alone: build,
+                                          # THIN_CROSS_SHAPES held and
+                                          # timed in turns with the narrow
+                                          # kernel, other plans in turns;
+                                          # with an earlier source, the
+                                          # direct block in turns with its
+                                          # narrow kernel; then the recount
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from `burst_tpu_torch/csrc` (one nvcc per
@@ -83,11 +91,17 @@ Phases, each fatal on failure:
      must be one launch that allocates only its result. K3 at the
      headline's W = 4 (L1 = 128 windowed, 640 full width) and at the
      amplicon's W = 10 with 296 DP rows (L1 = 384 windowed, 1024 full
-     width: the warp route, one warp a pair). K4 in both result types (int32, uint8)
+     width: the warp route, one warp a pair). K4 in both result types
+     (int32, and uint8 held against the same plain scan clipped at 255)
      at each path's shape (`CROSS_SHAPES`), on the first block that
      `engine.cross_blocks` plans for this card: the direct block, the
      two-step and fused full-scan rows, one ragged shape, and the
-     raw-byte (-x) block of phase 9's protein set at 256 codes. The
+     raw-byte (-x) block of phase 9's protein set at 256 codes. K4's
+     thin route (`thin_cross_recs`) at phase 13's shortest and longest
+     genome (W = 5, 2,048 rows, one tile of 18,848 / 149,280 columns)
+     and phase 10's 16,569 bp bucket (W = 10, 336 x 4), exact against
+     the plain version and against the narrow kernel forced onto the
+     same inputs, the two timed in turns. The
      wide routes at phase 10's shapes (`wide_pair_recs`,
      `wide_cross_recs`, `wide_rescore_recs`): K1/K2 at W = 46 over 2^18
      pairs and the fused batch's 5,824, K2 at W = 44 and 43, every
@@ -133,7 +147,8 @@ Phases, each fatal on failure:
      on 320 reads (some with an N, some under k; the two-step path at the
      batch's default QBUNCH of 5), and one BEST batch made only of N
      reads (no clear row: two-step at QBUNCH=1). The card's b6 bytes
-     must equal the port's CPU run, mode by mode;
+     must equal the port's CPU run, mode by mode (the CPU runs in a
+     process of their own from the build on, `modes_cpu`);
   6. two-step accelerated path at full width: the amplicon workload (a
      97 %-clustered 16S-style database, families of 80 members x 1,450
      bp at 1.5 % from their ancestor; 20,000 reads of 292 bp with 0-5
@@ -205,8 +220,9 @@ Phases, each fatal on failure:
      random 16,569 bp references unsheared through the command line
      without -s, 1,000 reads of 257-300 bp (every 20th from a 16,569 bp
      reference) and 40 of 1,441-1,450 bp: BEST and CAPITALIST -b (K4 at
-     W up to 46 on lane groups, over column segments against the
-     16,569 bp units; K3 past 1,024 columns on its wide route, the
+     W up to 10 against the 16,569 bp units on its thin route, every
+     such launch, and at W up to 46 on lane groups over column
+     segments; K3 past 1,024 columns on its wide route, the
      16,569 bp units' L1 = 17,024 included), every shape held, 48 of the
      reads against the CLI's CPU run.
  11. several devices in one process (`parallel.mesh`; the grids take
@@ -249,12 +265,13 @@ Phases, each fatal on failure:
      unit and length bucket) through the command line without -s,
      20,000 reads of 150 bp from phase 10's generator (both strands,
      every 199th with an N), -i 0.97: BEST, CAPITALIST -b and ANY, each
-     with every count set to 0 just before; K4 on its narrow route at
-     one tile a bucket, K3 at full width over 18-160 kbp: at least one
-     segment launch a mode, no global launch, every K3 call past 17,856
-     columns planned on segments. Every K3 shape launched again on its
-     own arguments and held on 8 of its pairs against the plain
-     version, the merge on its own partial results, K4 at the shortest
+     with every count set to 0 just before; K4 at one tile a bucket,
+     every launch on its thin route, K3 at full width over 18-160 kbp:
+     at least one segment launch a mode, no global launch, every K3
+     call past 17,856 columns planned on segments. Every K3 shape
+     launched again on its own arguments and held on 8 of its pairs
+     against the plain version, the merge on its own partial results,
+     K4 at the shortest
      genome on 256 of its rows; 64 check reads a mode against the CLI's
      CPU run (three processes started after the build, beside the
      card's work); one JSON line of each mode's seconds, K3/K4 launches,
@@ -428,12 +445,14 @@ def _entry_name(ptxas_line: str) -> str:
     """'W=<args>' of a ptxas entry line; 'wide <args>' for a wide
     route's instance (K1/K2: words a lane; K3: columns a thread and key
     bits; K4: the scratch flag), 'group <K>' for K4's lane-group route
-    (words a lane), 'scratch' for a global-scratch route."""
+    (words a lane), 'thin <W/NQ/C>' for its thin route (the merge kernel
+    'thin '), 'scratch' for a global-scratch route."""
     name = _mangled_kernel(ptxas_line)
     if "_scratch_" in name:
         return "scratch"
     wide = "wide " if "_wide_" in name else \
-        "group " if "_group_" in name else "W="
+        "group " if "_group_" in name else \
+        "thin " if "_thin_" in name else "W="
     return wide + _template_args(ptxas_line)
 
 
@@ -669,6 +688,25 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
             held(f"cross scan <{args}> operations per word", OPS_WORD,
                  sum(ops[k] for k in SCAN_WORD_OPCODES) / (4 * steps))
             held(f"cross scan <{args}> operations per step", OPS_COL,
+                 sum(ops[k] for k in SCAN_STEP_OPCODES) / steps)
+        # its thin route (`myers_cross_thin_kernel<W, NQ, C>`) at W = 4
+        # and 5, 16 codes: the scan loop is the one with the most LOP3
+        # among the loops that step queries (VIMNMX) and take the tile
+        # word by a shuffle (SHFL): 4 columns of NQ queries
+        for args in ("4/4/16", "5/2/16"):
+            W = int(args.split("/")[0])
+            scan = [l for l in fns["myers_cross_thin_kernel", args]
+                    if l[3]["VIMNMX"] and l[3]["SHFL"]]
+            if not scan:
+                show("myers_cross_thin_kernel", args)
+                fail(f"myers_cross thin <{args}>: no scan loop in the "
+                     "machine code")
+            hot = max(scan, key=lambda l: l[3]["LOP3"])
+            show("myers_cross_thin_kernel", args, [hot])
+            ops, steps = hot[3], hot[3]["VIMNMX"]
+            held(f"cross scan thin <{args}> operations per word", OPS_WORD,
+                 sum(ops[k] for k in SCAN_WORD_OPCODES) / (W * steps))
+            held(f"cross scan thin <{args}> operations per step", OPS_COL,
                  sum(ops[k] for k in SCAN_STEP_OPCODES) / steps)
     if above:
         fail("; ".join(above))
@@ -1275,13 +1313,14 @@ def cross_bound(W: int, Q: int, T: int, Lp: int, out_bytes: int,
 
 
 def hold_cross_call(label, peq, tiles, W, out_dtype=None, host=None,
-                    reps=20):
+                    reps=20, plain=None):
     """One K4 call on the card in `out_dtype` (int32 by default), exact
     against the plain version there in the same type (timed once, with
-    CUDA events: it takes seconds at the paths' shapes) and, given the
-    native host twin's int32 result `host`, against that (clipped at
-    255 for uint8). Returns (result on the host, the kernel record's
-    entry)."""
+    CUDA events: it takes seconds at the paths' shapes; or `plain`, its
+    int32 result on the same inputs already held and its ms, clipped at
+    255 for uint8 as the plain version clips) and, given the native host
+    twin's int32 result `host`, against that (clipped likewise). Returns
+    (result on the host, the kernel record's entry)."""
     import numpy as np
     import torch
 
@@ -1289,25 +1328,37 @@ def hold_cross_call(label, peq, tiles, W, out_dtype=None, host=None,
     dt = out_dtype or torch.int32
     (Q, C, (T, Lp)) = peq.shape[0], peq.shape[1], tiles.shape
     k4 = lambda: myers_cuda.myers_cross(peq, tiles, W, dt)
-    got = k4().cpu().numpy()
     ty = "uint8" if dt == torch.uint8 else "int32"
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    ref = myers.myers_cross_plain(peq, tiles, W, dt)
-    e1.record()
-    err = exact(f"K4 {label} {ty} vs plain", got, ref.cpu().numpy())
+    thin = k4_route(W, Q, T, Lp, ty, C) == "thin"
+    n0 = myers_cuda.myers_cross.thin
+    got = k4().cpu().numpy()
+    if (myers_cuda.myers_cross.thin > n0) != thin:
+        fail(f"K4 {label}: the thin route "
+             + ("did not launch" if thin else "launched")
+             + " against its geometry")
+    if plain is None:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref = myers.myers_cross_plain(peq, tiles, W, dt).cpu().numpy()
+        e1.record()
+        e1.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+    else:
+        ref, plain_ms = plain
+        ref = np.minimum(ref, 255) if dt == torch.uint8 else ref
+    err = exact(f"K4 {label} {ty} vs plain", got, ref)
     del ref
     if host is not None:
         exact(f"K4 {label} {ty} vs native host twin", got,
               np.minimum(host, 255) if dt == torch.uint8 else host)
     return got, dict(
-        name=f"K4 myers_cross ({label})", route="cuda",
-        source="burst_tpu_torch/csrc/myers_cross.cu",
+        name=f"K4{'-thin' if thin else ''} myers_cross ({label})",
+        route="cuda", source="burst_tpu_torch/csrc/myers_cross.cu",
         replaces="burst_tpu/kernels/myers_pallas.py:99",
-        max_abs_err=err, ms=time_ms(k4, reps), plain_ms=e0.elapsed_time(e1),
+        max_abs_err=err, ms=time_ms(k4, reps), plain_ms=plain_ms,
         **cross_bound(W, Q, T, Lp, got.itemsize, C),
-        library_ms=None, counter="k4",
+        library_ms=None, counter="k4t" if thin else "k4",
         shape=f"W={W} Q={Q} T={T} Lp={Lp} {ty}"
         + ("" if C == 16 else f" C={C}"))
 
@@ -1937,7 +1988,49 @@ def phase_wide_kernels():
     return recs
 
 
+def plain_graph_check():
+    """The plain Myers scans on the card replay their column loop from a
+    CUDA graph where their state is small (`kernels.myers._replayed`):
+    each such scan held exact against the same scan launched column by
+    column from Python (the graph's state bound set to 0), for K4 on
+    both state layouts (one tensor, W words apart) and for the pair
+    scan, their seconds logged side by side."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.alphabet import score_matrix
+    from burst_tpu_torch.kernels import myers
+    rng = np.random.default_rng(SEED + 15)
+    smat_d = torch.from_numpy(score_matrix()).to("cuda")
+    cases = (("K4, one tensor", 5, 64, 1, 1000), ("K4, W tensors", 4, 64,
+                                                    300, 500))
+    for label, W, Q, T, Lp in cases:
+        peq, tiles = _cross_inputs(rng, smat_d, W, Q, T, Lp, 32 * W - 20, 16)
+        pidx = torch.arange(Q, dtype=torch.int32, device="cuda").repeat(T)
+        tidx = torch.arange(T, dtype=torch.int32,
+                            device="cuda").repeat_interleave(Q)
+        for what, run in (
+                ("cross", lambda: myers.myers_cross_plain(peq, tiles, W)),
+                ("pairs", lambda: myers.myers_pairs_plain(peq, tiles, pidx,
+                                                          tidx, W))):
+            t0 = time.perf_counter()
+            graphed = run().cpu().numpy()
+            t1 = time.perf_counter()
+            bound, myers.GRAPH_STATE = myers.GRAPH_STATE, 0
+            try:
+                eager = run().cpu().numpy()
+            finally:
+                myers.GRAPH_STATE = bound
+            t2 = time.perf_counter()
+            exact(f"plain {what} scan ({label}, W={W} Q={Q} T={T} Lp={Lp}):"
+                  " replayed vs column by column", graphed, eager)
+            log(f"[plain] {what} scan {label} W={W} Q={Q} T={T} Lp={Lp}: "
+                f"replayed from a CUDA graph {t1 - t0:.3f} s, column by "
+                f"column {t2 - t1:.3f} s, exact")
+
+
 def phase_kernels(earlier=None):
+    plain_graph_check()
     recs, main, host, amp, amp_host = phase_pairs(earlier)
     # K3: the rescore winners of the W=4 pairs, budget 2 (98 % of 100 bp),
     # against 448-column bucket tiles padded to 512; and those of the 292
@@ -1948,6 +2041,7 @@ def phase_kernels(earlier=None):
     hold_rescore(recs, amp, amp_host, AMPLICON_READ_LEN, 9, 960, 2048)
 
     recs += phase_cross()[0]
+    recs += thin_cross_recs(*_thin_rng())
     wide = phase_wide_kernels()
     for r in recs:
         twin = "" if "C=256" in r["shape"] else " and host twin"
@@ -2060,13 +2154,18 @@ def phase_cross(earlier=None, variants=False):
         # against the plain version alone
         host = None if codes == 256 else host_cross(
             peq.cpu().numpy().view(np.uint32), tb.cpu().numpy(), W)
-        for dt in (torch.uint8, torch.int32):
+        # one plain scan a shape: the int32 call is held against it, the
+        # uint8 one against it clipped (the plain version's uint8)
+        plain = None
+        for dt in (torch.int32, torch.uint8):
             got, rec = hold_cross_call(label, peq, tb, W, dt, host,
-                                       reps=5 if Q * T > 1 << 22 else 20)
+                                       reps=5 if Q * T > 1 << 22 else 20,
+                                       plain=plain)
             if got.min() > 4:
                 fail(f"K4 {label}: no near pair in the block (min "
                      f"{got.min()})")
-            recs.append(rec)
+            plain = (got, rec["plain_ms"])
+            recs.insert(len(recs) - (dt == torch.uint8), rec)
         if earlier is not None and codes != 256:   # the parent's has 16
             turns.append(cross_in_turns(label, peq, tiles, W, earlier, sms))
         if variants:
@@ -2080,7 +2179,8 @@ def earlier_cross_kernel(src):
     (`myers_cross_wide_launch` of 15 arguments: one thread a pair, the
     words in shared memory, one query a CTA; the launch
     `cross_wide_geometry` plans), {"K4 wide": call(peq, tiles, W,
-    out_dtype)} at any W past 16; else the parent's of the 8-argument
+    out_dtype)} at any W past 16 and {"K4": call(...)}, its narrow
+    kernel at any shape up to W = 16; else the parent's of the 8-argument
     interface (`myers_cross_launch(peq, tiles, out, Q, T, W, Lp,
     stream)`, int32): a call over one block."""
     import torch
@@ -2088,6 +2188,22 @@ def earlier_cross_kernel(src):
     from burst_tpu_torch.kernels import _build, myers_cuda
     lib = _build_earlier(src, "myers_cross")
     if hasattr(lib, "myers_cross_wide_launch"):
+        narrow = lib.myers_cross_launch     # its 14 arguments
+        narrow.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
+        narrow.restype = ctypes.c_int
+
+        def k4(peq, tiles, W, out_dtype=torch.uint8):
+            Q, C, (T, Lp) = peq.shape[0], peq.shape[1], tiles.shape
+            nq, threads, (gx, gy) = myers_cuda.cross_geometry(Q, T, W)
+            out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
+            _build.check(narrow(
+                peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W,
+                Lp, C, nq, threads, gx, gy,
+                myers_cuda._CROSS_DTYPES[out_dtype],
+                torch.cuda.current_stream().cuda_stream),
+                "earlier myers_cross_launch")
+            return out
         wide = lib.myers_cross_wide_launch
         wide.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
             [ctypes.c_void_p]
@@ -2107,7 +2223,7 @@ def earlier_cross_kernel(src):
                 torch.cuda.current_stream().cuda_stream),
                 "earlier myers_cross_wide_launch")
             return out
-        return {"K4 wide": k4_wide}
+        return {"K4 wide": k4_wide, "K4": k4}
     fn = lib.myers_cross_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
@@ -2169,6 +2285,34 @@ def cross_in_turns(label, peq, tiles, W, earlier, sms):
     return row
 
 
+def direct_block_in_turns(earlier):
+    """The direct cell's K4 block (CROSS_SHAPES' first, at the plan's
+    block on this card) through `myers_cross` and through an earlier
+    source's narrow kernel, uint8, timed in turns (earlier, this, this,
+    earlier): a full grid stays on the narrow kernel."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch import engine
+    from burst_tpu_torch.alphabet import score_matrix
+    from burst_tpu_torch.kernels import myers_cuda
+    label, W, Q, units, Lp, qlen, codes = CROSS_SHAPES[0]
+    peq, tiles = _cross_inputs(
+        np.random.default_rng(SEED + 4), torch.from_numpy(
+            score_matrix()).to("cuda"), W, Q, units, Lp, qlen, codes)
+    _, T = engine.cross_blocks(Q, units, W, myers_cuda.sm_count("cuda"),
+                               engine.CROSS_BLOCK_BYTES)
+    tb = tiles[:T]
+    if k4_route(W, Q, T, Lp, "uint8", peq.shape[1]) != "narrow":
+        fail(f"K4 {label}: not the narrow route")
+    ms, was = in_turns(
+        f"K4 {label} W={W} Q={Q} T={T} Lp={Lp} uint8",
+        lambda: myers_cuda.myers_cross(peq, tb, W, torch.uint8),
+        lambda: earlier(peq, tb, W, torch.uint8), 10)
+    log(f"[cross] {label}: this {ms:.4f} ms, the earlier narrow kernel "
+        f"{was:.4f} ms ({100 * (ms / was - 1):+.2f} %)")
+
+
 def cross_variants(label, peq, tb, W):
     """This kernel on one block with its tiles one byte off alignment
     (register staging in place of cp.async), timed in turns with the
@@ -2190,6 +2334,183 @@ def cross_variants(label, peq, tb, W):
     log(f"[cross] {label} W={W} Q={Q} T={T} Lp={Lp}: cp.async "
         f"{ms[0]:.4f} / {ms[3]:.4f} ms; tiles 1 byte off (register staging) "
         f"{ms[1]:.4f} / {ms[2]:.4f} ms (bound {b:.4f} ms)")
+
+
+# K4's thin route at the direct path's shapes on whole references:
+# (label, W, query rows, tiles, Lp, query length, codes). Phase 13's
+# shortest and longest genome (2,048 reads of 150 bp against one tile a
+# bucket) and phase 10's 16,569 bp bucket (W = 10: 336 rows against its
+# four references); with `variants` also raw bytes (`-x`) against a
+# genome-length tile, whose 256-code Eq tables the kernel reads through
+# the L1 cache.
+THIN_CROSS_SHAPES = (
+    ("thin, the shortest whole genome", 5, 2048, 1, 18848, 150, 16),
+    ("thin, the longest whole genome", 5, 2048, 1, 149280, 150, 16),
+    ("thin, whole 16,569 bp references", 10, 336, 4, 16608, 300, 16),
+    ("thin, raw bytes", 2, 2048, 1, 18848, 60, 256))
+# A launch below the thin route's threshold (`CROSS_THIN_GAIN`): the
+# fused cell's 42 full-scan rows against its 397-unit bucket of 384 bp
+THIN_THRESHOLD_SHAPE = ("42 full-scan rows against 397 units", 1, 42, 397,
+                        416, 11, 5)
+
+
+def _narrow_call(peq, tiles, W, out_dtype):
+    """A call of K4's narrow launch (`cross_geometry`: one tile a
+    thread, `myers_cross_kernel`), forced on any shape up to W = 16."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers_cuda as mc
+    Q, C, (T, Lp) = peq.shape[0], peq.shape[1], tiles.shape
+    out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
+    lib = _build.load("myers_cross", mc._SIG_CROSS)
+    nq, threads, (gx, gy) = mc.cross_geometry(Q, T, W)
+
+    def run():
+        _build.check(lib.myers_cross_launch(
+            peq.data_ptr(), tiles.data_ptr(), out.data_ptr(), Q, T, W, Lp,
+            C, nq, threads, gx, gy, mc._CROSS_DTYPES[out_dtype],
+            torch.cuda.current_stream().cuda_stream),
+            "myers_cross_launch (forced)")
+        return out
+    return run
+
+
+def _thin_call(peq, tiles, W, g, out_dtype):
+    """A call of K4's thin launch `g` (forced), uint8 or int32."""
+    import torch
+
+    from burst_tpu_torch.kernels import _build, myers_cuda as mc
+    Q, C, (T, Lp) = peq.shape[0], peq.shape[1], tiles.shape
+    out = torch.empty((Q, T), dtype=out_dtype, device=peq.device)
+    part = torch.empty(g.parts * Q * T, dtype=torch.int32,
+                       device=peq.device)
+    lib = _build.load("myers_cross", mc._SIG_CROSS)
+
+    def run():
+        _build.check(lib.myers_cross_thin_launch(
+            peq.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+            part.data_ptr() if g.parts > 1 else None, Q, T, W, Lp, C, g.nq,
+            g.segments, g.seg, g.over, g.warps, *g.grid, g.smem,
+            mc._CROSS_DTYPES[out_dtype],
+            torch.cuda.current_stream().cuda_stream),
+            "myers_cross_thin_launch (forced)")
+        return out
+    return run
+
+
+def _thin_rng():
+    """(rng, the score matrix on the card) of `thin_cross_recs`."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.alphabet import score_matrix
+    return (np.random.default_rng(SEED + 14),
+            torch.from_numpy(score_matrix()).to("cuda"))
+
+
+def thin_cross_recs(rng, smat_d, variants=False):
+    """K4's thin route at THIN_CROSS_SHAPES (the raw-byte one only with
+    `variants`), uint8 as the direct path calls it: each exact against
+    the plain version on the card and against the narrow kernel (one
+    tile a thread, `myers_cross_kernel`) forced onto the same inputs,
+    the two timed in turns (narrow, thin, thin, narrow). With `variants`,
+    each
+    shape also at half and twice the planned segments, at eight segments
+    a CTA and in int32, each exact against the plan and timed in turns
+    with it. Returns the kernel record's entries."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda as mc
+    sms = mc.sm_count("cuda")
+    recs = []
+    for label, W, Q, T, Lp, qlen, codes in THIN_CROSS_SHAPES:
+        if codes == 256 and not variants:
+            continue
+        peq, tiles = _cross_inputs(rng, smat_d, W, Q, T, Lp, qlen, codes)
+        C = peq.shape[1]
+        g = mc.cross_thin_geometry(Q, T, W, Lp, C, True, sms)
+        if g is None:
+            fail(f"K4 {label}: not the thin route")
+        got, rec = hold_cross_call(label, peq, tiles, W, torch.uint8,
+                                   reps=3 if Lp > 10000 else 20)
+        if got.min() > 4:
+            fail(f"K4 {label}: no near pair (min {got.min()})")
+        rec["ms"], rec["narrow_ms"] = in_turns(
+            f"K4 {label} W={W} Q={Q} T={T} Lp={Lp} uint8",
+            lambda: mc.myers_cross(peq, tiles, W, torch.uint8),
+            _narrow_call(peq, tiles, W, torch.uint8),
+            3 if Lp > 10000 else 20, "the narrow kernel (one tile a thread)")
+        rec["shape"] += (f" S={g.segments} seg={g.seg} over={g.over} "
+                         f"warps={g.warps} parts={g.parts}")
+        log(f"[cross] {rec['name']} {rec['shape']}: thin {rec['ms']:.4f} "
+            f"ms, narrow {rec['narrow_ms']:.4f} ms "
+            f"({rec['narrow_ms'] / rec['ms']:.2f}x), bound "
+            f"{rec['bound_ms']:.5f} ms "
+            f"({100 * rec['bound_ms'] / rec['ms']:.0f} %), plain "
+            f"{rec['plain_ms']:.2f} ms")
+        if variants:
+            thin_variants(peq, tiles, W, g, sms)
+        recs.append(rec)
+        del peq, tiles
+    if variants:
+        thin_threshold_turns(rng, smat_d)
+    return recs
+
+
+def thin_threshold_turns(rng, smat_d):
+    """THIN_THRESHOLD_SHAPE, which the geometry leaves on the narrow
+    kernel: the thin launch forced there, exact against it and timed in
+    turns with it (narrow, thin, thin, narrow)."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda as mc
+    label, W, Q, T, Lp, qlen, codes = THIN_THRESHOLD_SHAPE
+    peq, tiles = _cross_inputs(rng, smat_d, W, Q, T, Lp, qlen, codes)
+    sms = mc.sm_count("cuda")
+    if mc.cross_thin_geometry(Q, T, W, Lp, 16, True, sms) is not None:
+        fail(f"K4 {label}: the thin route, under its threshold")
+    g = mc.cross_thin_geometry(Q, T, W, Lp, 16, True, sms, force=True)
+    ms, was = in_turns(
+        f"K4 {label} W={W} Q={Q} T={T} Lp={Lp} uint8: the thin launch "
+        f"forced (S={g.segments} warps={g.warps})",
+        _thin_call(peq, tiles, W, g, torch.uint8),
+        _narrow_call(peq, tiles, W, torch.uint8), 20,
+        "the narrow kernel, which the geometry keeps")
+    log(f"[cross] {label}: thin forced {ms:.4f} ms, narrow {was:.4f} ms "
+        f"({was / ms:.2f}x); the thin route takes a launch where its "
+        f"estimate is under 1/{mc.CROSS_THIN_GAIN} of the narrow one's")
+
+
+def thin_variants(peq, tiles, W, plan, sms):
+    """The thin route at other plans than the geometry's on the same
+    inputs: half and twice its segments, eight segments a CTA, and its
+    plan in int32 against the narrow kernel's int32; each exact, timed
+    in turns with the plan."""
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda as mc
+    Q, C, (T, Lp) = peq.shape[0], peq.shape[1], tiles.shape
+    planned = _thin_call(peq, tiles, W, plan, torch.uint8)
+    b = cross_bound(W, Q, T, Lp, 1, C)["bound_ms"]
+    for what, kw in (("half the segments",
+                      dict(segments=max(1, plan.segments // 2))),
+                     ("twice the segments",
+                      dict(segments=2 * plan.segments)),
+                     ("eight segments a CTA", dict(warps=8))):
+        g = mc.cross_thin_geometry(Q, T, W, Lp, C, True, sms, force=True,
+                                   **kw)
+        other = _thin_call(peq, tiles, W, g, torch.uint8)
+        ms, was = in_turns(
+            f"K4 thin W={W} Q={Q} T={T} Lp={Lp}: {what} (S={g.segments} "
+            f"warps={g.warps})", other, planned, 3,
+            f"the plan (S={plan.segments} warps={plan.warps})")
+        log(f"[cross] thin W={W} Q={Q} T={T} Lp={Lp} {what}: {ms:.4f} ms "
+            f"against the plan's {was:.4f} (bound {b:.5f} ms)")
+    g32 = mc.cross_thin_geometry(Q, T, W, Lp, C, False, sms, force=True)
+    in_turns(f"K4 thin W={W} Q={Q} T={T} Lp={Lp} int32 (over={g32.over})",
+             _thin_call(peq, tiles, W, g32, torch.int32),
+             _narrow_call(peq, tiles, W, torch.int32), 3,
+             "the narrow kernel in int32")
 
 
 def make_workload(n_fam: int, n_reads: int, n_mem: int = 10,
@@ -2225,11 +2546,38 @@ def make_workload(n_fam: int, n_reads: int, n_mem: int = 10,
     return rheads, refs, qheads, reads
 
 
+class _ThinCount:
+    """K4's thin launches (`myers_cross.thin`, counted by the wrapper
+    where it launches the thin kernel) as a counter of their own: its
+    `launches` reads and sets that count."""
+    @property
+    def launches(self) -> int:
+        from burst_tpu_torch.kernels import myers_cuda
+        return myers_cuda.myers_cross.thin
+
+    @launches.setter
+    def launches(self, n: int):
+        from burst_tpu_torch.kernels import myers_cuda
+        myers_cuda.myers_cross.thin = n
+
+
 def _counters():
     from burst_tpu_torch.kernels import myers_cuda, rescore_cuda
     return dict(k1=myers_cuda.myers_pairs_packed, k2=myers_cuda.myers_pairs,
                 k3=rescore_cuda.rescore, k4=myers_cuda.myers_cross,
-                k3m=rescore_cuda.rescore_merge)
+                k4t=_ThinCount(), k3m=rescore_cuda.rescore_merge)
+
+
+def k4_route(W: int, Q: int, T: int, Lp: int, ty: str, C: int) -> str:
+    """The route `myers_cross` takes at a K4 shape on this card: "thin"
+    and "narrow" up to W = 16, "group" and "wide" past it."""
+    from burst_tpu_torch.kernels import myers_cuda as mc
+    sms = mc.sm_count("cuda")
+    if W <= mc.NARROW_W:
+        return "narrow" if mc.cross_thin_geometry(
+            Q, T, W, Lp, C, ty == "uint8", sms) is None else "thin"
+    return "wide" if mc.cross_group_geometry(
+        Q, T, W, Lp, C, ty == "uint8", sms) is None else "group"
 
 
 def _record_pair_launches():
@@ -2327,8 +2675,8 @@ def _capture_kernel_calls(kernels=("K2", "K3", "K4"), events=False,
 
 def k4_report(path: str, k4) -> dict:
     """Logs K4's launches over a batch (calls["K4"] of a capture with
-    events), their device time and the sum of their bounds; returns
-    them."""
+    events) by route (`k4_route`), their device time and the sum of
+    their bounds; returns them."""
     import torch
     torch.cuda.synchronize()
     n = sum(count for count, _, _ in k4.values())
@@ -2337,13 +2685,17 @@ def k4_report(path: str, k4) -> dict:
     b = sum(count * cross_bound(W, Q, T, Lp, 1 if ty == "uint8" else 4, C)
             ["bound_ms"] for (W, Q, T, Lp, ty, C), (count, _, _)
             in k4.items())
+    routes = collections.Counter()
+    for shape, (count, _, _) in k4.items():
+        routes[k4_route(*shape)] += count
     log(f"[{path}] K4 over the timed batch: {n} launches ("
         + ", ".join(f"W={W} Q={Q} T={T} Lp={Lp} {ty} C={C} x {count}"
                     for (W, Q, T, Lp, ty, C), (count, _, _)
                     in sorted(k4.items()))
-        + f"), {ms:.3f} ms on the device against a summed bound of "
-        f"{b:.3f} ms: {100 * b / max(ms, 1e-9):.0f} % of the bound's rate")
-    return dict(launches=n, ms=ms, bound_ms=b)
+        + f"; by route {dict(routes)}), {ms:.3f} ms on the device against "
+        f"a summed bound of {b:.3f} ms: "
+        f"{100 * b / max(ms, 1e-9):.0f} % of the bound's rate")
+    return dict(launches=n, ms=ms, bound_ms=b, routes=dict(routes))
 
 
 def hold_captured(path: str, calls):
@@ -2753,45 +3105,25 @@ def phase_direct(launch_log):
                 peak=peak)
 
 
-def phase_modes():
-    import torch
-
-    from burst_tpu_torch.io.taxonomy import Taxonomy
-    from burst_tpu_torch.serving import MODES, Aligner
-
-    rheads, _, qheads, reads, rd, _ = _build_db(2, 64, False)
-    tax = Taxonomy([(h, b"k__K;p__P%d;c__C%d;o__O%d" % (
-        int(h[1:6]), int(h[7:9]) % 2, int(h[7:9]))) for h in rheads])
-    counters = _counters()
-    for mode in MODES:
-        out = {}
-        for device in ("cuda", "cpu"):
-            al = Aligner(rd, None, thres=THRES, mode=mode, do_rc=True,
-                         taxonomy=tax, device=torch.device(device))
-            before = counters["k4"].launches, counters["k3"].launches
-            out[device] = al.align_batch(qheads, reads)
-            if device == "cuda" and (
-                    counters["k4"].launches == before[0]
-                    or counters["k3"].launches == before[1]):
-                fail(f"mode {mode}: K4 or K3 did not launch on the card")
-        if out["cuda"].count(NL) < len(reads) // 2:
-            fail(f"mode {mode}: only {out['cuda'].count(NL)} rows")
-        _same_bytes(f"direct {mode}", out["cuda"], out["cpu"])
-        log(f"[modes] {mode}: {out['cuda'].count(NL)} b6 rows on "
-            f"{rd.tot_units} units, identical to the CPU path")
-
-
-def phase_modes_accel():
-    """ALLPATHS, FORAGE, CAPITALIST and ANY with an accelerator (the
-    two-step path) on the 2-family database: 320 reads, every 29th with
-    an N, every 41st 9 bp long; then one BEST batch made only of N reads
-    (no clear row). The card's b6 bytes must equal the port's CPU run."""
+def modes_cases():
+    """Phase 5's cases, from the seed: (label, mode, rd, acc, taxonomy,
+    read heads, reads) on the 2-family databases. Without an
+    accelerator the five modes on 64 reads; with one ALLPATHS, FORAGE,
+    CAPITALIST and ANY on 320 reads (every 29th with an N, every 41st 9
+    bp long: the two-step path at the batch's default QBUNCH of 5), then
+    one BEST batch made only of N reads (no clear row: two-step at
+    QBUNCH 1)."""
     import numpy as np
-    import torch
 
     from burst_tpu_torch.io.taxonomy import Taxonomy
-    from burst_tpu_torch.serving import Aligner
+    from burst_tpu_torch.serving import MODES
 
+    def taxonomy(rheads):
+        return Taxonomy([(h, b"k__K;p__P%d;c__C%d;o__O%d" % (
+            int(h[1:6]), int(h[7:9]) % 2, int(h[7:9]))) for h in rheads])
+    rheads, _, qheads, reads, rd, _ = _build_db(2, 64, False)
+    tax = taxonomy(rheads)
+    cases = [(f"direct {m}", m, rd, None, tax, qheads, reads) for m in MODES]
     rheads, _, qheads, reads, rd, acc = _build_db(2, 320, True)
     rng = np.random.default_rng(SEED + 6)
     for i in range(0, len(reads), 29):
@@ -2801,37 +3133,106 @@ def phase_modes_accel():
     only_n = [r.copy() for r in reads[:48] if len(r) > 9]
     for r in only_n:
         r[int(rng.integers(0, len(r)))] = ord("N")
-    tax = Taxonomy([(h, b"k__K;p__P%d;c__C%d;o__O%d" % (
-        int(h[1:6]), int(h[7:9]) % 2, int(h[7:9]))) for h in rheads])
+    tax = taxonomy(rheads)
+    cases += [(f"accelerated {m}", m, rd, acc, tax, qheads, reads)
+              for m in ("ALLPATHS", "FORAGE", "CAPITALIST", "ANY")]
+    cases.append(("accelerated BEST, N reads", "BEST", rd, acc, tax,
+                  qheads[:len(only_n)], only_n))
+    return cases
+
+
+def _modes_align(case, device):
+    """One phase 5 case on `device`: (b6 bytes, the batch's stats)."""
+    import torch
+
+    from burst_tpu_torch.serving import Aligner
+    _, mode, rd, acc, tax, heads, batch = case
+    al = Aligner(rd, acc, thres=THRES, mode=mode, do_rc=True, taxonomy=tax,
+                 device=torch.device(device))
+    b6 = al.align_batch(heads, [r.copy() for r in batch])
+    return b6, json.loads(json.dumps(al.last_stats, default=str))
+
+
+def modes_cpu(out_dir):
+    """`python3 chip_smoke.py modes-cpu DIR`, which the script starts
+    beside the card's work: phase 5's cases on the port's CPU path, each
+    case's bytes and stats to DIR/<i>.b6 and DIR/<i>.json (written
+    whole, then renamed)."""
+    import torch
+    torch.set_num_threads(2)
+    for i, case in enumerate(modes_cases()):
+        t0 = time.perf_counter()
+        b6, stats = _modes_align(case, "cpu")
+        for ext, data in ((".json", json.dumps(stats).encode()),
+                          (".b6", b6)):
+            path = os.path.join(out_dir, f"{i}{ext}")
+            with open(path + ".part", "wb") as f:
+                f.write(data)
+            os.replace(path + ".part", path)
+        log(f"[modes] {case[0]}: the CPU run took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def _modes_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke_modes")
+
+
+def start_modes_cpu():
+    """Starts phase 5's CPU runs (`modes_cpu`) in a process of their
+    own, two threads. Returns its (process, log)."""
+    work = _modes_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    return _background(["chip_smoke.py", "modes-cpu", work],
+                       os.path.join(work, "cpu.log"), OMP_NUM_THREADS="2")
+
+
+def phase_modes(cpu):
+    """Phase 5 on the card (`modes_cases`), each case's bytes against the
+    port's CPU run of it, which `cpu` (`start_modes_cpu`) made beside the
+    card's work: the direct cases must launch K4 and K3 on the card, the
+    accelerated ones K2 and K3 (and K4 where they have full-scan rows),
+    on the two-step path with the CPU run's branch counts. Returns the
+    accelerated database (rd, acc, qheads, reads)."""
     counters = _counters()
-    cases = [(m, qheads, reads) for m in ("ALLPATHS", "FORAGE",
-                                          "CAPITALIST", "ANY")]
-    cases.append(("BEST", qheads[:len(only_n)], only_n))
-    for mode, heads, batch in cases:
-        out, stats = {}, {}
-        for device in ("cuda", "cpu"):
-            al = Aligner(rd, acc, thres=THRES, mode=mode, do_rc=True,
-                         taxonomy=tax, device=torch.device(device))
-            before = {k: c.launches for k, c in counters.items()}
-            out[device] = al.align_batch(heads, [r.copy() for r in batch])
-            stats[device] = al.last_stats
-            if device == "cuda":
-                idle = [k for k in ("k2", "k3")
-                        if counters[k].launches == before[k]]
-                if idle or (stats[device]["full_rows"] and
-                            counters["k4"].launches == before["k4"]):
-                    fail(f"accelerated {mode}: {idle or 'k4'} did not "
-                         "launch on the card")
-        if stats["cuda"] != stats["cpu"] or "qbunch" not in stats["cuda"]:
-            fail(f"accelerated {mode}: not the two-step path, or its "
-                 f"branch counts differ: {stats}")
-        if out["cuda"].count(NL) < len(batch) // 2:
-            fail(f"accelerated {mode}: only {out['cuda'].count(NL)} rows")
-        _same_bytes(f"accelerated {mode}", out["cuda"], out["cpu"])
-        log(f"[modes] {mode} with an accelerator, {len(batch)} reads"
-            f"{' (every one with an N)' if batch is only_n else ''}: "
-            f"{out['cuda'].count(NL)} b6 rows identical to the CPU path; "
-            f"two-step {stats['cuda']}")
+    cases = modes_cases()
+    gpu = []
+    for label, mode, rd, acc, tax, heads, batch in cases:
+        before = {k: c.launches for k, c in counters.items()}
+        b6, stats = _modes_align((label, mode, rd, acc, tax, heads, batch),
+                                 "cuda")
+        idle = [k for k in (("k2", "k3") if acc else ("k4", "k3"))
+                if counters[k].launches == before[k]]
+        if acc and stats.get("full_rows") and \
+                counters["k4"].launches == before["k4"]:
+            idle.append("k4")
+        if idle:
+            fail(f"{label}: {idle} did not launch on the card")
+        gpu.append((b6, stats))
+    t0 = time.perf_counter()
+    out = _joined("[modes] the CPU runs", cpu, timeout=1200)
+    waited = time.perf_counter() - t0
+    for i, ((label, _, rd, acc, _, _, batch), (b6, stats)) in enumerate(
+            zip(cases, gpu)):
+        with open(os.path.join(_modes_dir(), f"{i}.b6"), "rb") as f:
+            cpu_b6 = f.read()
+        with open(os.path.join(_modes_dir(), f"{i}.json")) as f:
+            cpu_stats = json.load(f)
+        if acc and (stats != cpu_stats or "qbunch" not in stats):
+            fail(f"{label}: not the two-step path, or its branch counts "
+                 f"differ: {stats} on the card, {cpu_stats} on the CPU")
+        if b6.count(NL) < len(batch) // 2:
+            fail(f"{label}: only {b6.count(NL)} rows")
+        _same_bytes(label, b6, cpu_b6)
+        log(f"[modes] {label}, {len(batch)} reads: {b6.count(NL)} b6 rows "
+            f"on {rd.tot_units} units identical to the CPU path"
+            + (f"; two-step {stats}" if acc else ""))
+    sys.stdout.write(out)
+    log(f"[modes] the CPU runs in a process of their own beside the card's "
+        f"work (2 threads; waited {waited:.1f} s for them)")
+    _, _, rd, acc, _, qheads, reads = cases[5]
+    shutil.rmtree(_modes_dir(), ignore_errors=True)
     return dict(rd=rd, acc=acc, qheads=qheads, reads=reads)
 
 
@@ -3436,7 +3837,19 @@ def _full_run(label, al, qheads, reads, need, launch_log):
     return b6
 
 
-def phase_full_length(launch_log):
+def start_full_cpu():
+    """Makes phase 10's work directory and starts (a)'s CPU runs
+    (`full_cpu_checks`) there, in a process of their own beside the
+    card's work. Returns (the directory, the process)."""
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke_whole")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    return work, _background(["chip_smoke.py", "full-cpu", work],
+                             os.path.join(work, "full_cpu.log"))
+
+
+def phase_full_length(launch_log, full_cpu=None):
     """Phase 10. (a) BEST fused at QBUNCH 1 over FULL_READS reads of
     1,380-1,450 bp (K1 at W = 44-46 over the clear rows, K2 over the N
     rows' side pairs, K3 at up to 1,456 rows), then CAPITALIST with the
@@ -3454,15 +3867,13 @@ def phase_full_length(launch_log):
     references) and up to 4 of the long reads, those of the longest
     one's width. The
     CPU runs go in processes of their own beside the card's work
-    (`full_cpu_checks`, the CLI with BURST_TPU_TORCH_DEVICE=cpu)."""
+    (`full_cpu_checks`, started by `start_full_cpu` where `full_cpu` is
+    not given, and the CLI with BURST_TPU_TORCH_DEVICE=cpu, started
+    before (a) runs on the card)."""
     import torch
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "build", "smoke_whole")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
+    work, run = full_cpu or start_full_cpu()
     p = lambda name: os.path.join(work, name)
-    bg = {"full-cpu": _background(["chip_smoke.py", "full-cpu", work],
-                                  p("full_cpu.log"))}
+    bg = {"full-cpu": run}
     try:
         _full_length(launch_log, p, bg)
     finally:
@@ -3491,35 +3902,8 @@ def _full_length(launch_log, p, bg):
         f"{FULL_READ_LO}-{AMPLICON_LEN} bp (the cell asks for 20000 of "
         f"1,300-{AMPLICON_LEN} bp), "
         f"{FULL_CAP_READS} of them two-step (2000)")
-    cuda = torch.device("cuda")
-    gpu_checks = {}
-    for mode, n in FULL_MODES:
-        t0 = time.perf_counter()
-        al = _full_aligner(mode, rd, acc, tmap, cuda)
-        torch.cuda.synchronize()
-        if mode == "BEST":
-            log(f"[full] device DB load {time.perf_counter() - t0:.1f} s; "
-                + scour_budgets(al.db.tabs, AMPLICON_LEN - K + 1))
-            b6 = _full_run("BEST fused", al, qheads, reads,
-                           ("k1", "k2", "k3"), launch_log)
-            if al.last_stats.get("qbunch") != 1 or "dev_pairs" not in \
-                    al.last_stats or b6.count(NL) < n // 10:
-                fail(f"[full] BEST: not the fused path, or few rows: "
-                     f"{al.last_stats}, {b6.count(NL)} rows")
-        else:
-            b6 = _full_run("CAPITALIST two-step", al, qheads[:n],
-                           reads[:n], ("k2", "k3"), launch_log)
-            if al.last_stats.get("qbunch") != 16 or b6.count(NL) < n // 10:
-                fail(f"[full] CAPITALIST: not QBUNCH 16, or few rows: "
-                     f"{al.last_stats}, {b6.count(NL)} rows")
-        ck = _check_reads(reads[:n], FULL_CHECK_READS)
-        gpu_checks[mode] = (ck, al.align_batch([qheads[i] for i in ck],
-                                               [reads[i] for i in ck]))
-        del al
-        torch.cuda.empty_cache()
-    del rd, acc
-
-    # (b) whole references through the command line, without -s
+    # (b)'s inputs, and its CPU runs started before (a) runs on the card:
+    # whole references through the command line, without -s
     n2 = WHOLE_FAMILIES * AMPLICON_MEMBERS
     mito = [rng.choice(np.frombuffer(b"ACGT", np.uint8), WHOLE_MITO_LEN)
             for _ in range(WHOLE_MITO)]
@@ -3566,6 +3950,34 @@ def _full_length(launch_log, p, bg):
             ["-m", "burst_tpu_torch.cli"] + base(extra)
             + ["-q", p("check.fa"), "-o", p(f"cpu{i}.b6")], p(f"cpu{i}.log"),
             BURST_TPU_TORCH_DEVICE="cpu", OMP_NUM_THREADS="2")
+    cuda = torch.device("cuda")
+    gpu_checks = {}
+    for mode, n in FULL_MODES:
+        t0 = time.perf_counter()
+        al = _full_aligner(mode, rd, acc, tmap, cuda)
+        torch.cuda.synchronize()
+        if mode == "BEST":
+            log(f"[full] device DB load {time.perf_counter() - t0:.1f} s; "
+                + scour_budgets(al.db.tabs, AMPLICON_LEN - K + 1))
+            b6 = _full_run("BEST fused", al, qheads, reads,
+                           ("k1", "k2", "k3"), launch_log)
+            if al.last_stats.get("qbunch") != 1 or "dev_pairs" not in \
+                    al.last_stats or b6.count(NL) < n // 10:
+                fail(f"[full] BEST: not the fused path, or few rows: "
+                     f"{al.last_stats}, {b6.count(NL)} rows")
+        else:
+            b6 = _full_run("CAPITALIST two-step", al, qheads[:n],
+                           reads[:n], ("k2", "k3"), launch_log)
+            if al.last_stats.get("qbunch") != 16 or b6.count(NL) < n // 10:
+                fail(f"[full] CAPITALIST: not QBUNCH 16, or few rows: "
+                     f"{al.last_stats}, {b6.count(NL)} rows")
+        ck = _check_reads(reads[:n], FULL_CHECK_READS)
+        gpu_checks[mode] = (ck, al.align_batch([qheads[i] for i in ck],
+                                               [reads[i] for i in ck]))
+        del al
+        torch.cuda.empty_cache()
+    del rd, acc
+
     held = {"K3": set(), "K4": set()}
     for i, (label, extra) in enumerate(runs):
         routes0 = dict(rescore_cuda.rescore.routes)
@@ -3576,9 +3988,24 @@ def _full_length(launch_log, p, bg):
             b6, ph, launches, stats, wall = cli_run(
                 f"whole {label}", base(extra) + ["-q", p("reads.fa"), "-o",
                                                  p("gpu.b6")],
-                "cuda", ("k3", "k4"))
+                "cuda", ("k3", "k4", "k4t"))
         finally:
             undo()
+        # K4 against the 16,569 bp references up to 16 words: the thin
+        # route, every launch (the counter against the shapes' routes)
+        by_route = collections.Counter()
+        for sh_, (count, _, _) in calls["K4"].items():
+            by_route[k4_route(*sh_)] += count
+        whole = {sh_: k4_route(*sh_) for sh_ in calls["K4"]
+                 if sh_[0] <= 16 and sh_[3] > 16000}
+        log(f"[full] whole references, {label}: K4 launches by route "
+            f"{dict(by_route)}, thin counted {launches['k4t']}; the "
+            f"16,569 bp bucket's narrow-width shapes {whole}")
+        if not whole or set(whole.values()) != {"thin"} or \
+                launches["k4t"] != by_route["thin"]:
+            fail(f"[full] whole {label}: a whole-reference K4 launch off "
+                 f"the thin route: {whole}, {dict(by_route)}, thin "
+                 f"counted {launches['k4t']}")
         routes = {r: c - routes0[r]
                   for r, c in rescore_cuda.rescore.routes.items()}
         k4_wide = _counters()["k4"].wide - wide0
@@ -3786,7 +4213,8 @@ def phase_genomes(launch_log, cpu):
     count set to 0 just before and read just after; K3 and K4 calls
     captured with events), then on the check reads against the CPU run.
     Fails unless each mode launched K3's segment route and never its
-    global route, every K3 call past 17,856 columns planned on segments.
+    global route, every K3 call past 17,856 columns planned on segments,
+    and every K4 launch took the thin route.
     Every K3 shape is held on GENOME_HOLD_PAIRS of its own pairs (its
     merge too, on its own partial results), K4 at its shortest tile on
     256 of its query rows, each once over the modes. Logs one JSON line
@@ -3815,7 +4243,7 @@ def phase_genomes(launch_log, cpu):
             b6, ph, launches, stats, wall = cli_run(
                 f"genomes {mode}", argv + ["-q", p("reads.fa"), "-o",
                                            p("gpu.b6")], cuda,
-                ("k3", "k3m", "k4"))
+                ("k3", "k3m", "k4", "k4t"))
         finally:
             undo()
         peak = torch.cuda.max_memory_allocated()
@@ -3843,6 +4271,11 @@ def phase_genomes(launch_log, cpu):
             fail(f"[genomes] {mode}: not the segment route on every whole "
                  f"genome, or few rows: {routes}, {past}, "
                  f"{b6.count(NL)} rows")
+        if set(k4["routes"]) != {"thin"} or \
+                launches["k4t"] != launches["k4"] or not launches["k4"]:
+            fail(f"[genomes] {mode}: a whole-genome K4 launch off the thin "
+                 f"route: {k4['routes']}, K4 {launches['k4']}, thin "
+                 f"{launches['k4t']}")
         launch_log[f"genomes {mode}"] = launches
         out[mode] = dict(
             reads=GENOME_READS, rows=b6.count(NL), wall_s=wall,
@@ -5189,6 +5622,9 @@ def main():
     if sys.argv[1:2] == ["full-cpu"]:      # phase 10's own CPU runs
         full_cpu_checks(sys.argv[2])
         return
+    if sys.argv[1:2] == ["modes-cpu"]:     # phase 5's own CPU runs
+        modes_cpu(sys.argv[2])
+        return
     if sys.argv[1:2] == ["twostep-cpu"]:   # phase 6's own CPU run
         twostep_cpu_check(sys.argv[2])
         return
@@ -5197,6 +5633,19 @@ def main():
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
+    if sys.argv[1:2] == ["thin"]:
+        sos = phase_build(("myers_cross",))
+        plain_graph_check()
+        recs = thin_cross_recs(*_thin_rng(), variants=True)
+        if sys.argv[2:]:
+            direct_block_in_turns(earlier_cross_kernel(sys.argv[2])["K4"])
+        phase_sass(sos, ("myers_cross",))
+        print(json.dumps({"thin": [
+            {k: r[k] for k in ("name", "shape", "ms", "narrow_ms",
+                               "plain_ms", "bound_ms")} for r in recs]}),
+            flush=True)
+        print(card_line(), flush=True)
+        return
     if sys.argv[1:2] in (["pairs"], ["rescore"], ["cross"]):
         name = {"pairs": "myers_pairs", "rescore": "rescore",
                 "cross": "myers_cross"}[sys.argv[1]]
@@ -5232,10 +5681,13 @@ def main():
             elif name == "rescore":
                 recs = block_rescore_recs(rng, smat_d, earlier) + \
                     wide_rescore_recs(rng, smat_d, earlier)
-            else:       # K4: the narrow shapes, then the wide routes
+            else:       # K4: the narrow shapes, thin, then the wide routes
                 phase_cross(None, variants=True)
-                recs = wide_cross_recs(rng, smat_d, earlier and
-                                       earlier["K4 wide"], variants=True)
+                if earlier:
+                    direct_block_in_turns(earlier["K4"])
+                recs = thin_cross_recs(*_thin_rng(), variants=True)
+                recs += wide_cross_recs(rng, smat_d, earlier and
+                                        earlier["K4 wide"], variants=True)
             for r in recs:
                 log(f"[{sys.argv[1]}] {r['name']} {r['shape']}: kernel "
                     f"{r['ms']:.4f} ms"
@@ -5304,6 +5756,7 @@ def main():
     phase_sass(phase_build())
     if sys.argv[1:] != ["kernels"]:
         genome_cpu = start_genome_cpu_checks()    # phase 13's, from here
+        modes_cpu_run = start_modes_cpu()         # phase 5's, from here
     recs, main_case, wide = phase_kernels()
     if sys.argv[1:] == ["kernels"]:
         phase_pairs_path(main_case, PATH_B)
@@ -5325,12 +5778,12 @@ def main():
     done("phase 3")
     cells["direct"] = phase_direct(launch_log)
     done("phase 4")
-    phase_modes()
-    cells["modes"] = phase_modes_accel()
+    cells["modes"] = phase_modes(modes_cpu_run)
     done("phase 5")
     cells["twostep"] = phase_twostep(launch_log)
     twostep_cpu = cells["twostep"].pop("cpu_check")
     done("phase 6")
+    full_cpu = start_full_cpu()     # phase 10's (a), from here
     phase_mesh(cells, launch_log)
     done("phase 11 (a, b)")
     phase_slab(cells, launch_log)
@@ -5342,7 +5795,7 @@ def main():
     done("phase 9")
     twostep_cpu_joined(twostep_cpu)
     done("phase 6's CPU check")
-    phase_full_length(launch_log)
+    phase_full_length(launch_log, full_cpu)
     done("phase 10")
     phase_genomes(launch_log, genome_cpu)
     done("phase 13")
@@ -5354,7 +5807,8 @@ def main():
     kernels = []
     for r in recs:
         c = r.pop("counter")
-        r["launches"] = launch_log[{"k4": "direct", "k3m": "genomes BEST"}
+        r["launches"] = launch_log[{"k4": "direct", "k3m": "genomes BEST",
+                                    "k4t": "genomes BEST"}
                                    .get(c, "accel")][c]
         r["launches_by_path"] = {p: n.get(c, 0)
                                  for p, n in launch_log.items()}
@@ -5367,8 +5821,8 @@ def main():
     # K4 over each timed batch: launches, device ms, summed bound
     next(r for r in kernels if kernel_of(r) == "K4")["batches"] = k4_batches
     # the batches' own launches, each shape held on its tensors
-    for kern, rec in held:
-        next(r for r in kernels if kernel_of(r) == kern).setdefault(
+    for _, rec in held:
+        next(r for r in kernels if kernel_of(r) == kernel_of(rec)).setdefault(
             "also", []).append({k: rec[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "max_abs_err", "launches")})

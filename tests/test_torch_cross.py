@@ -5,9 +5,12 @@ and trailing pad columns, and the Pallas kernel `myers_cross_pallas` in
 interpret mode at one shape; the uint8 result is that int32 one clipped
 at 255. The same over 256-code Peq tables of raw-byte queries (`-x`,
 `build_peq_x`), and the port's builds of those tables. The kernel's own
-source, compiled for the CPU, at both code counts. The launch geometry
-(`cross_geometry`) and the engine's block plan (`cross_blocks`) are pure
-Python and held here too. All integers; tolerance 0."""
+source, compiled for the CPU, at both code counts, each route: narrow,
+wide, lane groups and thin (lanes across queries, column segments,
+against burst_tpu's cross scan too). The launch geometries
+(`cross_geometry`, `cross_group_geometry`, `cross_thin_geometry`) and
+the engine's block plan (`cross_blocks`) are pure Python and held here
+too. All integers; tolerance 0."""
 import numpy as np
 import pytest
 import torch
@@ -278,7 +281,8 @@ class _EmulatedCross:
     """The launch entries of the emulated library: a call is
     `myers_cross_launch`, `.wide` is `myers_cross_wide_launch` (one
     thread a pair), `.group` `myers_cross_group_launch` (lane groups,
-    column segments)."""
+    column segments), `.thin` `myers_cross_thin_launch` (lanes across
+    queries, column segments)."""
 
     def __init__(self, lib):
         import ctypes
@@ -291,7 +295,10 @@ class _EmulatedCross:
         self.group = lib.myers_cross_group_launch
         self.group.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 \
             + [ctypes.c_void_p]
-        for f in (self.narrow, self.wide, self.group):
+        self.thin = lib.myers_cross_thin_launch
+        self.thin.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 \
+            + [ctypes.c_void_p]
+        for f in (self.narrow, self.wide, self.group, self.thin):
             f.restype = ctypes.c_int
 
     def __call__(self, *args):
@@ -300,9 +307,10 @@ class _EmulatedCross:
 
 @pytest.fixture(scope="module")
 def emulated_cross(tmp_path_factory):
-    """csrc/myers_cross.cu built for the CPU: its three launch entries,
-    the narrow kernels' and the two wide routes' (their dynamic shared
-    memory a static buffer, as the emulated CTAs run one at a time)."""
+    """csrc/myers_cross.cu built for the CPU: its four launch entries,
+    the narrow kernels', the two wide routes' and the thin route's (their
+    dynamic shared memory a static buffer, as the emulated CTAs run one
+    at a time)."""
     import os
 
     from burst_tpu_torch.kernels import _build
@@ -582,3 +590,199 @@ def test_cross_group_launch_rejects_other_geometry(emulated_cross, bad):
         peq32.ctypes.data, tiles.ctypes.data, out.ctypes.data, Q, T, W, Lp,
         16, g.group, g.segments, g.seg, g.over, g.pairs, g.threads,
         *g.grid, g.smem, 1, None) == 0
+
+
+# ---------------------------------------- the thin route (W <= 16)
+
+def _run_thin(emulated_cross, peq32, tiles, W, u8, g, offset=0):
+    """One emulated thin launch `g` over tiles placed `offset` bytes past
+    an aligned address, its partial minima in a scratch where a tile's
+    segments span several CTAs; returns its [Q, T] result."""
+    Q, C = peq32.shape[:2]
+    T, Lp = tiles.shape
+    buf = np.zeros(T * Lp + offset + 4, np.uint8)
+    buf[offset:offset + T * Lp] = tiles.ravel()
+    out = np.zeros((Q, T), np.uint8 if u8 else np.int32)
+    part = np.full(g.parts * Q * T, -1, np.int32)
+    assert emulated_cross.thin(
+        peq32.ctypes.data, buf.ctypes.data + offset, out.ctypes.data,
+        part.ctypes.data if g.parts > 1 else None, Q, T, W, Lp, C, g.nq,
+        g.segments, g.seg, g.over, g.warps, *g.grid, g.smem, u8,
+        None) == 0
+    return out
+
+
+@pytest.mark.parametrize("W,Q,T,Lp,offset,u8,C,S", [
+    (1, 130, 1, 350, 0, 1, 16, 6),       # 4 queries a lane, 2 blocks
+    (5, 70, 1, 1500, 1, 1, 16, 5),       # bytes through registers
+    (5, 70, 4, 1501, 0, 0, 16, 5),       # odd Lp, int32's overlap
+    (10, 66, 4, 2000, 0, 1, 16, 4),
+    (16, 40, 1, 4000, 2, 0, 16, 4),      # the widest, int32
+    (5, 70, 2, 1500, 0, 1, 256, 5),      # raw bytes through the L1
+    (2, 130, 4, 500, 3, 0, 256, 4),
+    (10, 66, 1, 1200, 0, 1, 16, None)],  # the geometry's own plan
+    ids=["W1-T1", "W5-off1", "W5-T4-int32", "W10-T4", "W16-off2-int32",
+         "W5-x256", "W2-x256-off3", "planned"])
+def test_cross_thin_source_on_cpu(emulated_cross, W, Q, T, Lp, offset, u8,
+                                  C, S):
+    """K4's thin route, its own source compiled for the CPU, equals the
+    plain version and burst_tpu's cross scan exactly: W = 1, 2, 5, 10 and
+    16, one tile and four, both result types, 16 and 256 codes (the
+    tables in shared memory and through the L1 cache), rows of odd width
+    at unaligned addresses, query blocks that end part way, a tile's
+    segments over several CTAs (their minima merged by the second
+    kernel) and in one. Each query's alignment (its 32W rows) straddles
+    the boundary of segment 2 and ends inside segment 3's overlap, past
+    segment 3's first column, where the segments are longer than half
+    the overlap: the minimum is a column that two segments scan and only
+    the owning one sees whole; elsewhere it straddles the boundary of
+    segment 2."""
+    g = myers_cuda.cross_thin_geometry(Q, T, W, Lp, C, bool(u8),
+                                       force=True, segments=S)
+    assert g.nq == (4 if W <= 4 else 2)
+    end = None
+    if S is not None:
+        assert g.segments == S >= 4
+        # inside segment 3's overlap, past its first column
+        assert g.over - 16 * W <= g.seg < g.over + 16 * W - 1
+        end = 3 * g.seg - g.over + 16 * W
+        assert 3 * g.seg - g.over + 32 * W > end >= 3 * g.seg - g.over
+    elif g.segments > 2:
+        end = 2 * g.seg + min(g.seg // 2, 16 * W)
+    if end is not None:
+        assert end - 32 * W + 1 < 2 * g.seg <= end < 3 * g.seg
+        assert end < Lp - 13
+    peq32, tiles = _group_case(W * Lp + C + T, W, Q, T, Lp, C, end)
+    got = _run_thin(emulated_cross, peq32, tiles, W, u8, g, offset)
+    dt = torch.uint8 if u8 else torch.int32
+    ref = myers.myers_cross_plain(torch.from_numpy(peq32),
+                                  torch.from_numpy(tiles), W, dt).numpy()
+    np.testing.assert_array_equal(got, ref)
+    jref = np.asarray(jmyers.myers_min_ed_cross(peq32.view(np.uint32),
+                                                tiles, W))
+    np.testing.assert_array_equal(
+        got, np.minimum(jref, 255).astype(np.uint8) if u8 else jref)
+    # near pairs, and the unrelated query (12 symbols at W = 1)
+    assert ref.min() <= 2 and ref[-1].min() > (30 if W > 1 else 2)
+    if end is not None:
+        # the best column of a planted pair is the alignment's end
+        pairs = myers.myers_pairs_plain(
+            torch.from_numpy(peq32), torch.from_numpy(tiles),
+            torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), W)
+        assert int(pairs[0, 0]) <= 2 and \
+            abs(int(pairs[2, 0]) - 1 - end) <= 2
+
+
+def test_cross_thin_route_shapes():
+    """The thin route takes the narrow launches that leave the card idle
+    and gain from it: whole genomes at one tile a launch (phase 13's
+    2,048 and 1,088 query rows at W = 5 against 18,848-149,280 columns)
+    and the whole references' 16,569 bp bucket (316-1,250 rows at W =
+    7-10 against four tiles of 16,608 columns), in both result types and
+    at both code counts; never the direct cell's block (W = 4, 2,048 x
+    7,680), the full-scan rows (W = 1, 42 rows against 10^5 tiles and
+    more, or 2,529 of 384 bp), the ragged test shape (W = 10, 77 x 301,
+    347 columns: the overlap is longer than the tile), the -x block (W =
+    2, 2,048 x 1,100 at 256 codes) or a few dozen rows against a few
+    hundred short tiles (W = 1, 42 x 397 at 416 columns, where the thin
+    route's estimate is over half the narrow kernel's)."""
+    thin = [(5, 2048, 1, 18848), (5, 2048, 1, 149280), (5, 1088, 1, 18848),
+            (10, 336, 4, 16608), (7, 1250, 4, 16608), (10, 316, 4, 16608)]
+    full = [(4, 2048, 7680, 480), (1, 42, 287999, 672), (1, 42, 95977, 544),
+            (1, 42, 195688, 480), (1, 42, 2529, 416), (10, 77, 301, 347),
+            (2, 2048, 1100, 288), (4, 2048, 397, 416), (1, 42, 397, 416),
+            (1, 6, 397, 416)]
+    for (W, Q, T, Lp), want in [(s, True) for s in thin] + \
+            [(s, False) for s in full]:
+        for C in (16, 256):
+            for u8 in (True, False):
+                g = myers_cuda.cross_thin_geometry(Q, T, W, Lp, C, u8, 132)
+                assert (g is not None) == want, (W, Q, T, Lp, C, u8, g)
+    # phase 13's longest genome: some 30 segments of the 320-column
+    # overlap at W = 5, each owning some 4,700 columns, two CTAs of four
+    # warps an SM (the 32 query blocks x 8 parts on 132 SMs)
+    g = myers_cuda.cross_thin_geometry(2048, 1, 5, 149280)
+    assert (g.segments, g.seg, g.over, g.warps, g.parts) == \
+        (32, 4672, 320, 4, 8)
+
+
+@pytest.mark.parametrize("W", [1, 4, 5, 7, 10, 16])
+def test_cross_thin_geometry(W):
+    """Every thin plan: segments that each own columns (S seg >= Lp >
+    (S - 1) seg, seg a multiple of 32) and scan from an overlap of at
+    least 32W + the largest minimum that matters (32W in int32, 255 in
+    uint8); two segments a tile or more, none shorter than a quarter of
+    its overlap; the warps in flight (a segment and query block each)
+    under twice CROSS_FILL_WARPS a scheduler; at most four segments a
+    CTA, a tile's segments over `parts` CTAs as even as that allows; the
+    grid and shared memory as the launcher checks them. A launch whose
+    pairs fill the card is never thin."""
+    sms = 132
+    fill = myers_cuda.CROSS_FILL_WARPS * sms * 4
+    nq = 4 if W <= 4 else 2
+    seen = set()
+    for Q, T, Lp in ((2048, 1, 18848), (2048, 1, 149280), (1088, 1, 60000),
+                     (336, 4, 16608), (3, 1, 40000), (64, 16, 5000),
+                     (700, 2, 3000), (2048, 7680, 480), (42, 287999, 672)):
+        for C in (16, 256):
+            for u8 in (True, False):
+                g = myers_cuda.cross_thin_geometry(Q, T, W, Lp, C, u8, sms)
+                if -(-Q // nq) * T >= 32 * fill:
+                    assert g is None
+                if g is None:
+                    continue
+                S = g.segments
+                assert g.nq == nq
+                assert g.over >= 32 * W + min(32 * W, 255 if u8 else 32 * W)
+                assert g.over % 32 == 0 and g.seg % 32 == 0
+                assert S * g.seg >= Lp > (S - 1) * g.seg
+                assert S > 1 and 4 * g.seg >= g.over - 32
+                qblocks = -(-Q // (32 * nq))
+                assert qblocks * T * S <= 2 * fill
+                assert 1 <= g.warps <= 4
+                assert g.parts * g.warps >= S > (g.parts - 1) * g.warps
+                assert g.grid == (T * g.parts, qblocks)
+                assert g.smem == 4 * 32 * nq * (
+                    (16 * W if C == 16 else 0) + g.warps) <= 232448
+                seen.add((Q, T, Lp))
+    assert (2048, 1, 149280) in seen and (2048, 7680, 480) not in seen
+
+
+@pytest.mark.parametrize("bad", ["overlap", "segments", "seg4", "warps",
+                                 "grid", "smem", "scratch", "nq"])
+def test_cross_thin_launch_rejects_other_geometry(emulated_cross, bad):
+    """The thin entry takes only launches whose segments stay exact and
+    cover the columns: an overlap short of 32W + 255 (uint8), segments
+    that miss columns, a segment start off 4-byte alignment, over eight
+    segments a CTA, a grid that misses tiles or query blocks, shared
+    memory that does not match, no scratch for a tile's segments over
+    several CTAs, another NQ; each refused before a launch, nothing
+    written."""
+    W, Q, T, Lp = 5, 70, 2, 1500
+    peq32, tiles = _group_case(5, W, Q, T, Lp, 16)
+    g = myers_cuda.cross_thin_geometry(Q, T, W, Lp, force=True,
+                                       segments=5)
+    assert g.parts > 1
+    bad_g = {"overlap": dict(over=g.over - 32),
+             "segments": dict(seg=g.seg - 32),
+             "seg4": dict(seg=g.seg + 2),
+             "warps": dict(warps=9, smem=4 * 32 * 2 * (16 * W + 9)),
+             "grid": dict(grid=(g.grid[0] - 1, g.grid[1])),
+             "smem": dict(smem=g.smem + 4),
+             "scratch": {},
+             "nq": dict(nq=4)}[bad]
+    out = np.full((Q, T), 7, np.uint8)
+    part = np.zeros(g.parts * Q * T, np.int32)
+    a = dict(g._asdict(), **bad_g)
+    args = lambda a, scratch: (
+        peq32.ctypes.data, tiles.ctypes.data, out.ctypes.data, scratch, Q,
+        T, W, Lp, 16, a["nq"], a["segments"], a["seg"], a["over"],
+        a["warps"], *a["grid"], a["smem"], 1, None)
+    assert emulated_cross.thin(*args(a, None if bad == "scratch" else
+                                     part.ctypes.data)) == 1
+    assert (out == 7).all()
+    assert emulated_cross.thin(*args(g._asdict(), part.ctypes.data)) == 0
+    ref = myers.myers_cross_plain(torch.from_numpy(peq32),
+                                  torch.from_numpy(tiles), W, torch.uint8)
+    np.testing.assert_array_equal(out, ref.numpy())
