@@ -72,18 +72,58 @@
 // the merge (least (s, -g, first), greatest last among equals) is exact.
 // Each window's key fields are sized by its own Lw (a 32-bit key).
 // Windows read their tile bytes straight from the bucket rows by tile
-// index (`tidx`), so no full-width copy is made. Past what a window
-// whose owned columns are a quarter of it can hold (a margin over three
-// quarters of the widest register window, e.g. 1,456 rows at a
-// look-back of 64), `rescore_scratch_kernel`, the first wide design's
-// global route, keeps the state in a global scratch.
+// index (`tidx`), so no full-width copy is made.
+//
+// The cluster route, past what one CTA's registers hold where a window
+// would be mostly margin (e.g. 1,450 bp reads, 1,456 rows at a look-back
+// of 64: a margin of 93,152 columns): `rescore_cluster_kernel` runs the
+// CTA-a-pair design across a thread-block cluster of K = 2..16 CTAs
+// (Hopper; above 8 a non-portable size), one cluster a pair. CTA k of
+// the cluster owns the next nw warps' columns after CTA k - 1's, laid out
+// as above; warp 0 of CTA k takes its halo from CTA k - 1's last warp,
+// read from that CTA's shared memory (distributed shared memory), so the
+// cluster is one CTA of K nw warps whose warps meet at one cluster
+// barrier a row over the same double-buffered halo. The barrier is split:
+// each CTA arrives (release) after writing its edge, computes the next
+// row's match bits of its columns (the cell step's part that needs no
+// halo), and waits (acquire) before reading its halo. The final reduction
+// is CTA-local, then rank 0 reads its peers' results through distributed
+// shared memory (a second barrier keeps them alive until read). No column
+// is computed twice but the halo lanes', and no margin is needed: the
+// halo argument is the wide route's, whatever CTA holds the previous
+// warp. Where even a cluster does not hold the row, the cluster runs
+// windows (the segments above, with the cluster's reach in place of one
+// CTA's) and `rescore_merge_kernel` joins them.
+//
+// Its key width: the key is the register routes' absolute one, its gap_q
+// field sized by a bound that also counts the rows. On row 1 gap_q is 0
+// or 1; a row's cell step takes gap_q from the row before, and its
+// look-back projects a candidate at most w - 1 columns, adding that many
+// to gap_q (and the DEAD clip leaves it alone). So after row y every
+// gap_q, projected candidates included, is at most 1 + (y - 1)(w - 1),
+// as well as x + 1 <= L1: the field takes bit_len(min(L1, 1 + (rows -
+// 1)(w - 1)) + 1) bits, on every pair, dead ones included. The key is 32
+// bits where the fields fit 31 (at a look-back of 32 and 1,456 rows every
+// L1: 10 + 16 + 5 bits; at 64 up to L1 = 32,766), else 64 bits (34 bits
+// at 1,456 rows, a look-back of 64 and L1 = 149,504), at 16 or 32 columns
+// a thread with fewer threads a CTA (512 and 384: the register file over
+// twice the key words). A key relative to each CTA's first column would
+// not be shorter: the gap_q compared at one column spans the same range
+// whatever CTA holds it.
+//
+// `rescore_scratch_kernel`, the first wide design's global route, keeps
+// the state in a global scratch; it takes only what neither fits
+// (kernels/rescore_cuda.py::rescore_geometry lists them).
 
 #include <climits>
 #include <cstdint>
 #include <type_traits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kDead = 511;
 
@@ -127,20 +167,25 @@ __host__ __device__ inline int bit_len(long long v) {
   return n;
 }
 
-// (SB, GB, DB, w) of a shape: the widths of s, g and dist, the window
+// (SB, GB, DB, w) of a shape: the widths of s, g and dist, the window;
+// with `rows` (the cluster route) g's also bounded by the rows (above)
 __host__ __device__ inline void key_bits(int L1, int levels, int& sb,
-                                         int& gb, int& db, int& w) {
+                                         int& gb, int& db, int& w,
+                                         int rows = 0) {
   w = levels >= 30 ? L1 : min(L1, 1 << levels);
   sb = bit_len(512 + w - 1);
-  gb = bit_len((long long)L1 + 1);
+  long long g = L1;
+  if (rows > 0) g = min(g, 1 + (long long)(rows - 1) * (w - 1));
+  gb = bit_len(g + 1);
   db = bit_len(w - 1);
 }
 
 template <typename KeyT>
-__device__ __forceinline__ Fields<KeyT> make_fields(int L1, int levels) {
+__device__ __forceinline__ Fields<KeyT> make_fields(int L1, int levels,
+                                                    int rows = 0) {
   int sb, gb, db;
   Fields<KeyT> f;
-  key_bits(L1, levels, sb, gb, db, f.w);
+  key_bits(L1, levels, sb, gb, db, f.w, rows);
   f.sh_g = db;
   f.sh_s = db + gb;
   const KeyT gmax = ((KeyT)1 << gb) - 1;
@@ -194,9 +239,6 @@ __device__ __forceinline__ void lane_steps(KeyT (&key)[C], int (&r)[C],
   }
 }
 
-// Per-instance thread limits (kernels/rescore_cuda.py WIDE_MAX_THREADS,
-// WARP_PAIRS): one CTA a pair, the register file over C columns' keys
-// and shiftR and a doubling's temporaries; one warp a pair, four warps.
 // Where an item's tile row lies and which of its columns it owns: the
 // tile of pair n is row tidx[n] (row n without tidx) of `tstride` bytes,
 // of which the first Lt are columns 1 .. Lt (the rest code 0, a pad);
@@ -209,45 +251,80 @@ struct Seg {
   int Lt, S, own, M, L1a;
 };
 
-template <int C, bool WARP>
+// What holds a pair's row: one warp, one CTA of warps, or a cluster of
+// CTAs of warps
+enum Span { kWarp, kCta, kCluster };
+
+// Per-instance thread limits (kernels/rescore_cuda.py WIDE_MAX_THREADS,
+// WARP_PAIRS, CLUSTER_MAX_THREADS): one CTA a pair or a cluster's CTA,
+// the register file over C columns' keys and shiftR and a doubling's
+// temporaries (twice the key words at 64 bits; on a cluster at 32
+// columns the next row's match bits too); one warp a pair, four warps.
+template <int C, int KB, int SPAN>
 struct WideLimit {
-  static constexpr int threads =
-      WARP ? 128 : C <= 8 ? 1024 : C <= 16 ? 768 : 576;
+  static constexpr int threads = SPAN == kWarp ? 128
+                                 : KB == 64    ? (C <= 16 ? 512 : 384)
+                                 : C <= 8      ? 1024
+                                 : C <= 16     ? 768
+                                 : SPAN == kCluster ? 512
+                                                    : 576;
 };
+
+// The cluster route's primitives: this CTA's rank in its cluster, a
+// pointer to the same shared-memory offset in a peer CTA (distributed
+// shared memory), and the cluster barrier split in two.
+__device__ __forceinline__ int cluster_rank() {
+  return (int)cg::this_cluster().block_rank();
+}
+template <typename T>
+__device__ __forceinline__ T* cluster_peer(T* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 // Thread (warp k of its pair, lane l) owns the C consecutive columns
 // from x0 = k U + (l - H) C, U = (32 - H) C.
-//  * WARP: one warp a pair (L1 <= 32 C: the shapes up to 1,024 columns,
+//  * kWarp: one warp a pair (L1 <= 32 C: the shapes up to 1,024 columns,
 //    the block route of the first design): no halo and no barrier after
 //    the staging; a CTA holds P <= 4 pairs, one a warp. C = L1 / 32
 //    where the look-back window fits a lane's run (any C that is a
 //    multiple of 4: all lanes busy), else a power of two.
-//  * Else one CTA a pair across warps (P = 1, C = 8, 16 or 32): the first H
-//    lanes of each warp are its halo, copies of the previous warp's
-//    last H C >= w columns, refreshed from it after every row through
-//    shared memory (one barrier a row), so that every look-back window
-//    of a warp's own columns lies inside the warp; warp 0's halo columns
-//    are negative and ABSENT.
-template <int C, int KB, bool WARP>
-__global__ void __launch_bounds__((WideLimit<C, WARP>::threads))
-rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
-                    const uint8_t* __restrict__ tiles,
-                    const int32_t* __restrict__ qmeta,
-                    int32_t* __restrict__ out, int N, int W, int NC,
-                    int levels, int rows, int L1, int H, int pairs,
-                    const Seg sg) {
+//  * kCta: one CTA a pair across warps (P = 1, C = 8, 16 or 32): the
+//    first H lanes of each warp are its halo, copies of the previous
+//    warp's last H C >= w columns, refreshed from it after every row
+//    through shared memory (one barrier a row), so that every look-back
+//    window of a warp's own columns lies inside the warp; warp 0's halo
+//    columns are negative and ABSENT.
+//  * kCluster: the same across the K CTAs of a cluster (`K`), CTA rank
+//    r's warps being the pair's warps r nw .. r nw + nw - 1; warp 0 of
+//    rank r >= 1 reads its halo from rank r - 1's shared memory, and the
+//    barrier a row is the cluster's.
+template <int C, int KB, int SPAN>
+__device__ __forceinline__ void rescore_rows(
+    const uint32_t* __restrict__ peq_flat, const uint8_t* __restrict__ tiles,
+    const int32_t* __restrict__ qmeta, int32_t* __restrict__ out, int N,
+    int W, int NC, int levels, int rows, int L1, int H, int pairs, int K,
+    const Seg& sg) {
+  constexpr bool WARP = SPAN == kWarp, CLU = SPAN == kCluster;
   using KeyT = KeyOf<KB>;
   extern __shared__ __align__(16) unsigned char s_raw[];
   const int P = WARP ? pairs : 1;
-  const int nw = WARP ? 1 : blockDim.x >> 5;  // warps a pair
+  const int nw = WARP ? 1 : blockDim.x >> 5;  // warps a pair (a CTA's)
+  const int rank = CLU ? cluster_rank() : 0;  // the CTA's in its cluster
   const int tid = threadIdx.x, lane = tid & 31;
   const int slot = (tid >> 5) / nw;        // the CTA's pair
-  const int k = (tid >> 5) - slot * nw;    // warp of the pair
-  const int ptid = tid - 32 * nw * slot;   // thread of the pair
+  const int k = (tid >> 5) - slot * nw;    // warp of the pair's CTA
+  const int ptid = tid - 32 * nw * slot;   // thread of the pair's CTA
   const int U = (32 - H) * C;
-  const int x0 = k * U + (lane - H) * C;   // first column of the lane
+  const int xb = rank * nw * U;            // the CTA's first own column
+  const int x0 = xb + k * U + (lane - H) * C;  // first column of the lane
   const int NI = N * sg.S;                   // items: pairs x segments
-  const int item = blockIdx.x * P + slot;
+  const int item = CLU ? blockIdx.x / K : blockIdx.x * P + slot;
   const int n = item / sg.S, seg = item - n * sg.S;
   // the window's first column, and its owned local columns lo .. hi
   const int a = max(0, seg * sg.own - sg.M);
@@ -265,16 +342,23 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
   uint32_t* s_peq = reinterpret_cast<uint32_t*>(rr + 32) +
                     (size_t)slot * (NC * W + 8 * nw * C);
   uint8_t* s_code = reinterpret_cast<uint8_t*>(s_peq + NC * W);
-  // s_code[x + H C] is column x's code: 0 outside 1 .. Lp
-  int qlen = 0, bad = 0;
+  // s_code[x - xb + H C] is column x's code: 0 outside 1 .. Lp; `before`
+  // the code of the column before a cluster CTA's first slot (row 1's
+  // left neighbour of warp 0's first halo column, a real column past
+  // rank 0)
+  int qlen = 0, bad = 0, before = 0;
   if (item < NI) {
     const uint32_t* peq = peq_flat + (size_t)n * NC * W;
     for (int i = ptid; i < NC * W; i += 32 * nw) s_peq[i] = peq[i];
     const uint8_t* trow =
         tiles + (size_t)(sg.tidx ? sg.tidx[n] : n) * sg.tstride;
     for (int i = ptid; i < 32 * nw * C; i += 32 * nw) {
-      const int x = i - H * C, xa = a + x;
+      const int x = xb + i - H * C, xa = a + x;
       s_code[i] = (x >= 1 && x < L1 && xa <= sg.Lt) ? trow[xa - 1] : 0;
+    }
+    if (CLU) {
+      const int x = xb - H * C - 1, xa = a + x;
+      before = (x >= 1 && x < L1 && xa <= sg.Lt) ? trow[xa - 1] : 0;
     }
     qlen = qmeta[2 * n];
     bad = qmeta[2 * n + 1] + 1;
@@ -282,14 +366,31 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
   __syncthreads();
   if (item >= NI) return;  // a last CTA's spare warps: no barrier follows
 
-  const Fields<KeyT> f = make_fields<KeyT>(L1, levels);
-  const uint8_t* code = s_code + x0 + H * C;
-  auto cost = [&](int j, int y) -> int {
-    const int c = code[j];
+  const Fields<KeyT> f = make_fields<KeyT>(L1, levels, CLU ? rows : 0);
+  const uint8_t* code = s_code + (x0 - xb) + H * C;
+  auto cost_of = [&](int c, int y) -> int {
     const uint32_t bits = s_peq[c * W + ((y - 1) >> 5)];
     if ((bits >> ((y - 1) & 31)) & 1u) return 0;
     return c == 0 ? kDead : 1;
   };
+  auto cost = [&](int j, int y) -> int { return cost_of(code[j], y); };
+  // the cluster route's cost of row y as bit masks over the lane's
+  // columns: Peq matches (computed while the row's barrier completes)
+  // and pad columns
+  auto matches = [&](int y) -> uint32_t {
+    uint32_t m = 0;
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      m |= ((s_peq[code[j] * W + ((y - 1) >> 5)] >> ((y - 1) & 31)) & 1u)
+           << j;
+    return m;
+  };
+  uint32_t pads = 0, eqm = 0;
+  if constexpr (CLU) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) pads |= (code[j] == 0 ? 1u : 0u) << j;
+    if (rows >= 2) eqm = matches(2);
+  }
   auto pack = [&](int s, int g) -> KeyT {
     return ((KeyT)s << f.sh_s) | (f.gimask - ((KeyT)g << f.sh_g));
   };
@@ -308,7 +409,9 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
       r[j] = 1;
     } else {
       const int d1 = cost(j, 1);
-      const int left = x == 1 ? 1 : cost(j - 1, 1);
+      const int left = x == 1                       ? 1
+                       : j == 0 && x0 - xb == -H * C ? cost_of(before, 1)
+                                                     : cost(j - 1, 1);
       key[j] = pack(d1 >= bad ? kDead : d1, (d1 == 1 && left == 0) ? 1 : 0);
       r[j] = 0;
     }
@@ -322,7 +425,11 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
     for (int j = 0; j < C; ++j) {
       const KeyT ku = key[j];
       const int ru = r[j];
-      const int d = cost(j, y);
+      int d;
+      if constexpr (CLU)
+        d = (eqm >> j) & 1u ? 0 : (pads >> j) & 1u ? kDead : 1;
+      else
+        d = cost(j, y);
       const int so = min((int)(kl >> f.sh_s) + d, kDead + 1);
       const int su = min((int)(ku >> f.sh_s) + 1, kDead + 1);
       const KeyT ko = ((KeyT)so << f.sh_s) | (kl & f.gimask);
@@ -370,7 +477,7 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
       key[0] = pack(min(y, kDead + 1), 0);
       r[0] = y;
     }
-    if (nw > 1) {  // refresh the next warp's halo
+    if (CLU || nw > 1) {  // refresh the next warp's halo
       const int par = y & 1;
       KeyT* bk = xk + (size_t)(par * nw + k) * H * C;
       int* br = xr + (size_t)(par * nw + k) * H * C;
@@ -381,12 +488,28 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
           br[(lane - (32 - H)) * C + j] = r[j];
         }
       }
-      __syncthreads();
-      if (k >= 1 && lane < H) {
+      if constexpr (CLU) {
+        cluster_arrive();
+        if (y < rows) eqm = matches(y + 1);
+        cluster_wait();
+      } else {
+        __syncthreads();
+      }
+      if (lane < H && (k >= 1 || rank >= 1)) {
+        // the previous warp's edge: this CTA's, or the previous CTA's
+        // last warp's through distributed shared memory
+        const KeyT* sk = bk - H * C;
+        const int* sr = br - H * C;
+        if (CLU && k == 0) {
+          sk = cluster_peer(xk + (size_t)(par * nw + nw - 1) * H * C,
+                            rank - 1);
+          sr = cluster_peer(xr + (size_t)(par * nw + nw - 1) * H * C,
+                            rank - 1);
+        }
 #pragma unroll
         for (int j = 0; j < C; ++j) {
-          key[j] = bk[-H * C + lane * C + j];
-          r[j] = br[-H * C + lane * C + j];
+          key[j] = sk[lane * C + j];
+          r[j] = sr[lane * C + j];
         }
       }
     }
@@ -443,6 +566,26 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
       b2 = min(b2, rk2[i]);
     }
   }
+  if constexpr (CLU) {  // then across the cluster's CTAs, on rank 0
+    if (ptid == 0) {
+      rk1[0] = b1;
+      rk2[0] = b2;
+      rr[0] = b1r;
+    }
+    cluster_arrive();
+    cluster_wait();
+    for (int c = 1; rank == 0 && ptid == 0 && c < K; ++c) {
+      const unsigned long long o1 = *cluster_peer(rk1, c);
+      if (o1 < b1) {
+        b1 = o1;
+        b1r = *cluster_peer(rr, c);
+      }
+      b2 = min(b2, *cluster_peer(rk2, c));
+    }
+    cluster_arrive();  // a CTA's shared memory outlives its peers' reads
+    cluster_wait();
+    if (rank != 0) return;
+  }
   if (ptid == 0) {
     const int s = (int)(b1 >> 44);
     const int g = (int)((unsigned long long)(f.gimask >> f.sh_g) -
@@ -461,6 +604,34 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
       out[4 * NI + item] = last + a;
     }
   }
+}
+
+// The register routes: one warp or one CTA a pair (`pairs` a CTA)
+template <int C, int KB, bool WARP>
+__global__ void
+__launch_bounds__((WideLimit<C, KB, WARP ? kWarp : kCta>::threads))
+rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
+                    const uint8_t* __restrict__ tiles,
+                    const int32_t* __restrict__ qmeta,
+                    int32_t* __restrict__ out, int N, int W, int NC,
+                    int levels, int rows, int L1, int H, int pairs,
+                    const Seg sg) {
+  rescore_rows<C, KB, WARP ? kWarp : kCta>(peq_flat, tiles, qmeta, out, N,
+                                           W, NC, levels, rows, L1, H,
+                                           pairs, 1, sg);
+}
+
+// The cluster route: one cluster of K CTAs a pair (or a pair's window)
+template <int C, int KB>
+__global__ void __launch_bounds__((WideLimit<C, KB, kCluster>::threads))
+rescore_cluster_kernel(const uint32_t* __restrict__ peq_flat,
+                       const uint8_t* __restrict__ tiles,
+                       const int32_t* __restrict__ qmeta,
+                       int32_t* __restrict__ out, int N, int W, int NC,
+                       int levels, int rows, int L1, int H, int K,
+                       const Seg sg) {
+  rescore_rows<C, KB, kCluster>(peq_flat, tiles, qmeta, out, N, W, NC,
+                                levels, rows, L1, H, 1, K, sg);
 }
 
 // The segments' merge: one warp a pair over its S partial results
@@ -679,7 +850,7 @@ int launch_wide(const void* peq_flat, const void* tiles, const void* qmeta,
                 void* out, int N, int W, int NC, int levels, int rows,
                 int L1, int H, int P, int threads, int grid, int smem,
                 const Seg& sg, cudaStream_t stream) {
-  if (threads > WideLimit<C, WARP>::threads)
+  if (threads > WideLimit<C, KB, WARP ? kWarp : kCta>::threads)
     return (int)cudaErrorInvalidValue;
   auto kern = &rescore_wide_kernel<C, KB, WARP>;
   if (smem > 48 * 1024) {
@@ -741,6 +912,49 @@ int launch_register(const void* peq_flat, const void* tiles,
 #undef WIDE_CASE
   return (int)cudaErrorInvalidValue;
 }
+
+// A cluster-route launch: `items` rows of L1 columns (pairs, or pairs x
+// windows) as clusters of K CTAs of nw warps, C columns a thread.
+template <int C, int KB>
+int launch_clu(const void* peq_flat, const void* tiles, const void* qmeta,
+               void* out, int N, int W, int NC, int levels, int rows,
+               int L1, int H, int nw, int K, int smem, const Seg& sg,
+               cudaStream_t stream) {
+  if (32 * nw > WideLimit<C, KB, kCluster>::threads)
+    return (int)cudaErrorInvalidValue;
+  auto kern = &rescore_cluster_kernel<C, KB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (K > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)N * sg.S * K));
+  cfg.blockDim = dim3(32 * nw);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const uint32_t*>(peq_flat),
+      static_cast<const uint8_t*>(tiles), static_cast<const int32_t*>(qmeta),
+      static_cast<int32_t*>(out), N, W, NC, levels, rows, L1, H, K, sg);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The cluster route's instances: (columns a thread, key bits)
+#define CLUSTER_INST(X) X(8, 32) X(16, 32) X(32, 32) X(16, 64) X(32, 64)
 
 bool bad_common(int N, int W, int C, int levels, int rows, int threads,
                 int pairs, int grid, int smem) {
@@ -820,6 +1034,91 @@ extern "C" int rescore_seg_launch(const void* peq_flat, const void* tiles,
   return launch_register(peq_flat, tiles, qmeta, part, N, W, C, levels,
                          rows, Lw, cols, halo, pairs, threads, grid, smem,
                          sg, static_cast<cudaStream_t>(stream));
+}
+
+// The cluster route (kernels/rescore_cuda.py::rescore_cluster): each of
+// the N pairs' rows of L1 columns on one cluster of `cluster` CTAs (2 to
+// 16) of `nwarps` warps, `cols` columns a thread (8, 16 or 32 with a
+// 32-bit key, 16 or 32 with a 64-bit one: the key the fields of L1 or
+// the window take, as on the register routes), `halo` = ceil(w / cols)
+// lanes a warp, as few warps as cover the columns with the last CTA
+// holding some, `smem` dynamic bytes (rescore_wide_smem at the key's
+// width, its gap_q field also bounded by the rows). With segs = 1 (Lw = L1, own = L1 - 1, margin 0) it writes
+// out[4][N]; with segs >= 2 each pair's row as `segs` windows of Lw
+// columns as on the segment entry below (the same margin and cover),
+// one cluster a window, writing part[5][N segs] for the merge. Tiles:
+// row tidx[n] (int64; row n where tidx is null) of `tstride` bytes, its
+// first Lt bytes columns 1 .. Lt. Returns the launch's error: a cluster
+// size the card does not grant is refused there, and there is no other
+// route in its place.
+extern "C" int rescore_cluster_launch(
+    const void* peq_flat, const void* tiles, const void* tidx,
+    const void* qmeta, void* out, int N, int W, int C, int levels, int rows,
+    int L1, int Lt, int tstride, int Lw, int own, int margin, int segs,
+    int cols, int halo, int nwarps, int cluster, int smem, void* stream) {
+  if (bad_common(N, W, C, levels, rows, 32 * nwarps, 1, 1, smem) ||
+      levels > 24 || L1 < 2 || L1 >= (1 << 24) || Lw >= (1 << 22) ||
+      Lt < 0 || Lt > L1 - 1 || Lt > tstride || cluster < 2 ||
+      cluster > 16 || segs < 1 || (long long)N * segs * cluster > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (segs == 1 ? (Lw != L1 || own != L1 - 1 || margin != 0)
+                : (Lw < (1 << levels) || Lw >= L1 || own < 1 ||
+                   (long long)margin <
+                       1 + (long long)(rows - 1) * (1LL << levels) ||
+                   own + (long long)margin > Lw - 1 ||
+                   segs != (L1 - 2) / own + 1))
+    return (int)cudaErrorInvalidValue;
+  int sb, gb, db, w;
+  key_bits(Lw, levels, sb, gb, db, w, rows);
+  const int kb = sb + gb + db <= 31 ? 32 : 64;
+  const long long U = (32LL - halo) * cols;
+  const long long want = 2LL * nwarps * halo * cols * (kb / 8 + 4) +
+                         32 * 20 + 4LL * C * W + 32LL * nwarps * cols;
+  if (sb + gb + db > 63 || halo != (w + cols - 1) / cols || halo > 16 ||
+      (long long)cluster * nwarps * U < Lw ||
+      (long long)(cluster - 1) * nwarps * U >= Lw || smem != want)
+    return (int)cudaErrorInvalidValue;
+  const Seg sg{static_cast<const int64_t*>(tidx), tstride, Lt, segs,
+               segs == 1 ? L1 - 1 : own, segs == 1 ? 0 : margin, L1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CLUSTER_CASE(c, b)                                                 \
+  if (cols == c && kb == b)                                                \
+    return launch_clu<c, b>(peq_flat, tiles, qmeta, out, N, W, C, levels,  \
+                            rows, Lw, halo, nwarps, cluster, smem, sg, s);
+  CLUSTER_INST(CLUSTER_CASE)
+#undef CLUSTER_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The largest cluster the card co-schedules for the cluster route's
+// instance (cols, kb) at `threads` a CTA and `smem` dynamic bytes
+// (cudaOccupancyMaxPotentialClusterSize, non-portable sizes allowed),
+// into *result; 0 for an instance that does not exist.
+extern "C" int rescore_cluster_max(int cols, int kb, int threads, int smem,
+                                   void* result) {
+  int n = 0;
+  cudaError_t e = cudaSuccess;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(16);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+#define CLUSTER_QUERY(c, b)                                                 \
+  if (cols == c && kb == b &&                                               \
+      threads <= WideLimit<c, b, kCluster>::threads) {                      \
+    auto kern = &rescore_cluster_kernel<c, b>;                              \
+    e = cudaFuncSetAttribute(kern,                                          \
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, \
+                             1);                                            \
+    if (e == cudaSuccess && smem > 48 * 1024)                               \
+      e = cudaFuncSetAttribute(                                             \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);         \
+    if (e == cudaSuccess)                                                   \
+      e = cudaOccupancyMaxPotentialClusterSize(&n, kern, &cfg);             \
+  }
+  CLUSTER_INST(CLUSTER_QUERY)
+#undef CLUSTER_QUERY
+  *static_cast<int*>(result) = n;
+  return (int)e;
 }
 
 // The segments' merge: part[5][N segs] -> out[4][N], four pairs (warps)

@@ -11,10 +11,14 @@ pair, 8, 16 or 32 columns a thread, a halo between warps) and
 "segments" (past what one CTA's registers hold: each pair's row as
 overlapping column windows on the warp or wide route, one an item of
 the grid, their partial results joined by `rescore_merge`, which counts
-its own launches); and "global" (threads striding over the columns,
-int64 keys, the row state in a global scratch) where even a window
-would be mostly margin. `rescore_geometry` and `rescore_segments` pick
-the route and its launch shape in plain Python.
+its own launches); "cluster" (where a window would be mostly margin:
+one thread-block cluster of 2-16 CTAs a pair, the wide route's layout
+across them, the halo between CTAs through distributed shared memory;
+past what a cluster holds, windows of the cluster's reach and the
+merge); and "global" (threads striding over the columns, int64 keys,
+the row state in a global scratch) where even that does not fit.
+`rescore_geometry`, `rescore_segments` and `rescore_cluster` pick the
+route and its launch shape in plain Python.
 `rescore_pairs_gather` is the counterpart of
 `burst_tpu.kernels.rescore.rescore_pairs_gather_async`: it gathers each
 pair's Peq row (and tile window) in PyTorch, then calls `rescore`,
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -57,8 +61,21 @@ RESCORE_CODES = (16, 256)   # Peq codes, nucleotide or raw byte
 SEG_OWN_SHARE = 4
 SEG_WINDOW = 4096
 SEG_FILL = 4
+# the cluster route's instances: (columns a thread, key bits) -> the most
+# threads a CTA (its launch bound: at 64 bits twice the key words)
+CLUSTER_MAX_THREADS = {(8, 32): 1024, (16, 32): 768, (32, 32): 512,
+                       (16, 64): 512, (32, 64): 384}
+CLUSTER_MAX = 16     # CTAs a cluster where the card grants it (8 portable)
+# the planner's cost of a cluster barrier a row, in a scheduler's
+# instruction slots (a planning constant, not a measurement)
+CLUSTER_BARRIER_CYCLES = 800
+# SMs of a GPC, at least, that a cluster's CTAs share (the H100's 132 in
+# 8 GPCs): a GPC holds floor(16 x CTAs an SM / K) clusters of K
+CLUSTER_GPC_SMS = 16
 _SIG = {"rescore_wide_launch": [_P] * 5 + [_I] * 12 + [_P],
         "rescore_seg_launch": [_P] * 5 + [_I] * 18 + [_P],
+        "rescore_cluster_launch": [_P] * 5 + [_I] * 17 + [_P],
+        "rescore_cluster_max": [_I] * 4 + [_P],
         "rescore_merge_launch": [_P] * 3 + [_I] * 3 + [_P]}
 
 
@@ -77,6 +94,27 @@ class RescoreLaunch(NamedTuple):
     pairs: int = 1
 
 
+class ClusterLaunch(NamedTuple):
+    """A K3 launch on the cluster route: threads a CTA, CTAs in all
+    (clusters x `cluster`), dynamic shared-memory bytes, columns a
+    thread, halo lanes a warp, CTAs a cluster, key bits; and the row's
+    split: the DP's L1 of a cluster (`window`), the columns each window
+    owns after `margin`, windows a pair (`segs`; 1: the whole row, own
+    L1 - 1 and margin 0)."""
+    route: str
+    threads: int
+    grid: int
+    smem: int
+    cols: int
+    halo: int
+    cluster: int
+    kb: int
+    window: int
+    own: int
+    margin: int
+    segs: int
+
+
 class RescoreSegments(NamedTuple):
     """The segment route's split of a row of L1 columns: windows of
     `window` columns (their DP's L1), each owning `own` columns after a
@@ -87,27 +125,32 @@ class RescoreSegments(NamedTuple):
     segs: int
 
 
-def rescore_key_bits(L1: int, levels: int) -> tuple[int, int, int, int]:
+def rescore_key_bits(L1: int, levels: int, rows: int = 0
+                     ) -> tuple[int, int, int, int]:
     """(score bits, gap_q bits, distance bits, window) of the register
-    routes' look-back key at this shape: a candidate projected to the
-    column it is compared at has a score of at most 512 + w - 1, a gap_q
-    of at most L1 (one more than the column) and a distance under the
-    window w = min(2^levels, L1); with the bit that marks a missing
-    column they take a 32-bit key where they fit 31 bits, else a 64-bit
-    one."""
+    and cluster routes' look-back key at this shape: a candidate
+    projected to the column it is compared at has a score of at most 512
+    + w - 1, a gap_q of at most L1 (one more than the column) and, with
+    `rows` (the cluster route), of at most 1 + (rows - 1)(w - 1) (each
+    row's look-back adds under w: csrc/rescore.cu's header), and a
+    distance under the window w = min(2^levels, L1); with the bit that
+    marks a missing column they take a 32-bit key where they fit 31
+    bits, else a 64-bit one."""
     w = L1 if levels >= 30 else min(L1, 1 << levels)
-    return (512 + w - 1).bit_length(), (L1 + 1).bit_length(), \
+    g = L1 if rows <= 0 else min(L1, 1 + (rows - 1) * (w - 1))
+    return (512 + w - 1).bit_length(), (g + 1).bit_length(), \
         (w - 1).bit_length(), w
 
 
 def rescore_wide_smem(nw: int, halo: int, cols: int, pequ32: int,
-                      pairs: int = 1) -> int:
-    """Dynamic shared memory of a register-route launch: the halo
-    exchange (two rows of H x C 32-bit keys and shiftR a warp; a 64-bit
-    key runs one warp a pair, no halo), the final reduction (20 bytes a
-    warp slot), and for each of its pairs the Peq table and one code
-    byte a column slot."""
-    return 2 * nw * halo * cols * 8 + 32 * 20 + \
+                      pairs: int = 1, kb: int = 32) -> int:
+    """Dynamic shared memory of a register-route or cluster-route launch
+    (`nw` warps a CTA): the halo exchange (two rows of H x C keys of `kb`
+    bits and shiftR a warp; a 64-bit key on the register routes runs one
+    warp a pair, no halo), the final reduction (20 bytes a warp slot),
+    and for each of its pairs the Peq table and one code byte a column
+    slot."""
+    return 2 * nw * halo * cols * (kb // 8 + 4) + 32 * 20 + \
         pairs * (4 * pequ32 + 32 * nw * cols)
 
 
@@ -200,8 +243,116 @@ def rescore_segments(N: int, rows: int, L1: int, pequ32: int = 0,
     return RescoreSegments(Lw, own, M, -(-(L1 - 1) // own))
 
 
+def _cluster_limits(kmax) -> tuple[int, ...]:
+    """The most CTAs a cluster of each instance (CLUSTER_MAX_THREADS's
+    order) from `kmax`: one int for all, or {(cols, kb): CTAs}."""
+    if isinstance(kmax, Mapping):
+        return tuple(int(kmax.get(inst, 0)) for inst in CLUSTER_MAX_THREADS)
+    return (int(kmax),) * len(CLUSTER_MAX_THREADS)
+
+
+def cluster_geometry(N: int, L1: int, pequ32: int = 0, levels: int = 1,
+                     kmax=CLUSTER_MAX, sms: int = 132, rows: int = 0
+                     ) -> ClusterLaunch | None:
+    """The cluster route's launch over N rows of L1 columns, one cluster
+    a row, or None where no instance holds it: the key's bits at these
+    DP rows (32 where the fields fit 31, else 64) give the instances;
+    each takes halo =
+    ceil(w / cols) <= WIDE_MAX_HALO lanes a warp, T warps of 32 - halo
+    own lanes cover L1, and K = 2 .. kmax CTAs of nw = ceil(T / K) warps
+    (K then ceil(T / nw), so the last CTA holds columns) within its
+    thread limit and SMEM_MAX. Of those the least cost of the busiest
+    SM: rows x waves x (a row's instruction slots, the larger of one
+    warp alone, 2 x cols x ops, and its resident warps' cols x ops over
+    four schedulers, plus CLUSTER_BARRIER_CYCLES), ops = 23 + 3 levels a
+    column (twice at 64 bits), resident CTAs by the register file of the
+    instance's launch bound, the SMs a wave fills those that whole
+    clusters fill in a GPC of CLUSTER_GPC_SMS; ties to fewer CTAs.
+    `kmax`: the card's largest cluster, one int or {(cols, kb): CTAs}."""
+    sb, gb, db, w = rescore_key_bits(L1, levels, rows)
+    if sb + gb + db > 63 or N < 1:
+        return None
+    kb = 32 if sb + gb + db <= 31 else 64
+    ops = (23 + 3 * levels) * (2 if kb == 64 else 1)
+    best = None
+    for (cols, b), lim, kcap in zip(CLUSTER_MAX_THREADS,
+                                    CLUSTER_MAX_THREADS.values(),
+                                    _cluster_limits(kmax)):
+        halo = -(-w // cols)
+        if b != kb or halo > WIDE_MAX_HALO:
+            continue
+        T = -(-L1 // ((32 - halo) * cols))
+        for want in range(2, min(kcap, CLUSTER_MAX, T) + 1):
+            nw = -(-T // want)
+            K = -(-T // nw)
+            smem = rescore_wide_smem(nw, halo, cols, pequ32, kb=kb)
+            if K < 2 or 32 * nw > lim or smem > SMEM_MAX:
+                continue
+            per_sm = max(1, lim // (32 * nw))
+            slots = CLUSTER_GPC_SMS * per_sm
+            ctas = N * K
+            waves = -(-ctas // max(1, sms * per_sm * (slots // K * K)
+                                   // slots))
+            warps = min(per_sm, -(-ctas // sms)) * nw
+            cost = waves * (max(2 * cols * ops, warps * cols * ops / 4)
+                            + CLUSTER_BARRIER_CYCLES)
+            rank = (cost, K * nw * cols, K)
+            if best is None or rank < best[0]:
+                best = rank, ClusterLaunch(
+                    "cluster", 32 * nw, N * K, smem, cols, halo, K, kb,
+                    L1, L1 - 1, 0, 1)
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_reach(pequ32: int, levels: int, limits: tuple,
+                   rows: int) -> int:
+    lo, hi = 0, (1 << 22) // 32 - 1      # multiples of 32 under 2^22
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if cluster_geometry(1, 32 * mid, pequ32, levels,
+                            dict(zip(CLUSTER_MAX_THREADS, limits)),
+                            rows=rows) is None:
+            hi = mid - 1
+        else:
+            lo = mid
+    return 32 * lo
+
+
+def cluster_reach(pequ32: int, levels: int, kmax=CLUSTER_MAX,
+                  rows: int = 0) -> int:
+    """The widest row (a multiple of 32 columns, 0 for none) that one
+    cluster holds at this Peq size, look-back and DP rows (0: any)."""
+    return _cluster_reach(pequ32, levels, _cluster_limits(kmax), rows)
+
+
+def rescore_cluster(N: int, rows: int, L1: int, pequ32: int = 0,
+                    sms: int = 132, levels: int = 1, kmax=CLUSTER_MAX
+                    ) -> ClusterLaunch | None:
+    """The cluster route at this shape: one cluster a pair
+    (`cluster_geometry`) where one holds the row, else one a window of
+    the cluster's reach (`cluster_reach`), each owning Lw - 1 - M columns
+    after the margin M of `segment_margin`, while that is at least a
+    quarter of the window (the segment route's rule with a cluster's
+    reach in place of one CTA's); else None."""
+    if levels >= 24 or L1 >= 1 << 24:
+        return None
+    whole = cluster_geometry(N, L1, pequ32, levels, kmax, sms, rows)
+    if whole is not None:
+        return whole
+    Lw = cluster_reach(pequ32, levels, kmax, rows)
+    M = segment_margin(rows, levels)
+    own = Lw - 1 - M
+    if Lw < 1 << levels or 4 * own < Lw or Lw >= L1:
+        return None
+    segs = -(-(L1 - 1) // own)
+    g = cluster_geometry(N * segs, Lw, pequ32, levels, kmax, sms, rows)
+    return None if g is None else g._replace(own=own, margin=M, segs=segs)
+
+
 def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
-                     sms: int = 132, levels: int = 1) -> RescoreLaunch:
+                     sms: int = 132, levels: int = 1, kmax=CLUSTER_MAX
+                     ) -> RescoreLaunch | ClusterLaunch:
     """The K3 launch over N pairs of `pequ32` (C x W) Peq words with a
     2^levels look-back, the row in registers wherever one CTA's hold it:
     C columns a thread (a multiple of 4 up to 32; a power of two unless
@@ -217,11 +368,21 @@ def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
     across warps takes 8, 16 or 32 columns a thread and a 32-bit key,
     as before the warp route. Past them the segment route
     (`rescore_segments`: overlapping windows on those routes, N x segs
-    items, then the merge), and where even that fails the global route
-    at any L1 (no shared memory but the reduction's: the row state in a
-    scratch of 32 bytes a column a CTA, the codes read from the tiles;
-    one CTA per SM, fewer where the scratch would pass GLOBAL_SCRATCH
-    bytes, walking over the pairs)."""
+    items, then the merge); where a window would be mostly margin the
+    cluster route (`rescore_cluster`: a ClusterLaunch, one cluster of up
+    to `kmax` CTAs a pair, or a window of its reach, then the merge); and
+    where even that fails the global route at any L1 (no shared memory
+    but the reduction's: the row state in a scratch of 32 bytes a column
+    a CTA, the codes read from the tiles; one CTA per SM, fewer where the
+    scratch would pass GLOBAL_SCRATCH bytes, walking over the pairs).
+    With clusters of 16 the global route keeps only: a look-back of
+    1,024 columns past one warp's 1,024 (no instance's halo holds it);
+    L1 of 2^24 or more; and rows past a cluster's reach whose windows
+    would be mostly margin (1 + (rows - 1) 2^levels over three quarters
+    of the reach): at a look-back of 64 none up to 1,472 rows (the reach
+    184,320 columns, windows past it), at 128 1,456 rows past 172,032
+    columns, at 256 512 rows or more past 147,456, at 512 150 rows or
+    more past 98,304."""
     reg = register_geometry(N, L1, pequ32, levels)
     if reg is not None:
         return reg
@@ -229,6 +390,9 @@ def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
     if sg is not None:
         return register_geometry(N * sg.segs, sg.window, pequ32,
                                  levels)._replace(route="segments")
+    cl = rescore_cluster(N, rows, L1, pequ32, sms, levels, kmax)
+    if cl is not None:
+        return cl
     cap = GLOBAL_SCRATCH // (4 * 8 * L1)
     return RescoreLaunch("global", GLOBAL_THREADS,
                          max(1, min(N, sms, cap)), 0)
@@ -242,8 +406,8 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
     tiles [N, L1-1] uint8, qmeta [N, 2] int32 (qlen, max_ed). With
     `tidx` ([N] int64, each under NT) tiles are bucket rows [NT, Lt]
     (Lt <= L1 - 1, unit column stride) and pair n's tile is row tidx[n]
-    padded with code 0: the segment route reads them in place, the
-    others from a gathered copy."""
+    padded with code 0: the segment and cluster routes read them in
+    place, the others from a gathered copy."""
     N = peq_flat.shape[0]
     dev = peq_flat.device
     C = peq_flat.shape[1] // W if peq_flat.dim() == 2 else 0
@@ -286,13 +450,18 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
     if N == 0:
         return out
     sms = sm_count(dev)
-    g = rescore_geometry(N, rows, L1, C * W, sms, levels)
-    if tidx is not None and g.route != "segments":
+    g = rescore_geometry(N, rows, L1, C * W, sms, levels,
+                         cluster_limits(dev, C * W, levels))
+    if tidx is not None and g.route not in ("segments", "cluster"):
         tiles, tidx = gathered(), None
     if g.route == "segments":
         return rescore_merge(_segment_parts(peq_flat, tiles, qmeta, W,
                                             levels, rows, L1, tidx, g),
                              qmeta, rows)
+    if g.route == "cluster":
+        out = _cluster_run(peq_flat, tiles, qmeta, W, levels, rows, L1,
+                           tidx, g)
+        return out if g.segs == 1 else rescore_merge(out, qmeta, rows)
     scratch = torch.empty(4 * g.grid * L1 if g.route == "global" else 0,
                           dtype=torch.int64, device=dev)
     _build.launch(
@@ -308,7 +477,60 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
 
 
 rescore.launches = 0
-rescore.routes = {"warp": 0, "wide": 0, "segments": 0, "global": 0}
+rescore.routes = {"warp": 0, "wide": 0, "segments": 0, "cluster": 0,
+                  "global": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_limits_on(index: int, pequ32: int, levels: int
+                       ) -> tuple[tuple[tuple[int, int], int], ...]:
+    lib = _build.load("rescore", _SIG)
+    w = 1 << levels
+    got = []
+    for (cols, kb), lim in CLUSTER_MAX_THREADS.items():
+        halo = -(-w // cols)
+        smem = rescore_wide_smem(lim // 32, halo, cols, pequ32, kb=kb)
+        n = ctypes.c_int(0)
+        if halo <= WIDE_MAX_HALO and smem <= SMEM_MAX:
+            with torch.cuda.device(index):
+                _build.check(lib.rescore_cluster_max(
+                    cols, kb, lim, smem, ctypes.byref(n)),
+                    "rescore_cluster_max")
+        got.append(((cols, kb), min(n.value, CLUSTER_MAX)))
+    return tuple(got)
+
+
+def cluster_limits(device, pequ32: int, levels: int) -> dict:
+    """{(cols, kb): the largest cluster the card co-schedules} for the
+    cluster route's instances at their launch bound and the most shared
+    memory they plan at this Peq size and look-back (the card's
+    `cudaOccupancyMaxPotentialClusterSize`, cached a device): a launch
+    of fewer threads and bytes is granted at least as many CTAs."""
+    dev = torch.device(device)
+    return dict(_cluster_limits_on(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        pequ32, levels))
+
+
+def _cluster_run(peq_flat, tiles, qmeta, W, levels, rows, L1, tidx, g):
+    """The cluster kernel's launch `g` (`rescore`'s checked CUDA
+    arguments): [4, N] for whole rows, else the windows' [5, N*S]."""
+    N, dev = peq_flat.shape[0], peq_flat.device
+    C = peq_flat.shape[1] // W
+    out = torch.empty((4, N) if g.segs == 1 else (5, N * g.segs),
+                      dtype=torch.int32, device=dev)
+    _build.launch(
+        dev, _build.load("rescore", _SIG).rescore_cluster_launch,
+        peq_flat.data_ptr(), tiles.data_ptr(),
+        None if tidx is None else tidx.data_ptr(), qmeta.data_ptr(),
+        out.data_ptr(), N, W, C, levels, rows, L1, tiles.shape[1],
+        tiles.stride(0), g.window, g.own, g.margin, g.segs, g.cols,
+        g.halo, g.threads // 32, g.cluster, g.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
+        what=f"rescore_cluster_launch ({g.cluster} CTAs a cluster)")
+    rescore.launches += 1
+    rescore.routes["cluster"] += 1
+    return out
 
 
 def _segment_parts(peq_flat, tiles, qmeta, W, levels, rows, L1, tidx, g):

@@ -1,6 +1,6 @@
 """Smoke run of burst_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # needs one card; about 14 min
+    python3 chip_smoke.py                 # needs one card; about 15 min
     python3 chip_smoke.py kernels         # phases 1-2 only (a first check
                                           # of a new kernel; no result line)
     python3 chip_smoke.py twostep         # build, then phase 6 alone and
@@ -15,6 +15,9 @@
     python3 chip_smoke.py long            # build, then phase 10 alone
                                           # (no result line)
     python3 chip_smoke.py genomes         # build, then phase 13 alone
+                                          # (its CPU checks started
+                                          # first; no result line)
+    python3 chip_smoke.py longgenomes     # build, then phase 14 alone
                                           # (its CPU checks started
                                           # first; no result line)
     python3 chip_smoke.py mesh            # build, then phase 11 alone
@@ -40,7 +43,9 @@
                                           # checks and times of every
                                           # route at the paths' shapes
                                           # (the segment route in turns
-                                          # with the global one);
+                                          # with the global and the
+                                          # cluster ones, the cluster
+                                          # route with the global one);
                                           # with an earlier source, its
                                           # 11-argument block route and
                                           # its 15- or 17-argument wide
@@ -116,10 +121,13 @@ Phases, each fatal on failure:
      W = 45, the whole references' W = 9, L1 = 17,024 (18 warps,
      windows across the warps' halos), 240,256 columns (the segment
      route, timed in turns with the global route forced at that shape,
-     and its merge kernel alone on the segments' partial results),
-     1,450 bp reads at a look-back of 64 on a 20 kbp reference (the
-     global route, where it stays) and, held once, L1 = 1,024 at levels
-     10 (the warp route's 64-bit key);
+     and its merge kernel alone on the segments' partial results), a
+     150 kbp chloroplast at phase 13's reads (the segment route in turns
+     with the cluster route forced there), 1,450 bp reads at a look-back
+     of 64 on a 20 kbp reference at 4 pairs and on phase 14's longest
+     genome at 8 (the cluster route, each in turns with the global route
+     forced at the shape, which holds it exactly) and, held once, L1 =
+     1,024 at levels 10 (the warp route's 64-bit key);
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -275,6 +283,20 @@ Phases, each fatal on failure:
      genome on 256 of its rows; 64 check reads a mode against the CLI's
      CPU run (three processes started after the build, beside the
      card's work); one JSON line of each mode's seconds, K3/K4 launches,
+     device ms against their summed bound and peak device memory.
+ 14. full-length reads on whole genomes (`phase_long_genomes`): phase
+     13's genomes, 2,000 reads of 1,441-1,450 bp from phase 10's
+     generator (W = 46, 1,456 DP rows; every 199th with an N), -i 0.97
+     -fr without -s (levels 6): BEST and CAPITALIST -b, each with every
+     count set to 0 just before; K4 at W = 46 on lane groups, K3 at
+     full width over 18-160 kbp: at least one cluster launch a mode, no
+     global launch, every K3 call past one CTA's registers planned on
+     the cluster route. Every K3 shape launched again on its own
+     arguments and held on 8 of its pairs against the plain version, K4
+     at the shortest genome on 256 of its rows; 12 check reads a mode
+     (and the batch's N reads) against the CLI's CPU run (two processes
+     started after phase 6, beside the card's work); one JSON line of
+     each mode's seconds and align phases, K3/K4 launches by route,
      device ms against their summed bound and peak device memory.
 
 No scour knob is set: the slot budgets of every accelerated batch are
@@ -451,6 +473,7 @@ def _entry_name(ptxas_line: str) -> str:
     if "_scratch_" in name:
         return "scratch"
     wide = "wide " if "_wide_" in name else \
+        "cluster " if "_cluster_" in name else \
         "group " if "_group_" in name else \
         "thin " if "_thin_" in name else "W="
     return wide + _template_args(ptxas_line)
@@ -590,15 +613,16 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
              "word" % (lo, hi), OPS_WORD, per_word)
         held("cross scan group other integer operations per column and "
              "lane", OPS_COL, ops[lo] - lo * per_word)
-    # K3 (`rescore_wide_kernel<C, KB>`, C columns a thread, KB-bit
-    # keys): the doublings across lanes are the loop nested in the row
-    # loop that shuffles (SHFL), C selections an iteration, held against
-    # OPS_LEVEL; the row loop's own operations (C cells, each doubling
-    # inside a lane's run, ceil(log2 C) of them, C selections each, at
-    # that count, the new state) over C, against OPS_CELL.
+    # K3 (`rescore_wide_kernel<C, KB>` and `rescore_cluster_kernel<C,
+    # KB>`, C columns a thread, KB-bit keys): the doublings across lanes
+    # are the loop nested in the row loop that shuffles (SHFL), C
+    # selections an iteration, held against OPS_LEVEL; the row loop's own
+    # operations (C cells, each doubling inside a lane's run, ceil(log2
+    # C) of them, C selections each, at that count, the new state) over
+    # C, against OPS_CELL.
     if "rescore" in sources:
         for (k, a), loops in sorted(fns.items()):
-            if k != "rescore_wide_kernel":
+            if k not in ("rescore_wide_kernel", "rescore_cluster_kernel"):
                 continue
             C = int(a.split("/")[0])
             rows = [l for l in loops if l[2] == 0 and l[3]["SHFL"]]
@@ -609,9 +633,9 @@ def phase_sass(sos, sources=KERNEL_SOURCES):
                      f"{len(across)} doubling loops across lanes")
             show(k, a, rows + across)
             level = sum(across[0][3][o] for o in CELL_OPCODES) / C
-            held(f"rescore wide <{a}> operations per doubling", OPS_LEVEL,
-                 level)
-            held(f"rescore wide <{a}> operations per cell", OPS_CELL,
+            what = "rescore " + k.split("_")[1]     # wide, cluster
+            held(f"{what} <{a}> operations per doubling", OPS_LEVEL, level)
+            held(f"{what} <{a}> operations per cell", OPS_CELL,
                  sum(rows[0][3][o] for o in CELL_OPCODES) / C
                  - math.ceil(math.log2(C)) * level)
     # K4 wide (<g0>: words in shared memory, <g1>: in a global scratch),
@@ -1131,13 +1155,15 @@ def phase_pairs_path(main, B, earlier=None):
 
 
 def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
-                      Lw=None, earlier=None):
+                      Lw=None, earlier=None, reps=None):
     """One K3 call as engine.rescore_winners makes it (Peq planes `peq`
     and bucket tiles `bt_d` on the card, host index, length, budget and
     window vectors): the gathered launch, exact against the kernel on the
     same block gathered here and against the plain version on the card;
-    given an earlier kernel's call (`earlier_rescore_kernel`), both timed
-    in turns. Returns (result on the host, the kernel record's entry)."""
+    given an earlier kernel's call (`earlier_rescore_kernel`) or another
+    route forced, both timed in turns (`reps` runs each, by default 20,
+    3 past 2e9 cells). Returns (result on the host, the kernel record's
+    entry: on the cluster route "K3-cluster", counted in "k3c")."""
     import torch
 
     from burst_tpu_torch.kernels import rescore, rescore_cuda
@@ -1156,7 +1182,7 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
     ref = rescore.rescore_plain(peq_f, tl, qmeta, W, lv, rows, L1)
     e1.record()
     err = exact(f"K3 {label} vs plain", got, ref.cpu().numpy())
-    reps = 20 if N * rows * L1 <= 2e9 else 3
+    reps = reps or (20 if N * rows * L1 <= 2e9 else 3)
     turns = {}
     if earlier is None or not earlier.covers(rows, L1, C, W):
         ms = time_ms(kern, reps)
@@ -1165,19 +1191,21 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
         ms, was = in_turns(f"K3 {label}", kern, lambda: earlier(
             peq_f, tl, qmeta, W, lv, rows, L1), reps, name)
         turns = {getattr(earlier, "key", "earlier_ms"): was}
+    route = rescore_cuda.rescore_geometry(N, rows, L1, C * W,
+                                          levels=lv).route
+    clu = route == "cluster"
     return got, dict(
-        name=f"K3 rescore ({label})", route="cuda",
+        name=("K3-cluster rescore_cluster_kernel" if clu else "K3 rescore")
+        + f" ({label})", route="cuda",
         source="burst_tpu_torch/csrc/rescore.cu",
         replaces="burst_tpu/kernels/rescore_pallas.py:156",
         max_abs_err=err, ms=ms, **turns,
         plain_ms=e0.elapsed_time(e1),
         **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
                 N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
-        library_ms=None, counter="k3",
+        library_ms=None, counter="k3c" if clu else "k3",
         shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N}"
-        + ("" if C == 16 else f" C={C}") + " ("
-        + rescore_cuda.rescore_geometry(N, rows, L1, C * W, levels=lv).route
-        + " route)")
+        + ("" if C == 16 else f" C={C}") + f" ({route} route)")
 
 
 def _rescore_block(peq, bt_d, rp, rt, rq, red, W, x0=None, Lw=None):
@@ -1227,6 +1255,33 @@ def forced_global_rescore(peq_flat, tiles, qmeta, W, levels, rows, L1):
 forced_global_rescore.covers = lambda rows, L1, C, W: True
 forced_global_rescore.label = "the global route"
 forced_global_rescore.key = "global_ms"
+
+
+def forced_cluster_rescore(peq_flat, tiles, qmeta, W, levels, rows, L1):
+    """K3's cluster route (`rescore_cluster_kernel`, one cluster a pair
+    or a window, then the merge) forced at a shape another route takes,
+    at the launch `rescore_cluster` plans there with the card's largest
+    clusters, for timing it in turns (not counted as a launch)."""
+    from burst_tpu_torch.kernels import myers_cuda, rescore_cuda as rc
+    N, dev, C = peq_flat.shape[0], peq_flat.device, peq_flat.shape[1] // W
+    g = rc.rescore_cluster(N, rows, L1, C * W, myers_cuda.sm_count(dev),
+                           levels, rc.cluster_limits(dev, C * W, levels))
+    if g is None:
+        fail(f"K3 W={W} rows={rows} L1={L1}: no cluster launch fits")
+    counts = (rc.rescore.launches, dict(rc.rescore.routes),
+              rc.rescore_merge.launches)
+    out = rc._cluster_run(peq_flat, tiles, qmeta, W, levels, rows, L1,
+                          None, g)
+    if g.segs > 1:
+        out = rc.rescore_merge(out, qmeta, rows)
+    rc.rescore.launches, rc.rescore.routes, rc.rescore_merge.launches = \
+        counts
+    return out
+
+
+forced_cluster_rescore.covers = lambda rows, L1, C, W: True
+forced_cluster_rescore.label = "the cluster route"
+forced_cluster_rescore.key = "cluster_ms"
 
 
 def hold_merge(label, peq, bt_d, rp, rt, rq, red, W):
@@ -1701,19 +1756,24 @@ def block_rescore_recs(rng, smat_d, earlier=None):
 
 
 def wide_rescore_recs(rng, smat_d, earlier=None):
-    """K3's wide, segment and global routes at phase 10's and 13's
-    shapes, exact against the plain version on the card and timed beside
-    the bound (with `earlier`, an earlier kernel in turns): 1,456 rows
-    windowed (L1 = 1,536) and full width (L1 = 3,072), the fused batch's
-    W = 45 (1,440 rows, levels 5, N = 2,048), the whole references' W =
-    9 (L1 = 1,920), a 16,569 bp reference rescored whole (L1 = 17,024,
-    the row in the registers of 18 warps) at 64 and 32 pairs; past what
-    one CTA holds a 240 kbp contig (240,256 columns: the segment route,
-    in turns with the global route forced at the same shape; then the
-    segments' merge alone on its own partial results; phase 13 holds the
-    route at its own shapes); the global route where it stays, 1,450 bp
-    reads at a look-back of 64 against a 20 kbp reference. Returns the
-    kernel record's entries (the merge's last)."""
+    """K3's wide, segment and cluster routes at phase 10's, 13's and
+    14's shapes, exact against the plain version on the card and timed
+    beside the bound (with `earlier`, an earlier kernel in turns): 1,456
+    rows windowed (L1 = 1,536) and full width (L1 = 3,072), the fused
+    batch's W = 45 (1,440 rows, levels 5, N = 2,048), the whole
+    references' W = 9 (L1 = 1,920), a 16,569 bp reference rescored whole
+    (L1 = 17,024, the row in the registers of 18 warps) at 64 and 32
+    pairs; past what one CTA holds a 240 kbp contig (240,256 columns:
+    the segment route, in turns with the global route forced at the same
+    shape; then the segments' merge alone on its own partial results)
+    and a 150 kbp chloroplast at phase 13's reads (the segment route, in
+    turns with the cluster route forced there: information, no routing
+    changes); where a window would be mostly margin the cluster route:
+    1,450 bp reads at a look-back of 64 against a 20 kbp reference at 4
+    pairs and against phase 14's longest genome at 8, each in turns with
+    the global route forced at the same shape (which holds that route
+    exactly: no path launches it). Returns the kernel record's entries
+    (the merge's last)."""
     import numpy as np
 
     from burst_tpu_torch import engine
@@ -1738,24 +1798,30 @@ def wide_rescore_recs(rng, smat_d, earlier=None):
             recs.append(rec)
         del peq, tiles
     merge = None
-    for label, W, N, lb, qlen, budget in (
-            ("wide, whole 1,450 bp references", 9, 512, 1600, 288, 9),
-            ("wide, a 16,569 bp reference", 10, 64, 16576, 300, 9),
-            ("wide, a 16,569 bp reference", 9, 32, 16576, 288, 9),
-            ("segments, a 240,000 bp contig", 4, 2, 240000, 100, 2),
-            ("global, 1,450 bp reads at a 64 look-back", LONG_W, 4, 20000,
-             LONG_QLEN, 43)):
+    longest = max(len(r) for r in genome_refs())
+    for label, W, N, lb, qlen, budget, turns in (
+            ("wide, whole 1,450 bp references", 9, 512, 1600, 288, 9,
+             earlier),
+            ("wide, a 16,569 bp reference", 10, 64, 16576, 300, 9, earlier),
+            ("wide, a 16,569 bp reference", 9, 32, 16576, 288, 9, earlier),
+            ("segments, a 240,000 bp contig", 4, 2, 240000, 100, 2,
+             forced_global_rescore),
+            ("segments, a 150,000 bp chloroplast", 5, 512, 150000, 150, 4,
+             forced_cluster_rescore),
+            ("cluster, 1,450 bp reads at a 64 look-back", LONG_W, 4, 20000,
+             LONG_QLEN, 43, forced_global_rescore),
+            (f"cluster, 1,450 bp reads on the longest genome ({longest} "
+             "bp)", LONG_W, 8, longest, LONG_QLEN, 43,
+             forced_global_rescore)):
         peq, tiles, ql, red, x0, Lw = _near_rescore_inputs(
             rng, smat_d, W, N, lb, lb + engine.rescore_pad(lb, W), qlen,
             budget)
         g0 = dict(rescore_cuda.rescore.routes)
         route = label.split(",")[0]
-        turns = earlier
-        if "contig" in label:   # the route it replaces, at this shape
-            turns = forced_global_rescore
         idx = np.arange(N)
         got, rec = hold_rescore_call(label, peq, tiles, idx, idx, ql, red,
-                                     W, earlier=turns)
+                                     W, earlier=turns,
+                                     reps=3 if lb > 100000 else None)
         if rescore_cuda.rescore.routes[route] == g0[route] or \
                 (got[0] <= red).sum() < N // 2:
             fail(f"K3 {label}: not the {route} route, or "
@@ -1767,8 +1833,10 @@ def wide_rescore_recs(rng, smat_d, earlier=None):
         del peq, tiles
     routes = {k: v - routes0[k] for k, v in
               rescore_cuda.rescore.routes.items()}
-    if not routes["wide"] or not routes["segments"] or not routes["global"]:
-        fail(f"K3: a wide route did not launch: {routes}")
+    if not routes["wide"] or not routes["segments"] or \
+            not routes["cluster"] or routes["global"]:
+        fail(f"K3: a wide route did not launch, or the global one did: "
+             f"{routes}")
     return recs + [merge]
 
 
@@ -2561,11 +2629,29 @@ class _ThinCount:
         myers_cuda.myers_cross.thin = n
 
 
+class _ClusterCount:
+    """K3's cluster launches (`rescore.routes["cluster"]`, counted by the
+    wrapper where it launches the cluster kernel) as a counter of their
+    own: setting `launches` moves its zero, not the wrapper's count."""
+    base = 0
+
+    @property
+    def launches(self) -> int:
+        from burst_tpu_torch.kernels import rescore_cuda
+        return rescore_cuda.rescore.routes["cluster"] - _ClusterCount.base
+
+    @launches.setter
+    def launches(self, n: int):
+        from burst_tpu_torch.kernels import rescore_cuda
+        _ClusterCount.base = rescore_cuda.rescore.routes["cluster"] - n
+
+
 def _counters():
     from burst_tpu_torch.kernels import myers_cuda, rescore_cuda
     return dict(k1=myers_cuda.myers_pairs_packed, k2=myers_cuda.myers_pairs,
                 k3=rescore_cuda.rescore, k4=myers_cuda.myers_cross,
-                k4t=_ThinCount(), k3m=rescore_cuda.rescore_merge)
+                k4t=_ThinCount(), k3m=rescore_cuda.rescore_merge,
+                k3c=_ClusterCount())
 
 
 def k4_route(W: int, Q: int, T: int, Lp: int, ty: str, C: int) -> str:
@@ -4094,18 +4180,34 @@ def _genome_dir() -> str:
                         "build", "smoke_genomes")
 
 
+def genome_refs(rng=None):
+    """Phase 13's (and 14's) 12 genomes, from the seed (drawn from `rng`
+    where given: phase 13's reads are drawn from it next)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 13) if rng is None else rng
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    return [rng.choice(bases, int(rng.integers(lo, hi + 1)))
+            for n, lo, hi in GENOME_LENS for _ in range(n)]
+
+
 def genome_data():
     """Phase 13's genomes and reads, from the seed: (heads, genomes,
     read heads, reads, the check reads' indices (`_check_reads`))."""
     import numpy as np
     rng = np.random.default_rng(SEED + 13)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    refs = [rng.choice(bases, int(rng.integers(lo, hi + 1)))
-            for n, lo, hi in GENOME_LENS for _ in range(n)]
+    refs = genome_refs(rng)
     heads = [b"genome%02d" % i for i in range(len(refs))]
     qh, reads = _full_reads(rng, refs, GENOME_READS, GENOME_READ_LEN,
                             GENOME_READ_LEN)
     return heads, refs, qh, reads, _check_reads(reads, GENOME_CHECK_READS)
+
+
+def _write_tax(path, heads):
+    """A lineage a genome (phases 13 and 14)."""
+    with open(path, "wb") as f:
+        for i, h in enumerate(heads):
+            f.write(h + b"\tk__V;p__P%d;c__C%d;o__O%d;f__F%d;g__G%d;s__S%d\n"
+                    % (i % 2, i % 3, i % 4, i, i, i))
 
 
 def write_genome_inputs(work):
@@ -4113,10 +4215,7 @@ def write_genome_inputs(work):
     genome), reads.fa and check.fa."""
     heads, refs, qh, reads, ck = genome_data()
     _write_fasta(os.path.join(work, "refs.fa"), heads, refs)
-    with open(os.path.join(work, "tax.tsv"), "wb") as f:
-        for i, h in enumerate(heads):
-            f.write(h + b"\tk__V;p__P%d;c__C%d;o__O%d;f__F%d;g__G%d;s__S%d\n"
-                    % (i % 2, i % 3, i % 4, i, i, i))
+    _write_tax(os.path.join(work, "tax.tsv"), heads)
     _write_fasta(os.path.join(work, "reads.fa"), qh, reads)
     _write_fasta(os.path.join(work, "check.fa"), [qh[i] for i in ck],
                  [reads[i] for i in ck])
@@ -4192,18 +4291,21 @@ def hold_rescore_sampled(label, peq, bt_d, rp, rt, rq, red, W):
     e1.record()
     err = exact(f"K3 {label} vs plain on {len(keep)} pairs", got[:, keep],
                 ref.cpu().numpy())
+    route = rescore_cuda.rescore_geometry(N, rows, L1, C * W,
+                                          levels=lv).route
+    clu = route == "cluster"
     return dict(
-        name=f"K3 rescore ({label})", route="cuda",
+        name=("K3-cluster rescore_cluster_kernel" if clu else "K3 rescore")
+        + f" ({label})", route="cuda",
         source="burst_tpu_torch/csrc/rescore.cu",
         replaces="burst_tpu/kernels/rescore_pallas.py:156",
         max_abs_err=err, ms=time_ms(run, 3), plain_ms=e0.elapsed_time(e1),
         **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
                 N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
-        library_ms=None, counter="k3",
+        library_ms=None, counter="k3c" if clu else "k3",
         sample=f"{len(keep)} of its {N} pairs against the plain version",
-        shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N} ("
-        + rescore_cuda.rescore_geometry(N, rows, L1, C * W,
-                                        levels=lv).route + " route)")
+        shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N} ({route} "
+        "route)")
 
 
 def phase_genomes(launch_log, cpu):
@@ -4330,6 +4432,173 @@ def phase_genomes(launch_log, cpu):
             f"identical to the CLI's CPU run (its process beside the "
             f"card's work; waited {time.perf_counter() - t0:.1f} s for it)")
     print(json.dumps({"genomes": out}), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+# Phase 14: full-length 16S reads (PacBio HiFi) screened against phase
+# 13's 12 whole genomes (chloroplast and mitochondrial genomes carry 16S
+# genes): 2,000 reads of 1,441-1,450 bp (one Myers width, W = 46: 1,456
+# DP rows) cut from the genomes with phase 10's generator, every 199th
+# with an N; -i 0.97 -fr without -s (a budget of 43: levels 6), BEST and
+# CAPITALIST -b, direct. Every K3 call past one CTA's registers takes the
+# cluster route; 12 check reads a mode against the CLI's CPU run.
+LONG_GENOME_READS, LONG_GENOME_LO, LONG_GENOME_HI = 2000, 1441, 1450
+LONG_GENOME_CHECK_READS = 12
+LONG_GENOME_MODES = GENOME_MODES[:2]     # BEST, CAPITALIST -b
+
+
+def _long_genome_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke_long_genomes")
+
+
+def long_genome_data():
+    """Phase 14's genomes (phase 13's) and reads, from the seed: (heads,
+    genomes, read heads, reads, the check reads' indices)."""
+    import numpy as np
+    refs = genome_refs()
+    heads = [b"genome%02d" % i for i in range(len(refs))]
+    qh, reads = _full_reads(np.random.default_rng(SEED + 14), refs,
+                            LONG_GENOME_READS, LONG_GENOME_LO,
+                            LONG_GENOME_HI)
+    return heads, refs, qh, reads, _check_reads(reads,
+                                                LONG_GENOME_CHECK_READS)
+
+
+def start_long_genome_cpu_checks():
+    """Writes phase 14's inputs (refs.fa, tax.tsv, reads.fa, check.fa)
+    and starts its CPU checks: the CLI on the check reads with
+    BURST_TPU_TORCH_DEVICE=cpu, one process a mode, a thread each,
+    beside the card's work. Returns {mode: (process, its log)}."""
+    work = _long_genome_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    heads, refs, qh, reads, ck = long_genome_data()
+    _write_fasta(os.path.join(work, "refs.fa"), heads, refs)
+    _write_tax(os.path.join(work, "tax.tsv"), heads)
+    _write_fasta(os.path.join(work, "reads.fa"), qh, reads)
+    _write_fasta(os.path.join(work, "check.fa"), [qh[i] for i in ck],
+                 [reads[i] for i in ck])
+    p = lambda name: os.path.join(work, name)
+    return {mode: _background(
+        ["-m", "burst_tpu_torch.cli"] + _genome_argv(work, extra)
+        + ["-q", p("check.fa"), "-o", p(f"cpu_{mode}.b6")],
+        p(f"cpu_{mode}.log"), BURST_TPU_TORCH_DEVICE="cpu",
+        OMP_NUM_THREADS="1") for mode, extra in LONG_GENOME_MODES}
+
+
+def phase_long_genomes(launch_log, cpu):
+    """Phase 14 on the card, `cpu` the CPU checks that
+    `start_long_genome_cpu_checks` started: each mode through
+    `burst_tpu_torch.cli.main` in process on the 2,000 reads (every count
+    set to 0 just before and read just after; K3 and K4 calls captured
+    with events), then on the check reads against the CPU run. Fails
+    unless each mode launched K3's cluster route and never its global
+    route, and every K3 call past one CTA's registers planned the
+    cluster route (whole rows or windows). Every K3 shape is held on
+    GENOME_HOLD_PAIRS of its own pairs, K4 at its shortest tile on 256 of
+    its query rows, each once over the modes. Logs one JSON line of the
+    modes' seconds and align phases, K3's and K4's device ms against
+    their summed bound, launches by route, peak device memory."""
+    import torch
+
+    from burst_tpu_torch.kernels import rescore_cuda
+    work = _long_genome_dir()
+    p = lambda name: os.path.join(work, name)
+    log(f"[long genomes] {len(genome_refs())} genomes; "
+        f"{LONG_GENOME_READS} reads of {LONG_GENOME_LO}-{LONG_GENOME_HI} "
+        f"bp, {LONG_GENOME_CHECK_READS} check reads a mode (and the "
+        "batch's N reads); " + card_line())
+    cuda = torch.device("cuda")
+    held = {"K3": set(), "K4": set()}
+    out = {}
+    for mode, extra in LONG_GENOME_MODES:
+        argv = _genome_argv(work, extra)
+        routes0 = dict(rescore_cuda.rescore.routes)
+        calls, undo = _capture_kernel_calls(("K3", "K4"), events=True)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            b6, ph, launches, stats, wall = cli_run(
+                f"long genomes {mode}", argv + ["-q", p("reads.fa"), "-o",
+                                                p("gpu.b6")], cuda,
+                ("k3", "k3c", "k4"))
+        finally:
+            undo()
+        peak = torch.cuda.max_memory_allocated()
+        routes = {r: c - routes0[r]
+                  for r, c in rescore_cuda.rescore.routes.items()}
+        k3 = _k3_report(calls["K3"])
+        k4 = k4_report(f"long genomes {mode}", calls["K4"])
+        past = {shape: rescore_cuda.rescore_geometry(
+            shape[4], shape[1], shape[3], shape[6] * shape[0],
+            levels=shape[2]).route for shape in calls["K3"]
+            if shape[3] > rescore_cuda.register_reach(shape[6] * shape[0],
+                                                      shape[2])}
+        log(f"[long genomes] {mode}: {LONG_GENOME_READS} reads, "
+            f"{b6.count(NL)} rows, wall {wall:.3f} s, align phases "
+            f"{_align_s(ph, wall):.3f} s; launches {launches}; K3 by route "
+            f"{routes} over {len(calls['K3'])} shapes at L1 "
+            f"{sorted({sh[3] for sh in calls['K3']})}; K3 (gather, cluster "
+            f"kernel) {k3['ms']:.3f} ms on the device against a summed "
+            f"bound of {k3['bound_ms']:.3f} ms "
+            f"({100 * k3['bound_ms'] / max(k3['ms'], 1e-9):.0f} %); K4 "
+            f"{k4['ms']:.3f} ms against {k4['bound_ms']:.3f} ms; peak "
+            f"device memory {peak / 2**30:.3f} GiB; path "
+            f"{stats.get('path')}; " + card_line())
+        if stats.get("path") != "direct" or routes["global"] or \
+                not routes["cluster"] or not past or \
+                set(past.values()) != {"cluster"} or \
+                b6.count(NL) < LONG_GENOME_READS // 2:
+            fail(f"[long genomes] {mode}: not the cluster route on every "
+                 f"K3 call past one CTA's registers, a global launch, or "
+                 f"few rows: {routes}, {past}, {b6.count(NL)} rows")
+        launch_log[f"long genomes {mode}"] = launches
+        out[mode] = dict(
+            reads=LONG_GENOME_READS, rows=b6.count(NL), wall_s=wall,
+            align_s=_align_s(ph, wall), peak_gib=peak / 2**30,
+            k3=dict(k3, routes=routes, cluster=launches["k3c"]), k4=k4,
+            phases=ph)
+        # each K3 shape on a sample of its pairs; K4's shortest tile on
+        # 256 rows; each shape once over the modes
+        for kern in held:
+            calls[kern] = {k: v for k, v in calls[kern].items()
+                           if k not in held[kern]}
+        if calls["K4"] and not held["K4"]:
+            shape = min(calls["K4"], key=lambda sh: sh[3])
+            count, (a, kw), _ = calls["K4"][shape]
+            a = (a[0][:MESH_HOLD_ROWS],) + tuple(a[1:])
+            _, rec = hold_cross_call(f"long genomes {shape}", *a, **kw)
+            rec.update(launches=count, sample=f"{MESH_HOLD_ROWS} rows")
+            launch_log["held"].append(("K4", rec))
+            held["K4"].add(shape)
+            log(f"[long genomes] K4 {rec['shape']} (the shortest genome, "
+                f"{MESH_HOLD_ROWS} of its {shape[1]} rows): exact vs plain; "
+                f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.2f} "
+                f"ms, bound {rec['bound_ms']:.5f} ms")
+        for shape, (count, (a, kw), _) in sorted(calls["K3"].items()):
+            rec = hold_rescore_sampled(f"long genomes {shape}", *a)
+            rec["launches"] = count
+            rec.pop("counter")
+            launch_log["held"].append((kernel_of(rec), rec))
+            held["K3"].add(shape)
+            log(f"[long genomes] K3 {rec['shape']} x {count}: "
+                f"{rec['sample']}, exact; kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.5f} ms "
+                f"({100 * rec['bound_ms'] / rec['ms']:.0f} %)")
+        del calls
+        gpu = cli_run(f"long genomes {mode} check", argv + [
+            "-q", p("check.fa"), "-o", p("gpu_check.b6")], cuda)[0]
+        t0 = time.perf_counter()
+        _joined(f"[long genomes] {mode}: the CLI's CPU run", cpu[mode],
+                timeout=1200)
+        with open(p(f"cpu_{mode}.b6"), "rb") as f:
+            _same_bytes(f"[long genomes] {mode}, check reads", gpu,
+                        f.read())
+        log(f"[long genomes] {mode}: the check reads' {gpu.count(NL)} rows "
+            f"identical to the CLI's CPU run (its process beside the "
+            f"card's work; waited {time.perf_counter() - t0:.1f} s for it)")
+    print(json.dumps({"long_genomes": out}), flush=True)
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -5716,6 +5985,14 @@ def main():
         log(f"[smoke] genomes done at {time.perf_counter() - t_all:.0f} s")
         print(card_line(), flush=True)
         return
+    if sys.argv[1:] == ["longgenomes"]:
+        cpu = start_long_genome_cpu_checks()
+        phase_build()
+        phase_long_genomes({"held": []}, cpu)
+        log(f"[smoke] long genomes done at "
+            f"{time.perf_counter() - t_all:.0f} s")
+        print(card_line(), flush=True)
+        return
     if sys.argv[1:] == ["wide"]:
         phase_sass(phase_build())
         print(json.dumps({"wide_kernels": phase_wide_kernels()}),
@@ -5784,6 +6061,7 @@ def main():
     twostep_cpu = cells["twostep"].pop("cpu_check")
     done("phase 6")
     full_cpu = start_full_cpu()     # phase 10's (a), from here
+    long_genome_cpu = start_long_genome_cpu_checks()   # phase 14's
     phase_mesh(cells, launch_log)
     done("phase 11 (a, b)")
     phase_slab(cells, launch_log)
@@ -5799,6 +6077,8 @@ def main():
     done("phase 10")
     phase_genomes(launch_log, genome_cpu)
     done("phase 13")
+    phase_long_genomes(launch_log, long_genome_cpu)
+    done("phase 14")
     held = launch_log.pop("held")
     k4_batches = launch_log.pop("k4_batches")
     # one entry per kernel, at the shape of the path that counts its
@@ -5808,14 +6088,15 @@ def main():
     for r in recs:
         c = r.pop("counter")
         r["launches"] = launch_log[{"k4": "direct", "k3m": "genomes BEST",
-                                    "k4t": "genomes BEST"}
+                                    "k4t": "genomes BEST",
+                                    "k3c": "long genomes BEST"}
                                    .get(c, "accel")][c]
         r["launches_by_path"] = {p: n.get(c, 0)
                                  for p, n in launch_log.items()}
         if kernels and kernel_of(kernels[-1]) == kernel_of(r):
             kernels[-1].setdefault("also", []).append({k: r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")})
+                "max_abs_err", "global_ms", "cluster_ms") if k in r})
         else:
             kernels.append(r)
     # K4 over each timed batch: launches, device ms, summed bound

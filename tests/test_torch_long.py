@@ -247,10 +247,11 @@ def test_rescore_geometry_routes():
     reference rescored whole (L1 = 17,024) in 18 warps of 32 columns a
     thread; past what one CTA's registers hold the segment route (a
     contig of 262 kbp, a row of 5 Mbp: overlapping windows on the wide
-    route, pairs x segments CTAs); the global route (no dynamic shared
-    memory, one CTA an SM) only where a window would be mostly margin
-    (1,456 rows at a look-back of 64 or 16), at any width, its CTAs
-    fewer where their scratch would pass GLOBAL_SCRATCH."""
+    route, pairs x segments CTAs); where a window would be mostly
+    margin (1,456 rows at a look-back of 64 or 16) the cluster route, at
+    any width: a cluster of CTAs a pair, past its reach windows of that
+    reach, one cluster each (tests/test_torch_cluster.py holds its
+    launches)."""
     g = rescore_cuda.rescore_geometry
     smem = rescore_cuda.rescore_wide_smem
     assert g(100, 296, 1024, 160) == \
@@ -277,10 +278,13 @@ def test_rescore_geometry_routes():
         ("segments", 544, 1000 * 76, smem(17, 1, 8, 160), 8, 1, 1)
     big = g(1000, 304, 5_000_064, 160, sms=132)
     assert big[:4] == ("segments", 544, 1000 * 1434, smem(17, 1, 8, 160))
-    assert g(1000, 1456, 262144, 16 * 46, sms=132, levels=6)[:4] == \
-        ("global", 1024, 32, 0)
-    assert g(1000, 1456, 5_000_064, 16 * 46, sms=132, levels=4)[:4] == \
-        ("global", 1024, 1, 0)
+    clu = g(1000, 1456, 262144, 16 * 46, sms=132, levels=6)
+    reach = rescore_cuda.cluster_reach(16 * 46, 6, rows=1456)
+    assert (clu.route, clu.cluster, clu.segs, clu.window) == \
+        ("cluster", 16, 3, reach)
+    clu = g(1000, 1456, 5_000_064, 16 * 46, sms=132, levels=4)
+    assert clu.route == "cluster" and clu.segs > 1 and \
+        clu.grid == 1000 * clu.segs * clu.cluster
     assert g(10, 296, 1024, 256 * 32, levels=4) == \
         ("warp", 32, 10, smem(1, 0, 32, 8192), 32, 0, 1)  # 32 KB of Peq
 
@@ -305,7 +309,7 @@ def test_rescore_wide_geometry_covers_every_launch():
                 r = g(64, 1456, L1, pequ32, levels=levels)
                 sg = rescore_cuda.rescore_segments(64, 1456, L1, pequ32,
                                                    levels=levels)
-                if r.route == "global":
+                if r.route in ("global", "cluster"):
                     assert L1 > 1024 and sg is None
                     continue
                 L, N = L1, 64     # the row, or the segments' window

@@ -308,7 +308,7 @@ def test_segment_geometry():
     would leave the card's SMs under SEG_FILL windows each), else the
     widest window while it owns a quarter of its columns; the segments
     cover L1 - 1 columns and one fewer would not; past that, and where
-    one CTA holds the whole row, no split (the global route, or a
+    one CTA holds the whole row, no split (the cluster route, or a
     register route)."""
     seg = rescore_cuda.rescore_segments
     reach = rescore_cuda.register_reach
@@ -334,4 +334,4 @@ def test_segment_geometry():
     assert seg(64, 1456, 65536, 736, levels=4) is None
     assert seg(64, 512, 65536, 736, levels=5) is None
     assert rescore_cuda.rescore_geometry(64, 1456, 65536, 736,
-                                         levels=4).route == "global"
+                                         levels=4).route == "cluster"
