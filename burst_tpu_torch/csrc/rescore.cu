@@ -111,9 +111,44 @@
 // not be shorter: the gap_q compared at one column spans the same range
 // whatever CTA holds it.
 //
+// Row bands, where even a cluster's windows would be mostly margin
+// (4.3-4.5 kbp reads, 4,480 rows at a look-back of 64: a margin of
+// 286,688 columns against a cluster's reach of 184,320): the pair's DP
+// runs in bands of R rows, each band one launch of the cluster kernel
+// over the pair's windows, and each band's last row is stored once in
+// device memory, one row a pair of 8 bytes a column in absolute form
+// (score, gap_q, shiftR), owned columns only; the next band's windows
+// start from it, the last band reduces its owned columns for the merge.
+// Band 0 computes rows 1 .. y1 from row 1's special case as above; band
+// b >= 1 loads row y0 (the previous band's last) and computes rows y0 +
+// 1 .. y1, y1 - y0 <= R. Why a margin of M >= 1 + R 2^levels is exact:
+// the loaded row is the whole row's row y0 at every column of the
+// window but local column 0 where a > 0 (there it is loaded too, then
+// set to (y, 0, y) on each row: a fake column 0, as in a segment's
+// window); a column's state on row y depends on row y - 1 at columns x
+// - 1 and x and on the cell step's columns x - (D - 1) .. x (above), so
+// after k rows of the band the window differs from the whole row at
+// most in columns 0 .. c(k), c(0) = 0 and c(k) = c(k - 1) + 1 + (D - 1)
+// = k D <= R D < M (band 0: 1 + (y1 - 1) D, the segments' cone).
+// Columns right of the whole row (a window's tail past L1) are loaded
+// as any state and never reach left. So every owned column of every
+// band's last row is the whole row's, the stored row is exact at every
+// column 1 .. L1 - 1 (the windows own them all; column 0 is (y, 0, y),
+// computed where loaded), and the last band's partial results are the
+// segments' (the merge is exact as above). Two stored rows a pair
+// (ping-pong: a window's margin reads columns the previous window
+// owns). The key's gap_q field is sized by the whole row (the loaded
+// gap_q lies anywhere in 0 .. min(L1, 1 + (rows - 1)(w - 1)), the bound
+// above in absolute rows and columns), so past 31 bits of fields the
+// bands take the 64-bit instances; absolute columns are carried to 2^27
+// (the merge's fields).
+//
 // `rescore_scratch_kernel`, the first wide design's global route, keeps
-// the state in a global scratch; it takes only what neither fits
-// (kernels/rescore_cuda.py::rescore_geometry lists them).
+// the state in a global scratch; it takes only what no other route
+// holds: a look-back of 1,024 or more past one warp's 1,024 columns (no
+// instance's halo holds it; the ED budget's cap of 254 keeps every path
+// at 256 or less), or 2^27 columns or more
+// (kernels/rescore_cuda.py::rescore_geometry).
 
 #include <climits>
 #include <cstdint>
@@ -168,13 +203,14 @@ __host__ __device__ inline int bit_len(long long v) {
 }
 
 // (SB, GB, DB, w) of a shape: the widths of s, g and dist, the window;
-// with `rows` (the cluster route) g's also bounded by the rows (above)
+// with `rows` (the cluster route) g's also bounded by the rows (above);
+// g by the columns of `Lg` where given (a band's window: the whole row)
 __host__ __device__ inline void key_bits(int L1, int levels, int& sb,
                                          int& gb, int& db, int& w,
-                                         int rows = 0) {
+                                         int rows = 0, int Lg = 0) {
   w = levels >= 30 ? L1 : min(L1, 1 << levels);
   sb = bit_len(512 + w - 1);
-  long long g = L1;
+  long long g = Lg > 0 ? Lg : L1;
   if (rows > 0) g = min(g, 1 + (long long)(rows - 1) * (w - 1));
   gb = bit_len(g + 1);
   db = bit_len(w - 1);
@@ -182,10 +218,10 @@ __host__ __device__ inline void key_bits(int L1, int levels, int& sb,
 
 template <typename KeyT>
 __device__ __forceinline__ Fields<KeyT> make_fields(int L1, int levels,
-                                                    int rows = 0) {
+                                                    int rows, int Lg) {
   int sb, gb, db;
   Fields<KeyT> f;
-  key_bits(L1, levels, sb, gb, db, f.w, rows);
+  key_bits(L1, levels, sb, gb, db, f.w, rows, Lg);
   f.sh_g = db;
   f.sh_s = db + gb;
   const KeyT gmax = ((KeyT)1 << gb) - 1;
@@ -244,12 +280,26 @@ __device__ __forceinline__ void lane_steps(KeyT (&key)[C], int (&r)[C],
 // of which the first Lt are columns 1 .. Lt (the rest code 0, a pad);
 // with S > 1 segments a pair (`own` columns each after a margin of M,
 // the whole row L1a columns) item i is pair i / S's segment i % S and
-// writes its partial result, else item n is pair n, the whole row.
+// writes its partial result, else item n is pair n, the whole row. A
+// band (the row bands above) computes rows y0 + 1 .. y1 from the stored
+// row y0 of `rin` (y0 = 0: from row 1, computed), each pair's row L1a
+// 8-byte states, and stores its last row's owned columns in `rout`
+// (null: the last band, which reduces them); `Lg` the columns gap_q's
+// key field is sized by (0: the window's). The defaults: the whole DP.
 struct Seg {
   const int64_t* tidx;
   long long tstride;
   int Lt, S, own, M, L1a;
+  int y0 = 0, y1 = 0, Lg = 0;  // y1 = 0: the last row, `rows`
+  const uint64_t* rin = nullptr;
+  uint64_t* rout = nullptr;
 };
+
+// A stored row's state of one column: score (10 bits), shiftR (16),
+// gap_q (above)
+__device__ __forceinline__ uint64_t row_state(int s, int g, int r) {
+  return ((uint64_t)g << 26) | ((uint64_t)r << 10) | (uint64_t)s;
+}
 
 // What holds a pair's row: one warp, one CTA of warps, or a cluster of
 // CTAs of warps
@@ -304,7 +354,11 @@ __device__ __forceinline__ void cluster_wait() {
 //    r's warps being the pair's warps r nw .. r nw + nw - 1; warp 0 of
 //    rank r >= 1 reads its halo from rank r - 1's shared memory, and the
 //    barrier a row is the cluster's.
-template <int C, int KB, int SPAN>
+// BAND: a band of the band route (rows sg.y0 + 1 .. sg.y1, a stored row
+// in and out); a compile-time flag, so that the other instances keep
+// their registers (compiled into every instance, the band code made the
+// 8-column cluster instance 27 % slower at 4 pairs).
+template <int C, int KB, int SPAN, bool BAND = false>
 __device__ __forceinline__ void rescore_rows(
     const uint32_t* __restrict__ peq_flat, const uint8_t* __restrict__ tiles,
     const int32_t* __restrict__ qmeta, int32_t* __restrict__ out, int N,
@@ -366,7 +420,11 @@ __device__ __forceinline__ void rescore_rows(
   __syncthreads();
   if (item >= NI) return;  // a last CTA's spare warps: no barrier follows
 
-  const Fields<KeyT> f = make_fields<KeyT>(L1, levels, CLU ? rows : 0);
+  const Fields<KeyT> f = make_fields<KeyT>(L1, levels, CLU ? rows : 0, sg.Lg);
+  // the row the state starts at (loaded on a band past the first) and
+  // the last row computed
+  const int ys = BAND && sg.y0 > 0 ? sg.y0 : 1;
+  const int ye = BAND ? sg.y1 : rows;
   const uint8_t* code = s_code + (x0 - xb) + H * C;
   auto cost_of = [&](int c, int y) -> int {
     const uint32_t bits = s_peq[c * W + ((y - 1) >> 5)];
@@ -389,7 +447,7 @@ __device__ __forceinline__ void rescore_rows(
   if constexpr (CLU) {
 #pragma unroll
     for (int j = 0; j < C; ++j) pads |= (code[j] == 0 ? 1u : 0u) << j;
-    if (rows >= 2) eqm = matches(2);
+    if (ye > ys) eqm = matches(ys + 1);
   }
   auto pack = [&](int s, int g) -> KeyT {
     return ((KeyT)s << f.sh_s) | (f.gimask - ((KeyT)g << f.sh_g));
@@ -397,27 +455,49 @@ __device__ __forceinline__ void rescore_rows(
 
   KeyT key[C];
   int r[C];
-  // row 1, special-cased like the reference
+  if (BAND && sg.y0 > 0) {  // a band's first row, stored by the last
+    const uint64_t* row = sg.rin + (size_t)n * sg.L1a;
 #pragma unroll
-  for (int j = 0; j < C; ++j) {
-    const int x = x0 + j;
-    if (x < 0 || x >= L1) {
-      key[j] = f.absent;
-      r[j] = 0;
-    } else if (x == 0) {
-      key[j] = pack(1 >= bad ? kDead : 1, 0);
-      r[j] = 1;
-    } else {
-      const int d1 = cost(j, 1);
-      const int left = x == 1                       ? 1
-                       : j == 0 && x0 - xb == -H * C ? cost_of(before, 1)
-                                                     : cost(j - 1, 1);
-      key[j] = pack(d1 >= bad ? kDead : d1, (d1 == 1 && left == 0) ? 1 : 0);
-      r[j] = 0;
+    for (int j = 0; j < C; ++j) {
+      const int x = x0 + j, xa = a + x;
+      if (x < 0 || x >= L1) {
+        key[j] = f.absent;
+        r[j] = 0;
+      } else if (xa == 0) {  // column 0: (y, 0, y), row 1's score budgeted
+        key[j] = pack(ys > 1 ? min(ys, kDead + 1) : 1 >= bad ? kDead : 1, 0);
+        r[j] = ys;
+      } else if (xa < sg.L1a) {
+        const uint64_t v = row[xa];
+        key[j] = pack((int)(v & 1023u), (int)(v >> 26));
+        r[j] = (int)((v >> 10) & 0xFFFFu);
+      } else {  // past the whole row: never read by a column left of it
+        key[j] = pack(kDead, 0);
+        r[j] = 0;
+      }
+    }
+  } else {  // row 1, special-cased like the reference
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int x = x0 + j;
+      if (x < 0 || x >= L1) {
+        key[j] = f.absent;
+        r[j] = 0;
+      } else if (x == 0) {
+        key[j] = pack(1 >= bad ? kDead : 1, 0);
+        r[j] = 1;
+      } else {
+        const int d1 = cost(j, 1);
+        const int left = x == 1                       ? 1
+                         : j == 0 && x0 - xb == -H * C ? cost_of(before, 1)
+                                                       : cost(j - 1, 1);
+        key[j] =
+            pack(d1 >= bad ? kDead : d1, (d1 == 1 && left == 0) ? 1 : 0);
+        r[j] = 0;
+      }
     }
   }
 
-  for (int y = 2; y <= rows; ++y) {
+  for (int y = ys + 1; y <= ye; ++y) {
     // the cell step: the left column's state from the lane below
     KeyT kl = __shfl_up_sync(kFull, key[C - 1], 1);
     int rl = __shfl_up_sync(kFull, r[C - 1], 1);
@@ -490,7 +570,7 @@ __device__ __forceinline__ void rescore_rows(
       }
       if constexpr (CLU) {
         cluster_arrive();
-        if (y < rows) eqm = matches(y + 1);
+        if (y < ye) eqm = matches(y + 1);
         cluster_wait();
       } else {
         __syncthreads();
@@ -515,10 +595,31 @@ __device__ __forceinline__ void rescore_rows(
     }
   }
 
+  if (BAND && sg.rout != nullptr) {  // a band's last row: owned columns
+    uint64_t* row = sg.rout + (size_t)n * sg.L1a;
+    if (lane >= H) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int x = x0 + j;
+        if (x >= lo && x <= hi)
+          row[a + x] = row_state(
+              (int)(key[j] >> f.sh_s),
+              (int)((f.gimask - (key[j] & f.gimask)) >> f.sh_g), r[j]);
+      }
+    }
+    if constexpr (CLU) {  // the peers' last halo reads are done
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
+  }
+
   // final reduction over the owned columns lo .. hi of the last row
   // (1 .. L1 - 1 for a whole row): least (s, -g, x) for the first best
-  // column and its shiftR, least (s, -g, -x) for the last
-  const unsigned long long XM = (1ull << 22) - 1;
+  // column and its shiftR, least (s, -g, -x) for the last, packed as s
+  // (10 bits) << 54 | (GMAX - g) (up to 32 bits) << 22 | the local
+  // column (22 bits)
+  const unsigned long long XM = (1ull << 22) - 1, GM = 0xFFFFFFFFull;
   unsigned long long b1 = ~0ull, b2 = ~0ull;
   int b1r = 0;
   if (lane >= H) {
@@ -529,7 +630,7 @@ __device__ __forceinline__ void rescore_rows(
         const unsigned long long s = (unsigned long long)(key[j] >> f.sh_s);
         const unsigned long long gi =
             (unsigned long long)((key[j] & f.gimask) >> f.sh_g);
-        const unsigned long long base = (s << 44) | (gi << 22);
+        const unsigned long long base = (s << 54) | (gi << 22);
         const unsigned long long k1 = base | (unsigned long long)x;
         const unsigned long long k2 = base | (XM - x);
         if (k1 < b1) {
@@ -587,9 +688,9 @@ __device__ __forceinline__ void rescore_rows(
     if (rank != 0) return;
   }
   if (ptid == 0) {
-    const int s = (int)(b1 >> 44);
+    const int s = (int)(b1 >> 54);
     const int g = (int)((unsigned long long)(f.gimask >> f.sh_g) -
-                        ((b1 >> 22) & XM));
+                        ((b1 >> 22) & GM));
     const int last = (int)(XM - (b2 & XM));
     if (sg.S == 1) {
       out[n] = min(s, 255);
@@ -621,8 +722,9 @@ rescore_wide_kernel(const uint32_t* __restrict__ peq_flat,
                                            pairs, 1, sg);
 }
 
-// The cluster route: one cluster of K CTAs a pair (or a pair's window)
-template <int C, int KB>
+// The cluster route: one cluster of K CTAs a pair (or a pair's window);
+// BAND: a band of the band route
+template <int C, int KB, bool BAND>
 __global__ void __launch_bounds__((WideLimit<C, KB, kCluster>::threads))
 rescore_cluster_kernel(const uint32_t* __restrict__ peq_flat,
                        const uint8_t* __restrict__ tiles,
@@ -630,15 +732,16 @@ rescore_cluster_kernel(const uint32_t* __restrict__ peq_flat,
                        int32_t* __restrict__ out, int N, int W, int NC,
                        int levels, int rows, int L1, int H, int K,
                        const Seg sg) {
-  rescore_rows<C, KB, kCluster>(peq_flat, tiles, qmeta, out, N, W, NC,
-                                levels, rows, L1, H, 1, K, sg);
+  rescore_rows<C, KB, kCluster, BAND>(peq_flat, tiles, qmeta, out, N, W,
+                                      NC, levels, rows, L1, H, 1, K, sg);
 }
 
 // The segments' merge: one warp a pair over its S partial results
 // part[5][N S] (score, gap_q, first column, its shiftR, last column),
 // the least (s, -g, first) and the greatest last column among the
-// segments at that (s, g): rescore_plain's final reduction.
-constexpr unsigned long long kM24 = (1ull << 24) - 1;
+// segments at that (s, g): rescore_plain's final reduction. Keys: s
+// (10 bits) << 54, gap_q and a column 27 bits each (L1 under 2^27).
+constexpr unsigned long long kM27 = (1ull << 27) - 1;
 
 __global__ void __launch_bounds__(128)
 rescore_merge_kernel(const int32_t* __restrict__ part,
@@ -653,11 +756,11 @@ rescore_merge_kernel(const int32_t* __restrict__ part,
   for (int k = lane; k < S; k += 32) {
     const size_t i = (size_t)n * S + k;
     const unsigned long long base =
-        ((unsigned long long)part[i] << 48) |
-        ((kM24 - (unsigned long long)part[NI + i]) << 24);
+        ((unsigned long long)part[i] << 54) |
+        ((kM27 - (unsigned long long)part[NI + i]) << 27);
     const unsigned long long k1 = base | (unsigned long long)part[2 * NI + i];
     const unsigned long long k2 =
-        base | (kM24 - (unsigned long long)part[4 * NI + i]);
+        base | (kM27 - (unsigned long long)part[4 * NI + i]);
     if (k1 < b1) {
       b1 = k1;
       b1r = part[3 * NI + i];
@@ -676,10 +779,10 @@ rescore_merge_kernel(const int32_t* __restrict__ part,
     b2 = min(b2, o2);
   }
   if (lane == 0) {
-    out[n] = min((int)(b1 >> 48), 255);
-    out[N + n] = (int)(kM24 - ((b1 >> 24) & kM24));
+    out[n] = min((int)(b1 >> 54), 255);
+    out[N + n] = (int)(kM27 - ((b1 >> 27) & kM27));
     out[2 * N + n] = b1r;
-    out[3 * N + n] = (int)(kM24 - (b2 & kM24)) - (rows - qmeta[2 * n]);
+    out[3 * N + n] = (int)(kM27 - (b2 & kM27)) - (rows - qmeta[2 * n]);
   }
 }
 
@@ -915,14 +1018,14 @@ int launch_register(const void* peq_flat, const void* tiles,
 
 // A cluster-route launch: `items` rows of L1 columns (pairs, or pairs x
 // windows) as clusters of K CTAs of nw warps, C columns a thread.
-template <int C, int KB>
+template <int C, int KB, bool BAND>
 int launch_clu(const void* peq_flat, const void* tiles, const void* qmeta,
                void* out, int N, int W, int NC, int levels, int rows,
                int L1, int H, int nw, int K, int smem, const Seg& sg,
                cudaStream_t stream) {
   if (32 * nw > WideLimit<C, KB, kCluster>::threads)
     return (int)cudaErrorInvalidValue;
-  auto kern = &rescore_cluster_kernel<C, KB>;
+  auto kern = &rescore_cluster_kernel<C, KB, BAND>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -962,6 +1065,53 @@ bool bad_common(int N, int W, int C, int levels, int rows, int threads,
          levels < 1 || threads <= 0 || pairs <= 0 ||
          threads % (32 * pairs) || threads > 1024 || grid <= 0 ||
          smem < 0 || smem > kSmemMax;
+}
+
+// Absolute columns: under 2^27 (the merge's fields) on the segment,
+// cluster and band routes
+constexpr int kColumns = 1 << 27;
+
+// A split of rows of L1 columns into `segs` windows of Lw columns, each
+// owning `own` after `margin` columns, that misses a column or whose
+// margin is short of `cone` (the dependency cone of the rows computed)
+bool bad_windows(int L1, int Lw, int own, int margin, int segs, int levels,
+                 long long cone) {
+  return Lw < (1 << levels) || Lw >= L1 || own < 1 || margin < cone ||
+         own + (long long)margin > Lw - 1 || segs < 2 ||
+         segs != (L1 - 2) / own + 1;
+}
+
+// A cluster-route launch at the shape the planner lays out (the key of
+// the window's fields, sized by `sg.Lg` where set), else
+// cudaErrorInvalidValue before any launch.
+int launch_cluster(const void* peq_flat, const void* tiles,
+                   const void* qmeta, void* out, int N, int W, int C,
+                   int levels, int rows, int Lw, int cols, int halo,
+                   int nwarps, int cluster, int smem, const Seg& sg,
+                   cudaStream_t s) {
+  int sb, gb, db, w;
+  key_bits(Lw, levels, sb, gb, db, w, rows, sg.Lg);
+  const int kb = sb + gb + db <= 31 ? 32 : 64;
+  const long long U = (32LL - halo) * cols;
+  const long long want = 2LL * nwarps * halo * cols * (kb / 8 + 4) +
+                         32 * 20 + 4LL * C * W + 32LL * nwarps * cols;
+  if (sb + gb + db > 63 || halo != (w + cols - 1) / cols || halo > 16 ||
+      (long long)cluster * nwarps * U < Lw ||
+      (long long)(cluster - 1) * nwarps * U >= Lw || smem != want)
+    return (int)cudaErrorInvalidValue;
+#define CLUSTER_CASE(c, b)                                                 \
+  if (cols == c && kb == b)                                                \
+    return sg.y1 > 0 ? launch_clu<c, b, true>(peq_flat, tiles, qmeta, out, \
+                                              N, W, C, levels, rows, Lw,   \
+                                              halo, nwarps, cluster, smem, \
+                                              sg, s)                       \
+                     : launch_clu<c, b, false>(peq_flat, tiles, qmeta,     \
+                                               out, N, W, C, levels, rows, \
+                                               Lw, halo, nwarps, cluster,  \
+                                               smem, sg, s);
+  CLUSTER_INST(CLUSTER_CASE)
+#undef CLUSTER_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1013,7 +1163,7 @@ extern "C" int rescore_wide_launch(const void* peq_flat, const void* tiles,
 // bytes, its first Lt bytes columns 1 .. Lt (Lt <= L1 - 1). Takes only
 // a margin of 1 + (rows - 1) 2^levels columns or more (the proof above),
 // own + margin <= Lw - 1, segs = ceil((L1 - 1) / own) >= 2, and L1 under
-// 2^24 (the merge's fields).
+// 2^27 (the merge's fields).
 extern "C" int rescore_seg_launch(const void* peq_flat, const void* tiles,
                                   const void* tidx, const void* qmeta,
                                   void* part, int N, int W, int C,
@@ -1023,11 +1173,11 @@ extern "C" int rescore_seg_launch(const void* peq_flat, const void* tiles,
                                   int threads, int grid, int smem,
                                   void* stream) {
   if (bad_common(N, W, C, levels, rows, threads, pairs, grid, smem) ||
-      levels > 24 || L1 < 2 || L1 >= (1 << 24) || Lt < 0 || Lt > L1 - 1 ||
-      Lt > tstride || Lw < (1 << levels) || Lw >= L1 || own < 1 ||
-      (long long)margin < 1 + (long long)(rows - 1) * (1LL << levels) ||
-      own + (long long)margin > Lw - 1 || segs < 2 ||
-      segs != (L1 - 2) / own + 1 || (long long)N * segs > INT_MAX)
+      levels > 24 || L1 < 2 || L1 >= kColumns || Lt < 0 || Lt > L1 - 1 ||
+      Lt > tstride ||
+      bad_windows(L1, Lw, own, margin, segs, levels,
+                  1 + (long long)(rows - 1) * (1LL << levels)) ||
+      (long long)N * segs > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const Seg sg{static_cast<const int64_t*>(tidx), tstride, Lt, segs, own,
                margin, L1};
@@ -1057,46 +1207,87 @@ extern "C" int rescore_cluster_launch(
     int L1, int Lt, int tstride, int Lw, int own, int margin, int segs,
     int cols, int halo, int nwarps, int cluster, int smem, void* stream) {
   if (bad_common(N, W, C, levels, rows, 32 * nwarps, 1, 1, smem) ||
-      levels > 24 || L1 < 2 || L1 >= (1 << 24) || Lw >= (1 << 22) ||
+      levels > 24 || L1 < 2 || L1 >= kColumns || Lw >= (1 << 22) ||
       Lt < 0 || Lt > L1 - 1 || Lt > tstride || cluster < 2 ||
       cluster > 16 || segs < 1 || (long long)N * segs * cluster > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (segs == 1 ? (Lw != L1 || own != L1 - 1 || margin != 0)
-                : (Lw < (1 << levels) || Lw >= L1 || own < 1 ||
-                   (long long)margin <
-                       1 + (long long)(rows - 1) * (1LL << levels) ||
-                   own + (long long)margin > Lw - 1 ||
-                   segs != (L1 - 2) / own + 1))
-    return (int)cudaErrorInvalidValue;
-  int sb, gb, db, w;
-  key_bits(Lw, levels, sb, gb, db, w, rows);
-  const int kb = sb + gb + db <= 31 ? 32 : 64;
-  const long long U = (32LL - halo) * cols;
-  const long long want = 2LL * nwarps * halo * cols * (kb / 8 + 4) +
-                         32 * 20 + 4LL * C * W + 32LL * nwarps * cols;
-  if (sb + gb + db > 63 || halo != (w + cols - 1) / cols || halo > 16 ||
-      (long long)cluster * nwarps * U < Lw ||
-      (long long)(cluster - 1) * nwarps * U >= Lw || smem != want)
+                : bad_windows(L1, Lw, own, margin, segs, levels,
+                              1 + (long long)(rows - 1) * (1LL << levels)))
     return (int)cudaErrorInvalidValue;
   const Seg sg{static_cast<const int64_t*>(tidx), tstride, Lt, segs,
                segs == 1 ? L1 - 1 : own, segs == 1 ? 0 : margin, L1};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CLUSTER_CASE(c, b)                                                 \
-  if (cols == c && kb == b)                                                \
-    return launch_clu<c, b>(peq_flat, tiles, qmeta, out, N, W, C, levels,  \
-                            rows, Lw, halo, nwarps, cluster, smem, sg, s);
-  CLUSTER_INST(CLUSTER_CASE)
-#undef CLUSTER_CASE
-  return (int)cudaErrorInvalidValue;
+  return launch_cluster(peq_flat, tiles, qmeta, out, N, W, C, levels, rows,
+                        Lw, cols, halo, nwarps, cluster, smem, sg,
+                        static_cast<cudaStream_t>(stream));
 }
+
+// One band of the row-band route (kernels/rescore_cuda.py::rescore_bands):
+// rows y0 + 1 .. y1 of each of the N pairs (y0 = 0: rows 1 .. y1), each
+// pair's row of L1 columns as `segs` windows of Lw columns owning `own`
+// after `margin`, one cluster a window at the cluster route's launch
+// shape (`cols` .. `smem` as there, the key's gap_q field sized by L1
+// and the rows). A band past the first reads row y0 from `rin`, [N][L1]
+// 8-byte states; a band before the last (y1 < rows) writes its last
+// row's columns 1 .. L1 - 1 to `rout` (the other buffer), the last
+// writes part[5][N segs] for the merge. Takes only a margin of 1 + (y1
+// - max(y0, 1)) 2^levels or more (the proof above), rows under 2^16 (the
+// stored shiftR) and L1 under 2^27.
+extern "C" int rescore_band_launch(
+    const void* peq_flat, const void* tiles, const void* tidx,
+    const void* qmeta, const void* rin, void* rout, void* part, int N,
+    int W, int C, int levels, int rows, int L1, int Lt, int tstride, int Lw,
+    int own, int margin, int segs, int y0, int y1, int cols, int halo,
+    int nwarps, int cluster, int smem, void* stream) {
+  if (bad_common(N, W, C, levels, rows, 32 * nwarps, 1, 1, smem) ||
+      levels > 24 || L1 < 2 || L1 >= kColumns || Lw >= (1 << 22) ||
+      rows >= (1 << 16) || Lt < 0 || Lt > L1 - 1 || Lt > tstride ||
+      cluster < 2 || cluster > 16 || y0 < 0 || y1 <= y0 || y1 > rows ||
+      (y0 > 0) != (rin != nullptr) || (y1 < rows) != (rout != nullptr) ||
+      (y1 == rows) != (part != nullptr) ||
+      bad_windows(L1, Lw, own, margin, segs, levels,
+                  1 + (long long)(y1 - max(y0, 1)) * (1LL << levels)) ||
+      (long long)N * segs * cluster > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  Seg sg{static_cast<const int64_t*>(tidx), tstride, Lt, segs, own, margin,
+         L1};
+  sg.y0 = y0;
+  sg.y1 = y1;
+  sg.Lg = L1;
+  sg.rin = static_cast<const uint64_t*>(rin);
+  sg.rout = static_cast<uint64_t*>(rout);
+  return launch_cluster(peq_flat, tiles, qmeta, part, N, W, C, levels,
+                        rows, Lw, cols, halo, nwarps, cluster, smem, sg,
+                        static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// The largest cluster the card co-schedules for one cluster kernel at
+// the launch `cfg` (non-portable sizes allowed), into *n
+template <int C, int KB, bool BAND>
+cudaError_t cluster_max_of(const cudaLaunchConfig_t& cfg, int smem, int* n) {
+  auto kern = &rescore_cluster_kernel<C, KB, BAND>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxPotentialClusterSize(n, kern, &cfg);
+  return e;
+}
+
+}  // namespace
 
 // The largest cluster the card co-schedules for the cluster route's
 // instance (cols, kb) at `threads` a CTA and `smem` dynamic bytes
-// (cudaOccupancyMaxPotentialClusterSize, non-portable sizes allowed),
-// into *result; 0 for an instance that does not exist.
+// (cudaOccupancyMaxPotentialClusterSize, non-portable sizes allowed; the
+// lesser of the cluster and band kernels'), into *result; 0 for an
+// instance that does not exist.
 extern "C" int rescore_cluster_max(int cols, int kb, int threads, int smem,
                                    void* result) {
-  int n = 0;
+  int n = 0, nb = 0;
   cudaError_t e = cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(16);
@@ -1105,15 +1296,9 @@ extern "C" int rescore_cluster_max(int cols, int kb, int threads, int smem,
 #define CLUSTER_QUERY(c, b)                                                 \
   if (cols == c && kb == b &&                                               \
       threads <= WideLimit<c, b, kCluster>::threads) {                      \
-    auto kern = &rescore_cluster_kernel<c, b>;                              \
-    e = cudaFuncSetAttribute(kern,                                          \
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, \
-                             1);                                            \
-    if (e == cudaSuccess && smem > 48 * 1024)                               \
-      e = cudaFuncSetAttribute(                                             \
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);         \
-    if (e == cudaSuccess)                                                   \
-      e = cudaOccupancyMaxPotentialClusterSize(&n, kern, &cfg);             \
+    e = cluster_max_of<c, b, false>(cfg, smem, &n);                         \
+    if (e == cudaSuccess) e = cluster_max_of<c, b, true>(cfg, smem, &nb);   \
+    n = min(n, nb);                                                         \
   }
   CLUSTER_INST(CLUSTER_QUERY)
 #undef CLUSTER_QUERY

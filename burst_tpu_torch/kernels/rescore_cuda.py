@@ -15,10 +15,16 @@ its own launches); "cluster" (where a window would be mostly margin:
 one thread-block cluster of 2-16 CTAs a pair, the wide route's layout
 across them, the halo between CTAs through distributed shared memory;
 past what a cluster holds, windows of the cluster's reach and the
-merge); and "global" (threads striding over the columns, int64 keys,
-the row state in a global scratch) where even that does not fit.
-`rescore_geometry`, `rescore_segments` and `rescore_cluster` pick the
-route and its launch shape in plain Python.
+merge); "bands" (where even those windows would be mostly margin: the
+pair's rows in bands, each band one cluster-route launch over windows
+whose margin is the band's cone, not all the rows', each band's last row
+stored once in device memory, one row a pair, for the next; the last
+band's partial results joined by the merge; one count a band launch);
+and "global" (threads striding over the columns, int64 keys, the row
+state in a global scratch) only where no other route holds the shape: a
+look-back of 1,024 or more past 1,024 columns, or 2^27 columns or more.
+`rescore_geometry`, `rescore_segments`, `rescore_cluster` and
+`rescore_bands` pick the route and its launch shape in plain Python.
 `rescore_pairs_gather` is the counterpart of
 `burst_tpu.kernels.rescore.rescore_pairs_gather_async`: it gathers each
 pair's Peq row (and tile window) in PyTorch, then calls `rescore`,
@@ -72,19 +78,32 @@ CLUSTER_BARRIER_CYCLES = 800
 # SMs of a GPC, at least, that a cluster's CTAs share (the H100's 132 in
 # 8 GPCs): a GPC holds floor(16 x CTAs an SM / K) clusters of K
 CLUSTER_GPC_SMS = 16
+# absolute columns the segment, cluster and band routes carry (the
+# merge's 27-bit fields); past them the global route
+COLUMN_LIMIT = 1 << 27
+# the band route: the stored rows of one launch (two of 8 bytes a column
+# a pair) within this many bytes, half of state.WORKING_SET_RESERVE,
+# the pairs in chunks where they would pass it; its planning constants
+# (not measurements): a band launch's own cost and the card's bytes a
+# cycle (3.35 TB/s at about 1.76 GHz), both in a scheduler's cycles
+BAND_ROW_BYTES = 4 << 30
+BAND_LAUNCH_CYCLES = 10000
+BAND_BYTES_CYCLE = 1900
 _SIG = {"rescore_wide_launch": [_P] * 5 + [_I] * 12 + [_P],
         "rescore_seg_launch": [_P] * 5 + [_I] * 18 + [_P],
         "rescore_cluster_launch": [_P] * 5 + [_I] * 17 + [_P],
+        "rescore_band_launch": [_P] * 7 + [_I] * 19 + [_P],
         "rescore_cluster_max": [_I] * 4 + [_P],
         "rescore_merge_launch": [_P] * 3 + [_I] * 3 + [_P]}
 
 
 class RescoreLaunch(NamedTuple):
-    """A K3 launch: its route ("warp", "wide", "segments" or "global"),
-    threads per CTA, CTAs, dynamic shared-memory bytes (0 on the global
-    route), on the register routes the columns a thread and the halo
-    lanes a warp, and the pairs a CTA (on the segment route: the
-    window's launch over pairs x segments items)."""
+    """A K3 launch: its route ("warp", "wide", "segments" or "global";
+    the cluster and band routes plan a ClusterLaunch), threads per CTA,
+    CTAs, dynamic shared-memory bytes (0 on the global route), on the
+    register routes the columns a thread and the halo lanes a warp, and
+    the pairs a CTA (on the segment route: the window's launch over
+    pairs x segments items)."""
     route: str
     threads: int
     grid: int
@@ -95,12 +114,15 @@ class RescoreLaunch(NamedTuple):
 
 
 class ClusterLaunch(NamedTuple):
-    """A K3 launch on the cluster route: threads a CTA, CTAs in all
-    (clusters x `cluster`), dynamic shared-memory bytes, columns a
-    thread, halo lanes a warp, CTAs a cluster, key bits; and the row's
-    split: the DP's L1 of a cluster (`window`), the columns each window
-    owns after `margin`, windows a pair (`segs`; 1: the whole row, own
-    L1 - 1 and margin 0)."""
+    """A K3 launch on the cluster route ("cluster") or the band route
+    ("bands"): threads a CTA, CTAs in all (clusters x `cluster`; on the
+    band route a band launch's over a chunk of pairs), dynamic
+    shared-memory bytes, columns a thread, halo lanes a warp, CTAs a
+    cluster, key bits; and the row's split: the DP's L1 of a cluster
+    (`window`), the columns each window owns after `margin`, windows a
+    pair (`segs`; 1: the whole row, own L1 - 1 and margin 0); on the
+    band route the rows a band (`band`) and the pairs a launch
+    (`chunk`)."""
     route: str
     threads: int
     grid: int
@@ -113,6 +135,8 @@ class ClusterLaunch(NamedTuple):
     own: int
     margin: int
     segs: int
+    band: int = 0
+    chunk: int = 0
 
 
 class RescoreSegments(NamedTuple):
@@ -125,19 +149,22 @@ class RescoreSegments(NamedTuple):
     segs: int
 
 
-def rescore_key_bits(L1: int, levels: int, rows: int = 0
+def rescore_key_bits(L1: int, levels: int, rows: int = 0, Lg: int = 0
                      ) -> tuple[int, int, int, int]:
     """(score bits, gap_q bits, distance bits, window) of the register
     and cluster routes' look-back key at this shape: a candidate
     projected to the column it is compared at has a score of at most 512
-    + w - 1, a gap_q of at most L1 (one more than the column) and, with
-    `rows` (the cluster route), of at most 1 + (rows - 1)(w - 1) (each
-    row's look-back adds under w: csrc/rescore.cu's header), and a
+    + w - 1, a gap_q of at most L1 (one more than the column; `Lg` where
+    given: a band's window holds the whole row's gap_q) and, with `rows`
+    (the cluster and band routes), of at most 1 + (rows - 1)(w - 1)
+    (each row's look-back adds under w: csrc/rescore.cu's header), and a
     distance under the window w = min(2^levels, L1); with the bit that
     marks a missing column they take a 32-bit key where they fit 31
     bits, else a 64-bit one."""
     w = L1 if levels >= 30 else min(L1, 1 << levels)
-    g = L1 if rows <= 0 else min(L1, 1 + (rows - 1) * (w - 1))
+    g = Lg or L1
+    if rows > 0:
+        g = min(g, 1 + (rows - 1) * (w - 1))
     return (512 + w - 1).bit_length(), (g + 1).bit_length(), \
         (w - 1).bit_length(), w
 
@@ -219,11 +246,11 @@ def rescore_segments(N: int, rows: int, L1: int, pequ32: int = 0,
     `register_reach`. Where that reach allows own >= SEG_OWN_SHARE x M,
     Lw is about SEG_WINDOW but not under that share, and smaller where
     the pairs would give under SEG_FILL windows an SM; else the widest
-    window, where it still owns a quarter of its columns. So the global
-    route keeps only the shapes whose margin passes three quarters of
-    the widest register window, about 13,400 columns at a look-back up
-    to 32 (rows x 2^levels past about 13,400: e.g. 1,456 rows at a
-    look-back of 16 or more, 512 rows at 32)."""
+    window, where it still owns a quarter of its columns. So the
+    segments leave the shapes whose margin passes three quarters of the
+    widest register window, about 13,400 columns at a look-back up to 32
+    (rows x 2^levels past about 13,400: e.g. 1,456 rows at a look-back
+    of 16 or more, 512 rows at 32), to the cluster and band routes."""
     if levels >= 24:
         return None
     M = segment_margin(rows, levels)
@@ -238,7 +265,7 @@ def rescore_segments(N: int, rows: int, L1: int, pequ32: int = 0,
     else:
         return None
     own = Lw - 1 - M
-    if Lw >= L1 or L1 >= 1 << 24:
+    if Lw >= L1 or L1 >= COLUMN_LIMIT:
         return None
     return RescoreSegments(Lw, own, M, -(-(L1 - 1) // own))
 
@@ -252,11 +279,12 @@ def _cluster_limits(kmax) -> tuple[int, ...]:
 
 
 def cluster_geometry(N: int, L1: int, pequ32: int = 0, levels: int = 1,
-                     kmax=CLUSTER_MAX, sms: int = 132, rows: int = 0
-                     ) -> ClusterLaunch | None:
+                     kmax=CLUSTER_MAX, sms: int = 132, rows: int = 0,
+                     Lg: int = 0) -> ClusterLaunch | None:
     """The cluster route's launch over N rows of L1 columns, one cluster
     a row, or None where no instance holds it: the key's bits at these
-    DP rows (32 where the fields fit 31, else 64) give the instances;
+    DP rows (32 where the fields fit 31, else 64; gap_q's field sized by
+    `Lg` columns where given, a band's whole row) give the instances;
     each takes halo =
     ceil(w / cols) <= WIDE_MAX_HALO lanes a warp, T warps of 32 - halo
     own lanes cover L1, and K = 2 .. kmax CTAs of nw = ceil(T / K) warps
@@ -269,7 +297,13 @@ def cluster_geometry(N: int, L1: int, pequ32: int = 0, levels: int = 1,
     instance's launch bound, the SMs a wave fills those that whole
     clusters fill in a GPC of CLUSTER_GPC_SMS; ties to fewer CTAs.
     `kmax`: the card's largest cluster, one int or {(cols, kb): CTAs}."""
-    sb, gb, db, w = rescore_key_bits(L1, levels, rows)
+    got = _cluster_best(N, L1, pequ32, levels, kmax, sms, rows, Lg)
+    return None if got is None else got[1]
+
+
+def _cluster_best(N, L1, pequ32, levels, kmax, sms, rows, Lg=0):
+    """`cluster_geometry`'s (cost a row, launch), or None."""
+    sb, gb, db, w = rescore_key_bits(L1, levels, rows, Lg)
     if sb + gb + db > 63 or N < 1:
         return None
     kb = 32 if sb + gb + db <= 31 else 64
@@ -301,18 +335,18 @@ def cluster_geometry(N: int, L1: int, pequ32: int = 0, levels: int = 1,
                 best = rank, ClusterLaunch(
                     "cluster", 32 * nw, N * K, smem, cols, halo, K, kb,
                     L1, L1 - 1, 0, 1)
-    return None if best is None else best[1]
+    return None if best is None else (best[0][0], best[1])
 
 
 @functools.lru_cache(maxsize=None)
 def _cluster_reach(pequ32: int, levels: int, limits: tuple,
-                   rows: int) -> int:
+                   rows: int, Lg: int = 0) -> int:
     lo, hi = 0, (1 << 22) // 32 - 1      # multiples of 32 under 2^22
     while lo < hi:
         mid = (lo + hi + 1) // 2
         if cluster_geometry(1, 32 * mid, pequ32, levels,
                             dict(zip(CLUSTER_MAX_THREADS, limits)),
-                            rows=rows) is None:
+                            rows=rows, Lg=Lg) is None:
             hi = mid - 1
         else:
             lo = mid
@@ -320,10 +354,11 @@ def _cluster_reach(pequ32: int, levels: int, limits: tuple,
 
 
 def cluster_reach(pequ32: int, levels: int, kmax=CLUSTER_MAX,
-                  rows: int = 0) -> int:
+                  rows: int = 0, Lg: int = 0) -> int:
     """The widest row (a multiple of 32 columns, 0 for none) that one
-    cluster holds at this Peq size, look-back and DP rows (0: any)."""
-    return _cluster_reach(pequ32, levels, _cluster_limits(kmax), rows)
+    cluster holds at this Peq size, look-back and DP rows (0: any), its
+    gap_q sized by `Lg` columns where given (a band's whole row)."""
+    return _cluster_reach(pequ32, levels, _cluster_limits(kmax), rows, Lg)
 
 
 def rescore_cluster(N: int, rows: int, L1: int, pequ32: int = 0,
@@ -335,7 +370,7 @@ def rescore_cluster(N: int, rows: int, L1: int, pequ32: int = 0,
     after the margin M of `segment_margin`, while that is at least a
     quarter of the window (the segment route's rule with a cluster's
     reach in place of one CTA's); else None."""
-    if levels >= 24 or L1 >= 1 << 24:
+    if levels >= 24 or L1 >= COLUMN_LIMIT:
         return None
     whole = cluster_geometry(N, L1, pequ32, levels, kmax, sms, rows)
     if whole is not None:
@@ -348,6 +383,65 @@ def rescore_cluster(N: int, rows: int, L1: int, pequ32: int = 0,
     segs = -(-(L1 - 1) // own)
     g = cluster_geometry(N * segs, Lw, pequ32, levels, kmax, sms, rows)
     return None if g is None else g._replace(own=own, margin=M, segs=segs)
+
+
+def rescore_bands(N: int, rows: int, L1: int, pequ32: int = 0,
+                  sms: int = 132, levels: int = 1, kmax=CLUSTER_MAX,
+                  wmax: int = 0) -> ClusterLaunch | None:
+    """The band route at this shape, or None where no cluster holds a
+    window (a look-back past 512, or L1 of COLUMN_LIMIT or more): a
+    pair's rows in bands of R (band 0 rows 1 .. R, band b rows b R + 1
+    .. (b + 1) R), each band one cluster-route launch over windows of Lw
+    columns owning Lw - 1 - M after the band's cone M =
+    `segment_margin`(R + 1) (a band past the first starts from the
+    stored row before it: csrc/rescore.cu's header), the key's gap_q
+    field sized by the whole row (`Lg` = L1). The pairs go in chunks
+    whose two stored rows (8 bytes a column a pair) stay within
+    BAND_ROW_BYTES. R (1, 2, 4, .. up to the rows) and Lw (the cluster's
+    reach at that key, capped at `wmax` where given, or a few multiples
+    of the margin under it) from the least cost of the busiest SM: the
+    chunks' rows x `cluster_geometry`'s cost a row over the windows,
+    plus each band launch's BAND_LAUNCH_CYCLES and its stored rows' and
+    Peq tables' bytes at BAND_BYTES_CYCLE; ties to fewer bands."""
+    if levels >= 24 or L1 >= COLUMN_LIMIT or rows >= 1 << 16 or N < 1:
+        return None
+    return _bands(N, rows, L1, pequ32, sms, levels, _cluster_limits(kmax),
+                  wmax)
+
+
+@functools.lru_cache(maxsize=4096)
+def _bands(N, rows, L1, pequ32, sms, levels, limits, wmax):
+    kmax = dict(zip(CLUSTER_MAX_THREADS, limits))
+    chunk = max(1, min(N, BAND_ROW_BYTES // (16 * L1)))
+    calls = -(-N // chunk)
+    reach = cluster_reach(pequ32, levels, kmax, rows, L1)
+    if wmax:
+        reach = min(reach, wmax // 32 * 32)
+    best, R = None, 1
+    while True:
+        Rb = min(R, rows)
+        M = segment_margin(Rb + 1, levels)
+        for Lw in sorted({reach} | {-(-m * (M + 1) // 32) * 32
+                                    for m in (2, 3, 4, 6, 8, 16, 32)}):
+            own = Lw - 1 - M
+            if Lw > reach or own < 32 or Lw < 1 << levels or Lw >= L1:
+                continue
+            segs = -(-(L1 - 1) // own)
+            got = _cluster_best(chunk * segs, Lw, pequ32, levels, kmax, sms,
+                                rows, L1)
+            if got is None:
+                continue
+            per_row, g = got
+            nb = -(-rows // Rb)
+            over = BAND_LAUNCH_CYCLES + (16 * L1 * chunk + 4 * pequ32
+                                         * g.grid) / BAND_BYTES_CYCLE
+            rank = (calls * (rows * per_row + nb * over), nb, Lw)
+            if best is None or rank < best[0]:
+                best = rank, g._replace(route="bands", own=own, margin=M,
+                                        segs=segs, band=Rb, chunk=chunk)
+        if R >= rows:
+            return None if best is None else best[1]
+        R *= 2
 
 
 def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
@@ -370,19 +464,20 @@ def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
     (`rescore_segments`: overlapping windows on those routes, N x segs
     items, then the merge); where a window would be mostly margin the
     cluster route (`rescore_cluster`: a ClusterLaunch, one cluster of up
-    to `kmax` CTAs a pair, or a window of its reach, then the merge); and
-    where even that fails the global route at any L1 (no shared memory
-    but the reduction's: the row state in a scratch of 32 bytes a column
-    a CTA, the codes read from the tiles; one CTA per SM, fewer where the
-    scratch would pass GLOBAL_SCRATCH bytes, walking over the pairs).
-    With clusters of 16 the global route keeps only: a look-back of
-    1,024 columns past one warp's 1,024 (no instance's halo holds it);
-    L1 of 2^24 or more; and rows past a cluster's reach whose windows
-    would be mostly margin (1 + (rows - 1) 2^levels over three quarters
-    of the reach): at a look-back of 64 none up to 1,472 rows (the reach
-    184,320 columns, windows past it), at 128 1,456 rows past 172,032
-    columns, at 256 512 rows or more past 147,456, at 512 150 rows or
-    more past 98,304."""
+    to `kmax` CTAs a pair, or a window of its reach, then the merge);
+    where even those windows would be mostly margin (1 + (rows - 1)
+    2^levels past three quarters of a cluster's reach: 4,480 rows at a
+    look-back of 32 or 64, 3,104 at 64 past about 184 kbp, 1,456 at 128
+    or 256 past about 172 kbp) the band route (`rescore_bands`: the rows
+    in bands, each band's windows on the cluster route with the band's
+    margin). Only where no cluster holds a window the global route at
+    any L1 (no shared memory but the reduction's: the row state in a
+    scratch of 32 bytes a column a CTA, the codes read from the tiles;
+    one CTA per SM, fewer where the scratch would pass GLOBAL_SCRATCH
+    bytes, walking over the pairs): a look-back of 1,024 or more past
+    one warp's 1,024 columns (no instance's halo holds it; an ED budget
+    of at most 254, as every path caps it, gives 256 at most), or L1 of
+    COLUMN_LIMIT (2^27) or more."""
     reg = register_geometry(N, L1, pequ32, levels)
     if reg is not None:
         return reg
@@ -393,6 +488,9 @@ def rescore_geometry(N: int, rows: int, L1: int, pequ32: int = 0,
     cl = rescore_cluster(N, rows, L1, pequ32, sms, levels, kmax)
     if cl is not None:
         return cl
+    bd = rescore_bands(N, rows, L1, pequ32, sms, levels, kmax)
+    if bd is not None:
+        return bd
     cap = GLOBAL_SCRATCH // (4 * 8 * L1)
     return RescoreLaunch("global", GLOBAL_THREADS,
                          max(1, min(N, sms, cap)), 0)
@@ -452,7 +550,7 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
     sms = sm_count(dev)
     g = rescore_geometry(N, rows, L1, C * W, sms, levels,
                          cluster_limits(dev, C * W, levels))
-    if tidx is not None and g.route not in ("segments", "cluster"):
+    if tidx is not None and g.route not in ("segments", "cluster", "bands"):
         tiles, tidx = gathered(), None
     if g.route == "segments":
         return rescore_merge(_segment_parts(peq_flat, tiles, qmeta, W,
@@ -462,6 +560,9 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
         out = _cluster_run(peq_flat, tiles, qmeta, W, levels, rows, L1,
                            tidx, g)
         return out if g.segs == 1 else rescore_merge(out, qmeta, rows)
+    if g.route == "bands":
+        return _band_run(peq_flat, tiles, qmeta, W, levels, rows, L1, tidx,
+                         g)
     scratch = torch.empty(4 * g.grid * L1 if g.route == "global" else 0,
                           dtype=torch.int64, device=dev)
     _build.launch(
@@ -478,7 +579,7 @@ def rescore(peq_flat: torch.Tensor, tiles: torch.Tensor,
 
 rescore.launches = 0
 rescore.routes = {"warp": 0, "wide": 0, "segments": 0, "cluster": 0,
-                  "global": 0}
+                  "bands": 0, "global": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -531,6 +632,47 @@ def _cluster_run(peq_flat, tiles, qmeta, W, levels, rows, L1, tidx, g):
     rescore.launches += 1
     rescore.routes["cluster"] += 1
     return out
+
+
+def _band_run(peq_flat, tiles, qmeta, W, levels, rows, L1, tidx, g):
+    """The band route's launches `g` (`rescore`'s checked CUDA
+    arguments): for each chunk of `g.chunk` pairs one launch a band over
+    its windows, the stored rows in two [n, L1] buffers of 8-byte states
+    (a band reads the one the band before wrote), then the merge of the
+    last band's [5, n*S] partial results. Returns [4, N]."""
+    N, dev = peq_flat.shape[0], peq_flat.device
+    C = peq_flat.shape[1] // W
+    entry = _build.load("rescore", _SIG).rescore_band_launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = []
+    for c0 in range(0, N, g.chunk):
+        n = min(g.chunk, N - c0)
+        pc, qm = peq_flat[c0:c0 + n], qmeta[c0:c0 + n]
+        tl, ti = (tiles[c0:c0 + n], None) if tidx is None else \
+            (tiles, tidx[c0:c0 + n])
+        buf = torch.empty((2, n, L1), dtype=torch.int64, device=dev)
+        part = torch.empty((5, n * g.segs), dtype=torch.int32, device=dev)
+        y0, b = 0, 0
+        while True:
+            y1 = min(rows, y0 + g.band)
+            last = y1 == rows
+            _build.launch(
+                dev, entry, pc.data_ptr(), tl.data_ptr(),
+                None if ti is None else ti.data_ptr(), qm.data_ptr(),
+                buf[b % 2].data_ptr() if y0 else None,
+                None if last else buf[(b + 1) % 2].data_ptr(),
+                part.data_ptr() if last else None, n, W, C, levels, rows,
+                L1, tl.shape[1], tl.stride(0), g.window, g.own, g.margin,
+                g.segs, y0, y1, g.cols, g.halo, g.threads // 32, g.cluster,
+                g.smem, stream,
+                what=f"rescore_band_launch (rows {y0 + 1}-{y1})")
+            rescore.launches += 1
+            rescore.routes["bands"] += 1
+            if last:
+                break
+            y0, b = y1, b + 1
+        outs.append(rescore_merge(part, qm, rows))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def _segment_parts(peq_flat, tiles, qmeta, W, levels, rows, L1, tidx, g):

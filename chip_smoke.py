@@ -20,6 +20,9 @@
     python3 chip_smoke.py longgenomes     # build, then phase 14 alone
                                           # (its CPU checks started
                                           # first; no result line)
+    python3 chip_smoke.py operons         # build, then phase 15 alone
+                                          # (its CPU checks started
+                                          # first; no result line)
     python3 chip_smoke.py mesh            # build, then phase 11 alone
                                           # (the databases and unsharded
                                           # batches of phases 4, 6 and 9
@@ -45,7 +48,9 @@
                                           # (the segment route in turns
                                           # with the global and the
                                           # cluster ones, the cluster
-                                          # route with the global one);
+                                          # route with the global one,
+                                          # the band route forced with
+                                          # the global one);
                                           # with an earlier source, its
                                           # 11-argument block route and
                                           # its 15- or 17-argument wide
@@ -126,8 +131,9 @@ Phases, each fatal on failure:
      with the cluster route forced there), 1,450 bp reads at a look-back
      of 64 on a 20 kbp reference at 4 pairs and on phase 14's longest
      genome at 8 (the cluster route, each in turns with the global route
-     forced at the shape, which holds it exactly) and, held once, L1 =
-     1,024 at levels 10 (the warp route's 64-bit key);
+     forced at the shape, which holds it exactly; at the contig and these
+     two the band route forced too, in turns with the global route) and,
+     held once, L1 = 1,024 at levels 10 (the warp route's 64-bit key);
   3. accelerated path: the headline workload (100 bp reads at 98 %
      identity, both strands, k=12 accelerator, BEST mode, homologous
      families of 10 members x 25 kbp) through
@@ -199,8 +205,9 @@ Phases, each fatal on failure:
      the launch counters can be read): makedb of phase 4's generator
      (40 families, 10 Mbp; phase 4's shear, -d QUICK 100 -s 320) with an
      accelerator (k=12), and -d DNA 320 -s -a on two of its families,
-     then on its 20,000 reads (phase 3's N and 11 bp reads, both
-     strands): the direct path BEST, -a at -t 1 (two-step, QBUNCH 16) and
+     then on the first 10,000 of its reads (CLI_READS; phase 3's N and
+     11 bp reads, both strands): the direct path BEST, -a at -t 1
+     (two-step, QBUNCH 16) and
      -t 160 (fused), CAPITALIST -b, each byte-equal to
      `Aligner.align_batch` on the card; -hr -i 0.84 and -p, whose first
      512 reads must equal the CLI's CPU run (each a `python -m
@@ -252,7 +259,7 @@ Phases, each fatal on failure:
  12. several processes (`parallel.multihost`), inside phase 9 on its
      database and reads: worlds of ranks, every rank on the card (on
      one card all of them: parity and the cost of a world, not
-     scaling): (a) 2 ranks BEST -a -t 1 on the 20,000 reads and (b) 2
+     scaling): (a) 2 ranks BEST -a -t 1 on the 10,000 reads and (b) 2
      ranks CAPITALIST -b -a -t 1, each against phase 9's bytes for the
      same command; on the first MH_READS reads, each against a single
      process's CLI run on the card: (c) 3 ranks direct BEST, (d) 2
@@ -298,6 +305,25 @@ Phases, each fatal on failure:
      started after phase 6, beside the card's work); one JSON line of
      each mode's seconds and align phases, K3/K4 launches by route,
      device ms against their summed bound and peak device memory.
+ 15. rRNA-operon reads on whole bacterial genomes (`phase_operons`): two
+     random genomes of about 300 and 600 kbp (each its own unit and
+     length bucket), 128 reads of 4,449-4,480 bp (PacBio HiFi reads of a
+     whole operon; W = 140, 4,480 DP rows) at 1-1.5 % substitutions,
+     both strands, every 199th with an N, -i 0.97 -fr without -s: BEST
+     (a look-back of 64) and ANY (the budget of 138: 256), each with
+     every count set to 0 just before; K4 at W = 140 on its wide routes,
+     K3 at full width: every K3 call planned on the band route and every
+     K3 launch on it, none global. Every K3 shape launched again on its
+     own arguments and held on 8 of its pairs against the plain version
+     (kernel ms the run's own calls'), K4 on 256 rows against the
+     shorter genome's first 32,768 columns, the global route in turns
+     with the band route on the 600 kbp genome's 8-pair sample; 2 check
+     reads a mode against their genome, on the card and in the CLI's CPU
+     run (two processes started before the build, beside the card's
+     work, one thread each at a lower priority); one JSON line of each
+     mode's
+     seconds and align phases, K3/K4 launches by route, device ms
+     against their summed bound, peak device memory and the card.
 
 No scour knob is set: the slot budgets of every accelerated batch are
 the ones the package derives from the database's posting depth. Phases
@@ -1154,16 +1180,25 @@ def phase_pairs_path(main, B, earlier=None):
     return recs
 
 
+def k3_entry(route: str) -> tuple[str, str]:
+    """The kernel record's name and counter of a K3 route's entry."""
+    return {"cluster": ("K3-cluster rescore_cluster_kernel", "k3c"),
+            "bands": ("K3-bands rescore_cluster_kernel in row bands "
+                      "(rescore_band_launch)", "k3b")}.get(
+        route, ("K3 rescore", "k3"))
+
+
 def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
-                      Lw=None, earlier=None, reps=None):
+                      Lw=None, earlier=None, reps=None, bands=False):
     """One K3 call as engine.rescore_winners makes it (Peq planes `peq`
     and bucket tiles `bt_d` on the card, host index, length, budget and
     window vectors): the gathered launch, exact against the kernel on the
     same block gathered here and against the plain version on the card;
     given an earlier kernel's call (`earlier_rescore_kernel`) or another
     route forced, both timed in turns (`reps` runs each, by default 20,
-    3 past 2e9 cells). Returns (result on the host, the kernel record's
-    entry: on the cluster route "K3-cluster", counted in "k3c")."""
+    3 past 2e9 cells); with `bands`, the band route forced at the shape
+    too, in turns with the global route (`bands_in_turns`). Returns
+    (result on the host, the kernel record's entry: `k3_entry`)."""
     import torch
 
     from burst_tpu_torch.kernels import rescore, rescore_cuda
@@ -1193,17 +1228,24 @@ def hold_rescore_call(label, peq, bt_d, rp, rt, rq, red, W, x0=None,
         turns = {getattr(earlier, "key", "earlier_ms"): was}
     route = rescore_cuda.rescore_geometry(N, rows, L1, C * W,
                                           levels=lv).route
-    clu = route == "cluster"
+    name, counter = k3_entry(route)
+    if bands:       # the band route forced here, in turns with the global
+        bms, gms = in_turns(f"K3 {label} (the band route forced)",
+                            lambda: forced_band_rescore(
+                                peq_f, tl, qmeta, W, lv, rows, L1),
+                            lambda: forced_global_rescore(
+                                peq_f, tl, qmeta, W, lv, rows, L1),
+                            min(reps, 3), "the global route")
+        turns["bands_in_turns"] = dict(bands_ms=bms, global_ms=gms)
     return got, dict(
-        name=("K3-cluster rescore_cluster_kernel" if clu else "K3 rescore")
-        + f" ({label})", route="cuda",
+        name=f"{name} ({label})", route="cuda",
         source="burst_tpu_torch/csrc/rescore.cu",
         replaces="burst_tpu/kernels/rescore_pallas.py:156",
         max_abs_err=err, ms=ms, **turns,
         plain_ms=e0.elapsed_time(e1),
         **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
                 N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
-        library_ms=None, counter="k3c" if clu else "k3",
+        library_ms=None, counter=counter,
         shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N}"
         + ("" if C == 16 else f" C={C}") + f" ({route} route)")
 
@@ -1280,6 +1322,25 @@ def forced_cluster_rescore(peq_flat, tiles, qmeta, W, levels, rows, L1):
 
 
 forced_cluster_rescore.covers = lambda rows, L1, C, W: True
+
+
+def forced_band_rescore(peq_flat, tiles, qmeta, W, levels, rows, L1):
+    """K3's band route (row bands over cluster windows, then the merge)
+    forced at a shape another route takes, at the launch `rescore_bands`
+    plans there with the card's largest clusters, for timing it in turns
+    (not counted as a launch)."""
+    from burst_tpu_torch.kernels import myers_cuda, rescore_cuda as rc
+    N, dev, C = peq_flat.shape[0], peq_flat.device, peq_flat.shape[1] // W
+    g = rc.rescore_bands(N, rows, L1, C * W, myers_cuda.sm_count(dev),
+                         levels, rc.cluster_limits(dev, C * W, levels))
+    if g is None:
+        fail(f"K3 W={W} rows={rows} L1={L1}: no band launch fits")
+    counts = (rc.rescore.launches, dict(rc.rescore.routes),
+              rc.rescore_merge.launches)
+    out = rc._band_run(peq_flat, tiles, qmeta, W, levels, rows, L1, None, g)
+    rc.rescore.launches, rc.rescore.routes, rc.rescore_merge.launches = \
+        counts
+    return out
 forced_cluster_rescore.label = "the cluster route"
 forced_cluster_rescore.key = "cluster_ms"
 
@@ -1772,8 +1833,9 @@ def wide_rescore_recs(rng, smat_d, earlier=None):
     1,450 bp reads at a look-back of 64 against a 20 kbp reference at 4
     pairs and against phase 14's longest genome at 8, each in turns with
     the global route forced at the same shape (which holds that route
-    exactly: no path launches it). Returns the kernel record's entries
-    (the merge's last)."""
+    exactly: no path launches it); at the contig and those two the band
+    route forced too, in turns with the global route. Returns the kernel
+    record's entries (the merge's last)."""
     import numpy as np
 
     from burst_tpu_torch import engine
@@ -1819,9 +1881,10 @@ def wide_rescore_recs(rng, smat_d, earlier=None):
         g0 = dict(rescore_cuda.rescore.routes)
         route = label.split(",")[0]
         idx = np.arange(N)
-        got, rec = hold_rescore_call(label, peq, tiles, idx, idx, ql, red,
-                                     W, earlier=turns,
-                                     reps=3 if lb > 100000 else None)
+        got, rec = hold_rescore_call(
+            label, peq, tiles, idx, idx, ql, red, W, earlier=turns,
+            reps=3 if lb > 100000 else None,
+            bands=turns is forced_global_rescore)
         if rescore_cuda.rescore.routes[route] == g0[route] or \
                 (got[0] <= red).sum() < N // 2:
             fail(f"K3 {label}: not the {route} route, or "
@@ -2629,21 +2692,27 @@ class _ThinCount:
         myers_cuda.myers_cross.thin = n
 
 
-class _ClusterCount:
-    """K3's cluster launches (`rescore.routes["cluster"]`, counted by the
-    wrapper where it launches the cluster kernel) as a counter of their
-    own: setting `launches` moves its zero, not the wrapper's count."""
-    base = 0
+class _RouteCount:
+    """K3's launches on one route (`rescore.routes[route]`, counted by
+    the wrapper where it launches that route's kernel) as a counter of
+    their own: setting `launches` moves its zero (one a route, shared by
+    every such counter), not the wrapper's count."""
+    base = {}
+
+    def __init__(self, route: str):
+        self.route = route
 
     @property
     def launches(self) -> int:
         from burst_tpu_torch.kernels import rescore_cuda
-        return rescore_cuda.rescore.routes["cluster"] - _ClusterCount.base
+        return rescore_cuda.rescore.routes[self.route] - \
+            _RouteCount.base.get(self.route, 0)
 
     @launches.setter
     def launches(self, n: int):
         from burst_tpu_torch.kernels import rescore_cuda
-        _ClusterCount.base = rescore_cuda.rescore.routes["cluster"] - n
+        _RouteCount.base[self.route] = \
+            rescore_cuda.rescore.routes[self.route] - n
 
 
 def _counters():
@@ -2651,7 +2720,7 @@ def _counters():
     return dict(k1=myers_cuda.myers_pairs_packed, k2=myers_cuda.myers_pairs,
                 k3=rescore_cuda.rescore, k4=myers_cuda.myers_cross,
                 k4t=_ThinCount(), k3m=rescore_cuda.rescore_merge,
-                k3c=_ClusterCount())
+                k3c=_RouteCount("cluster"), k3b=_RouteCount("bands"))
 
 
 def k4_route(W: int, Q: int, T: int, Lp: int, ty: str, C: int) -> str:
@@ -3851,13 +3920,17 @@ def _stop_started():
             proc.wait()
 
 
-def _background(args, log_path, **env):
+def _background(args, log_path, nice=10, **env):
     """`python3 args` started from the checkout's root, its output to
-    log_path: (process, log_path). Whatever still runs when the script
-    exits, a failure included, is stopped then."""
+    log_path, `nice` levels below this process's priority (a CPU check
+    yields the host's cores to the script's own phases, whose seconds
+    are measured, and is read only at its phase's end): (process,
+    log_path). Whatever still runs when the script exits, a failure
+    included, is stopped then."""
     root = os.path.dirname(os.path.abspath(__file__))
+    lower = ["nice", "-n", str(nice)] if nice else []
     with open(log_path, "wb") as f:
-        proc = subprocess.Popen([sys.executable] + args, cwd=root,
+        proc = subprocess.Popen(lower + [sys.executable] + args, cwd=root,
                                 stdout=f, stderr=subprocess.STDOUT,
                                 env=dict(os.environ, **env))
     if not _STARTED:
@@ -4261,13 +4334,22 @@ def _k3_report(k3) -> dict:
     return dict(launches=n, ms=ms, bound_ms=b)
 
 
-def hold_rescore_sampled(label, peq, bt_d, rp, rt, rq, red, W):
+def hold_sample(rq, red) -> "np.ndarray":
+    """The pairs a K3 call is held on: GENOME_HOLD_PAIRS of them, its
+    first ones, the one of the longest query and the one of the largest
+    budget (so the sample's rows and levels are the call's)."""
+    import numpy as np
+    return np.unique(np.concatenate([
+        np.arange(min(GENOME_HOLD_PAIRS - 2, len(rq))),
+        [int(np.argmax(rq)), int(np.argmax(red))]]))
+
+
+def hold_rescore_sampled(label, peq, bt_d, rp, rt, rq, red, W, ms=None):
     """One full-width K3 call of a run, launched again on its own
     arguments (the run's launch exactly), its result held on
-    GENOME_HOLD_PAIRS of its pairs against the plain version on the card:
-    its first ones, the one of the longest query and the one of the
-    largest budget (so the sample's rows and levels are the call's).
-    Returns the kernel record's entry (plain ms: the sample's)."""
+    `hold_sample`'s pairs against the plain version on the card. Returns
+    the kernel record's entry (plain ms: the sample's; kernel ms `ms`
+    where given, the run's own call's, else timed here)."""
     import numpy as np
     import torch
 
@@ -4277,9 +4359,7 @@ def hold_rescore_sampled(label, peq, bt_d, rp, rt, rq, red, W):
     run = lambda: rescore_cuda.rescore_pairs_gather(peq, bt_d, rp, rt, rq,
                                                     red, W)
     got = run().cpu().numpy()
-    keep = np.unique(np.concatenate([
-        np.arange(min(GENOME_HOLD_PAIRS - 2, N)),
-        [int(np.argmax(rq)), int(np.argmax(red))]]))
+    keep = hold_sample(rq, red)
     peq_f, tl, qmeta, rows, lv, L1 = _rescore_block(
         peq, bt_d, rp[keep], rt[keep], rq[keep], red[keep], W)
     if (rows, lv) != (rescore.rows_for(rq, W), rescore.levels_for(red)):
@@ -4293,16 +4373,16 @@ def hold_rescore_sampled(label, peq, bt_d, rp, rt, rq, red, W):
                 ref.cpu().numpy())
     route = rescore_cuda.rescore_geometry(N, rows, L1, C * W,
                                           levels=lv).route
-    clu = route == "cluster"
+    name, counter = k3_entry(route)
     return dict(
-        name=("K3-cluster rescore_cluster_kernel" if clu else "K3 rescore")
-        + f" ({label})", route="cuda",
+        name=f"{name} ({label})", route="cuda",
         source="burst_tpu_torch/csrc/rescore.cu",
         replaces="burst_tpu/kernels/rescore_pallas.py:156",
-        max_abs_err=err, ms=time_ms(run, 3), plain_ms=e0.elapsed_time(e1),
+        max_abs_err=err, ms=time_ms(run, 3) if ms is None else ms,
+        plain_ms=e0.elapsed_time(e1),
         **bound(N * (4 * C * W + L1 - 1 + 8 + 16),
                 N * rows * L1 * (OPS_CELL + OPS_LEVEL * lv)),
-        library_ms=None, counter="k3c" if clu else "k3",
+        library_ms=None, counter=counter,
         sample=f"{len(keep)} of its {N} pairs against the plain version",
         shape=f"W={W} rows={rows} levels={lv} L1={L1} N={N} ({route} "
         "route)")
@@ -4599,6 +4679,284 @@ def phase_long_genomes(launch_log, cpu):
             f"identical to the CLI's CPU run (its process beside the "
             f"card's work; waited {time.perf_counter() - t0:.1f} s for it)")
     print(json.dumps({"long_genomes": out}), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+# Phase 15: rRNA-operon reads (PacBio HiFi reads of a whole 16S-23S-5S
+# operon) screened against whole small bacterial genomes without -s:
+# two random genomes from the seed, of about 300 and 600 kbp (the size
+# of Mycoplasma genitalium's 580 kbp), each its own unit and length
+# bucket; 128 reads of 4,449-4,480 bp (one Myers width, W = 140: 4,480
+# DP rows) cut from them at 1-1.5 % substitutions, the two genomes and
+# the strands in turn, every 199th with an N (from read 62); -i 0.97
+# -fr, direct. BEST
+# (each pair's own ED: a look-back of 64) and ANY (the query's budget of
+# 138: a look-back of 256). Every K3 call takes the band route; K4 runs
+# at W = 140 on its wide routes. The CPU check: 2 reads a mode from the
+# 300 kbp genome (one with the N, both strands) against that genome
+# alone, on the card and in a process of its own (one thread, at a
+# lower priority than the script) from the script's start: the plain
+# K3 costs minutes a pair there, the plain K4 0.3 ms a column (the 582
+# kbp genome would triple the check's K4), and these processes share the
+# host's cores with the script's other phases.
+OPERON_GENOMES = ((290000, 310000), (580000, 600000))
+# 128 reads, not the 256 first planned: each K3 call runs twice and the
+# script has a time limit (64 pairs a call)
+OPERON_READS, OPERON_LO, OPERON_HI = 128, 4449, 4480
+OPERON_CHECK = (0, 62)          # reads on genome 0, the second with an N
+OPERON_MODES = (("BEST", ["-m", "BEST"]), ("ANY", ["-m", "ANY"]))
+OPERON_K4_COLS = 32768          # K4 held on the shorter genome's first
+
+
+def _operon_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke_operons")
+
+
+def operon_data():
+    """Phase 15's genomes and reads, from the seed: (heads, genomes,
+    read heads, reads). Read i comes from genome i % 2, reverse
+    complemented where (i // 2) is odd, with 1-1.5 % of its positions
+    redrawn (some to the same base), every 199th from read 62 with one
+    N."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 15)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    refs = [rng.choice(bases, int(rng.integers(lo, hi + 1)))
+            for lo, hi in OPERON_GENOMES]
+    heads = [b"bacterium%d" % i for i in range(len(refs))]
+    reads, qheads = [], []
+    for i in range(OPERON_READS):
+        s = refs[i % 2]
+        ln = int(rng.integers(OPERON_LO, OPERON_HI + 1))
+        st = int(rng.integers(0, len(s) - ln + 1))
+        r = s[st:st + ln].copy()
+        n_sub = int(rng.integers(ln // 100, 3 * ln // 200 + 1))
+        r[rng.integers(0, ln, n_sub)] = bases[rng.integers(0, 4, n_sub)]
+        if (i // 2) % 2:
+            r = np.frombuffer(r[::-1].tobytes().translate(comp),
+                              np.uint8).copy()
+        if i % 199 == 62:
+            r[int(rng.integers(0, ln))] = ord("N")
+        reads.append(r)
+        qheads.append(b"operon%04d" % i)
+    return heads, refs, qheads, reads
+
+
+def start_operon_cpu_checks():
+    """Writes phase 15's inputs (refs.fa, reads.fa, check.fa, and
+    check/refs.fa: the check reads' genome) and starts its CPU checks:
+    the CLI on the check reads against their genome with
+    BURST_TPU_TORCH_DEVICE=cpu, one process a mode (a thread each),
+    beside the card's work from the script's start. Returns
+    {mode: (process, its log)}."""
+    work = _operon_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    heads, refs, qh, reads = operon_data()
+    _write_fasta(os.path.join(work, "refs.fa"), heads, refs)
+    _write_fasta(os.path.join(work, "reads.fa"), qh, reads)
+    _write_fasta(os.path.join(work, "check.fa"),
+                 [qh[i] for i in OPERON_CHECK],
+                 [reads[i] for i in OPERON_CHECK])
+    check = os.path.join(work, "check")
+    os.makedirs(check)
+    _write_fasta(os.path.join(check, "refs.fa"), heads[:1], refs[:1])
+    p = lambda name: os.path.join(work, name)
+    return {mode: _background(
+        ["-m", "burst_tpu_torch.cli"] + _genome_argv(check, extra)
+        + ["-q", p("check.fa"), "-o", p(f"cpu_{mode}.b6")],
+        p(f"cpu_{mode}.log"), BURST_TPU_TORCH_DEVICE="cpu",
+        OMP_NUM_THREADS="1") for mode, extra in OPERON_MODES}
+
+
+def _k3_shape_ms(entry) -> float:
+    """Device ms of one captured K3 shape's calls (their events)."""
+    return sum(e0.elapsed_time(e1) for e0, e1 in entry[2])
+
+
+def global_in_turns(label, peq_f, tl, qmeta, W, lv, rows, L1):
+    """The band route (`rescore` at this shape) and the global route
+    forced at it in turns (bands, global, bands; a warm run first), each
+    run timed by CUDA events: the global route takes ten seconds at
+    phase 15's sample. Exact against each other; returns (bands ms,
+    global ms)."""
+    import torch
+
+    from burst_tpu_torch.kernels import rescore_cuda
+
+    def once(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+    new = lambda: rescore_cuda.rescore(peq_f, tl, qmeta, W, lv, rows, L1)
+    old = lambda: forced_global_rescore(peq_f, tl, qmeta, W, lv, rows, L1)
+    new()
+    t = []
+    outs = []
+    for fn in (new, old, new):
+        out, ms = once(fn)
+        outs.append(out.cpu().numpy())
+        t.append(ms)
+    exact(f"K3 {label}: the global route vs the band route", outs[1],
+          outs[0])
+    ms, was = (t[0] + t[2]) / 2, t[1]
+    log(f"[turns] K3 {label}: the band route {t[0]:.4f} and {t[2]:.4f} "
+        f"ms, the global route between them {t[1]:.4f} ms "
+        f"({was / ms:.2f}x); " + card_line())
+    return ms, was
+
+
+def phase_operons(launch_log, cpu):
+    """Phase 15 on the card, `cpu` the CPU checks that
+    `start_operon_cpu_checks` started: each mode through
+    `burst_tpu_torch.cli.main` in process on the 128 reads (every count
+    set to 0 just before and read just after; K3 and K4 calls captured
+    with events), then on the check reads against their genome, held to
+    the CPU run. Fails unless every K3 call of each mode planned the band
+    route (on this card's clusters) and every K3 launch took it, none the
+    global route, and K4 ran at W = 140 on its wide routes. Every K3
+    shape is launched again on its own arguments and held on
+    GENOME_HOLD_PAIRS of its pairs against the plain version (its ms the
+    run's own launches'); K4's first shape held on 256 rows against the
+    shorter genome's first OPERON_K4_COLS columns; the global route in
+    turns with the band route on the 600 kbp genome's 8-pair sample. The
+    CPU runs are read after both modes' card work. Logs one JSON line of
+    the modes' seconds and align phases, K3 and K4 launches by route,
+    device ms against their summed bound, peak device memory and the
+    card."""
+    import numpy as np
+    import torch
+
+    from burst_tpu_torch.kernels import myers_cuda, rescore_cuda
+    work = _operon_dir()
+    p = lambda name: os.path.join(work, name)
+    _, refs, _, reads = operon_data()
+    lens = [len(r) for r in refs]
+    rl = [len(r) for r in reads]
+    del refs, reads
+    log(f"[operons] genomes of {lens} bp; {OPERON_READS} reads of "
+        f"{min(rl)}-{max(rl)} bp, {len(OPERON_CHECK)} check reads a mode; "
+        + card_line())
+    cuda = torch.device("cuda")
+    out, checks = {}, {}
+    for mode, extra in OPERON_MODES:
+        argv = _genome_argv(work, extra)
+        routes0 = dict(rescore_cuda.rescore.routes)
+        calls, undo = _capture_kernel_calls(("K3", "K4"), events=True)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            b6, ph, launches, stats, wall = cli_run(
+                f"operons {mode}", argv + ["-q", p("reads.fa"), "-o",
+                                           p("gpu.b6")], cuda,
+                ("k3", "k3b", "k3m", "k4"))
+        finally:
+            undo()
+        peak = torch.cuda.max_memory_allocated()
+        routes = {r: c - routes0[r]
+                  for r, c in rescore_cuda.rescore.routes.items()}
+        k3 = _k3_report(calls["K3"])
+        k4 = k4_report(f"operons {mode}", calls["K4"])
+        plans = {shape: rescore_cuda.rescore_geometry(
+            shape[4], shape[1], shape[3], shape[6] * shape[0],
+            myers_cuda.sm_count(cuda), shape[2], rescore_cuda.cluster_limits(
+                cuda, shape[6] * shape[0], shape[2])).route
+            for shape in calls["K3"]}
+        log(f"[operons] {mode}: {OPERON_READS} reads, {b6.count(NL)} rows, "
+            f"wall {wall:.3f} s, align phases {_align_s(ph, wall):.3f} s; "
+            f"launches {launches}; K3 by route {routes} over "
+            f"{len(calls['K3'])} shapes "
+            f"{sorted((sh[1], sh[2], sh[3], sh[4]) for sh in calls['K3'])} "
+            f"(rows, levels, L1, pairs); K3 (gather, band launches, merge) "
+            f"{k3['ms']:.3f} ms on the device against a summed bound of "
+            f"{k3['bound_ms']:.3f} ms "
+            f"({100 * k3['bound_ms'] / max(k3['ms'], 1e-9):.0f} %); K4 "
+            f"{k4['ms']:.3f} ms against {k4['bound_ms']:.3f} ms; peak "
+            f"device memory {peak / 2**30:.3f} GiB; path "
+            f"{stats.get('path')}; " + card_line())
+        if stats.get("path") != "direct" or not calls["K3"] or \
+                set(plans.values()) != {"bands"} or not routes["bands"] or \
+                any(n for r, n in routes.items() if r != "bands") or \
+                b6.count(NL) < OPERON_READS // 2:
+            fail(f"[operons] {mode}: a K3 call off the band route, a "
+                 f"global launch, or few rows: {routes}, {plans}, "
+                 f"{b6.count(NL)} rows")
+        if any(sh[0] != 140 for sh in calls["K4"]) or \
+                not set(k4["routes"]) <= {"group", "wide"}:
+            fail(f"[operons] {mode}: K4 off its wide routes at W = 140: "
+                 f"{k4['routes']}, {sorted(calls['K4'])}")
+        launch_log[f"operons {mode}"] = launches
+        shapes = {}
+        if mode == OPERON_MODES[0][0]:      # K4 once: both modes' shape
+            shape = min(calls["K4"], key=lambda sh: sh[3])
+            count, (a, kw), _ = calls["K4"][shape]
+            a = (a[0][:MESH_HOLD_ROWS],
+                 a[1][:, :OPERON_K4_COLS].contiguous()) + tuple(a[2:])
+            _, rec = hold_cross_call(f"operons {shape}", *a, **kw)
+            sampled = k4_route(a[2], MESH_HOLD_ROWS, shape[2],
+                               OPERON_K4_COLS, shape[4], shape[5])
+            rec.update(launches=count, sample=f"{MESH_HOLD_ROWS} rows x "
+                       f"the first {OPERON_K4_COLS} columns, the {sampled}"
+                       f" route (the call's: {k4_route(*shape)})")
+            launch_log["held"].append(("K4", rec))
+            log(f"[operons] K4 {rec['shape']} ({rec['sample']} of "
+                f"{shape}): exact vs plain; kernel {rec['ms']:.4f} ms, "
+                f"plain {rec['plain_ms']:.2f} ms, bound "
+                f"{rec['bound_ms']:.5f} ms")
+        for shape, entry in sorted(calls["K3"].items()):
+            count, (a, kw), _ = entry
+            rec = hold_rescore_sampled(f"operons {mode} {shape}", *a,
+                                       ms=_k3_shape_ms(entry) / count)
+            rec["launches"] = count
+            rec.pop("counter")
+            launch_log["held"].append((kernel_of(rec), rec))
+            shapes[str(shape)] = {k: rec[k] for k in (
+                "ms", "bound_ms", "plain_ms")}
+            log(f"[operons] K3 {rec['shape']} x {count}: "
+                f"{rec['sample']}, exact; kernel {rec['ms']:.4f} ms (the "
+                f"run's own call), plain {rec['plain_ms']:.2f} ms, bound "
+                f"{rec['bound_ms']:.5f} ms "
+                f"({100 * rec['bound_ms'] / rec['ms']:.0f} %)")
+            if mode == OPERON_MODES[0][0] and shape[3] == max(
+                    sh[3] for sh in calls["K3"]):
+                # the global route in turns on the 8-pair sample
+                rp, rt, rq, red = (np.asarray(v) for v in a[2:6])
+                keep = hold_sample(rq, red)
+                rp, rt, rq, red = rp[keep], rt[keep], rq[keep], red[keep]
+                blk = _rescore_block(a[0], a[1], rp, rt, rq, red, a[6])
+                bms, gms = global_in_turns(
+                    f"{len(keep)} pairs of {shape}", *blk[:3], a[6],
+                    blk[4], blk[3], blk[5])
+                out["global_in_turns"] = dict(
+                    shape=f"W={a[6]} rows={blk[3]} levels={blk[4]} "
+                    f"L1={blk[5]} N={len(keep)}", bands_ms=bms,
+                    global_ms=gms, card=card_line())
+        del calls
+        checks[mode] = cli_run(f"operons {mode} check", _genome_argv(
+            p("check"), extra) + ["-q", p("check.fa"), "-o",
+                                  p(f"gpu_check_{mode}.b6")], cuda)[0]
+        out[mode] = dict(
+            reads=OPERON_READS, rows=b6.count(NL), wall_s=wall,
+            align_s=_align_s(ph, wall), peak_gib=peak / 2**30,
+            k3=dict(k3, routes=routes, merges=launches["k3m"],
+                    shapes=shapes), k4=k4, phases=ph)
+    for mode, gpu in checks.items():    # the CPU runs, after the card's
+        t0 = time.perf_counter()
+        _joined(f"[operons] {mode}: the CLI's CPU run", cpu[mode],
+                timeout=1200)
+        with open(p(f"cpu_{mode}.b6"), "rb") as f:
+            _same_bytes(f"[operons] {mode}, check reads", gpu, f.read())
+        log(f"[operons] {mode}: the check reads' {gpu.count(NL)} rows "
+            f"identical to the CLI's CPU run (its process beside the "
+            f"card's work; waited {time.perf_counter() - t0:.1f} s for it)")
+    out["card"] = card_line()
+    print(json.dumps({"operons": out}), flush=True)
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -4964,7 +5322,7 @@ def phase_prepass(cells, launch_log):
 
 
 # Phase 9: the command line. The direct cell's generator (40 families,
-# 20,000 reads, with phase 3's N and 11 bp reads), its .edx/.acx built by
+# reads, with phase 3's N and 11 bp reads), its .edx/.acx built by
 # the CLI's own makedb with phase 4's shear (-d QUICK for 100 bp reads,
 # windows of 320: the database phase 4 builds in memory; -d DNA's
 # compressive shear takes 50 s there, so it runs on two families only);
@@ -4972,8 +5330,12 @@ def phase_prepass(cells, launch_log):
 CLI_DB = ["-d", "QUICK", str(READ_LEN), "-s", "320", "--kmer", str(K),
           "-i", str(THRES)]
 CLI_DNA_FAMILIES = 2
+# the first 10,000 of the direct cell's 20,000 reads: the script has a
+# time limit, and phase 9 (with phase 12's worlds inside it) runs every
+# command on them and the Aligner once more for its bytes
+CLI_READS = 10000
 CLI_CHECK_READS = 512
-CLI_FUSED_THREADS = 160     # QBUNCH 40,000 // (160 x 128) = 1: fused
+CLI_FUSED_THREADS = 160     # QBUNCH 20,000 // (160 x 128) = 0 -> 1: fused
 XALPHA_REFS, XALPHA_READS, XALPHA_CHECK = 3000, 4000, 200
 CLI_SETUP = ("Parsed/processed queries", "Reference database ready",
              "Database on the device")
@@ -4995,7 +5357,7 @@ def cli_workload(work):
     pread.fa (XALPHA_READS reads of 60 cut from them with up to two
     substitutions) and pread200.fa. Returns the reads (heads, seqs)."""
     import numpy as np
-    rheads, refs, qheads, reads = make_workload(40, DIRECT_READS)
+    rheads, refs, qheads, reads = make_workload(40, CLI_READS)
     rng = np.random.default_rng(SEED + 9)
     for i in range(0, len(reads), 37):
         reads[i][int(rng.integers(0, len(reads[i])))] = ord("N")
@@ -5083,7 +5445,7 @@ def _align_s(phases, wall: float) -> float:
 def phase_cli(launch_log):
     """Phase 9: `burst_tpu_torch.cli` on the card. makedb of the direct
     cell's database with an accelerator (phase 4's shear, -d QUICK, k=12;
-    -d DNA 320 -s -a on two of its families), then on the 20,000 reads
+    -d DNA 320 -s -a on two of its families), then on the CLI_READS reads
     (both strands): the direct path BEST; with -a at
     -t 1 (two-step, QBUNCH 16) and at -t 160 (fused); CAPITALIST -b; each
     byte-equal to `Aligner.align_batch` on the card over the same
@@ -5729,8 +6091,9 @@ def mh_world_held(label, n, argv, rc, need, expected, single_s, work,
     ranks = {r: (_background(
         [os.path.abspath(__file__), "mh-rank",
          os.path.join(work, f"mh{r}.pt")] + argv + ["-o", out],
-        os.path.join(work, f"mh{r}.log"), BURST_TPU_MULTIHOST=spec(r),
-        BURST_TPU_TORCH_DEVICE="cuda")) for r in range(1, n)}
+        os.path.join(work, f"mh{r}.log"), nice=0,    # a rank of the world
+        BURST_TPU_MULTIHOST=spec(r), BURST_TPU_TORCH_DEVICE="cuda"))
+        for r in range(1, n)}
     os.environ["BURST_TPU_MULTIHOST"] = spec(0)
     calls, undo = _capture_kernel_calls(clone=True)
     try:
@@ -5968,7 +6331,8 @@ def main():
                     "rate; exact vs plain")
             print(json.dumps({f"{sys.argv[1]}_wide": [
                 {k: r[k] for k in ("name", "shape", "ms", "earlier_ms",
-                                   "global_ms", "plain_ms", "bound_ms")
+                                   "global_ms", "bands_in_turns",
+                                   "plain_ms", "bound_ms")
                  if k in r}
                 for r in recs]}), flush=True)
         print(card_line(), flush=True)
@@ -5983,6 +6347,13 @@ def main():
         phase_build()
         phase_genomes({"held": []}, start_genome_cpu_checks())
         log(f"[smoke] genomes done at {time.perf_counter() - t_all:.0f} s")
+        print(card_line(), flush=True)
+        return
+    if sys.argv[1:] == ["operons"]:
+        cpu = start_operon_cpu_checks()
+        phase_build()
+        phase_operons({"held": []}, cpu)
+        log(f"[smoke] operons done at {time.perf_counter() - t_all:.0f} s")
         print(card_line(), flush=True)
         return
     if sys.argv[1:] == ["longgenomes"]:
@@ -6030,6 +6401,8 @@ def main():
         log(f"[smoke] mesh done at {time.perf_counter() - t_all:.0f} s")
         print(card_line(), flush=True)
         return
+    if sys.argv[1:] != ["kernels"]:
+        operon_cpu = start_operon_cpu_checks()    # phase 15's, from here
     phase_sass(phase_build())
     if sys.argv[1:] != ["kernels"]:
         genome_cpu = start_genome_cpu_checks()    # phase 13's, from here
@@ -6079,6 +6452,8 @@ def main():
     done("phase 13")
     phase_long_genomes(launch_log, long_genome_cpu)
     done("phase 14")
+    phase_operons(launch_log, operon_cpu)
+    done("phase 15")
     held = launch_log.pop("held")
     k4_batches = launch_log.pop("k4_batches")
     # one entry per kernel, at the shape of the path that counts its
@@ -6089,24 +6464,34 @@ def main():
         c = r.pop("counter")
         r["launches"] = launch_log[{"k4": "direct", "k3m": "genomes BEST",
                                     "k4t": "genomes BEST",
-                                    "k3c": "long genomes BEST"}
+                                    "k3c": "long genomes BEST",
+                                    "k3b": "operons BEST"}
                                    .get(c, "accel")][c]
         r["launches_by_path"] = {p: n.get(c, 0)
                                  for p, n in launch_log.items()}
         if kernels and kernel_of(kernels[-1]) == kernel_of(r):
             kernels[-1].setdefault("also", []).append({k: r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err", "global_ms", "cluster_ms") if k in r})
+                "max_abs_err", "global_ms", "cluster_ms", "bands_in_turns")
+                if k in r})
         else:
             kernels.append(r)
     # K4 over each timed batch: launches, device ms, summed bound
     next(r for r in kernels if kernel_of(r) == "K4")["batches"] = k4_batches
-    # the batches' own launches, each shape held on its tensors
+    # the batches' own launches, each shape held on its tensors; a route
+    # only a path's own calls hold (K3's bands: phase 15) leads its own
+    # entry, its launches that path's
     for _, rec in held:
-        next(r for r in kernels if kernel_of(r) == kernel_of(rec)).setdefault(
-            "also", []).append({k: rec[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err", "launches")})
+        mine = [r for r in kernels if kernel_of(r) == kernel_of(rec)]
+        if not mine:
+            rec.update(launches=launch_log["operons BEST"]["k3b"],
+                       launches_by_path={p: n.get("k3b", 0)
+                                         for p, n in launch_log.items()})
+            kernels.append(rec)
+            continue
+        mine[0].setdefault("also", []).append({k: rec[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "launches")})
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -315,8 +315,11 @@ def test_cluster_route_shapes():
     kbp, 1,000 against 262 kbp (windows of a cluster's reach, the merge),
     512 rows at 32, 1,456 rows at 16; a 64-bit key past 32,766 columns.
     The card's largest cluster bounds the plan (`kmax`, per instance:
-    one it grants no cluster is never planned). What stays global: a
-    look-back of 1,024 past 1,024 columns, L1 of 2^24 or more."""
+    one it grants no cluster is never planned). Where even a cluster's
+    windows would be mostly margin the band route takes the shape; the
+    segment and cluster routes carry absolute columns to 2^27. What
+    stays global: a look-back of 1,024 past 1,024 columns, L1 of 2^27 or
+    more."""
     g = rescore_cuda.rescore_geometry
     for N, rows, L1, pequ32, lv in ((4, 1456, 21632, 736, 6),
                                     (2048, 1456, 30080, 736, 6),
@@ -335,10 +338,10 @@ def test_cluster_route_shapes():
     # key at phase 14's longest genome
     assert g(256, 1456, 150784, 736, levels=5).kb == 32
     # a card that grants 8: the 150 kbp rows take windows of 92,160
-    # columns, at most 8 CTAs; past them nothing fits (the margin is
-    # 93,152 columns): the global route
+    # columns, at most 8 CTAs; past them no window fits (the margin is
+    # 93,152 columns): the band route, at most 8 CTAs a cluster
     r8 = g(2048, 1456, 149504, 736, levels=6, kmax=8)
-    assert r8.route == "global"
+    assert r8.route == "bands" and r8.cluster <= 8 and r8.band < 1456
     r8 = g(2048, 1456, 53248, 736, levels=6, kmax=8)
     assert r8.route == "cluster" and r8.cluster <= 8 and r8.segs == 1
     only = {inst: 0 for inst in rescore_cuda.CLUSTER_MAX_THREADS}
@@ -346,7 +349,8 @@ def test_cluster_route_shapes():
     r4 = g(4, 1456, 21632, 736, levels=6, kmax=only)
     assert (r4.cols, r4.cluster) == (16, 4)
     assert g(64, 300, 4096, 160, levels=10).route == "global"
-    assert g(2, 60, 1 << 24, 64, levels=2).route == "global"
+    assert g(2, 60, 1 << 24, 64, levels=2).route == "segments"
+    assert g(2, 60, 1 << 27, 64, levels=2).route == "global"
 
 
 def test_cluster_wrapper_on_cpu():

@@ -446,6 +446,6 @@ def test_launches_on_the_tensors_card(monkeypatch):
                     isinstance(fn.value, ast.Name) and \
                     fn.value.id == "_build":
                 routed += 1
-    # K1/K2 2; K4 4 (narrow, thin, lane groups, one thread a pair); K3 4
-    # (whole rows, segments, clusters, merge)
-    assert routed == 10
+    # K1/K2 2; K4 4 (narrow, thin, lane groups, one thread a pair); K3 5
+    # (whole rows, segments, clusters, bands, merge)
+    assert routed == 11
