@@ -1,0 +1,9 @@
+"""Device milliseconds per 1,000 reads of the pair scan K1/K2
+(`myers_pairs*` kernels of csrc/myers_pairs.cu), over the traced window."""
+
+
+def read(run):
+    if run.trace is None or not run.traced_reads:
+        return None
+    ms = 1e3 * run.trace.kernel_s(lambda k: k.startswith("myers_pairs"))
+    return ms / (run.traced_reads / 1e3) if ms > 0 else None
