@@ -38,6 +38,7 @@ such a world on one machine.
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -236,7 +237,9 @@ class _Phases:
     deltas per phase, e.g. burst.c:3003, 5162; --noprogress mutes).
     Set BURST_TPU_PROFILE=<dir> to also capture a torch.profiler trace
     of the whole run (the card's kernels too on a CUDA device), written
-    to <dir>/trace.json."""
+    to <dir>/trace.json, and the program's layer spans (`devtime.span`,
+    `burst.*`: name, thread, start and end on the trace's nanosecond
+    clock) to <dir>/spans.json."""
 
     def __init__(self, quiet: bool, device: torch.device):
         import time
@@ -268,6 +271,8 @@ class _Phases:
             os.makedirs(self.prof_dir, exist_ok=True)
             self.prof.export_chrome_trace(
                 os.path.join(self.prof_dir, "trace.json"))
+            with open(os.path.join(self.prof_dir, "spans.json"), "w") as f:
+                json.dump([s._asdict() for s in devtime.take_spans()], f)
         if not self.quiet:
             print(f"Total time: {self.t() - self.t0:.3f}s")
 
@@ -342,7 +347,7 @@ def run(a: dict, device) -> int:
         with open(a["out"], "w") as fh:
             return run_prepass(qd, db, acc, a, fh, taxonomy)
 
-    with open(a["out"], "w") as fh:
+    with open(a["out"], "w") as fh, devtime.span("burst.batch"):
         # -t sets QBUNCH: the fused scan at 1 (without -hr), else the
         # two-step path, and ANY's print order (burst_tpu/cli.py:311-354)
         path, stats = align_queries(

@@ -1,31 +1,105 @@
-"""Blocked-on-device time accounting.
+"""Blocked-on-device time accounting, and the program's trace spans.
 
 Every device result of the aligner reaches the host through `fetch`
 (placed directly after its dispatch chain) or through a `Fetch`
 handle's `wait()`, so the time spent inside them is the host's wait for
 the device. Tiles that stream from host memory reach the device through
 a `StagingRing`, the mirror image of `Fetch`. `track()` sums the waits
-and, on a CUDA device, also the device-side span of the tracked scope
-between two CUDA events.
+of the calling thread:
 
     with devtime.track() as acc:
         aligner.align_batch(...)
     acc["s"]         # host seconds blocked in fetch
     acc["n"]         # number of fetches
     acc["up_s"]      # host seconds blocked in the staging ring
-    acc["up_bytes"]  # bytes the staging ring copied host to device
-    acc["dev_ms"]    # CUDA-event span of the scope (None without CUDA)
+
+`span(name)` marks one layer of the program (`burst.batch`,
+`burst.prep`, `burst.scour`, `burst.scour.words`, `burst.pairs`,
+`burst.select`, `burst.rescore`, `burst.report`, and `burst.wait`
+around every wait above) while a torch profiler records, and costs one
+attribute read otherwise. A marked span is kept here as `Kept` (its
+thread's system id and its ends on `time.time_ns()`, the clock of the
+profiler's trace) until `take_spans()` hands it over; the profiler's
+own trace is left as it is, so that nothing is added to its device
+timeline. A `burst.batch` span carries its batch's counts
+(`serving.COUNTERS`).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
-_acc = None
+# the calling thread's track() accumulator, if any
+_local = threading.local()
+_NULL = contextlib.nullcontext()
+# spans marked while a profiler recorded, oldest first; bounded, for a
+# long profiled run that nobody takes them from
+_kept: collections.deque = collections.deque(maxlen=1 << 16)
+
+
+class Kept(NamedTuple):
+    name: str
+    thread: int             # the system's thread id
+    start_ns: int           # time.time_ns()
+    end_ns: int
+    counts: dict | None     # a batch's counts (burst.batch)
+
+
+class _Span:
+    __slots__ = ("name", "start_ns", "counts")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.counts = None
+
+    def __enter__(self):
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        _kept.append(Kept(self.name, threading.get_native_id(),
+                          self.start_ns, time.time_ns(), self.counts))
+
+
+def span(name: str):
+    """A context manager marking one layer of the program: a kept span
+    while a torch profiler records (`torch.autograd.profiler.
+    _is_profiler_enabled`, which a profiler of every thread sets too),
+    else a shared null context whose `as` target is None."""
+    if _profiler._is_profiler_enabled:
+        return _Span(name)
+    return _NULL
+
+
+def take_spans() -> list[Kept]:
+    """The spans kept so far, handed over once."""
+    out = []
+    while _kept:
+        out.append(_kept.popleft())
+    return out
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return run
+    return wrap
+
+
+def _acc():
+    return getattr(_local, "acc", None)
 
 
 def _to_host(tree):
@@ -62,12 +136,14 @@ def fetch(tree):
     """Synchronize every card that holds a tensor of `tree` (a tensor,
     or nested lists/tuples/dicts of them), then copy each to numpy."""
     t0 = time.perf_counter()
-    for dev in _cuda_devices(tree, set()):
-        torch.cuda.synchronize(dev)
-    out = _to_host(tree)
-    if _acc is not None:
-        _acc["s"] += time.perf_counter() - t0
-        _acc["n"] += 1
+    with span("burst.wait"):
+        for dev in _cuda_devices(tree, set()):
+            torch.cuda.synchronize(dev)
+        out = _to_host(tree)
+    acc = _acc()
+    if acc is not None:
+        acc["s"] += time.perf_counter() - t0
+        acc["n"] += 1
     return out
 
 
@@ -95,12 +171,14 @@ class Fetch:
 
     def wait(self):
         t0 = time.perf_counter()
-        if self._event is not None:
-            self._event.synchronize()
-        out = [h.numpy() for h in self._host]
-        if _acc is not None:
-            _acc["s"] += time.perf_counter() - t0
-            _acc["n"] += 1
+        with span("burst.wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            out = [h.numpy() for h in self._host]
+        acc = _acc()
+        if acc is not None:
+            acc["s"] += time.perf_counter() - t0
+            acc["n"] += 1
         return out
 
 
@@ -145,8 +223,8 @@ class StagingRing:
     def staged(self, rows: np.ndarray, stats: dict | None = None):
         """Yield a contiguous device tensor holding `rows` (a uint8
         matrix of at most `slot_bytes`); `stats["h2d_bytes"]` (a batch's
-        `engine._stream_stats`) and track()'s counters add the bytes
-        copied."""
+        `engine._stream_stats`) adds the bytes copied, track()'s `up_s`
+        the seconds blocked on the slot's previous copy."""
         n = rows.nbytes
         if n > self.slot_bytes:
             raise ValueError(f"{n} bytes over the ring's {self.slot_bytes}"
@@ -161,7 +239,8 @@ class StagingRing:
             self._next ^= 1
             t0 = time.perf_counter()
             if self._landed[b] is not None:
-                self._landed[b].synchronize()
+                with span("burst.wait"):
+                    self._landed[b].synchronize()
             blocked = time.perf_counter() - t0
             self._host[b].numpy()[:n].reshape(rows.shape)[...] = rows
             timed = self.timing is not None
@@ -196,27 +275,19 @@ class StagingRing:
 def _count_upload(stats, n: int, blocked: float):
     if stats is not None:
         stats["h2d_bytes"] += n
-    if _acc is not None:
-        _acc["up_s"] += blocked
-        _acc["up_bytes"] += n
+    acc = _acc()
+    if acc is not None:
+        acc["up_s"] += blocked
 
 
 @contextlib.contextmanager
 def track():
-    """Accumulate blocked-on-device seconds for fetches in this scope."""
-    global _acc
-    prev = _acc
-    _acc = {"s": 0.0, "n": 0, "up_s": 0.0, "up_bytes": 0, "dev_ms": None}
-    cuda = torch.cuda.is_available()
-    if cuda:
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
+    """Accumulate the calling thread's blocked-on-device seconds (its
+    fetches and staging-ring waits) in this scope; other threads'
+    batches count in their own scopes, not in this one."""
+    prev = _acc()
+    acc = _local.acc = {"s": 0.0, "n": 0, "up_s": 0.0}
     try:
-        yield _acc
+        yield acc
     finally:
-        if cuda:
-            ev1.record()
-            ev1.synchronize()
-            _acc["dev_ms"] = ev0.elapsed_time(ev1)
-        _acc = prev
+        _local.acc = prev

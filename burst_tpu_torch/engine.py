@@ -514,6 +514,7 @@ def iter_ed_blocks(qd: QueryData, db, max_pending: int = 16):
         yield from _drain()
 
 
+@devtime.spanned("burst.pairs")
 def compute_ed_matrix(qd: QueryData, db) -> np.ndarray:
     """Phase A: dense [numUnibins, tot_units] uint8 min-ED matrix
     (clipped 255). Used by ANY mode and for the accelerated path's few
@@ -525,6 +526,7 @@ def compute_ed_matrix(qd: QueryData, db) -> np.ndarray:
     return ed
 
 
+@devtime.spanned("burst.pairs")
 def compute_ed_select(qd: QueryData, db, mode: str,
                       compact_at: int = 1 << 22):
     """Streamed phase A + winner selection: equal to select_pods(qd, rd,
@@ -683,6 +685,7 @@ def _rescore_pieces(qd: QueryData, db, got, grp, refpos, lb: int,
         stats["pieces"] += 1
 
 
+@devtime.spanned("burst.rescore")
 def rescore_winners(qd: QueryData, db, juni, refpos, eds, mode: str,
                     pod_order: np.ndarray | None = None,
                     last0: np.ndarray | None = None,
@@ -871,6 +874,7 @@ def _clear_row_words(qd: QueryData, r0: int, r1: int, k: int,
         word_parts.append(words.ravel())
 
 
+@devtime.spanned("burst.scour.words")
 def _bunch_words_padded(qd: QueryData, r0: int, b1: int, qbunch: int,
                         k: int):
     """Per-bunch deduped word lists with MAX-multiplicity weights for
@@ -916,6 +920,7 @@ def _bunch_words_padded(qd: QueryData, r0: int, b1: int, qbunch: int,
 # multi-host merge's building block (`parallel.multihost`). It touches no
 # device; on one card the native or device scour runs instead.
 
+@devtime.spanned("burst.scour.words")
 def bunch_word_multiset(qd: QueryData, acc, b0: int, b1: int,
                         qbunch: int, k: int):
     """Per-(bunch, word) k-mer multiset of the accelerator-eligible
@@ -1050,6 +1055,7 @@ def assemble_accel_visits(n: int, b0: int, b1: int, qbunch: int,
                   qbunch=qbunch, bad_list=bad_arr)
 
 
+@devtime.spanned("burst.scour")
 def accel_candidates(qd: QueryData, db, qbins: np.ndarray,
                      do_heur: bool = False, threads: int = 1,
                      qbunch: int | None = None,
@@ -1171,6 +1177,7 @@ def _assemble_visits(qd, res, b0: int, b1: int, qbunch: int, bad_arr,
     return vis
 
 
+@devtime.spanned("burst.scour.words")
 def _ambig_word_lists(qd, b0: int, k: int, z: int):
     """Ambiguous unibins' expanded unique words + multiplicities."""
     aq_off = np.zeros(b0 + 1, np.int64)
@@ -1457,52 +1464,57 @@ def accel_scan_fused(qd: QueryData, db, qbins: np.ndarray, qbunch: int,
     kload = errs * k + k
     mm_bunch = np.where(kload < lns, lns - kload, 0)
     mm_inner = np.where(kload < lns, lns - kload, 1)
-    aq_off, aqw, aqm = _ambig_word_lists(qd, b0, k, acc.z)
-    res, pinfo = _scour_device_rows(
-        qd, db, b0, b1, 1, k, mm_bunch, mm_inner, qmat, qlens_all, aq_off,
-        aqw, aqm, n_clumps, fused_W=W)
-    full = np.ones(n, dtype=bool)
-    full[:b1] = False
-    if skip_ambig:
-        bad_arr = bad_arr[:0]
-        full[:] = False
-    vis = _assemble_visits(qd, res, b0, b1, 1, bad_arr, full, n_clumps)
+    # the scour with its fused K1, and the visits it gives
+    with devtime.span("burst.scour"):
+        aq_off, aqw, aqm = _ambig_word_lists(qd, b0, k, acc.z)
+        res, pinfo = _scour_device_rows(
+            qd, db, b0, b1, 1, k, mm_bunch, mm_inner, qmat, qlens_all,
+            aq_off, aqw, aqm, n_clumps, fused_W=W)
+        full = np.ones(n, dtype=bool)
+        full[:b1] = False
+        if skip_ambig:
+            bad_arr = bad_arr[:0]
+            full[:] = False
+        vis = _assemble_visits(qd, res, b0, b1, 1, bad_arr, full,
+                               n_clumps)
 
-    # side pairs: ambiguous rows (every lane of their visit lists),
-    # BadList units for clear rows, and pass-units of overflowed rows
-    hp_j, hp_p = [], []
-    if b0:
-        nvis = vis.offs[1: b0 + 1] - vis.offs[:b0]
-        qrep = np.repeat(np.arange(b0, dtype=np.int64), nvis)
-        ps = (vis.flat[: vis.offs[b0], None] * VECSZ
-              + np.arange(VECSZ)).ravel()
-        pjj = np.repeat(qrep, VECSZ)
-        m = ps < tot_units
-        hp_j.append(pjj[m])
-        hp_p.append(ps[m])
-    if len(bad_arr):
-        units_b = (bad_arr[:, None] * VECSZ + np.arange(VECSZ)).ravel()
-        units_b = units_b[units_b < tot_units]
-        rows_c = np.arange(b0, b1, dtype=np.int64)
-        hp_j.append(np.repeat(rows_c, len(units_b)))
-        hp_p.append(np.tile(units_b, len(rows_c)))
-    if len(pinfo["ov_rows"]):
-        rowk = vis.pass_keys // tot_units
-        inov = np.isin(rowk, pinfo["ov_rows"])
-        hp_j.append(rowk[inov])
-        hp_p.append(vis.pass_keys[inov] % tot_units)
-    pj_h = np.concatenate(hp_j) if hp_j else np.zeros(0, np.int64)
-    pp_h = np.concatenate(hp_p) if hp_p else np.zeros(0, np.int64)
-    pending = _pairs_min_ed(qd, db, pj_h, pp_h) if len(pj_h) else []
+    with devtime.span("burst.pairs"):
+        # side pairs: ambiguous rows (every lane of their visit lists),
+        # BadList units for clear rows, and pass-units of overflowed rows
+        hp_j, hp_p = [], []
+        if b0:
+            nvis = vis.offs[1: b0 + 1] - vis.offs[:b0]
+            qrep = np.repeat(np.arange(b0, dtype=np.int64), nvis)
+            ps = (vis.flat[: vis.offs[b0], None] * VECSZ
+                  + np.arange(VECSZ)).ravel()
+            pjj = np.repeat(qrep, VECSZ)
+            m = ps < tot_units
+            hp_j.append(pjj[m])
+            hp_p.append(ps[m])
+        if len(bad_arr):
+            units_b = (bad_arr[:, None] * VECSZ
+                       + np.arange(VECSZ)).ravel()
+            units_b = units_b[units_b < tot_units]
+            rows_c = np.arange(b0, b1, dtype=np.int64)
+            hp_j.append(np.repeat(rows_c, len(units_b)))
+            hp_p.append(np.tile(units_b, len(rows_c)))
+        if len(pinfo["ov_rows"]):
+            rowk = vis.pass_keys // tot_units
+            inov = np.isin(rowk, pinfo["ov_rows"])
+            hp_j.append(rowk[inov])
+            hp_p.append(vis.pass_keys[inov] % tot_units)
+        pj_h = np.concatenate(hp_j) if hp_j else np.zeros(0, np.int64)
+        pp_h = np.concatenate(hp_p) if hp_p else np.zeros(0, np.int64)
+        pending = _pairs_min_ed(qd, db, pj_h, pp_h) if len(pj_h) else []
 
-    pj = np.concatenate([pj_h, pinfo["uj"]])
-    pp = np.concatenate([pp_h, pinfo["uu"]])
-    nh = len(pj_h)
-    if len(pinfo["uj"]):
-        # device pairs enter as an already fetched chunk
-        pending.append((np.arange(nh, nh + len(pinfo["uj"])),
-                        pinfo["packed"]))
-    full_rows, ed_full = _full_scan_rows(qd, db, vis)
+        pj = np.concatenate([pj_h, pinfo["uj"]])
+        pp = np.concatenate([pp_h, pinfo["uu"]])
+        nh = len(pj_h)
+        if len(pinfo["uj"]):
+            # device pairs enter as an already fetched chunk
+            pending.append((np.arange(nh, nh + len(pinfo["uj"])),
+                            pinfo["packed"]))
+        full_rows, ed_full = _full_scan_rows(qd, db, vis)
     sed = SparseED(pj=pj, pp=pp, pe=None, full_rows=full_rows,
                    ed_full=ed_full, pending=pending)
     stats = {"ov_rows": len(pinfo["ov_rows"]), "side_pairs": nh,
@@ -1520,6 +1532,7 @@ def _full_scan_rows(qd: QueryData, db, visits: Visits):
     return full_rows, np.zeros((0, db.rd.tot_units), dtype=np.uint8)
 
 
+@devtime.spanned("burst.pairs")
 def compute_ed_matrix_accel(qd: QueryData, db, visits: Visits) -> SparseED:
     """Phase A of the two-step path over candidate pairs only (sparse,
     through K2), and the full scan for the rows the accelerator cannot

@@ -252,6 +252,7 @@ def _by_shard(shard, nsh: int):
             if bounds[f + 1] > bounds[f]]
 
 
+@devtime.spanned("burst.pairs")
 def compute_ed_matrix_accel_sharded(qd, db, visits, n_shards: int,
                                     q_shards: int = 1,
                                     stats: dict | None = None,
@@ -348,6 +349,7 @@ def _rescore_launches(peq_s, slab, part, prow, tloc, qlens, bnd, W: int,
     return out
 
 
+@devtime.spanned("burst.rescore")
 def rescore_winners_sharded(qd, db, juni, refpos, eds, mode: str,
                             n_shards: int, pod_order=None,
                             q_shards: int = 1,
@@ -467,6 +469,7 @@ def rescore_winners_sharded(qd, db, juni, refpos, eds, mode: str,
         gap_r=gap_r[srt], final_pos=fpos[srt], score=score[srt])
 
 
+@devtime.spanned("burst.pairs")
 def compute_ed_matrix_sharded(qd, db, n_shards: int, tile_gran: int = 64,
                               q_shards: int = 1,
                               devices=None) -> np.ndarray:

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 
 from .alphabet import CHAR2NUM, RVT, translate, revcomp
+from .devtime import spanned
 
 LATENCY = 16
 
@@ -140,6 +141,7 @@ class QueryData:
     xalpha: bool = False
 
 
+@spanned("burst.prep")
 def process_queries(headers, raw_seqs, thres: float, do_rc: bool,
                     incl_whitespace: bool = False,
                     xalpha: bool = False) -> QueryData:
@@ -184,6 +186,7 @@ def process_queries(headers, raw_seqs, thres: float, do_rc: bool,
         max_len=int(lens.max()), min_len=int(lens.min()), xalpha=xalpha)
 
 
+@spanned("burst.prep")
 def bin_queries_for_accel(qd: QueryData, k: int, z: int,
                           do_heur: bool = False) -> np.ndarray:
     """Reorder unibins into accelerator bins: ambiguous (0), clear (1),

@@ -15,11 +15,12 @@ burst_tpu's for the same inputs.
 from __future__ import annotations
 
 import io
+import threading
 
 import numpy as np
 import torch
 
-from . import engine, modes
+from . import devtime, engine, modes
 from .alphabet import score_matrix
 from .io.taxonomy import Taxonomy
 from .parallel import mesh
@@ -27,6 +28,20 @@ from .process import RefData, bin_queries_for_accel, process_queries
 from .state import load_db
 
 MODES = ("BEST", "ALLPATHS", "FORAGE", "CAPITALIST", "ANY")
+# `Aligner.counters`: batches, reads, (read, unit) pairs scanned by
+# K1/K2, scour rows re-scoured on the host for overflowing the device
+# slot budget
+COUNTERS = ("batches", "reads", "pairs", "scour_overflow_rows")
+
+
+def _batch_counts(stats: dict, reads: int) -> dict:
+    """One batch's `COUNTERS` from its stats (`align_queries`)."""
+    return {"batches": 1, "reads": reads,
+            "pairs": sum(stats.get(k, 0)
+                         for k in ("pairs", "dev_pairs", "side_pairs")),
+            "scour_overflow_rows": sum(
+                stats.get(k, 0)
+                for k in ("ov_rows", "bunch_ov_rows", "member_ov_rows"))}
 
 
 class Aligner:
@@ -61,7 +76,13 @@ class Aligner:
     `pieces`) and the bytes copied host to device (`h2d_bytes`). A
     batch the native host scour served says so in `scour` ("native"):
     where the plan holds no device tables, under -hr, and where the
-    caller asks for it (`align_batch(..., dev_scour=False)`)."""
+    caller asks for it (`align_batch(..., dev_scour=False)`).
+
+    `last_stats` is whichever batch finished last; `counters` sums
+    every batch's counts since construction (`COUNTERS`: batches,
+    reads, K1/K2 pairs, overflowed scour rows), concurrent batches of
+    `align_stream` included; a profiled batch's `burst.batch` span
+    (`devtime.span`) carries its own."""
 
     def __init__(self, rd: RefData, acc=None, thres: float = 0.97,
                  mode: str = "BEST", do_rc: bool = False,
@@ -85,6 +106,8 @@ class Aligner:
         self.smat = score_matrix(z)
         self.db = load_db(rd, acc, self.smat, device, tile_budget)
         self.last_stats: dict = {}
+        self._count_lock = threading.Lock()
+        self._counts = dict.fromkeys(COUNTERS, 0)
 
     @classmethod
     def from_artifacts(cls, edx_path: str, acx_path: str | None = None,
@@ -162,19 +185,39 @@ class Aligner:
         (the native scour, no fused scan); True or None follows the
         residency plan (the device scour where it holds the tables). The
         bytes are the same either way."""
-        qd = process_queries(headers, seqs, self.thres, self.do_rc)
-        buf = io.StringIO()
-        # BEST's reporter does not depend on the pod order, so the
-        # QBUNCH=1 fused scan is byte-safe there; the other modes keep
-        # the reference's batch-derived bunch width
-        best = self.mode == "BEST"
-        _, self.last_stats = align_queries(
-            qd, self.db, self.mode, modes.B6Writer(buf),
-            qbunch=1 if best else engine.default_qbunch(len(qd.seqs), 1),
-            fuse=best, z=self.z, taxonomy=self.taxonomy,
-            taxacut=self.taxacut, taxasuppress=self.taxasuppress,
-            strict=self.strict, dev_scour=dev_scour)
-        return buf.getvalue().encode("latin-1")
+        with devtime.span("burst.batch") as sp:
+            qd = process_queries(headers, seqs, self.thres, self.do_rc)
+            buf = io.StringIO()
+            # BEST's reporter does not depend on the pod order, so the
+            # QBUNCH=1 fused scan is byte-safe there; the other modes
+            # keep the reference's batch-derived bunch width
+            best = self.mode == "BEST"
+            _, stats = align_queries(
+                qd, self.db, self.mode, modes.B6Writer(buf),
+                qbunch=1 if best else engine.default_qbunch(len(qd.seqs),
+                                                            1),
+                fuse=best, z=self.z, taxonomy=self.taxonomy,
+                taxacut=self.taxacut, taxasuppress=self.taxasuppress,
+                strict=self.strict, dev_scour=dev_scour)
+            out = buf.getvalue().encode("latin-1")
+            counts = _batch_counts(stats, len(headers))
+            if sp is not None:
+                sp.counts = counts
+        self.last_stats = stats
+        self._count(counts)
+        return out
+
+    def _count(self, got: dict):
+        with self._count_lock:
+            for key, n in got.items():
+                self._counts[key] += n
+
+    @property
+    def counters(self) -> dict:
+        """Totals over every batch since the Aligner was built
+        (`COUNTERS`), concurrent batches included."""
+        with self._count_lock:
+            return dict(self._counts)
 
 
 def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
@@ -265,22 +308,25 @@ def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
                              pairs=len(ed.pj), full_rows=len(ed.full_rows))
         mark("Alignment phase A")
         if mode == "ANY":
-            if visits is not None:
-                modes.report_any_accel(ed, visits, qd, db, writer,
-                                       qbunch=qbunch)
-            else:
-                modes.report_any(ed, qd, db, writer)
+            with devtime.span("burst.report"):
+                if visits is not None:
+                    modes.report_any_accel(ed, visits, qd, db, writer,
+                                           qbunch=qbunch)
+                else:
+                    modes.report_any(ed, qd, db, writer)
             mark("Reporting")
             return path, _batch_stats(stats, qd, db, regrow, mstats)
         pod_order = win_cols = None
-        if visits is not None:
-            juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
-            pod_order = engine.accel_pod_order(qd, rd, visits, juni, refpos)
-            win_cols = ed.lookup_cols(juni, refpos, rd.tot_units)
-        elif sel is None:                   # the sharded dense matrix
-            juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
-        else:
-            juni, refpos, eds = sel
+        with devtime.span("burst.select"):
+            if visits is not None:
+                juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
+                pod_order = engine.accel_pod_order(qd, rd, visits, juni,
+                                                   refpos)
+                win_cols = ed.lookup_cols(juni, refpos, rd.tot_units)
+            elif sel is None:               # the sharded dense matrix
+                juni, refpos, eds = engine.select_pods(qd, rd, ed, mode)
+            else:
+                juni, refpos, eds = sel
         if sharded and visits is not None:
             pods = mesh.rescore_winners_sharded(
                 qd, db, juni, refpos, eds, mode, shards, pod_order, qshards,
@@ -288,15 +334,17 @@ def align_queries(qd, db, mode: str, writer, qbunch: int, fuse: bool,
         else:
             pods = engine.rescore_winners(qd, db, juni, refpos, eds, mode,
                                           pod_order, win_cols=win_cols)
-        if mode in ("ALLPATHS", "FORAGE"):
-            modes.report_allpaths_or_forage(pods, qd, rd, writer, taxonomy,
-                                            forage=(mode == "FORAGE"))
-        elif mode == "BEST":
-            modes.report_best(pods, qd, rd, writer, taxonomy, taxasuppress,
-                              strict)
-        else:
-            modes.report_capitalist(pods, qd, rd, writer, taxonomy, taxacut,
-                                    taxasuppress, strict)
+        with devtime.span("burst.report"):
+            if mode in ("ALLPATHS", "FORAGE"):
+                modes.report_allpaths_or_forage(
+                    pods, qd, rd, writer, taxonomy,
+                    forage=(mode == "FORAGE"))
+            elif mode == "BEST":
+                modes.report_best(pods, qd, rd, writer, taxonomy,
+                                  taxasuppress, strict)
+            else:
+                modes.report_capitalist(pods, qd, rd, writer, taxonomy,
+                                        taxacut, taxasuppress, strict)
         mark("Rescore + reporting")
         return path, _batch_stats(stats, qd, db, regrow, mstats)
 
